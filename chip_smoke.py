@@ -5,26 +5,46 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. env       card name and power limit (nvidia-smi), torch/CUDA versions,
-             TF32 off for every comparison, the kernels' build (one nvcc per
-             csrc/*.cu, all in parallel) and its time.
-2. kernel    each CUDA kernel against its plain PyTorch version on the card,
-             per cache dtype, at the main path's shape (b=8, h=14, d=128,
-             S=512, lengths 1/257/512) and a ragged one (b=3, h=6, d=64,
-             S=300), with and without static-mask rows (axial, conv_like);
-             then the kernel's time beside its byte bound, the plain
-             version's and one library call's (SDPA over the dequantized
-             cache, a yardstick the port never calls).
-3. decode    at full DALL·E-1.4B width and depth 2, in f32: the cached
-             prefill + decode logits equal the uncached forward's at every
-             image position.
-4. generate  the main path: DalleWithVae.generate_images on DALL·E-1.4B
-             (24 layers, dim 1792) + its dVAE, batch 8, random weights from a
-             seeded torch.Generator on the card, for float32, bfloat16 and
-             bf16_int8kv, plus one classifier-free-guidance run; images must
-             be (8, 128, 128, 3) and finite, and the decode kernel's launch
-             count must rise by exactly 24·255 per pass (×2 with CFG). Then a
-             profiled window of decode steps gives the device's busy share.
+1. env          card name and power limit (nvidia-smi), torch/CUDA versions,
+                TF32 off for every comparison, the kernels' build (one nvcc
+                per csrc/*.cu, all in parallel) and its time.
+2. kernel       K2 (decode attention) against its plain PyTorch version on
+                the card, per cache dtype, at the serving path's shape
+                (b=8, h=14, d=128, S=512, lengths 1/257/512) and a ragged one
+                (b=3, h=6, d=64, S=300), with and without static-mask rows
+                (axial, conv_like); then its time beside its byte bound, the
+                plain version's and one library call's (SDPA over the
+                dequantized cache, a yardstick the port never calls).
+3. train_kernel K1 (fused attention, forward and backward) against its plain
+                versions on the card: the training shape (b=8, n=512, h=14,
+                d=128), a ragged one (b=3, n=77, h=6, d=64) and n=513 at the
+                main widths, f32 and bf16 qkv, with no table and with
+                axial_row, conv_like and sparse tables; then both kernels'
+                times at the training shape beside their bounds, the plain
+                versions' and SDPA's forward and backward on the split
+                (b, h, n, d) layout (the library yardstick).
+4. decode       at full DALL·E-1.4B width and depth 2, in f32, dense
+                attention: the cached prefill + decode logits equal the
+                uncached forward's at every image position, and K1 is not
+                launched.
+5. train_parity at full width and depth 2, f32 compute: the loss and every
+                parameter's gradient of one training step through K1's
+                kernels equal the same step through K1's plain version.
+6. generate     the serving path: DalleWithVae.generate_images on DALL·E-1.4B
+                (24 layers, dim 1792) + its dVAE, batch 8, random weights
+                from a seeded torch.Generator on the card, for float32,
+                bfloat16 and bf16_int8kv, plus one classifier-free-guidance
+                run; images must be (8, 128, 128, 3) and finite, and K2's
+                launch count must rise by exactly 24·255 per pass (×2 with
+                CFG). Then a profiled window of decode steps gives the
+                device's busy share.
+7. train        the training path: DalleTrainer.train_step on DALL·E-1.4B,
+                batch 8, bf16 compute over f32 masters, Adam (lr 3e-4,
+                clip 0.5), loss_chunk 128, 6 steps on one fixed batch;
+                losses finite and falling, K1's forward and backward each
+                launched exactly 24 times per step. Then ms/step, tokens/s,
+                peak memory, one profiled step's busy share and top kernels,
+                and, for the record, the step with dense attention.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -32,7 +52,10 @@ Then the card line (nvidia-smi), the kernels line, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -40,6 +63,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 SMOKE_SEED = 0
 
 
@@ -78,6 +102,30 @@ def median_ms(fn, iters: int, flush=None) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_time(torch, prof):
+    """(busy µs, {kernel name's first 80 characters: µs}) of a profile. Device time comes from the
+    kernel events only (a CPU op's event repeats the time of the kernels it
+    launched); busy time is the union of their intervals, so overlapping
+    kernels count once."""
+    by_kernel, spans = {}, []
+    for e in prof.events():
+        # user annotations (e.g. "Optimizer.step#Adam.step") are spans on the
+        # device timeline, not kernels: they would count idle gaps as busy.
+        # (Kernel names may hold "#" too, as in "{lambda(int)#1}".)
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or re.fullmatch(r"[\w.]+#[\w.]+", e.name)):
+            continue
+        name = e.name[:80]
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+    dev_us, end = 0.0, float("-inf")
+    for a, z in sorted(spans):
+        dev_us += max(0.0, z - max(a, end))
+        end = max(end, z)
+    return dev_us, by_kernel
 
 
 def phase_env(torch):
@@ -190,8 +238,12 @@ def phase_kernel(torch):
 def phase_decode_vs_forward(torch):
     from dalle_tpu_torch import dalle_1p4b, init_dalle
     from dalle_tpu_torch.ops import decode_attention as dec
-    cfg = dalle_1p4b(depth=2)
+    from dalle_tpu_torch.ops import fused_attention as fa
+    # dense full forward: "auto" would send it through K1, whose bf16
+    # roundings the f32 cached path does not share
+    cfg = dalle_1p4b(depth=2, use_pallas="off")
     model = init_dalle(cfg, seed=SMOKE_SEED + 1)
+    k1_before = fa.fwd_launches
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 1)
     b = 2
     text = torch.randint(1, cfg.num_text_tokens, (b, cfg.text_seq_len),
@@ -215,6 +267,7 @@ def phase_decode_vs_forward(torch):
     check(dec.launches - before == cfg.depth * (cfg.image_seq_len - 1),
           "decode did not launch the kernel once per layer and step")
     check(err <= tol, f"cached decode vs forward: max abs err {err} > {tol}")
+    check(fa.fwd_launches == k1_before, "the dense forward launched K1")
     emit("decode_vs_forward", depth=cfg.depth, dim=cfg.dim, heads=cfg.heads,
          positions=cfg.image_seq_len, max_abs_err=err, max_abs_logit=scale,
          tolerance=tol)
@@ -292,19 +345,7 @@ def phase_generate(torch, card):
                 fast._decode_one(tok, i, plen + i, cache)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    # device time from the kernel events only (a CPU op's event repeats the
-    # time of the kernels it launched); busy time is the union of their
-    # intervals, so overlapping kernels count once
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_kernel, spans = {}, []
-    for e in kernels:
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
-        spans.append((e.time_range.start, e.time_range.end))
-    dev_us, end = 0.0, float("-inf")
-    for a, z in sorted(spans):
-        dev_us += max(0.0, z - max(a, end))
-        end = max(end, z)
+    dev_us, by_kernel = device_time(torch, prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("profile", precision="bfloat16", batch=b, decode_steps=steps,
          wall_ms_per_step_unprofiled=bare * 1e3 / steps,
@@ -312,8 +353,253 @@ def phase_generate(torch, card):
          device_ms_per_step=dev_us / 1e3 / steps if dev_us else "not measured",
          # device time per step over the unprofiled wall time per step
          device_busy_share=(dev_us / 1e6) / bare if dev_us else "not measured",
-         top_device_ms_per_step={k[:80]: v / 1e3 / steps for k, v in top}, card=card)
+         top_device_ms_per_step={k: v / 1e3 / steps for k, v in top}, card=card)
     return launches_main, results
+
+
+
+# ---------------------------------------------------------------------------
+# K1 and the training path
+# ---------------------------------------------------------------------------
+
+# K1 against its plain version: each element within
+# fused_attention.kernel_tolerance (2e-3 of the largest output, plus 2^-7 of
+# the element itself for bf16); the row max m within 1e-5 absolute and the
+# row sum l within 1e-5 relative (f32 sums in another order)
+K1_TOL = {"out_and_dqkv": "2e-3*max(1,max|want|) + (2^-7*|want| for bf16), per element",
+          "m_abs": 1e-5, "l_rel": 1e-5}
+
+
+def k1_bounds(b, n, h, d, itemsize, table):
+    """Least card time of K1's forward and backward for these inputs:
+    {"fwd"|"bwd": (bound ms, "bytes"|"operations")}. Operations count the
+    visible pairs (the table's ones, causality included): 2 products of
+    2·d flops each forward (s, p·v), 6 backward (s, o, dp, dq, dk, dv), at
+    the bf16 tensor-core rate. Bytes count each input read once and each
+    output written once: forward qkv in, out and (m, l) out; backward qkv,
+    dO and (m, l) in, dqkv out; plus the table and tile map."""
+    nt = -(-n // 64)
+    pairs = b * h * (n * (n + 1) // 2 if table is None else int(table.table.long().sum()))
+    tbl = 0 if table is None else n * n + nt * nt
+    qkv, out, stats = b * n * 3 * h * d * itemsize, b * n * h * d * itemsize, 2 * b * h * n * 4
+    work = {"fwd": (2 * 2 * d * pairs, qkv + out + stats + tbl),
+            "bwd": (6 * 2 * d * pairs, qkv + out + stats + qkv + tbl)}
+    res = {}
+    for k, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[k] = (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+                  ops, nbytes)
+    return res
+
+
+def phase_train_kernel(torch, card):
+    import torch.nn.functional as F
+    from dalle_tpu_torch.ops import fused_attention as fa
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 2)
+    shapes = [("main", 8, 512, 14, 128), ("ragged", 3, 77, 6, 64), ("n513", 4, 513, 14, 128)]
+    errs, shares = {}, {}
+    for name, b, n, h, d in shapes:
+        for kind in ("full", "axial_row", "conv_like", "sparse"):
+            table = fa.layer_table(kind, n, device="cuda")
+            for dt in ("float32", "bfloat16"):
+                dtype = getattr(torch, dt)
+                qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).to(dtype)
+                do = torch.randn(b, n, h * d, device="cuda", generator=gen).to(dtype)
+                out, m, l = fa.fused_attention_fwd(qkv, h, table)
+                dqkv = fa.fused_attention_bwd(qkv, do, m, l, h, table)
+                ro, rm, rl = fa.fused_attention_fwd_plain(qkv, h, table)
+                rdq = fa.fused_attention_bwd_plain(qkv, do, rm, rl, h, table)
+                torch.cuda.synchronize()
+                key = f"{name}/{kind}/{dt}"
+                m_err = (m - rm).abs().max().item()
+                l_err = ((l - rl).abs() / rl).max().item()
+                check(m_err <= K1_TOL["m_abs"] and l_err <= K1_TOL["l_rel"],
+                      f"K1 {key}: row max err {m_err}, row sum rel err {l_err}")
+                for which, got, want in (("fwd", out, ro), ("bwd", dqkv, rdq)):
+                    diff = (got.float() - want.float()).abs()
+                    # the worst element's share of its own bound
+                    share = (diff / fa.kernel_tolerance(want)).max().item()
+                    errs[f"{which}/{key}"] = diff.max().item()
+                    shares[f"{which}/{key}"] = share
+                    check(math.isfinite(share) and share <= 1.0,
+                          f"K1 {which}/{key}: an element is {share} of its bound "
+                          f"(max abs err {diff.max().item()})")
+    by = {f"{w}/{dt}": max(v for k, v in errs.items() if k.startswith(w + "/")
+                           and k.endswith("/" + dt))
+          for w in ("fwd", "bwd") for dt in ("float32", "bfloat16")}
+    share_by = {f"{w}/{dt}": max(v for k, v in shares.items() if k.startswith(w + "/")
+                                 and k.endswith("/" + dt))
+                for w in ("fwd", "bwd") for dt in ("float32", "bfloat16")}
+    emit("train_kernel", kernels=["fused_attention_fwd", "fused_attention_bwd"],
+         cases=len(errs), tolerance=K1_TOL, max_abs_err=by, worst_share_of_bound=share_by)
+
+    # times at the training shape and dtype (bf16 qkv, full causal)
+    b, n, h, d = 8, 512, 14, 128
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).bfloat16()
+    do = torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    _, m, l = fa.fused_attention_fwd(qkv, h)
+    saved = fa.fwd_launches, fa.bwd_launches
+    fwd_ms = median_ms(lambda: fa.fused_attention_fwd(qkv, h), 30, flush)
+    bwd_ms = median_ms(lambda: fa.fused_attention_bwd(qkv, do, m, l, h), 30, flush)
+    fa.fwd_launches, fa.bwd_launches = saved    # timing launches are not the main path's
+    plain_fwd = median_ms(lambda: fa.fused_attention_fwd_plain(qkv, h), 10, flush)
+    plain_bwd = median_ms(lambda: fa.fused_attention_bwd_plain(qkv, do, m, l, h), 10, flush)
+    # the library yardstick: SDPA on the split (b, h, n, d) layout
+    q, k, v = (t.contiguous().requires_grad_(True) for t in
+               qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+    do_split = do.view(b, n, h, d).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                            30, flush)
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    lib_bwd = median_ms(lambda: torch.autograd.grad(o, (q, k, v), do_split, retain_graph=True),
+                        30, flush)
+    bounds = k1_bounds(b, n, h, d, 2, None)
+    timing = {}
+    for w, ms, plain, lib in (("fwd", fwd_ms, plain_fwd, lib_fwd),
+                              ("bwd", bwd_ms, plain_bwd, lib_bwd)):
+        bound, by_what, ops, nbytes = bounds[w]
+        timing[w] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                     "bound_by": by_what, "flops": ops, "bytes": nbytes,
+                     "roofline_share": bound / ms}
+    emit("train_kernel_timing", shape=dict(b=b, n=n, h=h, d=d, dtype="bfloat16", mask="causal"),
+         library="torch.nn.functional.scaled_dot_product_attention(is_causal=True) on "
+                 "the split (b,h,n,d) bf16 layout: forward, and its backward alone",
+         card=card, **timing)
+    return errs, timing
+
+
+def _train_batch(cfg, b, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    text = rng.randint(1, cfg.num_text_tokens, (b, cfg.text_seq_len))
+    text[:, 200:] = 0                                  # padded tail
+    img = rng.randint(0, cfg.image_vocab_size, (b, cfg.image_seq_len))
+    return text, img
+
+
+def phase_train_parity(torch):
+    from dalle_tpu_torch import (DalleTrainer, OptimConfig, PrecisionConfig, TrainConfig,
+                                 dalle_1p4b)
+    from dalle_tpu_torch.ops import fused_attention as fa
+    cfg = dalle_1p4b(depth=2)
+    tc = TrainConfig(batch_size=8, seed=SMOKE_SEED + 3,
+                     optim=OptimConfig(learning_rate=3e-4, grad_clip_norm=0.5),
+                     precision=PrecisionConfig(compute="float32"))
+    tr = DalleTrainer(cfg, tc)
+    text, img = _train_batch(cfg, 8, SMOKE_SEED + 3)
+    text = torch.from_numpy(text).cuda()
+    img = torch.from_numpy(img).cuda()
+
+    def grads():
+        tr.optimizer.zero_grad()
+        before = fa.fwd_launches, fa.bwd_launches
+        loss, _ = tr.loss_and_backward(text, img)
+        torch.cuda.synchronize()
+        launched = (fa.fwd_launches - before[0], fa.bwd_launches - before[1])
+        return loss.item(), {n: p.grad.clone() for n, p in tr.model.named_parameters()}, launched
+
+    loss_k, g_k, launched_k = grads()
+    kernels = fa.fused_attention_fwd, fa.fused_attention_bwd
+    fa.fused_attention_fwd, fa.fused_attention_bwd = (fa.fused_attention_fwd_plain,
+                                                      fa.fused_attention_bwd_plain)
+    try:
+        loss_p, g_p, launched_p = grads()
+    finally:
+        fa.fused_attention_fwd, fa.fused_attention_bwd = kernels
+    check(launched_k == (cfg.depth, cfg.depth), f"kernel step launched K1 {launched_k}")
+    check(launched_p == (0, 0), f"plain step launched K1 {launched_p}")
+    # f32 compute, the same inputs: K1's bf16 roundings match except where
+    # the kernel's summation order flips one (see kernel_tolerance); a weight's
+    # gradient sums such terms over every position: 1e-2 of each tensor's
+    # largest gradient, 1e-4 of the loss
+    worst, worst_name = 0.0, ""
+    for name, gp in g_p.items():
+        scale = gp.abs().max().item()
+        share = (g_k[name] - gp).abs().max().item() / max(scale, 1e-30)
+        if share > worst or not math.isfinite(share):
+            worst, worst_name = share, name
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(math.isfinite(loss_k) and loss_err <= 1e-4, f"loss {loss_k} vs plain {loss_p}")
+    check(worst <= 1e-2, f"gradient of {worst_name}: {worst} of its largest entry")
+    emit("train_parity", depth=cfg.depth, dim=cfg.dim, heads=cfg.heads, batch=8,
+         compute="float32", loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_err,
+         tensors=len(g_p), worst_grad_err_share=worst, worst_grad_tensor=worst_name,
+         tolerance=dict(loss_rel=1e-4, grad_share_of_largest=1e-2))
+    del tr, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, card):
+    from dalle_tpu_torch import DalleTrainer, OptimConfig, TrainConfig, dalle_1p4b
+    from dalle_tpu_torch.ops import fused_attention as fa
+    torch.cuda.empty_cache()
+    cfg = dalle_1p4b()
+    b, steps = 8, 6
+    tc = TrainConfig(batch_size=b, seed=SMOKE_SEED,
+                     optim=OptimConfig(optimizer="adam", learning_rate=3e-4, grad_clip_norm=0.5))
+    t0 = time.perf_counter()
+    tr = DalleTrainer(cfg, tc)
+    torch.cuda.synchronize()
+    emit("train_init", params=tr.num_params, seconds=time.perf_counter() - t0,
+         compute=tc.precision.compute, optimizer=tc.optim.optimizer)
+    text, img = _train_batch(cfg, b, SMOKE_SEED)
+    text = torch.from_numpy(text).cuda()
+    img = torch.from_numpy(img).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    fa.fwd_launches = fa.bwd_launches = 0          # the training path starts here
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = tr.train_step(text, img)               # ends in a host read of the metrics
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    launches = {"fused_attention_fwd": fa.fwd_launches, "fused_attention_bwd": fa.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over {steps} steps: {losses}")
+    for name, n in launches.items():
+        check(n == steps * cfg.depth, f"{name} launched {n} times in {steps} steps, "
+                                      f"expected {steps * cfg.depth}")
+    ms = statistics.median(walls[1:]) * 1e3
+    tokens = b * cfg.total_seq_len
+    row = dict(batch=b, steps=steps, losses=losses, grad_norm_last=m["grad_norm"],
+               ms_per_step_first=walls[0] * 1e3, ms_per_step=ms,
+               tokens_per_s=tokens / ms * 1e3, samples_per_s=b / ms * 1e3,
+               model_tflops_per_s=tr.flops_per_step / ms / 1e9,
+               peak_gib=peak, launches=launches, card=card)
+    emit("train", **row)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(text, img)
+        wall = time.perf_counter() - t0
+    dev_us, by_kernel = device_time(torch, prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit("train_profile", wall_ms_profiled=wall * 1e3,
+         device_ms=dev_us / 1e3 if dev_us else "not measured",
+         device_busy_share=(dev_us / 1e3) / ms if dev_us else "not measured",
+         top_device_ms={k: v / 1e3 for k, v in top},
+         kernel_launches=sum(1 for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA),
+         card=card)
+
+    # for the record: the same step with dense attention (cuBLAS + softmax)
+    tcfg = tr.model.transformer.cfg
+    tr.model.transformer.cfg = dataclasses.replace(tcfg, use_pallas="off")
+    dense = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tr.train_step(text, img)
+        dense.append(time.perf_counter() - t0)
+    tr.model.transformer.cfg = tcfg
+    emit("train_dense", ms_per_step=statistics.median(dense[1:]) * 1e3,
+         ms_per_step_fused=ms, card=card)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, row
 
 
 def main() -> int:
@@ -335,8 +621,11 @@ def main() -> int:
 
     card = phase_env(torch)
     errs, timing = phase_kernel(torch)
+    k1_errs, k1_timing = phase_train_kernel(torch, card)
     phase_decode_vs_forward(torch)
+    phase_train_parity(torch)
     launches, _ = phase_generate(torch, card)
+    k1_launches, _ = phase_train(torch, card)
 
     f32 = timing["float32"]
     kernels = [{
@@ -350,6 +639,21 @@ def main() -> int:
         "timed_at": "b=8 h=14 d=128 S=512 length=512, float32 cache",
         "by_cache_dtype": timing, "tolerance": TOL,
     }]
+    for which, name, line in (("fwd", "fused_attention_fwd", 218),
+                              ("bwd", "fused_attention_bwd", 238)):
+        t = k1_timing[which]
+        mine = {k: v for k, v in k1_errs.items() if k.startswith(which + "/")}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_tpu_torch/csrc/fused_attention.cu",
+            "replaces": f"dalle_tpu/ops/fused_attention.py:{line}",
+            "launches": k1_launches[name],
+            "max_abs_err": max(mine.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "timed_at": "b=8 n=512 h=14 d=128, bfloat16 qkv, causal",
+            "tolerance": K1_TOL,
+        })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,18 +4,24 @@ Text token ids → image tokens → pixels: ``DALLE`` generates image tokens
 with a KV cache whose decode attention is a hand-written CUDA kernel
 (``ops/decode_attention.py``, ``csrc/decode_attention.cu``), and
 ``DalleWithVae.generate_images`` decodes them to pixels through the dVAE.
+Training: ``DalleTrainer.train_step`` takes text ids and image token ids to
+a clipped Adam update, its attention forward and backward in hand-written
+CUDA kernels (``ops/fused_attention.py``, ``csrc/fused_attention.cu``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """
 
-from .config import DalleConfig, DVAEConfig, TransformerConfig, dalle_1p4b
-from .convert import dalle_state_dict, dvae_state_dict
+from .config import (DalleConfig, DVAEConfig, OptimConfig, PrecisionConfig,
+                     TrainConfig, TransformerConfig, dalle_1p4b)
+from .convert import adam_state_from_optax, dalle_state_dict, dvae_state_dict
 from .device import resolve_device
 from .models.dalle import DALLE, init_dalle
 from .models.dvae import DiscreteVAE, init_dvae
 from .models.wrapper import DalleWithVae, DiscreteVAEAdapter
+from .train.trainer_dalle import DalleTrainer
 
-__all__ = ["DalleConfig", "DVAEConfig", "TransformerConfig", "dalle_1p4b",
-           "dalle_state_dict", "dvae_state_dict", "resolve_device", "DALLE",
-           "init_dalle", "DiscreteVAE", "init_dvae", "DalleWithVae",
-           "DiscreteVAEAdapter"]
+__all__ = ["DalleConfig", "DVAEConfig", "OptimConfig", "PrecisionConfig",
+           "TrainConfig", "TransformerConfig", "dalle_1p4b",
+           "adam_state_from_optax", "dalle_state_dict", "dvae_state_dict",
+           "resolve_device", "DALLE", "init_dalle", "DiscreteVAE", "init_dvae",
+           "DalleWithVae", "DiscreteVAEAdapter", "DalleTrainer"]

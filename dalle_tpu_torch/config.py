@@ -1,14 +1,16 @@
-"""Model configuration for the PyTorch port.
+"""Model and training configuration for the PyTorch port.
 
-A copy of ``DVAEConfig``, ``TransformerConfig`` and ``DalleConfig`` from the
-JAX package (``dalle_tpu/config.py``): same fields, same defaults, same
-derived properties, so a config built for one package builds the same model
-in the other. The JAX package's CLI/JSON machinery is not carried over.
+A copy of ``DVAEConfig``, ``TransformerConfig``, ``DalleConfig``,
+``PrecisionConfig`` and ``OptimConfig`` from the JAX package
+(``dalle_tpu/config.py``): same fields, same defaults, same derived
+properties, so a config built for one package builds the same model and
+optimizer in the other. ``TrainConfig`` carries only the fields the port's
+trainer reads. The JAX package's CLI/JSON machinery is not carried over.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -68,8 +70,9 @@ class TransformerConfig:
     shared_attn_ids: Optional[Tuple[int, ...]] = None
     shared_ff_ids: Optional[Tuple[int, ...]] = None
     optimize_for_inference: bool = False
-    # kernel selection of the JAX package's training forward; the port's
-    # forward is the dense path whatever this says
+    # full-sequence attention: "auto" (the fused kernel K1 on the card below
+    # 2048 tokens, dense on the CPU), "fused" (K1), "off" (dense); see
+    # ops/flash_attention.resolve_use_pallas
     use_pallas: str = "auto"
     # False keeps the attention scores in the activation dtype
     attn_softmax_f32: bool = True
@@ -150,3 +153,56 @@ def dalle_1p4b(**overrides) -> DalleConfig:
               use_remat=False)
     kw.update(overrides)
     return DalleConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PrecisionConfig:
+    """Mixed-precision policy: f32 master weights, the forward and backward
+    on copies cast to ``compute`` (see ``train/train_state.cast_floating``)."""
+    params: str = "float32"
+    compute: str = "bfloat16"
+    output: str = "float32"
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    optimizer: str = "adam"
+    learning_rate: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 0.5          # ref: legacy/train_dalle.py --clip_grad_norm
+    grad_accum_steps: int = 1            # ref: --ga_steps
+    lr_decay: bool = False               # ReduceLROnPlateau equivalent (cosine here)
+    lr_decay_rate: float = 0.98          # exponential schedule gamma (ref --lr_decay_rate)
+    lr_transition_steps: int = 1000      # steps per exponential decay application
+    warmup_steps: int = 0
+    total_steps: int = 100_000
+    lr_scheduler: str = "constant"       # constant | cosine | exponential | plateau
+    # plateau (ReduceLROnPlateau parity): factor 0.5, patience 10, cooldown
+    # 10, min lr as a fraction of the base lr
+    plateau_factor: float = 0.5
+    plateau_patience: int = 10
+    plateau_cooldown: int = 10
+    plateau_min_scale: float = 1e-3
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the JAX package's ``TrainConfig`` that the port's
+    trainer reads. Checkpointing, observability, host overlap (prefetch,
+    deferred metrics, scanned steps) and NaN rollback come with their own
+    slices, and their fields with them."""
+    batch_size: int = 64                 # global batch
+    seed: int = 42
+    log_every: int = 10
+    # runtime learning-rate multiplier (JAX: a TrainState data leaf); not
+    # ported, True raises
+    runtime_lr_scale: bool = False
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    precision: PrecisionConfig = field(default_factory=PrecisionConfig)

@@ -13,11 +13,15 @@ across one to one; only leaves change:
 * ConvTranspose kernel (the dVAE decoder's ``up_*``): flax does not flip its
   kernel, torch's transposed convolution does, so the kernel is flipped
   spatially and laid out (in, out, kh, kw); see ``models/dvae.py``.
+
+An optax Adam/AdamW state maps the same way: its first and second moments
+(``mu``, ``nu``) are trees shaped like the params, so each leaf takes the
+path and the layout of its parameter (``adam_state_from_optax``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +64,7 @@ def flax_to_state_dict(params: Mapping[str, Any], *,
         if path[0] in skip:
             continue
         leaf, y = _convert_leaf(path, x)
-        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.ascontiguousarray(y))
+        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.array(y))
     return out
 
 
@@ -73,3 +77,36 @@ def dvae_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``models/dvae.DiscreteVAE`` state_dict from ``dalle_tpu``'s dVAE
     params (the encoder is not ported yet and is left out)."""
     return flax_to_state_dict(params, skip=("encoder",))
+
+
+def _find_adam_state(state):
+    """The first node of an optax state tree with ``count``, ``mu`` and
+    ``nu`` (``ScaleByAdamState``); None when there is none."""
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state
+    children = (state.values() if isinstance(state, Mapping)
+                else state if isinstance(state, (tuple, list)) else ())
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_optax(opt_state, names: List[str]) -> Tuple[int, Dict[int, Dict]]:
+    """An optax Adam/AdamW state → (step count, the ``state`` part of a
+    ``torch.optim.Adam``/``AdamW`` state_dict) for the parameters ``names``,
+    in the optimizer's parameter order (``model.named_parameters()``):
+    ``exp_avg`` from ``mu``, ``exp_avg_sq`` from ``nu``, ``step`` from
+    ``count``. Leaves are numpy or anything ``np.asarray`` takes."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    count = int(np.asarray(adam.count))
+    mu, nu = flax_to_state_dict(adam.mu), flax_to_state_dict(adam.nu)
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise ValueError(f"optax moments do not match the parameters: "
+                         f"{sorted(set(mu) ^ set(names))}")
+    step = torch.tensor(float(count))
+    return count, {i: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                   for i, name in enumerate(names)}

@@ -5,8 +5,12 @@ tied or untied embeddings, axial positional embeddings when rotary is off,
 the static logits allow-mask, the stable-training tricks, and cached
 generation with top-k + gumbel sampling, classifier-free guidance (two
 caches: conditioned and null-text) and image priming. The VAE is not a
-submodule; ``models/wrapper.py`` composes the two. The training loss is not
-ported yet: ``forward`` returns logits.
+submodule; ``models/wrapper.py`` composes the two. ``forward`` returns the
+logits, or with ``return_loss=True`` the training loss
+``(loss_text + w·loss_img) / (w + 1)``: f32 cross-entropy over the masked
+logits, optionally in sequence chunks recomputed in the backward
+(``loss_chunk``), with classifier-free-guidance text dropout
+(``null_cond_prob``, or an injected ``null_mask``).
 
 Generation runs eagerly: a Python loop over decode steps, each step one
 ``Transformer.decode_step`` whose attention is the decode kernel.
@@ -17,7 +21,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import DalleConfig
 from ..device import resolve_device
@@ -158,17 +164,67 @@ class DALLE(nn.Module):
         return self.final_norm.weight.device
 
     # -- forward -----------------------------------------------------------
-    def forward(self, text, image_ids):
+    def _ce_chunk(self, x, labels, start: int):
+        """Head + f32 cross-entropy for the positions start..start+n (the
+        JAX package's ``_ce_chunk_body``)."""
+        logits = self._finish(x, start, x.shape[1]).float()
+        b, n, vocab = logits.shape
+        # flat (b·n, vocab): the softmax runs over the contiguous last axis
+        # (a (b, vocab, n) view takes PyTorch's strided "spatial" softmax,
+        # several times slower on the card)
+        return F.cross_entropy(logits.reshape(b * n, vocab), labels.reshape(b * n),
+                               reduction="none").reshape(b, n)
+
+    def forward(self, text, image_ids, return_loss: bool = False, *,
+                null_cond_prob: float = 0.0,
+                null_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """``text``: (b, text_seq_len) int (0 = pad); ``image_ids``:
-        (b, image_seq_len) codebook indices → (b, n, total_tokens) logits."""
+        (b, image_seq_len) codebook indices → (b, n, total_tokens) logits,
+        or with ``return_loss`` (loss, {"loss_text", "loss_img"}).
+
+        Classifier-free-guidance dropout nulls the text of the rows in
+        ``null_mask`` ((b,) bool), or of rows drawn with probability
+        ``null_cond_prob`` from ``generator``."""
         c = self.cfg
         if text.shape[1] != c.text_seq_len:
             raise ValueError(f"text must be {c.text_seq_len} tokens, got {text.shape[1]}")
+        if null_mask is None and null_cond_prob > 0:
+            null_mask = torch.rand(text.shape[0], generator=generator,
+                                   device=text.device) < null_cond_prob
+        if null_mask is not None:
+            text = torch.where(null_mask[:, None], 0, text)
         text_b = self.remap_and_bos(text)
         tokens = torch.cat([self.embed_text(text_b), self.embed_image(image_ids)], dim=1)
         tokens = self._stabilize(tokens[:, :c.total_seq_len])
         out = self.transformer(tokens)
-        return self._finish(out, 0, tokens.shape[1])
+        n = tokens.shape[1]
+        if not return_loss:
+            return self._finish(out, 0, n)
+
+        labels = torch.cat([text_b[:, 1:], image_ids + self.num_text_tokens], dim=1)
+        if c.loss_chunk > 0 and n % c.loss_chunk != 0:
+            raise ValueError(
+                f"loss_chunk={c.loss_chunk} must divide the sequence length "
+                f"{n} — a silent fall-back would rematerialize the full "
+                f"(b, n, vocab) logits the option exists to avoid")
+        if c.loss_chunk > 0:
+            # each chunk's logits are recomputed in the backward: the full
+            # (b, n, vocab) logits are never held
+            remat = torch.is_grad_enabled()
+            parts = []
+            for i in range(0, n, c.loss_chunk):
+                args = (out[:, i:i + c.loss_chunk], labels[:, i:i + c.loss_chunk], i)
+                parts.append(checkpoint(self._ce_chunk, *args, use_reentrant=False)
+                             if remat else self._ce_chunk(*args))
+            ce = torch.cat(parts, dim=1)
+        else:
+            ce = self._ce_chunk(out, labels, 0)
+        loss_text = ce[:, :c.text_seq_len].mean()
+        loss_img = ce[:, c.text_seq_len:].mean()
+        w = c.loss_img_weight
+        loss = (loss_text + w * loss_img) / (w + 1)
+        return loss, {"loss_text": loss_text, "loss_img": loss_img}
 
     # -- generation --------------------------------------------------------
     def _prefill(self, text, image_prime, batch: int, dtype=torch.float32):

@@ -9,23 +9,34 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
   per depth.
 * Every sparse attention kind is the dense core plus a static mask, kept
   as an int32 (seq, seq) buffer whose rows feed the decode kernel directly.
-* The forward is the inference forward (dropout off). Token shift and
-  reversible blocks raise ``NotImplementedError``; remat only changes what
-  a backward pass keeps, and the port has no training step yet.
+* The full-sequence forward resolves ``use_pallas`` against the device
+  (``ops/flash_attention.resolve_use_pallas``). In "fused" mode the causal
+  layers without a key mask or the stable softmax run the fused-boundary
+  kernel K1 (``ops/fused_attention.py``) straight off the qkv projection,
+  rotary applied on its (b, n, 3h, d) view; the mask tables it reads are
+  built once per (layer kind, length, device). The rest runs ``attend``.
+* ``use_remat`` recomputes each attn+ff block pair in the backward
+  (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package.
+* Dropout is not ported: training with ``attn_dropout``/``ff_dropout`` > 0
+  raises ``NotImplementedError`` (its mask bits could never match JAX's).
+  Token shift and reversible blocks raise too.
 """
 
 from __future__ import annotations
 
 from itertools import cycle, islice
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
 from ..ops.attention import KVCache, attend, cached_attend
 from ..ops.attn_masks import build_mask
+from ..ops.flash_attention import resolve_use_pallas
+from ..ops.fused_attention import MaskTable, fused_qkv_attention, mask_table
 from ..ops.rotary import apply_rotary, dalle_pos_emb
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
@@ -89,7 +100,20 @@ class Attention(nn.Module):
         b, _, n, _ = out.shape
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
-    def forward(self, x, *, key_mask=None, rotary=None, static_mask=None):
+    def forward(self, x, *, key_mask=None, rotary=None, static_mask=None,
+                fused: bool = False, table: Optional[MaskTable] = None):
+        """``fused`` (the resolved mode) sends a causal, non-stable layer
+        without a key mask through K1, whose visibility is ``table`` (None =
+        plain causal); otherwise ``static_mask`` feeds the dense core."""
+        if fused and key_mask is None and self.causal and not self.stable:
+            b, n, _ = x.shape
+            qkv = self.to_qkv(x)
+            if rotary is not None:
+                # rotary on the (b, n, 3h, d) view: a reshape, no transpose
+                qkv = apply_rotary(rotary[:n][:, None], qkv.reshape(
+                    b, n, 3 * self.heads, self.dim_head)).reshape(b, n, -1)
+            out = fused_qkv_attention(qkv, self.heads, table)
+            return self.to_out(out.to(x.dtype))
         q, k, v = self._split(x)
         if rotary is not None:
             rot = rotary[:x.shape[1]][None, None]
@@ -170,11 +194,16 @@ class Transformer(nn.Module):
         self.mask_keys = [f"sparse_{i}" if t == "sparse" else t
                           for i, t in enumerate(types)]
         self._mask_buffers: Dict[str, Optional[str]] = {}
+        # structured specs for K1's tables (the JAX package's mask_specs),
+        # and the tables built from them and the masks
+        self._mask_specs: Dict[str, Optional[tuple]] = {}
+        self._tables: Dict[Tuple[str, int, str], Optional[MaskTable]] = {}
         for ind, (mk, t) in enumerate(zip(self.mask_keys, types)):
             if mk in self._mask_buffers:
                 continue
             if t == "full" or not c.causal:
                 self._mask_buffers[mk] = None
+                self._mask_specs[mk] = None
                 continue
             m = build_mask(t, self.text_len, fmap, kernel_size=c.sparse_attn_kernel,
                            block=c.sparse_block_size,
@@ -184,6 +213,14 @@ class Transformer(nn.Module):
             self.register_buffer(name, torch.from_numpy(m.astype("int32")),
                                  persistent=False)
             self._mask_buffers[mk] = name
+            if t in ("axial_row", "axial_col"):
+                self._mask_specs[mk] = ("axial", self.text_len, fmap,
+                                        0 if t == "axial_row" else 1)
+            elif t == "conv_like":
+                self._mask_specs[mk] = ("conv", self.text_len, fmap,
+                                        c.sparse_attn_kernel, 1)
+            else:
+                self._mask_specs[mk] = ("block", c.sparse_block_size)
 
         self.attn_names, self.ff_names = [], []
         attn_type_of: Dict[Any, str] = {}
@@ -223,12 +260,41 @@ class Transformer(nn.Module):
         name = self._mask_buffers[self.mask_keys[ind]]
         return None if name is None else getattr(self, name)
 
+    def fused_table(self, ind: int, n: int, device) -> Optional[MaskTable]:
+        """Layer ``ind``'s K1 visibility at length ``n`` on ``device`` (None
+        for full attention), built on first use and kept."""
+        mk = self.mask_keys[ind]
+        key = (mk, n, str(device))
+        if key not in self._tables:
+            mask = self.static_mask(ind)
+            self._tables[key] = mask_table(
+                n, None if mask is None else mask.cpu().numpy(),
+                self._mask_specs[mk], device)
+        return self._tables[key]
+
+    def _block(self, x, ind: int, key_mask, fused: bool):
+        """One attn + ff residual pair (the unit ``use_remat`` recomputes)."""
+        la, attn, lf, ff, mask = self._layer(ind)
+        table = self.fused_table(ind, x.shape[1], x.device) if fused else None
+        x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary,
+                   static_mask=mask, fused=fused, table=table)
+        return x + lf(x, ff)
+
     def forward(self, x, key_mask=None):
-        for ind in range(self.cfg.depth):
-            la, attn, lf, ff, mask = self._layer(ind)
-            x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary,
-                       static_mask=mask)
-            x = x + lf(x, ff)
+        c = self.cfg
+        if self.training and (c.attn_dropout > 0 or c.ff_dropout > 0):
+            raise NotImplementedError(
+                "dropout is not ported yet: train with attn_dropout = "
+                "ff_dropout = 0")
+        fused = (resolve_use_pallas(c.use_pallas, c.seq_len, x.device) == "fused"
+                 and key_mask is None and c.causal and not c.stable)
+        remat = c.use_remat and torch.is_grad_enabled()
+        for ind in range(c.depth):
+            if remat:
+                x = checkpoint(self._block, x, ind, key_mask, fused,
+                               use_reentrant=False)
+            else:
+                x = self._block(x, ind, key_mask, fused)
         return x
 
     # -- cached decode -----------------------------------------------------

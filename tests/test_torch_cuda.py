@@ -11,17 +11,23 @@ Tolerances: an f32 cache runs the kernel in f32 like the plain version, so
 only the summation order differs (2e-5 on O(1) outputs). bf16 and int8
 caches take a bf16 query and write a bf16 output, as on the main path, so
 the two differ by up to one bf16 rounding of an O(1) value (1.6e-2).
+
+The fused attention kernels (K1) are held to their plain versions element
+by element, within ``fused_attention.kernel_tolerance`` (its docstring gives
+the reasons), and their row max and sum within 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dalle_tpu_torch.config import DalleConfig
+from dalle_tpu_torch.config import DalleConfig, OptimConfig, PrecisionConfig, TrainConfig
 from dalle_tpu_torch.models.dalle import init_dalle
 from dalle_tpu_torch.ops import decode_attention as dec
+from dalle_tpu_torch.ops import fused_attention as fa
 from dalle_tpu_torch.ops.attention import KVCache, cached_attend
 from dalle_tpu_torch.ops.attn_masks import build_mask
+from dalle_tpu_torch.train.trainer_dalle import DalleTrainer
 
 pytestmark = pytest.mark.cuda
 
@@ -101,8 +107,10 @@ def test_wrapper_raises_instead_of_falling_back():
 def test_cached_decode_on_the_card_equals_forward(rotary_emb):
     """The whole decode path on the card, through the kernel: cached logits
     at every image position equal the uncached forward's (f32, 1e-4)."""
+    # dense full forward: the fused kernel rounds to bf16 and would not hold
+    # the cached f32 path to 1e-4
     cfg = DalleConfig(**TINY, rotary_emb=rotary_emb,
-                      attn_types=("full", "axial_row"))
+                      attn_types=("full", "axial_row"), use_pallas="off")
     model = init_dalle(cfg, seed=5)
     gen = torch.Generator("cuda").manual_seed(6)
     text = torch.randint(1, cfg.num_text_tokens, (2, cfg.text_seq_len),
@@ -120,3 +128,107 @@ def test_cached_decode_on_the_card_equals_forward(rotary_emb):
     assert dec.launches - before == cfg.depth * (cfg.image_seq_len - 1)
     err = (torch.stack(steps, 1) - full).abs().max().item()
     assert err <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# K1: the fused-boundary attention kernels
+# ---------------------------------------------------------------------------
+
+def _k1_case(b, n, h, d, dtype, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(b, n, h * d, device="cuda", generator=gen).to(dtype)
+    return qkv, do
+
+
+def _assert_k1_close(got, want):
+    """Every element within ``fa.kernel_tolerance`` of the plain version."""
+    diff = (got.float() - want.float()).abs()
+    share = (diff / fa.kernel_tolerance(want)).max().item()
+    assert share <= 1.0, (share, diff.max().item())
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 14, 128), (3, 77, 6, 64), (2, 513, 14, 128),
+                                   (2, 20, 2, 16), (1, 130, 3, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_match_plain(dtype, shape):
+    b, n, h, d = shape
+    qkv, do = _k1_case(b, n, h, d, dtype, seed=n + d)
+    before = fa.fwd_launches, fa.bwd_launches
+    out, m, l = fa.fused_attention_fwd(qkv, h)
+    dqkv = fa.fused_attention_bwd(qkv, do, m, l, h)
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ro, rm, rl = fa.fused_attention_fwd_plain(qkv, h)
+    rdq = fa.fused_attention_bwd_plain(qkv, do, rm, rl, h)
+    torch.cuda.synchronize()
+    assert out.dtype == dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    for got, want in ((out, ro), (dqkv, rdq)):
+        _assert_k1_close(got, want)
+
+
+@pytest.mark.parametrize("kind", ["axial_row", "conv_like", "sparse"])
+@pytest.mark.parametrize("n", [320, 77])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_with_tables_match_plain(dtype, n, kind):
+    h, d = 4, 64
+    qkv, do = _k1_case(2, n, h, d, dtype, seed=3)
+    table = fa.layer_table(kind, n, device="cuda")
+    out, m, l = fa.fused_attention_fwd(qkv, h, table)
+    dqkv = fa.fused_attention_bwd(qkv, do, m, l, h, table)
+    ro, rm, rl = fa.fused_attention_fwd_plain(qkv, h, table)
+    rdq = fa.fused_attention_bwd_plain(qkv, do, rm, rl, h, table)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    for got, want in ((out, ro), (dqkv, rdq)):
+        _assert_k1_close(got, want)
+
+
+def test_fused_kernels_are_deterministic():
+    qkv, do = _k1_case(2, 200, 4, 64, torch.bfloat16, seed=9)
+    runs = []
+    for _ in range(2):
+        out, m, l = fa.fused_attention_fwd(qkv, 4)
+        runs.append((out, fa.fused_attention_bwd(qkv, do, m, l, 4)))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_fused_wrapper_raises_instead_of_falling_back():
+    qkv, _ = _k1_case(1, 16, 2, 32, torch.float32, seed=4)
+    with pytest.raises(ValueError):
+        fa.fused_attention_fwd(qkv[..., ::2], 1)          # strided
+    with pytest.raises(TypeError):
+        fa.fused_attention_fwd(qkv.half(), 2)
+
+
+def _tiny_trainer(use_pallas, device):
+    cfg = DalleConfig(**TINY, use_pallas=use_pallas, use_remat=False, loss_chunk=11)
+    tc = TrainConfig(batch_size=2, optim=OptimConfig(learning_rate=1e-3),
+                     precision=PrecisionConfig(compute="float32"))
+    return DalleTrainer(cfg, tc, device=device)
+
+
+def test_train_step_on_the_card_goes_through_k1_and_matches_the_plain_version():
+    """One training step on the card launches K1's forward and backward once
+    per layer, and its loss and gradients equal the same step on the CPU,
+    whose attention is K1's plain version (f32 compute; the bf16 roundings
+    inside K1 may flip where the two devices' f32 inputs differ in the last
+    bit: 1e-2 of each tensor's largest gradient, 1e-4 of the loss)."""
+    card = _tiny_trainer("auto", "cuda")
+    host = _tiny_trainer("fused", "cpu")
+    host.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    text = rng.randint(1, TINY["num_text_tokens"], (2, TINY["text_seq_len"]))
+    img = rng.randint(0, TINY["image_vocab_size"], (2, TINY["image_fmap_size"] ** 2))
+    before = fa.fwd_launches, fa.bwd_launches
+    got = card.train_step(text, img)
+    assert (fa.fwd_launches - before[0], fa.bwd_launches - before[1]) == (2, 2)
+    card_grads = {n: p.grad.cpu() for n, p in card.model.named_parameters()}
+    want = host.train_step(text, img)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    for name, p in host.model.named_parameters():
+        ref = p.grad
+        tol = 1e-2 * ref.abs().max().item()
+        assert (card_grads[name] - ref).abs().max().item() <= tol, name
