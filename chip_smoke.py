@@ -45,6 +45,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 launched exactly 24 times per step. Then ms/step, tokens/s,
                 peak memory, one profiled step's busy share and top kernels,
                 and, for the record, the step with dense attention.
+8. serve_kernel K3 (windowed decode attention over the dense slab) and K5
+                (the same over a paged pool) against their plain versions:
+                f32, bf16 and int8 caches, windows of 1, 16 and 257 queries,
+                ragged starts (0, S-w, a parked row at S), the serving shape
+                (b=8, h=14, d=128, S=512) and a ragged one (b=3, h=6, d=64,
+                S=300); K5 with 16-token blocks, pages in a random order and
+                some unmapped. K5 must equal K3 on the gathered slab bit for
+                bit on every row that is not parked. Then both kernels' times
+                at the serving shape (w=1 and 257) beside their bounds, the
+                plain versions' and SDPA's with a boolean mask on the
+                dequantized cache (the library yardstick).
+9. serve_parity at full width and depth 2, in f32: the dense engine's tokens
+                for four requests (one ragged) equal the sequential
+                generate_images_tokens' (K2) under the same generator seeds,
+                and a paged engine (16-token blocks, a pool that evicts,
+                repeated prompts that hit the radix cache) gives the dense
+                engine's tokens.
+10. serve       the serving engine: DalleWithVae.serve_engine on DALL·E-1.4B,
+                8 slots, bf16_int8kv, dense then paged, 16 requests (10 full,
+                3 ragged, 1 CFG, a 2-member shared-prefix cohort; half of
+                them from a producer thread while the engine runs), the paged
+                run with 4 repeated prompts and one that shares 128 text
+                tokens with another. Every request completes with in-range
+                tokens of its length; K3 launches 24 times per attending
+                dispatch in the dense run and never in the paged one, K5 the
+                other way round. Then requests/s, tokens/s, TTFT, ms per
+                step, the radix ledger, peak memory and a profiled window's
+                busy share.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -602,6 +630,337 @@ def phase_train(torch, card):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# K3 / K5 and the serving engine
+# ---------------------------------------------------------------------------
+
+def window_bounds(b, h, w, d, start, S, itemsize, qsize, scaled):
+    """Least card time of K3/K5 for these inputs (every row at ``start``):
+    (bound ms, "bytes" or "operations", flops, bytes). Bytes: q in and out
+    once, and the cache rows (K and V, and their f32 scales for int8) that
+    the window can see, once. Operations: 4·d flops per visible (query,
+    position) pair (the q·k and p·v products), at the f32 rate for an f32
+    cache and the bf16 tensor rate otherwise (the products' operands are
+    bf16 there)."""
+    seen = b * min(S, start + w)
+    pairs = b * h * sum(min(S, start + j + 1) for j in range(w))
+    nbytes = (2 * b * h * w * d * qsize + seen * 2 * h * d * itemsize
+              + (seen * 2 * h * 4 if scaled else 0) + b * 4)
+    ops = 4 * d * pairs
+    rate = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ops, nbytes
+
+
+def _paged_copy(torch, cache, bt, gen):
+    """The dense cache's content in a block pool behind a shuffled page
+    table, with one page per row left unmapped and a few spare blocks."""
+    import numpy as np
+    from dalle_tpu_torch.ops.paged_kv import PagedKVCache
+    b, S, _ = cache.kv.shape
+    h = cache.heads
+    d = cache.kv.shape[2] // (2 * h)
+    mb = -(-S // bt)
+    nb = b * mb + 7
+    perm = torch.randperm(nb, generator=gen)[:b * mb].view(b, mb).int().numpy().copy()
+    perm[np.arange(b), np.arange(b) % mb] = -1
+    pc = PagedKVCache.init(nb, bt, h, S, d, cache.kv.dtype, device="cuda").bind(perm)
+    k, v = (t.float().contiguous() for t in cache.read_kv(dtype=torch.float32))
+    pc.append_rows(k, v, np.zeros(b, np.int64))
+    return pc
+
+
+def phase_serve_kernel(torch, card):
+    import torch.nn.functional as F
+    from dalle_tpu_torch.ops import decode_attention as dec
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 4)
+    hgen = torch.Generator().manual_seed(SMOKE_SEED + 4)
+    shares, errs, cases = {}, {}, 0
+    for name, b, h, d, S in (("main", 8, 14, 128, 512), ("ragged", 3, 6, 64, 300)):
+        for dt in ("float32", "bfloat16", "int8"):
+            dtype = getattr(torch, dt)
+            qdt = torch.float32 if dt == "float32" else torch.bfloat16
+            cache = _cache(torch, b, h, d, S, dtype, gen)
+            pc = _paged_copy(torch, cache, 16, hgen)
+            dense = pc.gather_dense()
+            for w in (1, 16, 257):
+                q = torch.randn(b, h, w, d, device="cuda", generator=gen).to(qdt)
+                st = [0, S - w, S] + torch.randint(0, S - w + 1, (b,), generator=hgen).tolist()
+                starts = torch.tensor(st[:b], dtype=torch.int32, device="cuda")
+                for kname, got, want in (
+                        ("K3", dec.decode_attend_window(q, cache, starts),
+                         dec.decode_attend_window_plain(q, cache.kv, cache.scale, starts)),
+                        ("K5", dec.decode_attend_window_paged(q, pc, starts),
+                         dec.decode_attend_window_paged_plain(q, pc, starts))):
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want.float()).abs()
+                    share = dec.window_share(got, want, dtype)
+                    key = f"{kname}/{name}/{dt}/w{w}"
+                    errs[key], shares[key] = diff.max().item(), share
+                    cases += 1
+                    check(math.isfinite(share) and share <= 1.0,
+                          f"{key}: an element is {share} of its bound "
+                          f"(max abs err {diff.max().item()})")
+                paged = dec.decode_attend_window_paged(q, pc, starts)
+                slab = dec.decode_attend_window(q, dense, starts)
+                torch.cuda.synchronize()
+                live = starts < S
+                check(torch.equal(paged[live], slab[live]),
+                      f"K5 != K3 on the gathered slab: {name}/{dt}/w{w}")
+    by = {f"{k}/{dt}": max(v for key, v in errs.items()
+                           if key.startswith(k + "/") and f"/{dt}/" in key)
+          for k in ("K3", "K5") for dt in ("float32", "bfloat16", "int8")}
+    worst = {f"{k}/{dt}": max(v for key, v in shares.items()
+                              if key.startswith(k + "/") and f"/{dt}/" in key)
+             for k in ("K3", "K5") for dt in ("float32", "bfloat16", "int8")}
+    emit("serve_kernel", kernels=["decode_attend_window", "decode_attend_window_paged"],
+         cases=cases, tolerance="decode_attention.window_tolerance, per element",
+         max_abs_err=by, worst_share_of_bound=worst, k5_equals_k3_on_slab=True)
+
+    # times at the serving shape: a decode step (w=1, every position
+    # visible) and a refill window (w=257 from position 0)
+    b, h, d, S = 8, 14, 128, 512
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    timing = {}
+    for dt in ("float32", "bfloat16", "int8"):
+        dtype = getattr(torch, dt)
+        qdt = torch.float32 if dt == "float32" else torch.bfloat16
+        cache = _cache(torch, b, h, d, S, dtype, gen)
+        pc = _paged_copy(torch, cache, 16, hgen)
+        pc.bind(torch.arange(b * (S // 16), dtype=torch.int32).view(b, -1).numpy())
+        kd, vd = (t.contiguous() for t in cache.read_kv(dtype=qdt))
+        for w, st in ((1, S - 1), (257, 0)):
+            q = torch.randn(b, h, w, d, device="cuda", generator=gen).to(qdt)
+            starts = torch.full((b,), st, dtype=torch.int32, device="cuda")
+            pos = torch.arange(S, device="cuda")
+            mask = pos[None, :] <= (st + torch.arange(w, device="cuda"))[:, None]
+            saved = dec.window_launches, dec.paged_launches
+            k3 = median_ms(lambda: dec.decode_attend_window(q, cache, starts), 50, flush)
+            k5 = median_ms(lambda: dec.decode_attend_window_paged(q, pc, starts), 50, flush)
+            dec.window_launches, dec.paged_launches = saved
+            plain = median_ms(lambda: dec.decode_attend_window_plain(
+                q, cache.kv, cache.scale, starts), 10, flush)
+            plain5 = median_ms(lambda: dec.decode_attend_window_paged_plain(q, pc, starts),
+                               10, flush)
+            lib = median_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
+                            50, flush)
+            bound, by_what, ops, nbytes = window_bounds(
+                b, h, w, d, st, S, cache.kv.element_size(), q.element_size(),
+                cache.scale is not None)
+            timing[f"{dt}/w{w}"] = {
+                "K3_ms": k3, "K5_ms": k5, "plain_ms": plain, "K5_plain_ms": plain5,
+                "library_ms": lib, "bound_ms": bound, "bound_by": by_what, "flops": ops,
+                "bytes": nbytes, "K3_roofline_share": bound / k3,
+                "K5_roofline_share": bound / k5}
+    emit("serve_kernel_timing", shape=dict(b=b, h=h, d=d, S=S),
+         cases={"w1": "starts = S-1 (a decode step over the full cache)",
+                "w257": "starts = 0 (a refill window)"},
+         library="torch.nn.functional.scaled_dot_product_attention with a boolean "
+                 "(w, S) mask on the dequantized (b,h,S,d) cache",
+         card=card, by_case=timing)
+    return errs, timing
+
+
+def _serve_text(cfg, n, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    text = rng.randint(1, cfg.num_text_tokens, (n, cfg.text_seq_len)).astype(np.int32)
+    text[:, 200:] = 0                                   # padded tail
+    return text
+
+
+def phase_serve_parity(torch):
+    from dalle_tpu_torch import DalleWithVae, dalle_1p4b, init_dalle
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.serve import RequestQueue
+    cfg = dalle_1p4b(depth=2)
+    model = init_dalle(cfg, seed=SMOKE_SEED + 5)
+    wrapper = DalleWithVae(model, None)
+    texts = _serve_text(cfg, 4, SMOKE_SEED + 5)
+    subs = [dict(text=texts[i], seed=100 + i, request_id=i,
+                 max_tokens=40 if i == 2 else None) for i in range(4)]
+    refs = {}
+    for s in subs:
+        toks = model.generate_images_tokens(
+            torch.from_numpy(s["text"][None]).cuda(),
+            generator=torch.Generator("cuda").manual_seed(s["seed"]))[0].cpu().numpy()
+        refs[s["request_id"]] = toks[:s["max_tokens"] or cfg.image_seq_len]
+
+    def serve(eng, items):
+        q = RequestQueue()
+        for it in items:
+            q.submit(**it)
+        q.close()
+        return {c.request_id: c.tokens for c in eng.run(q)}
+
+    before = dec.window_launches, dec.paged_launches
+    dense_eng = wrapper.serve_engine(slots=2, precision="float32")
+    dense = serve(dense_eng, subs)
+    for rid, want in refs.items():
+        check(dense[rid].shape == want.shape and (dense[rid] == want).all(),
+              f"serve_parity: dense engine request {rid} differs from generate_images_tokens")
+    # repeats of 0 and 1 (full radix hits), a pool of 72 blocks of 16 (two
+    # full rows and 8 more), so residents are evicted
+    order = [subs[0], dict(subs[0], seed=200), subs[1], subs[2], dict(subs[1], seed=201),
+             subs[3]]
+    paged_subs = [dict(s, request_id=i) for i, s in enumerate(order)]
+    dense_all = serve(wrapper.serve_engine(slots=2, precision="float32"), paged_subs)
+    peng = wrapper.serve_engine(slots=2, precision="float32", kv_block_tokens=16,
+                                kv_pool_blocks=72)
+    paged = serve(peng, paged_subs)
+    check(sorted(paged) == sorted(dense_all) == list(range(6)), "serve_parity: lost requests")
+    for rid in dense_all:
+        check((paged[rid] == dense_all[rid]).all(),
+              f"serve_parity: paged request {rid} differs from dense")
+    st = peng.stats
+    check(st.radix_full_hits >= 1 and st.pages_evicted > 0 and st.cow_forks >= 1,
+          f"serve_parity: the paged run missed radix hits or eviction ({st})")
+    emit("serve_parity", depth=cfg.depth, dim=cfg.dim, precision="float32",
+         requests=len(subs), dense_equals_sequential=True, paged_equals_dense=True,
+         paged_requests=len(paged_subs), radix_full_hits=st.radix_full_hits,
+         radix_partial_hits=st.radix_partial_hits, cow_forks=st.cow_forks,
+         pages_evicted=st.pages_evicted,
+         launches=dict(K3=dec.window_launches - before[0], K5=dec.paged_launches - before[1]))
+    del model, wrapper, dense_eng, peng
+    torch.cuda.empty_cache()
+
+
+def _serve_traffic(cfg, paged: bool):
+    """16 requests: a 2-member cohort (one group_id, one prompt), 1 CFG
+    (cond_scale 3), 3 ragged (40, 100, 180 tokens), 10 full-length. The
+    first eight fill the 8 slots in one admission pass (the cohort shares
+    one prefill). The paged run puts 4 repeats of prompts that pass is
+    still decoding (full radix hits) and one prompt that shares its first
+    128 text tokens with one of them (a partial hit) ahead of the rest."""
+    texts = _serve_text(cfg, 16, SMOKE_SEED + 6)
+    subs = [dict(text=texts[0], seed=1000 + i, group_id=7) for i in range(2)]
+    subs.append(dict(text=texts[1], seed=1002, cond_scale=3.0))
+    subs += [dict(text=texts[2 + i], seed=1003 + i, max_tokens=n)
+             for i, n in enumerate((40, 100, 180))]
+    full = [dict(text=texts[5 + i], seed=1010 + i) for i in range(10)]
+    subs += full[:2]
+    if paged:
+        subs += [dict(text=texts[t], seed=2000 + i) for i, t in enumerate((0, 1, 5, 5))]
+        partial = texts[15].copy()
+        partial[:128] = texts[5][:128]
+        subs.append(dict(text=partial, seed=2015))
+    return subs + full[2:]
+
+
+def _run_served(torch, eng, subs):
+    """Half the requests queued at once, the rest from a producer thread
+    while the engine runs. Returns (completions, wall seconds)."""
+    import threading
+    from dalle_tpu_torch.serve import RequestQueue
+    q = RequestQueue()
+    half = len(subs) // 2
+    for i, s in enumerate(subs[:half]):
+        q.submit(request_id=i, **s)
+
+    def producer():
+        for i, s in enumerate(subs[half:], start=half):
+            time.sleep(0.05)
+            q.submit(request_id=i, **s)
+        q.close()
+
+    t = threading.Thread(target=producer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.start()
+    done = eng.run(q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t.join()
+    return done, wall
+
+
+def phase_serve(torch, card):
+    import numpy as np
+    from dalle_tpu_torch import DalleWithVae, dalle_1p4b, init_dalle
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.serve import RequestQueue
+    torch.cuda.empty_cache()
+    cfg = dalle_1p4b()
+    model = init_dalle(cfg, seed=SMOKE_SEED)
+    wrapper = DalleWithVae(model, None)
+    wrapper._resolve_precision("bf16_int8kv")          # the one-time bf16 cast
+    launches, rows = {}, {}
+    for mode in ("dense", "paged"):
+        kw = dict(kv_block_tokens=16) if mode == "paged" else {}
+        eng = wrapper.serve_engine(slots=8, precision="bf16_int8kv", **kw)
+        subs = _serve_traffic(cfg, mode == "paged")
+        torch.cuda.reset_peak_memory_stats()
+        dec.window_launches = dec.paged_launches = 0      # the main path starts here
+        done, wall = _run_served(torch, eng, subs)
+        k3, k5 = dec.window_launches, dec.paged_launches
+        st = eng.stats
+        check(sorted(c.request_id for c in done) == list(range(len(subs))),
+              f"serve {mode}: {len(done)} of {len(subs)} requests completed")
+        for c in done:
+            n = subs[c.request_id].get("max_tokens") or cfg.image_seq_len
+            check(c.tokens.shape == (n,) and c.tokens.min() >= 0
+                  and c.tokens.max() < cfg.image_vocab_size,
+                  f"serve {mode}: request {c.request_id} tokens {c.tokens.shape}")
+        want = cfg.depth * st.window_dispatches
+        mine, other = (k3, k5) if mode == "dense" else (k5, k3)
+        check(mine == want and other == 0,
+              f"serve {mode}: K3 launched {k3}, K5 {k5}, expected {want} for "
+              f"{st.window_dispatches} attending dispatches and 0")
+        if mode == "paged":
+            check(st.radix_full_hits >= 4 and st.radix_partial_hits >= 1,
+                  f"serve paged: radix hits {st.radix_full_hits} full, "
+                  f"{st.radix_partial_hits} partial")
+        launches[mode] = {"decode_attend_window": k3, "decode_attend_window_paged": k5}
+        ttft = sorted(c.ttft_s for c in done)
+        tokens = sum(int(c.tokens.shape[0]) for c in done)
+        rows[mode] = dict(
+            mode=mode, slots=8, precision="bf16_int8kv", requests=len(done),
+            wall_s=wall, requests_per_s=len(done) / wall, image_tokens_per_s=tokens / wall,
+            ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p95_s=float(np.percentile(ttft, 95)),
+            ms_per_step=st.step_seconds * 1e3 / max(st.steps, 1), steps=st.steps,
+            refills=st.refills, prefill_chunks=st.prefill_chunks,
+            shared_refills=st.shared_refills, window_dispatches=st.window_dispatches,
+            radix_full_hits=st.radix_full_hits, radix_partial_hits=st.radix_partial_hits,
+            cow_forks=st.cow_forks, pages_evicted=st.pages_evicted,
+            occupancy_while_queued=st.occupancy_while_queued,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=launches[mode], card=card)
+        emit("serve", **rows[mode])
+
+    # device busy share over a window of steady decode steps (8 active rows)
+    eng = wrapper.serve_engine(slots=8, precision="bf16_int8kv")
+    q = RequestQueue()
+    for i, s in enumerate(_serve_traffic(cfg, False)[:8]):
+        q.submit(request_id=i, **s)
+    q.close()
+    eng.run(q, max_steps=8)                 # admitted and warm; rows stay active
+    saved = dec.window_launches, dec.paged_launches
+    steps = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng._multi_step()
+    bare = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng._multi_step()
+        wall = time.perf_counter() - t0
+    dec.window_launches, dec.paged_launches = saved
+    dev_us, by_kernel = device_time(torch, prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("serve_profile", precision="bf16_int8kv", slots=8, decode_steps=steps,
+         wall_ms_per_step_unprofiled=bare * 1e3 / steps,
+         wall_ms_per_step_profiled=wall * 1e3 / steps,
+         device_ms_per_step=dev_us / 1e3 / steps if dev_us else "not measured",
+         device_busy_share=(dev_us / 1e6) / bare if dev_us else "not measured",
+         top_device_ms_per_step={k: v / 1e3 / steps for k, v in top}, card=card)
+    del model, wrapper, eng
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -622,9 +981,12 @@ def main() -> int:
     card = phase_env(torch)
     errs, timing = phase_kernel(torch)
     k1_errs, k1_timing = phase_train_kernel(torch, card)
+    w_errs, w_timing = phase_serve_kernel(torch, card)
     phase_decode_vs_forward(torch)
     phase_train_parity(torch)
+    phase_serve_parity(torch)
     launches, _ = phase_generate(torch, card)
+    serve_launches, _ = phase_serve(torch, card)
     k1_launches, _ = phase_train(torch, card)
 
     f32 = timing["float32"]
@@ -653,6 +1015,28 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "timed_at": "b=8 n=512 h=14 d=128, bfloat16 qkv, causal",
             "tolerance": K1_TOL,
+        })
+    # K3 and K5: the headline time is a decode step (w=1) over the int8
+    # cache the serving path runs (bf16_int8kv); every case is beside it
+    for name, kname, line, mode in (
+            ("decode_attend_window", "K3", 232, "dense"),
+            ("decode_attend_window_paged", "K5", 480, "paged")):
+        t = w_timing["int8/w1"]
+        mine = {k: v for k, v in w_errs.items() if k.startswith(kname + "/")}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_tpu_torch/csrc/decode_window_attention.cu",
+            "replaces": f"dalle_tpu/ops/decode_attention.py:{line}",
+            "launches": serve_launches[mode][name],
+            "max_abs_err": max(mine.values()),
+            "ms": t[f"{kname}_ms"],
+            "plain_ms": t["plain_ms"] if kname == "K3" else t["K5_plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "timed_at": "b=8 h=14 d=128 S=512 w=1 starts=S-1, int8 cache, bf16 q",
+            "by_case": {k: {"ms": v[f"{kname}_ms"], "bound_ms": v["bound_ms"],
+                            "library_ms": v["library_ms"]} for k, v in w_timing.items()},
+            "tolerance": "decode_attention.window_tolerance, per element",
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,6 +7,9 @@ with a KV cache whose decode attention is a hand-written CUDA kernel
 Training: ``DalleTrainer.train_step`` takes text ids and image token ids to
 a clipped Adam update, its attention forward and backward in hand-written
 CUDA kernels (``ops/fused_attention.py``, ``csrc/fused_attention.cu``).
+Serving: ``DalleWithVae.serve_engine`` builds the continuous-batching
+``serve.DecodeEngine``, whose windowed attention over a dense or paged cache
+runs in hand-written CUDA kernels (``csrc/decode_window_attention.cu``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -15,3 +16,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
                            "device='cpu' to run it on the CPU")
     return torch.device("cuda")
+
+
+def to_device(array, device) -> torch.Tensor:
+    """A host numpy array as a tensor on ``device``. To a card it goes
+    through pinned memory without blocking the host, so an upload in the
+    middle of a dispatch does not wait for the kernels queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -13,20 +13,25 @@ logits, optionally in sequence chunks recomputed in the backward
 (``null_cond_prob``, or an injected ``null_mask``).
 
 Generation runs eagerly: a Python loop over decode steps, each step one
-``Transformer.decode_step`` whose attention is the decode kernel.
+``Transformer.decode_step`` whose attention is the decode kernel. The
+``serve_*`` methods are the continuous-batching engine's primitives
+(``serve/engine.py``): rows of one shared cache at ragged positions, each
+call a ``Transformer.decode_window`` at per-row offsets; a row that must not
+be touched passes offset max_seq (its writes drop, its output is discarded).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import DalleConfig
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..ops.sampling import gumbel_sample, top_k_filter
 from .transformer import LN_EPS, DivideMax, Transformer
 
@@ -302,6 +307,91 @@ class DALLE(nn.Module):
         if n_prime > 0:
             out = torch.cat([image_prime.to(out.dtype), out], dim=1)
         return out
+
+
+    # -- serving: per-row primitives of the continuous-batching engine ------
+    # Masks, offsets and image positions are host arrays: each call builds
+    # one WindowPlan (transformer.decode_window) and uploads it once. With
+    # the cache's max_seq equal to total_seq_len, every reduction has the
+    # width of its sequential counterpart.
+
+    def serve_img_logits(self, y):
+        """(b, dim) hidden states → (b, V) masked logits; every served
+        position predicts image tokens, so one allow-mask row serves all."""
+        return self._finish(y[:, None], self.cfg.text_seq_len, 1)[:, 0]
+
+    def serve_init_cache(self, batch: int, dtype=torch.float32):
+        """Shared decode cache for ``batch`` serve slots, max_seq =
+        total_seq_len (also the park offset)."""
+        return self.transformer.init_cache(batch, self.cfg.total_seq_len, dtype)
+
+    def serve_init_cache_paged(self, num_blocks: int, block_tokens: int,
+                               dtype=torch.float32):
+        """Paged serve cache: per-layer block pools whose reads cover
+        total_seq_len positions."""
+        return self.transformer.init_cache_paged(num_blocks, block_tokens,
+                                                 self.cfg.total_seq_len, dtype)
+
+    def _ids(self, ids):
+        dev = self._device()
+        if isinstance(ids, torch.Tensor):
+            return ids.to(dev)
+        return to_device(np.asarray(ids, np.int64), dev)
+
+    def serve_refill(self, text, cache, refill_mask):
+        """Admission: prefill the prompts of the ``refill_mask`` rows ((b,)
+        host bool) in one multi-row window at [0, prefix_len); the other rows
+        park. Returns (logits (b, V) for each row's first image token, cache)."""
+        S = cache["kv_0"].max_seq
+        tokens = self._stabilize(self.embed_text(self.remap_and_bos(self._ids(text))))
+        offsets = np.where(np.asarray(refill_mask, bool), 0, S)
+        y, cache = self.transformer.decode_window(tokens, cache, offsets)
+        return self.serve_img_logits(y[:, -1]), cache
+
+    def serve_refill_shared(self, text1, cache, refill_mask, cache_dtype=torch.float32):
+        """Shared-prefix admission: ONE b=1 prefill (``serve_prefill_row``)
+        copied into every ``refill_mask`` row of the dense cache. Returns
+        (logits (1, V), cache)."""
+        logits1, cache1 = self.serve_prefill_row(text1, cache_dtype=cache_dtype)
+        rows = self._ids(np.flatnonzero(np.asarray(refill_mask, bool)))
+        for name, small in cache1.items():
+            big = cache[name]
+            big.kv[rows] = small.kv
+            if big.scale is not None:
+                big.scale[rows] = small.scale
+        return logits1, cache
+
+    def serve_refill_window(self, ids, cache, refill_mask, start: int):
+        """Chunked-prefill admission: one window of already remapped+bos'd
+        prompt ids (b, w) written at [start, start+w) of the ``refill_mask``
+        rows. Returns (logits (b, V) from the window's last position, cache)."""
+        S = cache["kv_0"].max_seq
+        ids = self._ids(ids)
+        tok = self._embed_text_ids(ids)
+        if not self.cfg.rotary_emb:
+            tok = tok + self.text_pos_emb.weight[start:start + ids.shape[1]]
+        offsets = np.where(np.asarray(refill_mask, bool), start, S)
+        y, cache = self.transformer.decode_window(self._stabilize(tok), cache, offsets)
+        return self.serve_img_logits(y[:, -1]), cache
+
+    def serve_prefill_row(self, text, cache_dtype=torch.float32):
+        """Single-request prefill, the sequential ``_prefill``: (1,
+        text_seq_len) text → (logits (1, V), a fresh b=1 cache)."""
+        logits, cache, _ = self._prefill(self._ids(text), None, 1, cache_dtype)
+        return logits, cache
+
+    def serve_decode(self, tok, img_pos, offsets, cache):
+        """One decode step for every slot: ``tok`` (b,) image token ids on
+        the device, ``img_pos`` (b,) image grid positions and ``offsets``
+        (b,) cache positions on the host (parked rows pass max_seq).
+        Returns (logits (b, V), cache)."""
+        c = self.cfg
+        emb = self._embed_image_ids(tok[:, None])
+        if not c.rotary_emb:
+            pos = np.clip(np.asarray(img_pos, np.int64), 0, c.image_seq_len - 1)
+            emb = emb + self.image_pos_emb()[self._ids(pos)][:, None]
+        y, cache = self.transformer.decode_window(self._stabilize(emb), cache, offsets)
+        return self.serve_img_logits(y[:, 0]), cache
 
 
 def init_dalle(cfg: DalleConfig, *, seed: int = 0, device=None) -> DALLE:

@@ -33,10 +33,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
-from ..ops.attention import KVCache, attend, cached_attend
+from ..ops.attention import (KVCache, WindowPlan, attend, cached_attend,
+                             cached_attend_window)
 from ..ops.attn_masks import build_mask
 from ..ops.flash_attention import resolve_use_pallas
 from ..ops.fused_attention import MaskTable, fused_qkv_attention, mask_table
+from ..ops.paged_kv import PagedKVCache
 from ..ops.rotary import apply_rotary, dalle_pos_emb
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
@@ -146,6 +148,23 @@ class Attention(nn.Module):
         cache.append(k, v, offset)
         out = cached_attend(q, cache, offset + 1, static_mask=static_mask,
                             stable=self.stable, qpos=offset)
+        return self._merge(out), cache
+
+    def decode_window(self, x_w, cache, offsets, *, rotary=None):
+        """``w`` tokens per row at PER-ROW positions ``offsets[b] ..
+        offsets[b]+w-1`` (host (b,) offsets or a ``WindowPlan``): append
+        them (a dense ``KVCache`` or a ``PagedKVCache``), then attend through
+        ``cached_attend_window`` (K3 or K5). Rotary rows come from the full
+        table at each (row, slot), clamped into it. Full attention only."""
+        plan = (offsets if isinstance(offsets, WindowPlan)
+                else cache.window_plan(offsets, x_w.shape[1]))
+        q, k, v = self._split(x_w)
+        if rotary is not None:
+            rot = plan.rotary_rows(rotary)
+            q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
+        cache.append_rows(k, v, plan)
+        # q is a strided view of the projection when rotary is off
+        out = cached_attend_window(q.contiguous(), cache, plan.starts)
         return self._merge(out), cache
 
 
@@ -306,6 +325,16 @@ class Transformer(nn.Module):
                                           c.dim_head, dtype, device=device)
                 for ind in range(c.depth)}
 
+    def init_cache_paged(self, num_blocks: int, block_tokens: int, max_seq: int,
+                         dtype=torch.float32) -> Dict[str, PagedKVCache]:
+        """Paged twin of ``init_cache``: one block pool per layer. The page
+        table is the serve engine's, bound to every layer (``bind``)."""
+        c = self.cfg
+        device = self.layer_attn_0.scale.device
+        return {f"kv_{ind}": PagedKVCache.init(num_blocks, block_tokens, c.heads,
+                                               max_seq, c.dim_head, dtype, device=device)
+                for ind in range(c.depth)}
+
     def prefill(self, x, cache: Dict[str, KVCache]):
         """Run the full prefix, filling every layer's cache. Returns (y, cache)."""
         for ind in range(self.cfg.depth):
@@ -325,3 +354,20 @@ class Transformer(nn.Module):
             x_t = x_t + la.post(y)
             x_t = x_t + lf(x_t, ff)
         return x_t, cache
+
+    def decode_window(self, x_w, cache: Dict[str, Any], offsets):
+        """w tokens per row at per-row positions ``offsets`` ((b,) on the
+        host): the serve engine's refill windows, prefill chunks and decode
+        steps. One ``WindowPlan`` serves every layer. Full attention only.
+        Returns (y_w, cache)."""
+        if any(m != "full" for m in self.mask_keys):
+            raise ValueError("decode_window supports full attention only, got "
+                             f"{sorted(set(self.mask_keys))}")
+        plan = cache["kv_0"].window_plan(offsets, x_w.shape[1])
+        for ind in range(self.cfg.depth):
+            la, attn, lf, ff, _ = self._layer(ind)
+            y, _ = attn.decode_window(la.norm(x_w), cache[f"kv_{ind}"], plan,
+                                      rotary=self.rotary)
+            x_w = x_w + la.post(y)
+            x_w = x_w + lf(x_w, ff)
+        return x_w, cache

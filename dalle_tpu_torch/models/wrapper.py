@@ -2,9 +2,11 @@
 
 Port of ``DiscreteVAEAdapter`` and ``DalleWithVae.generate_images`` from
 ``dalle_tpu/models/wrapper.py`` for the precision modes float32, bfloat16
-(bf16 weights and KV cache) and bf16_int8kv (bf16 weights, int8 KV cache).
-Image priming from pixels, CLIP reranking, int8 weights and speculative
-decoding are not ported yet and raise ``NotImplementedError``.
+(bf16 weights and KV cache) and bf16_int8kv (bf16 weights, int8 KV cache),
+and ``DalleWithVae.serve_engine``, the continuous-batching engine over the
+same derived weights. Image priming from pixels, CLIP reranking, int8
+weights and speculative decoding are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -87,3 +89,26 @@ class DalleWithVae:
             temperature=temperature, cond_scale=cond_scale,
             cache_dtype=cache_dtype)
         return self.vae.decode(ids)
+
+    def serve_engine(self, *, slots: int, precision: str = "bf16_int8kv",
+                     filter_thres: float = 0.5, temperature: float = 1.0,
+                     topk_approx: bool = False, steps_per_sync: int = 1,
+                     decode_health: bool = False, prefill_chunk: int = 0,
+                     kv_block_tokens: int = 0, kv_pool_blocks=None,
+                     radix_cache: bool = True, noise_fn=None):
+        """Continuous-batching decode engine (``serve/engine.py``) over this
+        wrapper's model, in a precision mode of ``generate_images``: bf16
+        modes reuse the one cached bf16 copy of the weights. The default is
+        bf16 weights with an int8 KV cache (the JAX package defaults to
+        int8 weights, ``int8w``, which is not ported yet). The engine runs
+        where the model is, and emits image token ids per request."""
+        from ..serve.engine import DecodeEngine
+        model, cache_dtype = self._resolve_precision(precision)
+        return DecodeEngine(model, slots=slots, cache_dtype=cache_dtype,
+                            filter_thres=filter_thres, temperature=temperature,
+                            topk_approx=topk_approx, steps_per_sync=steps_per_sync,
+                            decode_health=decode_health, prefill_chunk=prefill_chunk,
+                            kv_block_tokens=kv_block_tokens,
+                            kv_pool_blocks=kv_pool_blocks, radix_cache=radix_cache,
+                            noise_fn=noise_fn,
+                            device=next(model.parameters()).device)

@@ -4,16 +4,27 @@ Port of ``dalle_tpu/ops/attention.py``: dense causal ``attend`` with stable
 softmax, key mask and static-mask alignment; the merged sequence-major
 ``KVCache``; ``cached_attend``, which sends a decode step to the CUDA kernel
 (``ops/decode_attention.py``) on the card and to its plain version on the
-CPU.
+CPU; and ``cached_attend_window``, the serve engine's per-row windowed
+attend, which sends a dense slab to K3 and a paged pool to K5.
+
+Windowed writes (``append_rows``) take their per-row offsets on the host.
+A ``WindowPlan`` turns them, once per dispatch, into the kernel's (b,)
+starts and the flat rows each new position lands in, uploaded in one copy
+and shared by every layer. Positions outside the cache (a parked row sits at
+offset max_seq) and unmapped pages are dropped there, as the JAX package's
+out-of-bounds scatters drop them; PyTorch would raise on such an index.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from .decode_attention import decode_attend
+from ..device import to_device
+from .decode_attention import (decode_attend, decode_attend_window,
+                               decode_attend_window_paged)
 
 NEG_INF = -1e9
 
@@ -67,6 +78,65 @@ def _quantize_int8(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.int64)
+
+
+class WindowPlan:
+    """Where a window of ``w`` new positions per row lands: ``pos`` (b, w)
+    absolute positions and ``starts`` (b,) int32 on the cache's device;
+    ``src`` (n,) the rows of the flattened (b·w) window that are written and
+    ``dst`` (n,) the flat cache row each lands in (``dst_b``/``dst_p``: its
+    batch row and position, for the dense scale layout). Built on the host
+    from ``offsets`` and ``targets`` ((b, w) positions → flat rows, -1 =
+    dropped), uploaded in one copy."""
+
+    def __init__(self, offsets, w: int, targets: Callable, device, slab_len: int = 0):
+        offsets = _host(offsets).reshape(-1)
+        b = offsets.shape[0]
+        pos = offsets[:, None] + np.arange(w, dtype=np.int64)[None, :]
+        dst = targets(pos).reshape(-1)
+        src = np.flatnonzero(dst >= 0)
+        dst = dst[src]
+        n = src.shape[0]
+        parts = [offsets, pos.reshape(-1), src, dst]
+        if slab_len:
+            parts += [dst // slab_len, dst % slab_len]
+        flat = to_device(np.concatenate(parts), device)
+        cut = np.cumsum([b, b * w, n, n, n, n])
+        self.starts = flat[:cut[0]].to(torch.int32)
+        self.pos = flat[cut[0]:cut[1]].view(b, w)
+        self.src, self.dst = flat[cut[1]:cut[2]], flat[cut[2]:cut[3]]
+        if slab_len:
+            self.dst_b, self.dst_p = flat[cut[3]:cut[4]], flat[cut[4]:cut[5]]
+        self._rot = None
+
+    def rotary_rows(self, table: torch.Tensor) -> torch.Tensor:
+        """(b, 1, w, r) rotary rows at the window's positions, clamped into
+        the table (a parked row overshoots it), gathered once per plan."""
+        if self._rot is None or self._rot[0] is not table:
+            rows = table[self.pos.clamp(0, table.shape[0] - 1)][:, None]
+            self._rot = (table, rows)
+        return self._rot[1]
+
+
+def window_rows(k_new: torch.Tensor, v_new: torch.Tensor, dtype):
+    """(b,h,w,d) keys and values → (b·w, 2hd) cache rows in ``dtype`` and,
+    for int8, their (b·w, 2h) scales (K heads, then V heads)."""
+    b, h, w, d = k_new.shape
+    if dtype == torch.int8:
+        kq, ks = _quantize_int8(k_new)
+        vq, vs = _quantize_int8(v_new)
+        rows = torch.cat([KVCache._flatten(kq), KVCache._flatten(vq)], dim=2)
+        sc = torch.cat([ks[..., 0], vs[..., 0]], dim=1).transpose(1, 2)   # (b,w,2h)
+        return rows.reshape(b * w, -1), sc.reshape(b * w, -1)
+    rows = torch.cat([KVCache._flatten(k_new.to(dtype)),
+                      KVCache._flatten(v_new.to(dtype))], dim=2)
+    return rows.reshape(b * w, -1), None
+
+
 class KVCache:
     """Preallocated decode cache for one attention layer.
 
@@ -82,6 +152,11 @@ class KVCache:
         self.kv = kv
         self.scale = scale
         self.heads = heads
+
+    @property
+    def max_seq(self) -> int:
+        """Sequence capacity, which is also the park offset."""
+        return self.kv.shape[1]
 
     @classmethod
     def init(cls, batch: int, heads: int, max_seq: int, dim_head: int,
@@ -118,6 +193,30 @@ class KVCache:
         else:
             rows[..., :hd] = self._flatten(k_new)
             rows[..., hd:] = self._flatten(v_new)
+        return self
+
+    def window_plan(self, offsets, w: int) -> WindowPlan:
+        """The plan of a window of ``w`` positions per row at the host
+        ``offsets`` (b,); positions outside [0, max_seq) are dropped."""
+        B, S = self.kv.shape[:2]
+
+        def targets(pos):
+            rows = np.arange(pos.shape[0], dtype=np.int64)[:, None] * S + pos
+            return np.where((pos >= 0) & (pos < S), rows, -1)
+
+        return WindowPlan(offsets, w, targets, self.kv.device, slab_len=S)
+
+    def append_rows(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                    offsets) -> "KVCache":
+        """Write (b,h,w,d) new keys/values at PER-ROW positions ``offsets``
+        ((b,) on the host, or a ``WindowPlan``), in place; positions outside
+        the cache are dropped. Returns self."""
+        plan = (offsets if isinstance(offsets, WindowPlan)
+                else self.window_plan(offsets, k_new.shape[2]))
+        rows, sc = window_rows(k_new, v_new, self.kv.dtype)
+        self.kv.view(-1, self.kv.shape[2]).index_copy_(0, plan.dst, rows[plan.src])
+        if sc is not None:
+            self.scale[plan.dst_b, :, plan.dst_p] = sc[plan.src]
         return self
 
     def read_kv(self, dtype=None):
@@ -179,3 +278,18 @@ def cached_attend(q: torch.Tensor, cache: KVCache, length: int, *,
     # q may be a strided view of the qkv projection (rotary off); the kernel
     # takes it dense
     return decode_attend(q.contiguous(), cache, length, mask_row=row, scale=scale)
+
+
+def cached_attend_window(q: torch.Tensor, cache, starts, *,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-token cached decode with PER-ROW positions: q (b, h, w, d), row
+    b's queries at ``starts[b] .. starts[b]+w-1``, query j attending the
+    cache positions <= starts[b]+j. A dense ``KVCache`` goes to K3
+    (``decode_attend_window``), a paged ``PagedKVCache`` to K5
+    (``decode_attend_window_paged``): CUDA on the card, their plain versions
+    on the CPU. A layer with the stable softmax takes them too: dividing the
+    scores by alpha, subtracting their max and multiplying back is the
+    kernels' f32 max-subtracted softmax."""
+    if hasattr(cache, "pool"):
+        return decode_attend_window_paged(q, cache, starts, scale=scale)
+    return decode_attend_window(q, cache, starts, scale=scale)

@@ -1,11 +1,18 @@
-"""Single-token decode attention: the CUDA kernel, its wrapper and its plain
-version.
+"""Decode attention: the CUDA kernels, their wrappers and plain versions.
 
-``decode_attend`` is the port of the JAX package's Pallas kernel
+``decode_attend`` (K2) is the port of the JAX package's Pallas kernel
 ``dalle_tpu/ops/decode_attention.py::decode_attend_kernel``. On a CUDA tensor
 it launches ``csrc/decode_attention.cu`` (built at first use, see
 ``_build.py``) or raises; on a CPU tensor it runs ``decode_attend_plain``,
 the same function in plain tensor code. ``launches`` counts kernel launches.
+
+``decode_attend_window`` (K3) and ``decode_attend_window_paged`` (K5) port
+``decode_attend_window_kernel`` and ``decode_attend_window_paged``: w
+queries per row at per-row starts, over the dense slab or the paged block
+pool, both launched from ``csrc/decode_window_attention.cu``. Their plain
+versions are ``decode_attend_window_plain`` and
+``decode_attend_window_paged_plain``; ``window_launches`` and
+``paged_launches`` count their launches.
 
 The function: q (b, h, 1, d) against the merged cache (b, S, 2·h·d) of
 ``ops/attention.KVCache`` (f32, bf16, or int8 with per-position scales
@@ -146,4 +153,205 @@ def decode_attend(q: torch.Tensor, cache, length: int, *,
     if rc != 0:
         raise RuntimeError(f"decode_attend kernel failed to launch: CUDA error {rc}")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3 / K5: windowed decode attention with per-row starts
+# ---------------------------------------------------------------------------
+
+# launches of the windowed kernel over a dense slab (K3) and over a paged pool
+# (K5) since the last reset
+window_launches = 0
+paged_launches = 0
+_window_fn = None
+_window_smem_fn = None
+
+
+def decode_attend_window_plain(q, kv, kv_scale, starts, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """K3's function in plain tensor code: q (b, h, w, d) against the merged
+    cache (b, S, 2hd) (+ (b, 2h, S) f32 scales for int8); query j of row b
+    sees the positions <= starts[b] + j. As in the Pallas kernel, a bf16 or
+    int8 cache rounds q·scale and the (V-scaled) probabilities to bf16
+    before the products, which sum in f32; an f32 cache stays f32. Output in
+    q's dtype."""
+    b, h, w, d = q.shape
+    S = kv.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    dot_dt = torch.float32 if kv.dtype == torch.float32 else torch.bfloat16
+    qs = (q.float() * scale).to(dot_dt).float()
+    k = kv[:, :, :h * d].reshape(b, S, h, d).to(dot_dt).float()
+    v = kv[:, :, h * d:].reshape(b, S, h, d).to(dot_dt).float()
+    s = torch.einsum("bhwd,bshd->bhws", qs, k)
+    if kv_scale is not None:
+        s = s * kv_scale[:, :h, None, :]
+    starts = torch.as_tensor(starts, device=q.device).long()
+    qpos = starts[:, None] + torch.arange(w, device=q.device)[None, :]   # (b, w)
+    valid = (torch.arange(S, device=q.device)[None, None, :]
+             <= qpos[:, :, None])[:, None]                              # (b,1,w,S)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    den = p.sum(dim=-1, keepdim=True)
+    if kv_scale is not None:
+        p = p * kv_scale[:, h:, None, :]
+    p = p.to(dot_dt).float()
+    o = torch.einsum("bhws,bshd->bhwd", p, v)
+    o = o / torch.where(den > 0, den, 1.0)
+    return o.to(q.dtype)
+
+
+def window_tolerance(want: torch.Tensor, kv_dtype) -> torch.Tensor:
+    """Per-element bound of K3/K5 against their plain version on the same
+    inputs. An f32 cache: the two differ in summation order only, 2e-5 of
+    the largest output (at least 1). A bf16 or int8 cache: both round
+    q·scale and the probabilities to bf16 at the same points, and a
+    probability on a rounding boundary may round the other way when its
+    score was summed in another order (2^-8 of the largest output of the
+    same (row, head, query), a convex combination of the V rows it sees);
+    the bf16 output adds its own rounding (2^-7 of the element, one ulp
+    either side)."""
+    want = want.float()
+    if kv_dtype == torch.float32:
+        return torch.full_like(want, 2e-5) * want.abs().max().clamp_min(1.0)
+    return 2.0 ** -7 * want.abs() + 2.0 ** -8 * want.abs().amax(-1, keepdim=True)
+
+
+def window_share(got: torch.Tensor, want: torch.Tensor, kv_dtype) -> float:
+    """The worst element's share of its ``window_tolerance`` bound (NaN if
+    any element is NaN). An exact match counts 0: a query that sees only
+    unmapped pages outputs exact zeros, and its bound is 0."""
+    diff = (got.float() - want.float()).abs()
+    share = diff / window_tolerance(want, kv_dtype)
+    return torch.where(diff == 0, 0.0, share).max().item()
+
+
+def decode_attend_window_paged_plain(q, cache, starts, *,
+                                     scale: Optional[float] = None) -> torch.Tensor:
+    """K5's function in plain tensor code: the paged cache gathered into its
+    dense slab (``cache.gather_dense()``), then K3's plain version."""
+    dense = cache.gather_dense()
+    return decode_attend_window_plain(q, dense.kv, dense.scale, starts, scale=scale)
+
+
+def _window_kernel():
+    global _window_fn, _window_smem_fn
+    if _window_fn is None:
+        from ._build import library
+        lib = library("decode_window_attention")
+        fn = lib.decode_attend_window
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        smem = lib.decode_window_smem_bytes
+        smem.argtypes = [ctypes.c_int] * 4
+        smem.restype = ctypes.c_longlong
+        _window_fn, _window_smem_fn = fn, smem
+    return _window_fn
+
+
+def _check_window(q, kv, kv_scale, starts, scale_shape, S):
+    """What the windowed kernel takes; raises on anything else. ``kv`` is the
+    dense slab or the pool, ``S`` the logical cache length."""
+    b, h, w, d = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if kv.dtype not in _DTYPE_CODE:
+        raise TypeError(f"cache must be float32, bfloat16 or int8, got {kv.dtype}")
+    if kv.dim() != 3 or kv.shape[2] != 2 * h * d:
+        raise ValueError(f"cache {tuple(kv.shape)} does not match q {tuple(q.shape)}")
+    if d > MAX_DIM_HEAD or d % _ELEMS_PER_16B[kv.dtype]:
+        raise ValueError(f"dim_head {d} must be <= {MAX_DIM_HEAD} and a multiple "
+                         f"of {_ELEMS_PER_16B[kv.dtype]} for a {kv.dtype} cache")
+    if (kv.dtype == torch.int8) != (kv_scale is not None):
+        raise ValueError("an int8 cache needs its scales, other caches none")
+    if kv_scale is not None and (kv_scale.dtype != torch.float32
+                                 or tuple(kv_scale.shape) != scale_shape):
+        raise ValueError(f"scales must be float32 {scale_shape}")
+    if starts.dtype != torch.int32 or tuple(starts.shape) != (b,):
+        raise ValueError(f"starts must be int32 ({b},)")
+    for t in [q, kv, starts] + ([] if kv_scale is None else [kv_scale]):
+        if t.device != q.device:
+            raise ValueError("decode_attend_window operands must share one device")
+        if not t.is_contiguous():
+            raise ValueError("decode_attend_window operands must be contiguous")
+    if kv.data_ptr() % 16:
+        raise ValueError("cache must be 16-byte aligned")
+    _window_kernel()
+    smem = _window_smem_fn(_DTYPE_CODE[kv.dtype], w, S, d)
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(f"cache length {S} exceeds the windowed kernel's shared "
+                         f"memory ({smem} bytes)")
+
+
+def _launch_window(q, kv, kv_scale, pages, starts, S, bt, max_blocks, scale):
+    b, h, w, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty_like(q)
+    if b * h * w == 0:
+        return out
+    rc = _window_kernel()(
+        q.data_ptr(), _DTYPE_CODE[q.dtype], kv.data_ptr(), _DTYPE_CODE[kv.dtype],
+        None if kv_scale is None else kv_scale.data_ptr(),
+        None if pages is None else pages.data_ptr(), starts.data_ptr(),
+        out.data_ptr(), b, h, w, S, d, bt, max_blocks, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attend_window kernel failed to launch: CUDA error {rc}")
+    return out
+
+
+def _cuda_starts(q, starts):
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attend_window runs on cuda or cpu, not {q.device}")
+    return torch.as_tensor(starts, dtype=torch.int32, device=q.device)
+
+
+def decode_attend_window(q: torch.Tensor, cache, starts, *,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """K3: q (b,h,w,d) × ``cache`` (an ``ops/attention.KVCache``) → (b,h,w,d)
+    in q's dtype, query j of row b at position ``starts[b] + j`` ((b,) int,
+    int32 on the card)."""
+    global window_launches
+    kv, kv_scale = cache.kv, cache.scale
+    if q.device.type == "cpu":
+        return decode_attend_window_plain(q, kv, kv_scale, starts, scale=scale)
+    starts = _cuda_starts(q, starts)
+    b, h, _, _ = q.shape
+    S = kv.shape[1]
+    _check_window(q, kv, kv_scale, starts, (b, 2 * h, S), S)
+    if kv.shape[0] != b:
+        raise ValueError(f"cache batch {kv.shape[0]} != q batch {b}")
+    out = _launch_window(q, kv, kv_scale, None, starts, S, 0, 0, scale)
+    window_launches += 1
+    return out
+
+
+def decode_attend_window_paged(q: torch.Tensor, cache, starts, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """K5: K3 over a paged cache (an ``ops/paged_kv.PagedKVCache`` with its
+    page table bound), read through the page table in the kernel."""
+    global paged_launches
+    if q.device.type == "cpu":
+        return decode_attend_window_paged_plain(q, cache, starts, scale=scale)
+    starts = _cuda_starts(q, starts)
+    b, h, _, _ = q.shape
+    pool, pool_scale, pages = cache.pool, cache.scale, cache.pages
+    bt, S = cache.block_tokens, cache.max_seq
+    _check_window(q, pool, pool_scale, starts, (pool.shape[0], bt, 2 * h), S)
+    if pool.shape[1] != bt:
+        raise ValueError(f"pool {tuple(pool.shape)} does not hold blocks of {bt}")
+    if (pages is None or pages.dtype != torch.int32 or pages.dim() != 2
+            or pages.shape[0] != b or pages.device != q.device
+            or not pages.is_contiguous() or pages.shape[1] * bt < S):
+        raise ValueError(f"pages must be a contiguous int32 ({b}, >= {-(-S // bt)}) "
+                         "page table on the query's device")
+    out = _launch_window(q, pool, pool_scale, pages, starts, S, bt, pages.shape[1], scale)
+    paged_launches += 1
     return out

@@ -1,8 +1,11 @@
 """Sampling primitives: top-k filtering and the gumbel-max draw.
 
-Port of ``dalle_tpu/ops/sampling.py`` (``top_k_filter``, ``gumbel_sample``).
-Draws come from an explicit ``torch.Generator``; ``gumbel_sample`` also takes
-injected noise, so a test can feed it the JAX package's own draws.
+Port of ``dalle_tpu/ops/sampling.py`` (``top_k_filter``, ``gumbel_sample``,
+``gumbel_sample_rows``). Draws come from an explicit ``torch.Generator``;
+``gumbel_sample`` also takes injected noise, so a test can feed it the JAX
+package's own draws. ``row_noise`` gives each row of a batch its own draw
+source, which is how the serve engine keeps every request's tokens those of
+a sequential run under the request's own generator.
 """
 
 from __future__ import annotations
@@ -42,3 +45,28 @@ def gumbel_sample(logits: torch.Tensor, *, temperature: float = 1.0,
                          f"{tuple(logits.shape)}")
     scaled = logits.float() / max(temperature, 1e-10)
     return torch.argmax(scaled + noise.to(scaled.device, torch.float32), dim=-1)
+
+
+def row_noise(sources, vocab: int, device) -> torch.Tensor:
+    """(len(sources), vocab) f32 gumbel draws, one row per source: a
+    ``torch.Generator`` draws ``(1, vocab)`` exactly as a sequential batch-1
+    sampler does, a tensor or array is taken as the row's draw, None (a
+    parked row) draws nothing and gives zeros."""
+    rows = []
+    for src in sources:
+        if src is None:
+            rows.append(torch.zeros((1, vocab), dtype=torch.float32, device=device))
+        elif isinstance(src, torch.Generator):
+            rows.append(gumbel_noise((1, vocab), generator=src, device=device))
+        else:
+            rows.append(torch.as_tensor(src, dtype=torch.float32).reshape(1, vocab).to(device))
+    return torch.cat(rows, dim=0)
+
+
+def gumbel_sample_rows(logits: torch.Tensor, noise: torch.Tensor, *,
+                       thres: float = 0.5, temperature: float = 1.0) -> torch.Tensor:
+    """Per-row filtered gumbel-argmax over (b, V) logits with a (b, V) draw
+    (``row_noise``): ``top_k_filter`` + ``gumbel_sample`` row by row, so a
+    row sampled here equals that row sampled alone under the same draw."""
+    return gumbel_sample(top_k_filter(logits, thres=thres),
+                         temperature=temperature, noise=noise)

@@ -14,7 +14,10 @@ the two differ by up to one bf16 rounding of an O(1) value (1.6e-2).
 
 The fused attention kernels (K1) are held to their plain versions element
 by element, within ``fused_attention.kernel_tolerance`` (its docstring gives
-the reasons), and their row max and sum within 1e-5.
+the reasons), and their row max and sum within 1e-5. The windowed kernels
+(K3 over the dense slab, K5 over the paged pool) are held to theirs within
+``decode_attention.window_tolerance``, and K5 must equal K3 on the gathered
+slab bit for bit.
 """
 
 import numpy as np
@@ -27,6 +30,8 @@ from dalle_tpu_torch.ops import decode_attention as dec
 from dalle_tpu_torch.ops import fused_attention as fa
 from dalle_tpu_torch.ops.attention import KVCache, cached_attend
 from dalle_tpu_torch.ops.attn_masks import build_mask
+from dalle_tpu_torch.ops.paged_kv import PagedKVCache
+from dalle_tpu_torch.serve import DecodeEngine, RequestQueue
 from dalle_tpu_torch.train.trainer_dalle import DalleTrainer
 
 pytestmark = pytest.mark.cuda
@@ -232,3 +237,89 @@ def test_train_step_on_the_card_goes_through_k1_and_matches_the_plain_version():
         ref = p.grad
         tol = 1e-2 * ref.abs().max().item()
         assert (card_grads[name] - ref).abs().max().item() <= tol, name
+
+
+# ---------------------------------------------------------------------------
+# K3 / K5: windowed decode attention over the dense slab and the paged pool
+# ---------------------------------------------------------------------------
+
+def _paged(cache, bt, seed):
+    """The cache's content behind a shuffled page table (one page per row
+    unmapped)."""
+    b, S, _ = cache.kv.shape
+    h = cache.heads
+    d = cache.kv.shape[2] // (2 * h)
+    mb = -(-S // bt)
+    nb = b * mb + 3
+    pages = np.random.RandomState(seed).permutation(nb)[:b * mb].reshape(b, mb)
+    pages = pages.astype(np.int32)
+    pages[np.arange(b), np.arange(b) % mb] = -1
+    pc = PagedKVCache.init(nb, bt, h, S, d, cache.kv.dtype, device="cuda").bind(pages)
+    k, v = cache.read_kv(dtype=torch.float32)
+    return pc.append_rows(k.contiguous(), v.contiguous(), np.zeros(b, np.int64))
+
+
+@pytest.mark.parametrize("w", [1, 16, 257])
+@pytest.mark.parametrize("shape", [(8, 14, 128, 512), (3, 6, 64, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_window_kernels_match_plain_and_paged_equals_dense(dtype, shape, w):
+    b, h, d, S = shape
+    q1, cache = _cache(b, h, S, d, dtype, seed=w + S)
+    gen = torch.Generator("cuda").manual_seed(w)
+    q = torch.randn(b, h, w, d, device="cuda", generator=gen).to(q1.dtype)
+    st = [0, S - w, S] + list(np.random.RandomState(w).randint(0, S - w + 1, b))
+    starts = torch.tensor(st[:b], dtype=torch.int32, device="cuda")
+    pc = _paged(cache, 16, seed=w)
+    before = dec.window_launches, dec.paged_launches
+    out3 = dec.decode_attend_window(q, cache, starts)
+    out5 = dec.decode_attend_window_paged(q, pc, starts)
+    assert (dec.window_launches, dec.paged_launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((out3, dec.decode_attend_window_plain(q, cache.kv, cache.scale, starts)),
+                      (out5, dec.decode_attend_window_paged_plain(q, pc, starts))):
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and got.shape == q.shape
+        share = dec.window_share(got, want, dtype)
+        assert share <= 1.0, share
+    slab = dec.decode_attend_window(q, pc.gather_dense(), starts)
+    live = starts < S
+    assert torch.equal(out5[live], slab[live])
+
+
+def test_window_wrapper_raises_instead_of_falling_back():
+    q, cache = _cache(2, 2, 16, 32, torch.float32, seed=3)
+    starts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        dec.decode_attend_window(q[..., ::2], cache, starts)       # strided, d mismatch
+    with pytest.raises(ValueError):
+        dec.decode_attend_window(q, cache, starts[:1])              # starts shape
+    pc = PagedKVCache.init(4, 8, 2, 16, 32, device="cuda")
+    with pytest.raises(ValueError):
+        dec.decode_attend_window_paged(q, pc, starts)               # no page table
+
+
+def test_engine_on_the_card_goes_through_k3_and_k5_and_matches_sequential():
+    """A tiny engine on the card, dense then paged: every attending dispatch
+    launches the windowed kernel once per layer (K3 dense, K5 paged), and
+    each request's tokens equal the port's sequential generation under its
+    generator (f32)."""
+    model = init_dalle(DalleConfig(**TINY), seed=7)
+    rng = np.random.RandomState(1)
+    texts = rng.randint(1, TINY["num_text_tokens"], (4, TINY["text_seq_len"])).astype(np.int32)
+    n = TINY["image_fmap_size"] ** 2
+    refs = [model.generate_images_tokens(
+        torch.from_numpy(t[None]).cuda(),
+        generator=torch.Generator("cuda").manual_seed(10 + i))[0].cpu().numpy()
+        for i, t in enumerate(texts)]
+    for kw in (dict(), dict(kv_block_tokens=4)):
+        eng = DecodeEngine(model, slots=2, **kw)
+        q = RequestQueue()
+        for i, t in enumerate(texts):
+            q.submit(t, seed=10 + i, request_id=i, max_tokens=9 if i == 2 else None)
+        q.close()
+        before = dec.window_launches, dec.paged_launches
+        done = {c.request_id: c.tokens for c in eng.run(q)}
+        k3, k5 = dec.window_launches - before[0], dec.paged_launches - before[1]
+        want = TINY["depth"] * eng.stats.window_dispatches
+        assert (k3, k5) == ((0, want) if kw else (want, 0))
+        for i, ref in enumerate(refs):
+            np.testing.assert_array_equal(done[i], ref[:9 if i == 2 else n])
