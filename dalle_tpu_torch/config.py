@@ -70,8 +70,9 @@ class TransformerConfig:
     shared_attn_ids: Optional[Tuple[int, ...]] = None
     shared_ff_ids: Optional[Tuple[int, ...]] = None
     optimize_for_inference: bool = False
-    # full-sequence attention: "auto" (the fused kernel K1 on the card below
-    # 2048 tokens, dense on the CPU), "fused" (K1), "off" (dense); see
+    # full-sequence attention: "auto" (on the card the fused kernel K1 below
+    # 2048 tokens and the flash kernel K4 from there on; dense on the CPU),
+    # "fused" (K1), "flash"/"on" (K4), "off" (dense); see
     # ops/flash_attention.resolve_use_pallas
     use_pallas: str = "auto"
     # False keeps the attention scores in the activation dtype

@@ -10,13 +10,20 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
 * Every sparse attention kind is the dense core plus a static mask, kept
   as an int32 (seq, seq) buffer whose rows feed the decode kernel directly.
 * The full-sequence forward resolves ``use_pallas`` against the device
-  (``ops/flash_attention.resolve_use_pallas``). In "fused" mode the causal
-  layers without a key mask or the stable softmax run the fused-boundary
-  kernel K1 (``ops/fused_attention.py``) straight off the qkv projection,
-  rotary applied on its (b, n, 3h, d) view; the mask tables it reads are
-  built once per (layer kind, length, device). The rest runs ``attend``.
+  (``ops/flash_attention.resolve_use_pallas``) into a mode: "fused",
+  "flash" or False (dense ``attend``). A layer with a key mask is dense.
+  In "fused" mode the causal layers without the stable softmax run the
+  fused-boundary kernel K1 (``ops/fused_attention.py``) straight off the
+  qkv projection, rotary applied on its (b, n, 3h, d) view. In "flash" mode
+  every layer runs the block-sparse kernel K4 (``ops/flash_attention.py``)
+  on the split (b, h, n, d) q, k, v after rotary: stable layers too (the
+  flash softmax subtracts the max, which subsumes the stable variant) and
+  non-causal ones. K1's mask tables and K4's schedules (block lists plus a
+  structured spec, or an int8 table) are built once per (layer kind,
+  length, device) and kept.
 * ``use_remat`` recomputes each attn+ff block pair in the backward
-  (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package.
+  (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package;
+  the recompute runs K1's or K4's forward again.
 * Dropout is not ported: training with ``attn_dropout``/``ff_dropout`` > 0
   raises ``NotImplementedError`` (its mask bits could never match JAX's).
   Token shift and reversible blocks raise too.
@@ -36,7 +43,8 @@ from ..config import TransformerConfig
 from ..ops.attention import (KVCache, WindowPlan, attend, cached_attend,
                              cached_attend_window)
 from ..ops.attn_masks import build_mask
-from ..ops.flash_attention import resolve_use_pallas
+from ..ops.flash_attention import (FlashSchedule, flash_attention, flash_schedule,
+                                   resolve_use_pallas)
 from ..ops.fused_attention import MaskTable, fused_qkv_attention, mask_table
 from ..ops.paged_kv import PagedKVCache
 from ..ops.rotary import apply_rotary, dalle_pos_emb
@@ -103,10 +111,12 @@ class Attention(nn.Module):
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
     def forward(self, x, *, key_mask=None, rotary=None, static_mask=None,
-                fused: bool = False, table: Optional[MaskTable] = None):
-        """``fused`` (the resolved mode) sends a causal, non-stable layer
-        without a key mask through K1, whose visibility is ``table`` (None =
-        plain causal); otherwise ``static_mask`` feeds the dense core."""
+                fused: bool = False, table: Optional[MaskTable] = None,
+                flash: Optional[FlashSchedule] = None):
+        """``fused`` sends a causal, non-stable layer without a key mask
+        through K1, whose visibility is ``table`` (None = plain causal);
+        ``flash`` (a schedule) sends a layer without a key mask through K4;
+        otherwise ``static_mask`` feeds the dense core."""
         if fused and key_mask is None and self.causal and not self.stable:
             b, n, _ = x.shape
             qkv = self.to_qkv(x)
@@ -120,6 +130,9 @@ class Attention(nn.Module):
         if rotary is not None:
             rot = rotary[:x.shape[1]][None, None]
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
+        if flash is not None and key_mask is None:
+            out = flash_attention(q, k, v, causal=self.causal, schedule=flash)
+            return self._merge(out.to(x.dtype))
         out = attend(q, k, v, causal=self.causal, key_mask=key_mask,
                      static_mask=static_mask, stable=self.stable,
                      softmax_f32=self.softmax_f32)
@@ -213,10 +226,12 @@ class Transformer(nn.Module):
         self.mask_keys = [f"sparse_{i}" if t == "sparse" else t
                           for i, t in enumerate(types)]
         self._mask_buffers: Dict[str, Optional[str]] = {}
-        # structured specs for K1's tables (the JAX package's mask_specs),
-        # and the tables built from them and the masks
+        # structured specs for K1's tables and K4's schedules (the JAX
+        # package's mask_specs), and the tables and schedules built from them
+        # and the masks
         self._mask_specs: Dict[str, Optional[tuple]] = {}
         self._tables: Dict[Tuple[str, int, str], Optional[MaskTable]] = {}
+        self._schedules: Dict[Tuple[str, int, str], FlashSchedule] = {}
         for ind, (mk, t) in enumerate(zip(self.mask_keys, types)):
             if mk in self._mask_buffers:
                 continue
@@ -291,13 +306,38 @@ class Transformer(nn.Module):
                 self._mask_specs[mk], device)
         return self._tables[key]
 
-    def _block(self, x, ind: int, key_mask, fused: bool):
+    def flash_schedule(self, ind: int, n: int, device) -> FlashSchedule:
+        """Layer ``ind``'s K4 schedule at length ``n`` on ``device``: block
+        lists from its static mask, and its structured spec or else the mask
+        as an int8 table; built on first use and kept."""
+        mk = self.mask_keys[ind]
+        key = (mk, n, str(device))
+        if key not in self._schedules:
+            mask = self.static_mask(ind)
+            self._schedules[key] = flash_schedule(
+                n, None if mask is None else mask.cpu().numpy(), self._mask_specs[mk],
+                self.cfg.causal, device)
+        return self._schedules[key]
+
+    def _block(self, x, ind: int, key_mask, mode):
         """One attn + ff residual pair (the unit ``use_remat`` recomputes)."""
         la, attn, lf, ff, mask = self._layer(ind)
-        table = self.fused_table(ind, x.shape[1], x.device) if fused else None
-        x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary,
-                   static_mask=mask, fused=fused, table=table)
+        n = x.shape[1]
+        table = self.fused_table(ind, n, x.device) if mode == "fused" else None
+        sched = self.flash_schedule(ind, n, x.device) if mode == "flash" else None
+        x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary, static_mask=mask,
+                   fused=mode == "fused", table=table, flash=sched)
         return x + lf(x, ff)
+
+    def attention_mode(self, device, key_mask=None):
+        """The resolved full-sequence mode on ``device``: "fused", "flash" or
+        False. A key mask takes the dense path, and K1 takes only causal
+        layers without the stable softmax."""
+        c = self.cfg
+        mode = resolve_use_pallas(c.use_pallas, c.seq_len, device)
+        if key_mask is not None or (mode == "fused" and (not c.causal or c.stable)):
+            return False
+        return mode
 
     def forward(self, x, key_mask=None):
         c = self.cfg
@@ -305,15 +345,14 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 "dropout is not ported yet: train with attn_dropout = "
                 "ff_dropout = 0")
-        fused = (resolve_use_pallas(c.use_pallas, c.seq_len, x.device) == "fused"
-                 and key_mask is None and c.causal and not c.stable)
+        mode = self.attention_mode(x.device, key_mask)
         remat = c.use_remat and torch.is_grad_enabled()
         for ind in range(c.depth):
             if remat:
-                x = checkpoint(self._block, x, ind, key_mask, fused,
+                x = checkpoint(self._block, x, ind, key_mask, mode,
                                use_reentrant=False)
             else:
-                x = self._block(x, ind, key_mask, fused)
+                x = self._block(x, ind, key_mask, mode)
         return x
 
     # -- cached decode -----------------------------------------------------

@@ -235,29 +235,6 @@ class KVCache:
         return k, v
 
 
-def _cached_attend_stable(q: torch.Tensor, cache: KVCache, length: int, *,
-                          static_mask: Optional[torch.Tensor] = None,
-                          qpos: Optional[int] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """The JAX package's dense cached path with the stable softmax: the
-    whole cache in the matmul, positions ≥ length masked, int8 dequantized
-    in the query dtype."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    q = q * scale
-    ck, cv = cache.read_kv(dtype=q.dtype)
-    dots = torch.matmul(q, ck.transpose(-1, -2))            # (b,h,1,max)
-    valid = torch.arange(ck.shape[2], device=q.device) < length
-    if static_mask is not None:
-        if qpos is None:
-            qpos = length - 1
-        # the mask may cover more positions than the cache holds — trim
-        valid = valid & (static_mask[qpos, :ck.shape[2]] != 0)
-    dots = torch.where(valid, dots, NEG_INF)
-    attn = stable_softmax(dots.float(), dim=-1).to(cv.dtype)
-    return torch.matmul(attn, cv)
-
-
 def cached_attend(q: torch.Tensor, cache: KVCache, length: int, *,
                   static_mask: Optional[torch.Tensor] = None,
                   stable: bool = False, qpos: Optional[int] = None,
@@ -266,12 +243,10 @@ def cached_attend(q: torch.Tensor, cache: KVCache, length: int, *,
     ``qpos`` (default length-1) indexes the static_mask row.
 
     Runs the decode kernel (``decode_attend``: CUDA on the card, its plain
-    version on the CPU). ``stable=True`` takes the dense path instead, as
-    the JAX package does: its pre-division changes the softmax the kernel
-    computes."""
-    if stable:
-        return _cached_attend_stable(q, cache, length, static_mask=static_mask,
-                                     qpos=qpos, scale=scale)
+    version on the CPU), a layer with the stable softmax too: dividing the
+    scores by alpha = 1024 (a power of two), subtracting their max and
+    multiplying back is exact in f32, so it is the kernel's f32
+    max-subtracted softmax. ``stable`` is kept for the JAX signature."""
     row = None
     if static_mask is not None:
         row = static_mask[length - 1 if qpos is None else qpos]

@@ -14,11 +14,15 @@ the two differ by up to one bf16 rounding of an O(1) value (1.6e-2).
 
 The fused attention kernels (K1) are held to their plain versions element
 by element, within ``fused_attention.kernel_tolerance`` (its docstring gives
-the reasons), and their row max and sum within 1e-5. The windowed kernels
+the reasons), and their row max and sum within 1e-5. The flash kernels (K4:
+forward, dq, dk/dv) are held to theirs within
+``flash_attention.kernel_tolerance`` and ``lse_tolerance``. The windowed kernels
 (K3 over the dense slab, K5 over the paged pool) are held to theirs within
 ``decode_attention.window_tolerance``, and K5 must equal K3 on the gathered
 slab bit for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ import torch
 from dalle_tpu_torch.config import DalleConfig, OptimConfig, PrecisionConfig, TrainConfig
 from dalle_tpu_torch.models.dalle import init_dalle
 from dalle_tpu_torch.ops import decode_attention as dec
+from dalle_tpu_torch.ops import flash_attention as fl
 from dalle_tpu_torch.ops import fused_attention as fa
 from dalle_tpu_torch.ops.attention import KVCache, cached_attend
 from dalle_tpu_torch.ops.attn_masks import build_mask
@@ -237,6 +242,124 @@ def test_train_step_on_the_card_goes_through_k1_and_matches_the_plain_version():
         ref = p.grad
         tol = 1e-2 * ref.abs().max().item()
         assert (card_grads[name] - ref).abs().max().item() <= tol, name
+
+
+# ---------------------------------------------------------------------------
+# K4: the block-sparse flash attention kernels
+# ---------------------------------------------------------------------------
+
+def _k4_mask(kind, n, text_len, fmap):
+    """(numpy mask, spec) of a layer kind at length n: the training table
+    (one position longer than n) and its structured spec; "holes" is a
+    16-block sparse table with row 5 fully masked."""
+    if kind == "none":
+        return None, None
+    if kind == "holes":
+        mask = build_mask("sparse", text_len, fmap, block=16, num_random_blocks=1)[:n, :n]
+        mask[5] = False
+        return mask, None
+    spec = {"axial_row": ("axial", text_len, fmap, 0), "axial_col": ("axial", text_len, fmap, 1),
+            "conv_like": ("conv", text_len, fmap, 5, 1), "sparse": ("block", 128)}[kind]
+    return build_mask(kind, text_len, fmap, block=128), spec
+
+
+def _k4_case(b, h, n, d, dtype, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for _ in range(4)]
+
+
+def _assert_k4_close(got, want, lse=False):
+    tol = fl.lse_tolerance(want) if lse else fl.kernel_tolerance(want)
+    diff = (got.float() - want.float()).abs()
+    share = (diff / tol).max().item()
+    assert share <= 1.0, (share, diff.max().item())
+
+
+def _k4_all(q, k, v, do, sched):
+    """The three kernels, and the plain versions on the same inputs."""
+    o, lse = fl.flash_attention_fwd(q, k, v, sched)
+    ro, rlse = fl.flash_fwd_plain(q, k, v, sched)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    got = [o, lse, fl.flash_attention_bwd_dq(q, k, v, do, rlse, delta, sched),
+           *fl.flash_attention_bwd_dkv(q, k, v, do, rlse, delta, sched)]
+    want = [ro, rlse, fl.flash_bwd_dq_plain(q, k, v, do, rlse, delta, sched),
+            *fl.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, sched)]
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("case", [
+    # (b, h, n, d, causal, mask kind, text_len, fmap)
+    (2, 4, 300, 64, True, "axial_row", 45, 16), (2, 4, 300, 64, True, "axial_col", 45, 16),
+    (2, 4, 300, 64, True, "conv_like", 45, 16), (2, 3, 577, 64, True, "sparse", 322, 16),
+    (3, 6, 77, 64, True, "holes", 13, 8), (2, 2, 300, 32, False, "none", 0, 0),
+    (2, 14, 512, 128, True, "none", 0, 0), (1, 3, 130, 16, True, "none", 0, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(dtype, case):
+    b, h, n, d, causal, kind, text_len, fmap = case
+    mask, spec = _k4_mask(kind, n, text_len, fmap)
+    sched = fl.flash_schedule(n, mask, spec, causal, device="cuda")
+    q, k, v, do = _k4_case(b, h, n, d, dtype, seed=n + d)
+    before = fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches
+    got, want = _k4_all(q, k, v, do, sched)
+    assert (fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches) == tuple(
+        x + 1 for x in before)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_k4_close(g, w, lse=i == 1)
+    if kind == "holes":
+        # the fully masked row: zero output, lse +1e9, finite gradients
+        assert torch.equal(got[0][:, :, 5], torch.zeros_like(got[0][:, :, 5]))
+        assert bool((got[1][:, :, 5] == 1e9).all())
+        assert all(bool(torch.isfinite(g.float()).all()) for g in got[2:])
+
+
+def test_flash_kernels_are_deterministic():
+    q, k, v, do = _k4_case(2, 4, 200, 64, torch.bfloat16, seed=9)
+    sched = fl.flash_schedule(200, device="cuda")
+    runs = [_k4_all(q, k, v, do, sched)[0] for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_structured_spec_equals_table_on_the_card():
+    n, text_len, fmap = 300, 45, 16
+    q, k, v, do = _k4_case(2, 2, n, 64, torch.float32, seed=5)
+    for kind in ("axial_row", "axial_col", "conv_like"):
+        mask, spec = _k4_mask(kind, n, text_len, fmap)
+        a = _k4_all(q, k, v, do, fl.flash_schedule(n, mask, spec, device="cuda"))[0]
+        t = _k4_all(q, k, v, do, fl.flash_schedule(n, mask, None, device="cuda"))[0]
+        assert all(torch.equal(x, y) for x, y in zip(a, t)), kind
+
+
+def test_flash_wrapper_raises_instead_of_falling_back():
+    q, k, v, _ = _k4_case(1, 2, 16, 32, torch.float32, seed=4)
+    sched = fl.flash_schedule(16, device="cuda")
+    with pytest.raises(ValueError):
+        fl.flash_attention_fwd(q[..., ::2], k[..., ::2], v[..., ::2], sched)   # d 16 strided
+    with pytest.raises(TypeError):
+        fl.flash_attention_fwd(q.half(), k.half(), v.half(), sched)
+    with pytest.raises(ValueError):
+        fl.flash_attention_fwd(q, k, v, fl.flash_schedule(17, device="cuda"))
+
+
+def test_flash_transformer_on_the_card_matches_dense():
+    """A DALL·E forward on the card in "flash" mode (K4 in every layer) and
+    in "off" mode (dense) on the same weights: f32 logits within 1e-4."""
+    cfg = DalleConfig(**{**TINY, "depth": 4}, use_pallas="flash",
+                      attn_types=("full", "axial_row", "axial_col", "conv_like"))
+    model = init_dalle(cfg, seed=11).eval()
+    gen = torch.Generator("cuda").manual_seed(12)
+    text = torch.randint(1, cfg.num_text_tokens, (2, cfg.text_seq_len), device="cuda",
+                         generator=gen)
+    img = torch.randint(0, cfg.image_vocab_size, (2, cfg.image_seq_len), device="cuda",
+                        generator=gen)
+    before = fl.fwd_launches
+    with torch.no_grad():
+        flash = model(text, img)
+        assert fl.fwd_launches - before == cfg.depth
+        model.transformer.cfg = dataclasses.replace(model.transformer.cfg, use_pallas="off")
+        dense = model(text, img)
+    assert (flash - dense).abs().max().item() <= 1e-4
 
 
 # ---------------------------------------------------------------------------

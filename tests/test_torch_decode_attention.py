@@ -174,15 +174,33 @@ def test_cached_attend_static_mask_rows_match_jax(attn_type):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
-def test_cached_attend_stable_takes_the_dense_path(monkeypatch):
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+def test_cached_attend_stable_takes_the_dense_path(dt, monkeypatch):
+    """A stable-softmax layer's decode step goes through the decode kernel's
+    wrapper like any other (on the card it launches K2): dividing by
+    alpha = 1024, subtracting the max and multiplying back is exact in f32.
+    Held against the JAX package's dense ``cached_attend(stable=True)``
+    within ``DENSE_TOL`` (same reasons as the non-stable path)."""
     rng = np.random.RandomState(5)
-    jc, tc = _caches(rng, 2, 2, 16, 8, "f32")
+    jc, tc = _caches(rng, 2, 2, 16, 8, dt)
     q = rng.standard_normal((2, 2, 1, 8)).astype(np.float32) * 4
-    ref = jattn.cached_attend(jnp.asarray(q), jc, jnp.int32(11), stable=True,
-                              use_kernel=False)
-    monkeypatch.setattr(tattn, "decode_attend", None)   # must not be called
-    out = tattn.cached_attend(torch.from_numpy(q), tc, 11, stable=True)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    mask = (rng.rand(17, 17) > 0.5) | np.eye(17, dtype=bool)
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return tdec.decode_attend(*a, **k)
+
+    monkeypatch.setattr(tattn, "decode_attend", counted)
+    for static in (None, mask):
+        ref = jattn.cached_attend(jnp.asarray(q), jc, jnp.int32(11), stable=True,
+                                  static_mask=None if static is None else jnp.asarray(static),
+                                  qpos=jnp.int32(10), use_kernel=False)
+        out = tattn.cached_attend(
+            torch.from_numpy(q), tc, 11, stable=True, qpos=10,
+            static_mask=None if static is None else torch.from_numpy(static.astype(np.int32)))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=DENSE_TOL[dt], rtol=0)
+    assert len(calls) == 2
 
 
 def test_decode_attend_counts_no_launch_on_cpu():

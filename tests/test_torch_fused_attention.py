@@ -6,7 +6,7 @@ tensor (the CUDA kernels are held against it in ``test_torch_cuda.py``).
 Here the plain forward, and the backward through the
 ``torch.autograd.Function``, meet the Pallas kernels in interpret mode and
 the fwd-kernel/XLA-backward tier. Also: mask tables, the attention-mode
-table, the options left out (``NotImplementedError``), launch counts, and
+table, the settings that raised before K4 was ported, launch counts, and
 the checks that guard the CUDA launch.
 
 Tolerances: against the Pallas kernels 1e-5, since both round to bf16 at
@@ -15,6 +15,8 @@ the same points and differ only in f32 summation order. Against
 XLA backward rounds every product (scores, dp, dq, dk, dv) to bf16, where
 the kernels accumulate in f32.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -185,24 +187,36 @@ def test_resolve_use_pallas_table(setting, seq, device, want):
     assert tflash.resolve_use_pallas(setting, seq, device) == want
 
 
-@pytest.mark.parametrize("setting, seq", [
-    ("flash", 512), ("on", 512), (True, 512), ("1", 512), ("persist", 512),
-    ("auto", 2048), ("auto", 4096)])
-def test_unported_attention_modes_raise(setting, seq):
-    with pytest.raises(NotImplementedError):
-        tflash.resolve_use_pallas(setting, seq, "cuda")
+@pytest.mark.parametrize("setting, seq, want", [
+    ("flash", 512, "flash"), ("on", 512, "flash"), (True, 512, "flash"), ("1", 512, "flash"),
+    ("persist", 512, NotImplementedError), ("auto", 2048, "flash"), ("auto", 4096, "flash")])
+def test_unported_attention_modes_raise(setting, seq, want):
+    """The settings that raised before K4 was ported: the flash ones now
+    resolve to K4 on the card, and only "persist" (K8) still raises."""
+    if want is NotImplementedError:
+        with pytest.raises(NotImplementedError):
+            tflash.resolve_use_pallas(setting, seq, "cuda")
+    else:
+        assert tflash.resolve_use_pallas(setting, seq, "cuda") == want
     with pytest.raises(ValueError):
         tflash.resolve_use_pallas("bogus", seq, "cuda")
 
 
 def test_model_forward_raises_for_flash_mode():
-    cfg = DalleConfig(num_text_tokens=60, text_seq_len=6, dim=64, depth=1, heads=4,
+    """A DALL·E in "flash" mode (formerly refused) runs K4's plain version on
+    the CPU and gives the dense forward's logits (f32, summation order)."""
+    cfg = DalleConfig(num_text_tokens=60, text_seq_len=6, dim=64, depth=2, heads=4,
                       dim_head=16, image_size=16, image_vocab_size=48,
-                      image_fmap_size=4, use_pallas="flash")
-    text = torch.randint(1, 60, (1, 6))
-    img = torch.randint(0, 48, (1, 16))
-    with pytest.raises(NotImplementedError):
-        DALLE(cfg)(text, img)
+                      image_fmap_size=4, use_pallas="flash",
+                      attn_types=("full", "axial_row"))
+    text = torch.randint(1, 60, (1, 6), generator=torch.Generator().manual_seed(0))
+    img = torch.randint(0, 48, (1, 16), generator=torch.Generator().manual_seed(1))
+    model = DALLE(cfg).eval()
+    with torch.no_grad():
+        flash = model(text, img)
+        model.transformer.cfg = dataclasses.replace(model.transformer.cfg, use_pallas="off")
+        dense = model(text, img)
+    torch.testing.assert_close(flash, dense, atol=1e-5, rtol=0)
 
 
 def test_cpu_runs_count_no_launch():

@@ -32,6 +32,7 @@ from dalle_tpu.train.trainer_dalle import DalleTrainer as JDalleTrainer
 from dalle_tpu_torch.config import DalleConfig, OptimConfig, PrecisionConfig, TrainConfig
 from dalle_tpu_torch.convert import adam_state_from_optax, dalle_state_dict, flax_to_state_dict
 from dalle_tpu_torch.models.dalle import DALLE
+from dalle_tpu_torch.ops import flash_attention as tflash
 from dalle_tpu_torch.ops import fused_attention as tfa
 from dalle_tpu_torch.train import train_state as tts
 from dalle_tpu_torch.train.metrics import count_params, transformer_train_flops
@@ -40,6 +41,11 @@ from dalle_tpu_torch.train.trainer_dalle import DalleTrainer
 TINY = dict(num_text_tokens=60, text_seq_len=6, dim=64, depth=2, heads=4,
             dim_head=16, image_size=16, image_vocab_size=48, image_fmap_size=4)
 N = 6 + 16
+
+
+def _launches():
+    return (tfa.fwd_launches, tfa.bwd_launches, tflash.fwd_launches,
+            tflash.bwd_dq_launches, tflash.bwd_dkv_launches)
 
 
 def _perturb(params, seed=0, scale=0.05):
@@ -128,6 +134,13 @@ GRAD_CASES = {
     "fused_every_mask": ("fused", dict(depth=4, sparse_block_size=4, sparse_attn_kernel=3,
                                        attn_types=("axial_row", "axial_col", "conv_like",
                                                    "sparse"))),
+    # K4 on both sides ("on" is the JAX package's spelling of the flash mode;
+    # its Pallas kernels run in interpret mode), remat on
+    "flash": ("on", {}),
+    "flash_every_mask": ("on", dict(depth=4, sparse_block_size=4, sparse_attn_kernel=3,
+                                    stable=True,
+                                    attn_types=("axial_row", "axial_col", "conv_like",
+                                                "sparse"))),
 }
 
 
@@ -143,16 +156,18 @@ def test_parameter_gradients_match_jax(case, monkeypatch):
     ref = jax.grad(lambda p: jm.apply(p, jnp.asarray(text), jnp.asarray(img),
                                       return_loss=True)[0])(jp)
     ref = flax_to_state_dict(jax.device_get(ref))
-    before = tfa.fwd_launches, tfa.bwd_launches
+    before = _launches()
     loss, _ = tm(_t(text), _t(img), True)
     loss.backward()
-    assert (tfa.fwd_launches, tfa.bwd_launches) == before
+    assert _launches() == before
+    want_mode = {"off": False, "fused": "fused", "on": "flash"}[mode]
+    assert tm.transformer.attention_mode(torch.device("cpu")) == want_mode
     grads = {n: p.grad for n, p in tm.named_parameters()}
     assert set(grads) == set(ref)
     for name, g in grads.items():
         want = ref[name].numpy()
-        if mode == "off":
-            # f32 throughout: summation order only
+        if mode in ("off", "on"):
+            # f32 throughout (K4 computes in f32): summation order only
             atol, rtol = 2e-5, 1e-3
         else:
             # K1 rounds q, k, v, dO, p and ds to bf16 at the same points in
