@@ -102,8 +102,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 profiled step's busy share and top kernels, and for the
                 record the same step with dense attention and with K1.
 
-Phases 11-13 run beside their kin: flash_kernel after serve_kernel,
-flash_parity after serve_parity, train_long last; each prints its seconds.
+14. persist_kernel K8 (whole-sequence attention: forward, and the backward's
+                dq and dk/dv kernels) against its plain versions, comparing o,
+                dq, dk and dv per element with fused_attention.kernel_tolerance
+                (K1's arithmetic): the DALL·E-1.4B layer (b=8, h=14, n=512,
+                d=128) causal and axial_row, the DALL·E-small layer (b=64, h=8,
+                n=512, d=64), a ragged one (n=77) with a row that sees nothing
+                and a conv_like table, n=513 causal and axial_row, and f32
+                inputs (q rounded twice). Then both kernels' times in bf16 at
+                the 1.4B and small layers beside their bounds, the plain
+                versions', SDPA's and K1's on the same data in its merged
+                (b, n, 3·h·d) layout.
+15. chunked_kernel K7 (chunked long-cache decode attention) against its plain
+                version within decode_attention.chunked_tolerance: the JAX
+                package's bench shapes (b=64 h=8 S=1280 d=64, b=16 h=14 S=2560
+                d=128) and the long-sequence model's cache (b=2 h=8 S=4352
+                d=64), f32, bf16 and int8 caches, lengths at 25, 50 and 100 %
+                of S, a mask row, and length 0 (o = 0). Then its time over the
+                whole cache beside its byte bound, K2's on the same inputs, the
+                plain version's and SDPA's on the dequantized cache. No path
+                selects K7 (opt-in in both packages).
+16. persist_parity at full width and depth 2, f32 compute, use_pallas
+                "persist": the loss and every parameter's gradient of one step
+                through K8's kernels equal the same step through its plain
+                versions.
+17. train_persist the persist training path: phase train's recipe with
+                use_pallas "persist", 6 steps; losses finite and falling, K8's
+                forward and backward each launched exactly 24 times per step,
+                K1 never; ms/step, tokens/s, peak memory, one profiled step's
+                busy share and top kernels, beside phase train's K1 step (the
+                step-1 losses agree within 1e-2 relative).
+
+Phases 11-17 run beside their kin: flash_kernel, persist_kernel and
+chunked_kernel after serve_kernel; flash_parity and persist_parity after
+serve_parity; train_persist after train; train_long last. Each prints its
+seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -1346,6 +1379,346 @@ def phase_train_long(torch, card):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# K8 and the persist training path; K7
+# ---------------------------------------------------------------------------
+
+K8_TOL = {"o_dq_dk_dv": "fused_attention.kernel_tolerance (K1's arithmetic): "
+                        "2e-3*max(1,max|want|) + (2^-7*|want| for bf16), per element"}
+
+
+def k8_bounds(b, h, n, d, itemsize, table):
+    """Least card time of K8's forward and backward for these inputs:
+    {"fwd"|"bwd": (bound ms, "bytes"|"operations", flops, bytes)}.
+    Operations count the visible pairs (the table's ones, causality in it):
+    2 products of 2·d flops each forward (s, p·v), 6 backward (s, o, dp, dq,
+    dk, dv), at the bf16 tensor-core rate. Bytes count each input read once
+    and each output written once: forward q, k, v in and o out; backward q,
+    k, v, dO in and dq, dk, dv out; plus the table."""
+    pairs = b * h * (n * (n + 1) // 2 if table is None else int(table.long().sum()))
+    t = b * h * n * d * itemsize
+    tbl = 0 if table is None else n * n
+    work = {"fwd": (4 * d * pairs, 4 * t + tbl), "bwd": (12 * d * pairs, 7 * t + tbl)}
+    res = {}
+    for k, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[k] = (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+                  ops, nbytes)
+    return res
+
+
+def _k8_table(torch, kind, n):
+    """None (causal), K1's layer table, or "holes": causal with row 5 empty
+    (its softmax spreads 1/n over every key, as the TPU's -1e9 fill does)."""
+    from dalle_tpu_torch.ops import fused_attention as fa
+    if kind == "none":
+        return None
+    if kind == "holes":
+        tbl = torch.ones(n, n, dtype=torch.int8, device="cuda").tril()
+        tbl[5] = 0
+        return tbl
+    return fa.layer_table(kind, n, device="cuda").table
+
+
+def phase_persist_kernel(torch, card):
+    import torch.nn.functional as F
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.ops import persistent_attention as pa
+    t_phase = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 10)
+    # (name, b, h, n, d, dtype, table kinds)
+    cases = [("dalle1p4b", 8, 14, 512, 128, "bfloat16", ("none", "axial_row")),
+             ("dalle_small", 64, 8, 512, 64, "bfloat16", ("none",)),
+             ("ragged", 3, 6, 77, 64, "bfloat16", ("holes", "conv_like")),
+             ("n513", 4, 8, 513, 64, "bfloat16", ("none", "axial_row")),
+             ("f32_inputs", 2, 4, 256, 64, "float32", ("none", "holes"))]
+    errs, shares, n_cases = {}, {}, 0
+    saved = pa.fwd_launches, pa.bwd_launches
+    for name, b, h, n, d, dt, kinds in cases:
+        for kind in kinds:
+            table = _k8_table(torch, kind, n)
+            q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen)
+                           .to(getattr(torch, dt)) for _ in range(4))
+            got = dict(zip(("o", "dq", "dk", "dv"),
+                           (pa.persist_fwd(q, k, v, table),) + pa.persist_bwd(q, k, v, do, table)))
+            want = dict(zip(("o", "dq", "dk", "dv"),
+                            (pa.persist_fwd_plain(q, k, v, table),)
+                            + pa.persist_bwd_plain(q, k, v, do, table)))
+            torch.cuda.synchronize()
+            n_cases += 1
+            for out, g in got.items():
+                w = want[out]
+                check(g.dtype == q.dtype and g.shape == q.shape, f"K8 {out} {g.dtype} {g.shape}")
+                diff = (g.float() - w.float()).abs()
+                share = (diff / fa.kernel_tolerance(w)).max().item()
+                key = f"{out}/{name}/{kind}/{dt}"
+                errs[key], shares[key] = diff.max().item(), share
+                check(math.isfinite(share) and share <= 1.0,
+                      f"K8 {key}: an element is {share} of its bound (max abs err "
+                      f"{diff.max().item()})")
+    pa.fwd_launches, pa.bwd_launches = saved
+    by = {out: max(v for key, v in errs.items() if key.startswith(out + "/"))
+          for out in ("o", "dq", "dk", "dv")}
+    worst = {out: max(v for key, v in shares.items() if key.startswith(out + "/"))
+             for out in ("o", "dq", "dk", "dv")}
+    emit("persist_kernel", kernels=["persist_fwd", "persist_bwd"], cases=n_cases,
+         tolerance=K8_TOL, max_abs_err=by, worst_share_of_bound=worst)
+
+    # times in bf16, causal: the DALL·E-1.4B layer and the DALL·E-small one
+    # (where the JAX package measured persist), K1 on the same data in its
+    # merged (b, n, 3·h·d) layout and SDPA beside them
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    timing = {}
+    for name, b, h, n, d in (("dalle1p4b", 8, 14, 512, 128), ("dalle_small", 64, 8, 512, 64)):
+        q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16()
+                       for _ in range(4))
+        saved = pa.fwd_launches, pa.bwd_launches, fa.fwd_launches, fa.bwd_launches
+        ms = {"fwd": median_ms(lambda: pa.persist_fwd(q, k, v), 20, flush),
+              "bwd": median_ms(lambda: pa.persist_bwd(q, k, v, do), 20, flush)}
+        plain = {"fwd": median_ms(lambda: pa.persist_fwd_plain(q, k, v), 5, flush),
+                 "bwd": median_ms(lambda: pa.persist_bwd_plain(q, k, v, do), 5, flush)}
+        qkv = torch.cat([t.transpose(1, 2).reshape(b, n, h * d) for t in (q, k, v)], -1)
+        do_m = do.transpose(1, 2).reshape(b, n, h * d).contiguous()
+        _, m1, l1 = fa.fused_attention_fwd(qkv, h)
+        k1 = {"fwd": median_ms(lambda: fa.fused_attention_fwd(qkv, h), 20, flush),
+              "bwd": median_ms(lambda: fa.fused_attention_bwd(qkv, do_m, m1, l1, h), 20, flush)}
+        pa.fwd_launches, pa.bwd_launches, fa.fwd_launches, fa.bwd_launches = saved
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        with torch.no_grad():
+            lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+                                20, flush)
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        lib_bwd = median_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+                            20, flush)
+        del ol
+        bounds = k8_bounds(b, h, n, d, 2, None)
+        row = {}
+        for w, lib in (("fwd", lib_fwd), ("bwd", lib_bwd)):
+            bound, by_what, ops, nbytes = bounds[w]
+            row[w] = {"ms": ms[w], "plain_ms": plain[w], "library_ms": lib, "k1_ms": k1[w],
+                      "bound_ms": bound, "bound_by": by_what, "flops": ops, "bytes": nbytes,
+                      "roofline_share": bound / ms[w]}
+        timing[name] = row
+    emit("persist_kernel_timing", dtype="bfloat16", mask="causal",
+         shapes={"dalle1p4b": dict(b=8, h=14, n=512, d=128),
+                 "dalle_small": dict(b=64, h=8, n=512, d=64)},
+         library="torch.nn.functional.scaled_dot_product_attention(is_causal=True) forward, "
+                 "and its backward alone; k1_ms: K1 on the same data in its (b, n, 3hd) layout",
+         card=card, by_case=timing, seconds=time.perf_counter() - t_phase)
+    return errs, timing
+
+
+def phase_persist_parity(torch):
+    from dalle_tpu_torch import (DalleTrainer, OptimConfig, PrecisionConfig, TrainConfig,
+                                 dalle_1p4b)
+    from dalle_tpu_torch.ops import persistent_attention as pa
+    t_phase = time.perf_counter()
+    cfg = dalle_1p4b(depth=2, use_pallas="persist")
+    tc = TrainConfig(batch_size=8, seed=SMOKE_SEED + 11,
+                     optim=OptimConfig(learning_rate=3e-4, grad_clip_norm=0.5),
+                     precision=PrecisionConfig(compute="float32"))
+    tr = DalleTrainer(cfg, tc)
+    check(tr.model.transformer.attention_mode(torch.device("cuda")) == "persist",
+          "use_pallas='persist' does not pick K8 at DALL·E-1.4B on the card")
+    text, img = _train_batch(cfg, 8, SMOKE_SEED + 11)
+    text = torch.from_numpy(text).cuda()
+    img = torch.from_numpy(img).cuda()
+
+    def grads():
+        tr.optimizer.zero_grad()
+        before = pa.fwd_launches, pa.bwd_launches
+        loss, _ = tr.loss_and_backward(text, img)
+        torch.cuda.synchronize()
+        launched = (pa.fwd_launches - before[0], pa.bwd_launches - before[1])
+        return loss.item(), {n: p.grad.clone() for n, p in tr.model.named_parameters()}, launched
+
+    loss_k, g_k, launched_k = grads()
+    kernels = pa.persist_fwd, pa.persist_bwd
+    pa.persist_fwd, pa.persist_bwd = pa.persist_fwd_plain, pa.persist_bwd_plain
+    try:
+        loss_p, g_p, launched_p = grads()
+    finally:
+        pa.persist_fwd, pa.persist_bwd = kernels
+    check(launched_k == (cfg.depth, cfg.depth), f"kernel step launched K8 {launched_k}")
+    check(launched_p == (0, 0), f"plain step launched K8 {launched_p}")
+    # f32 compute, the same inputs: K8's bf16 roundings match except where
+    # the kernel's summation order flips one (see fused_attention's
+    # kernel_tolerance); a weight's gradient sums such terms over every
+    # position: 1e-2 of each tensor's largest gradient, 1e-5 of the loss
+    worst, worst_name = 0.0, ""
+    for name, gp in g_p.items():
+        share = (g_k[name] - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        if share > worst or not math.isfinite(share):
+            worst, worst_name = share, name
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(math.isfinite(loss_k) and loss_err <= 1e-5, f"loss {loss_k} vs plain {loss_p}")
+    check(worst <= 1e-2, f"gradient of {worst_name}: {worst} of its largest entry")
+    emit("persist_parity", depth=cfg.depth, dim=cfg.dim, heads=cfg.heads, batch=8,
+         compute="float32", loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_err,
+         tensors=len(g_p), worst_grad_err_share=worst, worst_grad_tensor=worst_name,
+         tolerance=dict(loss_rel=1e-5, grad_share_of_largest=1e-2),
+         seconds=time.perf_counter() - t_phase)
+    del tr, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def phase_train_persist(torch, card, k1_row):
+    from dalle_tpu_torch import DalleTrainer, OptimConfig, TrainConfig, dalle_1p4b
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.ops import persistent_attention as pa
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = dalle_1p4b(use_pallas="persist")
+    b, steps = 8, 6
+    # phase train's recipe and seed: step 1 sees the same weights and batch
+    tc = TrainConfig(batch_size=b, seed=SMOKE_SEED,
+                     optim=OptimConfig(optimizer="adam", learning_rate=3e-4, grad_clip_norm=0.5))
+    tr = DalleTrainer(cfg, tc)
+    check(tr.model.transformer.attention_mode(torch.device("cuda")) == "persist",
+          "use_pallas='persist' does not pick K8 at DALL·E-1.4B on the card")
+    text, img = _train_batch(cfg, b, SMOKE_SEED)
+    text = torch.from_numpy(text).cuda()
+    img = torch.from_numpy(img).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    pa.fwd_launches = pa.bwd_launches = 0          # the persist training path starts here
+    fa.fwd_launches = fa.bwd_launches = 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = tr.train_step(text, img)               # ends in a host read of the metrics
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    launches = {"persistent_attention_fwd": pa.fwd_launches,
+                "persistent_attention_bwd": pa.bwd_launches}
+    k1 = (fa.fwd_launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over {steps} steps: {losses}")
+    for name, n in launches.items():
+        check(n == steps * cfg.depth, f"{name} launched {n} times in {steps} steps, "
+                                      f"expected {steps * cfg.depth}")
+    check(k1 == (0, 0), f"K1 launched {k1} on the persist path")
+    # the same bf16 arithmetic as K1 from the same weights and batch
+    rel = abs(losses[0] - k1_row["losses"][0]) / abs(k1_row["losses"][0])
+    check(rel <= 1e-2, f"step-1 loss through K8 {losses[0]} vs K1 {k1_row['losses'][0]}")
+    ms = statistics.median(walls[1:]) * 1e3
+    tokens = b * cfg.total_seq_len
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(text, img)
+        wall = time.perf_counter() - t0
+    pa.fwd_launches, pa.bwd_launches = launches.values()
+    dev_us, by_kernel = device_time(torch, prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    row = dict(batch=b, steps=steps, use_pallas=cfg.use_pallas, losses=losses,
+               grad_norm_last=m["grad_norm"], ms_per_step_first=walls[0] * 1e3,
+               ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+               model_tflops_per_s=tr.flops_per_step / ms / 1e9, peak_gib=peak,
+               launches=launches, k1_launches=dict(zip(("fwd", "bwd"), k1)),
+               device_ms_profiled_step=dev_us / 1e3 if dev_us else "not measured",
+               device_busy_share=(dev_us / 1e3) / ms if dev_us else "not measured",
+               wall_ms_profiled=wall * 1e3, top_device_ms={k: v / 1e3 for k, v in top},
+               k1_step=dict(ms_per_step=k1_row["ms_per_step"],
+                            tokens_per_s=k1_row["tokens_per_s"], peak_gib=k1_row["peak_gib"],
+                            loss_step1=k1_row["losses"][0]),
+               loss_step1_rel_to_k1=rel, tolerance=dict(loss_step1_rel=1e-2),
+               card=card, seconds=time.perf_counter() - t_phase)
+    emit("train_persist", **row)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def chunked_bounds(b, h, d, length, itemsize, qsize, scaled):
+    """Least card time of K7 for these inputs: (bound ms, "bytes" or
+    "operations", flops, bytes). Bytes: q in and out once, and the cache
+    up to ``length`` (K and V, and their f32 scales for int8) once.
+    Operations: 4·d flops per (row, head, position) below ``length``, at the
+    f32 rate for an f32 cache and the bf16 tensor rate otherwise."""
+    nbytes = (2 * b * h * d * qsize + b * length * 2 * h * d * itemsize
+              + (b * 2 * h * length * 4 if scaled else 0))
+    ops = 4 * b * h * length * d
+    rate = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ops, nbytes
+
+
+def phase_chunked_kernel(torch, card):
+    import torch.nn.functional as F
+    from dalle_tpu_torch.ops import decode_attention as dec
+    t_phase = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 12)
+    # the JAX package's bench shapes (scripts/bench_decode_chunked.py) and the
+    # long-sequence model's cache
+    shapes = [("b64_h8_S1280_d64", 64, 8, 1280, 64), ("b16_h14_S2560_d128", 16, 14, 2560, 128),
+              ("longseq_b2_h8_S4352_d64", 2, 8, 4352, 64)]
+    shares, errs, n_cases = {}, {}, 0
+    saved = dec.chunked_launches
+    timing = {}
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    for name, b, h, S, d in shapes:
+        blk = 256
+        for dt in ("float32", "bfloat16", "int8"):
+            dtype = getattr(torch, dt)
+            qdt = torch.float32 if dt == "float32" else torch.bfloat16
+            cache = _cache(torch, b, h, d, S, dtype, gen)
+            q = torch.randn(b, h, 1, d, device="cuda", generator=gen).to(qdt)
+            row = (torch.rand(S, device="cuda", generator=gen) > 0.3).int()
+            for length, mask in ((S // 4, None), (S // 2, None), (S, None), (S // 2 + 5, row),
+                                 (0, None)):
+                out = dec.decode_attend_chunked(q, cache, length, blk=blk, mask_row=mask)
+                ref = dec.decode_attend_chunked_plain(q, cache.kv, cache.scale, length,
+                                                      blk=blk, mask_row=mask)
+                torch.cuda.synchronize()
+                n_cases += 1
+                key = f"{name}/{dt}/L{length}" + ("/mask" if mask is not None else "")
+                diff = (out.float() - ref.float()).abs()
+                errs[key] = diff.max().item()
+                if length == 0:
+                    check(not out.any(), f"K7 {key}: length 0 does not give 0")
+                    shares[key] = 0.0
+                    continue
+                tol = dec.chunked_tolerance(q, cache.kv, cache.scale, length, ref,
+                                            mask_row=mask)
+                share = torch.where(diff == 0, 0.0, diff / tol).max().item()
+                shares[key] = share
+                check(math.isfinite(share) and share <= 1.0,
+                      f"K7 {key}: an element is {share} of its bound (max abs err "
+                      f"{diff.max().item()})")
+            # times over the whole cache: K7, K2 (one CTA per (b, h)) on the
+            # same inputs, the plain version, SDPA on the dequantized cache
+            kd, vd = (t.contiguous() for t in cache.read_kv(dtype=qdt))
+            saved_k2 = dec.launches
+            k7 = median_ms(lambda: dec.decode_attend_chunked(q, cache, S, blk=blk), 30, flush)
+            k2 = median_ms(lambda: dec.decode_attend(q, cache, S), 30, flush)
+            dec.launches = saved_k2
+            plain = median_ms(lambda: dec.decode_attend_chunked_plain(
+                q, cache.kv, cache.scale, S, blk=blk), 5, flush)
+            lib = median_ms(lambda: F.scaled_dot_product_attention(q, kd, vd), 30, flush)
+            bound, by_what, ops, nbytes = chunked_bounds(b, h, d, S, cache.kv.element_size(),
+                                                         q.element_size(),
+                                                         cache.scale is not None)
+            timing[f"{name}/{dt}"] = {"ms": k7, "k2_ms": k2, "plain_ms": plain,
+                                      "library_ms": lib, "bound_ms": bound, "bound_by": by_what,
+                                      "flops": ops, "bytes": nbytes,
+                                      "roofline_share": bound / k7, "blk": blk}
+            del cache, kd, vd
+    dec.chunked_launches = saved
+    by = {dt: max(v for key, v in errs.items() if f"/{dt}/" in key)
+          for dt in ("float32", "bfloat16", "int8")}
+    worst = {dt: max(v for key, v in shares.items() if f"/{dt}/" in key)
+             for dt in ("float32", "bfloat16", "int8")}
+    emit("chunked_kernel", kernel="decode_attend_chunked", cases=n_cases,
+         tolerance="decode_attention.chunked_tolerance, per element", max_abs_err=by,
+         worst_share_of_bound=worst)
+    emit("chunked_kernel_timing", length="S (the whole cache)",
+         library="torch.nn.functional.scaled_dot_product_attention on the dequantized "
+                 "(b,h,S,d) cache; k2_ms: decode_attend (K2) on the same inputs",
+         card=card, by_case=timing, seconds=time.perf_counter() - t_phase)
+    return errs, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -1368,13 +1741,17 @@ def main() -> int:
     k1_errs, k1_timing = phase_train_kernel(torch, card)
     w_errs, w_timing = phase_serve_kernel(torch, card)
     k4_errs, k4_timing = phase_flash_kernel(torch, card)
+    k8_errs, k8_timing = phase_persist_kernel(torch, card)
+    k7_errs, k7_timing = phase_chunked_kernel(torch, card)
     phase_decode_vs_forward(torch)
     phase_train_parity(torch)
     phase_serve_parity(torch)
     phase_flash_parity(torch)
+    phase_persist_parity(torch)
     launches, _ = phase_generate(torch, card)
     serve_launches, _ = phase_serve(torch, card)
-    k1_launches, _ = phase_train(torch, card)
+    k1_launches, k1_row = phase_train(torch, card)
+    k8_launches, _ = phase_train_persist(torch, card, k1_row)
     k4_launches, _ = phase_train_long(torch, card)
 
     f32 = timing["float32"]
@@ -1449,6 +1826,46 @@ def main() -> int:
                         for k, v in k4_timing.items()},
             "tolerance": K4_TOL,
         })
+    # K8: the headline time is the DALL·E-1.4B layer in bf16, causal; the
+    # DALL·E-small layer and K1 on the same data are beside it
+    for which, name, line in (("fwd", "persistent_attention_fwd", 121),
+                              ("bwd", "persistent_attention_bwd", 142)):
+        t = k8_timing["dalle1p4b"][which]
+        outs = ("o",) if which == "fwd" else ("dq", "dk", "dv")
+        mine = {k: v for k, v in k8_errs.items() if k.split("/")[0] in outs}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_tpu_torch/csrc/persistent_attention.cu",
+            "replaces": f"dalle_tpu/ops/persistent_attention.py:{line}",
+            "launches": k8_launches[name],
+            "max_abs_err": max(mine.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "timed_at": "b=8 h=14 n=512 d=128, bfloat16, causal",
+            "by_case": {k: {"ms": v[which]["ms"], "k1_ms": v[which]["k1_ms"],
+                            "bound_ms": v[which]["bound_ms"],
+                            "plain_ms": v[which]["plain_ms"],
+                            "library_ms": v[which]["library_ms"]}
+                        for k, v in k8_timing.items()},
+            "tolerance": K8_TOL,
+        })
+    # K7: on no path (opt-in in both packages); phase chunked_kernel times it.
+    # The headline is the JAX bench's d=128 shape over a bf16 cache
+    t = k7_timing["b16_h14_S2560_d128/bfloat16"]
+    kernels.append({
+        "name": "decode_attend_chunked", "route": "cuda",
+        "source": "dalle_tpu_torch/csrc/decode_chunked_attention.cu",
+        "replaces": "dalle_tpu/ops/decode_attention.py:391",
+        "launches": 0, "launches_note": "no path selects K7; timed in phase chunked_kernel",
+        "max_abs_err": max(k7_errs.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "timed_at": "b=16 h=14 S=2560 d=128 length=S blk=256, bfloat16 cache",
+        "by_case": {k: {"ms": v["ms"], "k2_ms": v["k2_ms"], "bound_ms": v["bound_ms"],
+                        "plain_ms": v["plain_ms"], "library_ms": v["library_ms"]}
+                    for k, v in k7_timing.items()},
+        "tolerance": "decode_attention.chunked_tolerance, per element",
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ with a KV cache whose decode attention is a hand-written CUDA kernel
 ``DalleWithVae.generate_images`` decodes them to pixels through the dVAE.
 Training: ``DalleTrainer.train_step`` takes text ids and image token ids to
 a clipped Adam update, its attention forward and backward in hand-written
-CUDA kernels (``ops/fused_attention.py``, ``csrc/fused_attention.cu``).
+CUDA kernels (``ops/fused_attention.py``, ``csrc/fused_attention.cu``), or
+with ``use_pallas="persist"`` the whole-sequence kernels
+(``ops/persistent_attention.py``, ``csrc/persistent_attention.cu``).
 Serving: ``DalleWithVae.serve_engine`` builds the continuous-batching
 ``serve.DecodeEngine``, whose windowed attention over a dense or paged cache
 runs in hand-written CUDA kernels (``csrc/decode_window_attention.cu``).

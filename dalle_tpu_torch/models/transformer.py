@@ -11,19 +11,23 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
   as an int32 (seq, seq) buffer whose rows feed the decode kernel directly.
 * The full-sequence forward resolves ``use_pallas`` against the device
   (``ops/flash_attention.resolve_use_pallas``) into a mode: "fused",
-  "flash" or False (dense ``attend``). A layer with a key mask is dense.
-  In "fused" mode the causal layers without the stable softmax run the
+  "flash", "persist" or False (dense ``attend``). A layer with a key mask is
+  dense. In "fused" mode the causal layers without the stable softmax run the
   fused-boundary kernel K1 (``ops/fused_attention.py``) straight off the
-  qkv projection, rotary applied on its (b, n, 3h, d) view. In "flash" mode
+  qkv projection, rotary applied on its (b, n, 3h, d) view. In "persist"
+  mode, taken only by a causal model without the stable softmax (else the
+  model is dense, as in the JAX package), every layer runs the whole-sequence
+  kernel K8 (``ops/persistent_attention.py``) on the split (b, h, n, d) q, k,
+  v after rotary, its visibility K1's table. In "flash" mode
   every layer runs the block-sparse kernel K4 (``ops/flash_attention.py``)
   on the split (b, h, n, d) q, k, v after rotary: stable layers too (the
   flash softmax subtracts the max, which subsumes the stable variant) and
   non-causal ones. K1's mask tables and K4's schedules (block lists plus a
   structured spec, or an int8 table) are built once per (layer kind,
-  length, device) and kept.
+  length, device) and kept; K8 reads K1's tables.
 * ``use_remat`` recomputes each attn+ff block pair in the backward
   (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package;
-  the recompute runs K1's or K4's forward again.
+  the recompute runs K1's, K4's or K8's forward again.
 * Dropout is not ported: training with ``attn_dropout``/``ff_dropout`` > 0
   raises ``NotImplementedError`` (its mask bits could never match JAX's).
   Token shift and reversible blocks raise too.
@@ -47,6 +51,7 @@ from ..ops.flash_attention import (FlashSchedule, flash_attention, flash_schedul
                                    resolve_use_pallas)
 from ..ops.fused_attention import MaskTable, fused_qkv_attention, mask_table
 from ..ops.paged_kv import PagedKVCache
+from ..ops.persistent_attention import persistent_attention
 from ..ops.rotary import apply_rotary, dalle_pos_emb
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
@@ -111,12 +116,13 @@ class Attention(nn.Module):
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
     def forward(self, x, *, key_mask=None, rotary=None, static_mask=None,
-                fused: bool = False, table: Optional[MaskTable] = None,
+                fused: bool = False, persist: bool = False,
+                table: Optional[MaskTable] = None,
                 flash: Optional[FlashSchedule] = None):
         """``fused`` sends a causal, non-stable layer without a key mask
-        through K1, whose visibility is ``table`` (None = plain causal);
-        ``flash`` (a schedule) sends a layer without a key mask through K4;
-        otherwise ``static_mask`` feeds the dense core."""
+        through K1, ``persist`` through K8, both with visibility ``table``
+        (None = plain causal); ``flash`` (a schedule) sends a layer without a
+        key mask through K4; otherwise ``static_mask`` feeds the dense core."""
         if fused and key_mask is None and self.causal and not self.stable:
             b, n, _ = x.shape
             qkv = self.to_qkv(x)
@@ -130,6 +136,9 @@ class Attention(nn.Module):
         if rotary is not None:
             rot = rotary[:x.shape[1]][None, None]
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
+        if persist and key_mask is None and self.causal and not self.stable:
+            out = persistent_attention(q, k, v, None if table is None else table.table)
+            return self._merge(out.to(x.dtype))
         if flash is not None and key_mask is None:
             out = flash_attention(q, k, v, causal=self.causal, schedule=flash)
             return self._merge(out.to(x.dtype))
@@ -295,8 +304,8 @@ class Transformer(nn.Module):
         return None if name is None else getattr(self, name)
 
     def fused_table(self, ind: int, n: int, device) -> Optional[MaskTable]:
-        """Layer ``ind``'s K1 visibility at length ``n`` on ``device`` (None
-        for full attention), built on first use and kept."""
+        """Layer ``ind``'s K1 (and K8) visibility at length ``n`` on
+        ``device`` (None for full attention), built on first use and kept."""
         mk = self.mask_keys[ind]
         key = (mk, n, str(device))
         if key not in self._tables:
@@ -323,19 +332,22 @@ class Transformer(nn.Module):
         """One attn + ff residual pair (the unit ``use_remat`` recomputes)."""
         la, attn, lf, ff, mask = self._layer(ind)
         n = x.shape[1]
-        table = self.fused_table(ind, n, x.device) if mode == "fused" else None
+        table = (self.fused_table(ind, n, x.device) if mode in ("fused", "persist")
+                 else None)
         sched = self.flash_schedule(ind, n, x.device) if mode == "flash" else None
         x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary, static_mask=mask,
-                   fused=mode == "fused", table=table, flash=sched)
+                   fused=mode == "fused", persist=mode == "persist", table=table,
+                   flash=sched)
         return x + lf(x, ff)
 
     def attention_mode(self, device, key_mask=None):
-        """The resolved full-sequence mode on ``device``: "fused", "flash" or
-        False. A key mask takes the dense path, and K1 takes only causal
-        layers without the stable softmax."""
+        """The resolved full-sequence mode on ``device``: "fused", "flash",
+        "persist" or False. A key mask takes the dense path, and K1 and K8
+        take only causal layers without the stable softmax."""
         c = self.cfg
-        mode = resolve_use_pallas(c.use_pallas, c.seq_len, device)
-        if key_mask is not None or (mode == "fused" and (not c.causal or c.stable)):
+        mode = resolve_use_pallas(c.use_pallas, c.seq_len, device, c.dim_head)
+        if key_mask is not None or (mode in ("fused", "persist")
+                                    and (not c.causal or c.stable)):
             return False
         return mode
 

@@ -14,6 +14,14 @@ versions are ``decode_attend_window_plain`` and
 ``decode_attend_window_paged_plain``; ``window_launches`` and
 ``paged_launches`` count their launches.
 
+``decode_attend_chunked`` (K7) ports ``decode_attend_kernel_chunked``: K2's
+contract over ``blk``-sized cache blocks with an online softmax, blocks past
+``length`` never read. It is launched from
+``csrc/decode_chunked_attention.cu``; its plain version is
+``decode_attend_chunked_plain`` and ``chunked_launches`` counts its launches.
+No path of either package selects it (it is kept for explicit use, as the
+JAX package keeps it).
+
 The function: q (b, h, 1, d) against the merged cache (b, S, 2·h·d) of
 ``ops/attention.KVCache`` (f32, bf16, or int8 with per-position scales
 (b, 2h, S)). Position j is valid when j < length and mask_row[j] != 0; the
@@ -101,8 +109,6 @@ def _check_cuda(q, kv, kv_scale, mask_row):
     if d > MAX_DIM_HEAD or d % _ELEMS_PER_16B[kv.dtype]:
         raise ValueError(f"dim_head {d} must be <= {MAX_DIM_HEAD} and a multiple "
                          f"of {_ELEMS_PER_16B[kv.dtype]} for a {kv.dtype} cache")
-    if 4 * (S + 2 * d + 16) + 4 * 256 * _ELEMS_PER_16B[kv.dtype] > _MAX_SMEM:
-        raise ValueError(f"cache length {S} exceeds the kernel's shared memory")
     tensors = [q, kv] + [t for t in (kv_scale, mask_row) if t is not None]
     for t in tensors:
         if t.device != q.device:
@@ -137,6 +143,8 @@ def decode_attend(q: torch.Tensor, cache, length: int, *,
     _check_cuda(q, kv, kv_scale, mask_row)
     b, h, _, d = q.shape
     S = kv.shape[1]
+    if 4 * (S + 2 * d + 16) + 4 * 256 * _ELEMS_PER_16B[kv.dtype] > _MAX_SMEM:
+        raise ValueError(f"cache length {S} exceeds the kernel's shared memory")
     if scale is None:
         scale = d ** -0.5
     if mask_row is not None:
@@ -354,4 +362,165 @@ def decode_attend_window_paged(q: torch.Tensor, cache, starts, *,
                          "page table on the query's device")
     out = _launch_window(q, pool, pool_scale, pages, starts, S, bt, pages.shape[1], scale)
     paged_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: chunked long-cache decode attention
+# ---------------------------------------------------------------------------
+
+# launches of the chunked kernel since the last reset (a launch is one call
+# that runs the two CUDA kernels, blocks then combine)
+chunked_launches = 0
+_chunked_fns = {}
+# the TPU's per-program VMEM budget for the cache blocks (for the copied gate)
+_VMEM_BUDGET = 6 * 1024 * 1024
+
+
+def decode_attend_chunked_plain(q, kv, kv_scale, length: int, *, blk: int = 256,
+                                mask_row: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """K7's function in plain tensor code, in the TPU kernel's block order:
+    an online softmax over ``blk``-sized blocks of the cache up to
+    ``length``. A bf16 or int8 cache rounds q·scale and the (V-scaled)
+    probabilities, taken against the running max, to bf16 before the
+    products, which sum in f32; an f32 cache stays f32. The blocks past
+    ``length`` are skipped: on the TPU they re-read the last needed block
+    and mask it whole, which changes nothing. An empty row gives 0."""
+    b, h, _, d = q.shape
+    S = kv.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    dot_dt = torch.float32 if kv.dtype == torch.float32 else torch.bfloat16
+    qs = (q[:, :, 0].float() * scale).to(dot_dt).float()                # (b, h, d)
+    m = torch.full((b, h, 1), NEG_INF, device=q.device)
+    l = torch.zeros(b, h, 1, device=q.device)
+    acc = torch.zeros(b, h, d, device=q.device)
+    for j0 in range(0, min(int(length), S), blk):
+        sl = slice(j0, j0 + blk)
+        k = kv[:, sl, :h * d].reshape(b, -1, h, d).to(dot_dt).float()
+        s = torch.einsum("bhd,bshd->bhs", qs, k)
+        if kv_scale is not None:
+            s = s * kv_scale[:, :h, sl]
+        valid = torch.arange(j0, j0 + k.shape[1], device=q.device) < length
+        if mask_row is not None:
+            valid = valid & (mask_row[sl] != 0)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if kv_scale is not None:
+            p = p * kv_scale[:, h:, sl]
+        v = kv[:, sl, h * d:].reshape(b, -1, h, d).to(dot_dt).float()
+        acc = acc * corr + torch.einsum("bhs,bshd->bhd", p.to(dot_dt).float(), v)
+        m = m_new
+    o = acc / torch.where(l > 0, l, 1.0)
+    return o.to(q.dtype)[:, :, None, :]
+
+
+def chunked_tolerance(q, kv, kv_scale, length: int, want: torch.Tensor, *,
+                      mask_row: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Per-element bound of K7 against its plain version on the same inputs.
+    The kernel takes each block's probabilities against that block's own max
+    and rescales the block's sums when it merges them; the plain version, as
+    the TPU, takes them against the running max. An f32 cache: the two
+    differ in rounding and summation order only, 2e-5 of the largest output
+    (at least 1). A bf16 or int8 cache: each side rounds every V-scaled
+    probability to bf16 (within 2^-8 of it, relative) against its own
+    reference, so an element differs by at most 2^-7 of
+    Σ_j p_j·|vs_j·v_j| / Σ_j p_j, the softmax mean of the |values| the row
+    sees (K2's plain version on |v|); plus 1e-5 of the largest output for
+    the f32 sums, and for a bf16 output its own rounding, within 2^-8 of
+    each side (2^-7 of the element)."""
+    want = want.float()
+    margin = 1e-5 * max(1.0, want.abs().max().item()) if want.numel() else 0.0
+    if kv.dtype == torch.float32:
+        return torch.full_like(want, 2e-5 * max(1.0, want.abs().max().item()))
+    b, S, hd2 = kv.shape
+    hd = hd2 // 2
+    kv_abs = torch.cat([kv[:, :, :hd].float(), kv[:, :, hd:].float().abs()], dim=-1)
+    vscale = None if kv_scale is None else torch.cat(
+        [kv_scale[:, :q.shape[1]], kv_scale[:, q.shape[1]:].abs()], dim=1)
+    mean_abs = decode_attend_plain(q.float(), kv_abs, vscale, length, mask_row=mask_row,
+                                   scale=scale).float()
+    bound = 2.0 ** -7 * mean_abs + margin
+    if q.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * want.abs()
+    return bound
+
+
+def decode_kernel_chunk_supported(q, cache, *, stable: bool, blk: int = 256) -> bool:
+    """The JAX package's gate for its chunked variant, verbatim: engages where
+    the single-block kernel's VMEM budget is exceeded but per-block tiles
+    still tile the lanes. No path of either package calls it to route; it
+    is kept beside the kernel as the JAX package keeps it."""
+    b, h, i, d = q.shape
+    S, hd2 = cache.kv.shape[1], cache.kv.shape[2]
+    itemsize = cache.kv.element_size()
+    vmem = blk * hd2 * itemsize + blk * 4 + (2 * h * blk * 4
+                                             if cache.kv.dtype == torch.int8 else 0)
+    return (i == 1 and not stable and S % blk == 0 and S // blk >= 2
+            and (hd2 // 2) % 128 == 0 and d % 8 == 0
+            and vmem <= _VMEM_BUDGET)
+
+
+def _chunked_kernel(name: str):
+    fn = _chunked_fns.get(name)
+    if fn is None:
+        from ._build import library
+        fn = getattr(library("decode_chunked_attention"), name)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if name == "decode_attend_chunked":
+            # q, q dtype, kv, kv dtype, scales, mask row, partials, out,
+            # b h S d length blk, scale, stream
+            fn.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = ctypes.c_int
+        else:                          # decode_chunked_smem_bytes(kv dtype, blk, d)
+            fn.argtypes = [i, i, i]
+            fn.restype = ctypes.c_longlong
+        _chunked_fns[name] = fn
+    return fn
+
+
+def decode_attend_chunked(q: torch.Tensor, cache, length: int, *, blk: int = 256,
+                          mask_row: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """K7: K2's contract (q (b,h,1,d) × ``cache`` → (b,h,1,d) in q's dtype,
+    positions j < ``length`` with mask_row[j] != 0) over ``blk``-sized
+    blocks of the cache; S must be a multiple of ``blk``."""
+    global chunked_launches
+    kv, kv_scale = cache.kv, cache.scale
+    S = kv.shape[1]
+    if blk <= 0 or S % blk:
+        raise ValueError(f"cache length {S} is not a multiple of the block {blk}")
+    if q.device.type == "cpu":
+        return decode_attend_chunked_plain(q, kv, kv_scale, length, blk=blk,
+                                           mask_row=mask_row, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attend_chunked runs on cuda or cpu, not {q.device}")
+    _check_cuda(q, kv, kv_scale, mask_row)
+    smem = _chunked_kernel("decode_chunked_smem_bytes")(_DTYPE_CODE[kv.dtype], blk,
+                                                         q.shape[-1])
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(f"block {blk} exceeds the chunked kernel's shared memory "
+                         f"({smem} bytes)")
+    b, h, _, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty_like(q)
+    if b * h == 0:
+        return out
+    used = -(-min(max(int(length), 0), S) // blk)
+    part = torch.empty(b, h, max(used, 1), d + 2, dtype=torch.float32, device=q.device)
+    rc = _chunked_kernel("decode_attend_chunked")(
+        q.data_ptr(), _DTYPE_CODE[q.dtype], kv.data_ptr(), _DTYPE_CODE[kv.dtype],
+        None if kv_scale is None else kv_scale.data_ptr(),
+        None if mask_row is None else mask_row.data_ptr(), part.data_ptr(),
+        out.data_ptr(), b, h, S, d, int(length), blk, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attend_chunked kernel failed to launch: CUDA error {rc}")
+    chunked_launches += 1
     return out

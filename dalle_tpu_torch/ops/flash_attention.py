@@ -40,7 +40,9 @@ package asks for the TPU, the port asks for a CUDA device. The TPU's
 ``fused_fits`` / ``fused_fwd_fits`` gates and the ``fused_qkv_attention_xbwd``
 tier have no counterpart: they budget Mosaic's scoped VMEM, and the CUDA
 kernels tile the sequence, so every shape they take runs both their forward
-and their backward.
+and their backward. ``persistent_fits`` (K8's gate) is kept verbatim: it
+decides which lengths take K8's arithmetic and which go dense, so it is a
+routing rule rather than a memory budget.
 """
 
 from __future__ import annotations
@@ -170,17 +172,19 @@ def elem_fn_from_spec(spec):
 
 
 def resolve_use_pallas(setting: Union[str, bool], seq_len: int,
-                       device=None) -> Union[str, bool]:
-    """A config's ``use_pallas`` → "flash" (K4), "fused" (K1) or False
-    (dense), for a model whose tensors live on ``device``.
+                       device=None, dim_head: int = 64) -> Union[str, bool]:
+    """A config's ``use_pallas`` → "flash" (K4), "fused" (K1), "persist" (K8)
+    or False (dense), for a model whose tensors live on ``device``.
 
     * "flash", "on", "1", "true", "yes" and True: K4 on any device (its CUDA
       kernels on the card, its plain version on the CPU).
     * "fused": K1 on any device, likewise.
+    * "persist": K8 on any device where ``persistent_fits(seq_len,
+      dim_head)``, dense where it does not (the JAX package's routing rule).
     * "auto": on the card K4 at ``PALLAS_AUTO_MIN_SEQ`` tokens and above and
       K1 below; dense on the CPU (as the JAX package is dense off the TPU).
-    * "off"/False: dense.
-    * "persist" (K8) raises ``NotImplementedError``: it is not ported yet."""
+    * "off"/False: dense."""
+    from .persistent_attention import persistent_fits
     on_card = device is not None and torch.device(device).type == "cuda"
     s = str(setting).lower()
     if setting is True or s in ("1", "true", "on", "yes", "flash"):
@@ -188,9 +192,7 @@ def resolve_use_pallas(setting: Union[str, bool], seq_len: int,
     if setting is False or s in ("0", "false", "off", "no", "none"):
         return False
     if s == "persist":
-        raise NotImplementedError(
-            "use_pallas='persist' selects K8 (ops/persistent_attention.py), "
-            "which is not ported yet")
+        return "persist" if persistent_fits(seq_len, dim_head) else False
     if s == "fused":
         return "fused"
     if s == "auto":

@@ -19,7 +19,11 @@ forward, dq, dk/dv) are held to theirs within
 ``flash_attention.kernel_tolerance`` and ``lse_tolerance``. The windowed kernels
 (K3 over the dense slab, K5 over the paged pool) are held to theirs within
 ``decode_attention.window_tolerance``, and K5 must equal K3 on the gathered
-slab bit for bit.
+slab bit for bit. The whole-sequence kernels (K8: forward, and the backward's
+dq and dk/dv kernels) are held to their plain versions within
+``fused_attention.kernel_tolerance`` (the same arithmetic as K1), and the
+chunked decode kernel (K7) to its plain version within
+``decode_attention.chunked_tolerance``.
 """
 
 import dataclasses
@@ -33,6 +37,7 @@ from dalle_tpu_torch.models.dalle import init_dalle
 from dalle_tpu_torch.ops import decode_attention as dec
 from dalle_tpu_torch.ops import flash_attention as fl
 from dalle_tpu_torch.ops import fused_attention as fa
+from dalle_tpu_torch.ops import persistent_attention as pa
 from dalle_tpu_torch.ops.attention import KVCache, cached_attend
 from dalle_tpu_torch.ops.attn_masks import build_mask
 from dalle_tpu_torch.ops.paged_kv import PagedKVCache
@@ -446,3 +451,131 @@ def test_engine_on_the_card_goes_through_k3_and_k5_and_matches_sequential():
         assert (k3, k5) == ((0, want) if kw else (want, 0))
         for i, ref in enumerate(refs):
             np.testing.assert_array_equal(done[i], ref[:9 if i == 2 else n])
+
+
+# ---------------------------------------------------------------------------
+# K8: the whole-sequence attention kernels
+# ---------------------------------------------------------------------------
+
+def _k8_case(b, h, n, d, dtype, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("shape", [(8, 14, 512, 128), (3, 6, 77, 64), (2, 4, 513, 64),
+                                   (2, 2, 20, 16), (1, 3, 130, 48), (1, 2, 800, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_persist_kernels_match_plain(dtype, shape):
+    b, h, n, d = shape
+    q, k, v, do = _k8_case(b, h, n, d, dtype, seed=n + d)
+    before = pa.fwd_launches, pa.bwd_launches
+    out = pa.persist_fwd(q, k, v)
+    grads = pa.persist_bwd(q, k, v, do)
+    assert (pa.fwd_launches, pa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = (pa.persist_fwd_plain(q, k, v),) + pa.persist_bwd_plain(q, k, v, do)
+    torch.cuda.synchronize()
+    for got, ref in zip((out,) + grads, want):
+        assert got.dtype == dtype and got.shape == q.shape
+        _assert_k1_close(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["axial_row", "conv_like", "holes"])
+@pytest.mark.parametrize("n", [320, 77])
+def test_persist_kernels_with_tables_match_plain(n, kind):
+    """K1's tables, and one whose row 5 sees nothing (softmax 1/n over all
+    keys, as the TPU kernel's -1e9 fill gives)."""
+    q, k, v, do = _k8_case(2, 4, n, 64, torch.bfloat16, seed=5)
+    if kind == "holes":
+        tbl = torch.ones(n, n, dtype=torch.int8, device="cuda").tril()
+        tbl[5] = 0
+    else:
+        tbl = fa.layer_table(kind, n, device="cuda").table
+    got = (pa.persist_fwd(q, k, v, tbl),) + pa.persist_bwd(q, k, v, do, tbl)
+    want = (pa.persist_fwd_plain(q, k, v, tbl),) + pa.persist_bwd_plain(q, k, v, do, tbl)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_k1_close(g, w)
+
+
+def test_persist_kernels_take_strided_heads_and_are_deterministic():
+    """The head split of a (b, n, 3·h·d) projection, read through strides,
+    gives the bits of the contiguous copy; two runs give the same bits."""
+    gen = torch.Generator("cuda").manual_seed(8)
+    b, n, h, d = 2, 200, 4, 64
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).bfloat16()
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    do = torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16()
+    runs = [(pa.persist_fwd(q, k, v),) + pa.persist_bwd(q, k, v, do) for _ in range(2)]
+    dense = (pa.persist_fwd(*(t.contiguous() for t in (q, k, v))),)
+    for a, b_, c in zip(runs[0], runs[1], dense + runs[0][1:]):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+
+
+def test_persist_wrapper_raises_instead_of_falling_back():
+    q, k, v, _ = _k8_case(1, 2, 64, 32, torch.float32, seed=4)
+    with pytest.raises(ValueError):
+        pa.persist_fwd(q, k, v[:, :, :32])                          # shape mismatch
+    with pytest.raises(ValueError):
+        pa.persist_fwd(q[..., :24], k[..., :24], v[..., :24])       # d not a multiple of 16
+    with pytest.raises(ValueError):
+        big = torch.zeros(1, 1, 2048, 128, device="cuda")
+        pa.persist_fwd(big, big, big)                               # beyond shared memory
+
+
+def test_persist_train_step_on_the_card_goes_through_k8_and_matches_the_plain_version():
+    """One training step on the card in persist mode launches K8's forward
+    and backward once per layer, and its loss and gradients equal the same
+    step on the CPU through K8's plain versions (f32 compute; bf16 roundings
+    may flip where the two devices' f32 inputs differ in the last bit: 1e-2
+    of each tensor's largest gradient, 1e-4 of the loss)."""
+    card = _tiny_trainer("persist", "cuda")
+    host = _tiny_trainer("persist", "cpu")
+    host.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    text = rng.randint(1, TINY["num_text_tokens"], (2, TINY["text_seq_len"]))
+    img = rng.randint(0, TINY["image_vocab_size"], (2, TINY["image_fmap_size"] ** 2))
+    before = pa.fwd_launches, pa.bwd_launches, fa.fwd_launches
+    got = card.train_step(text, img)
+    assert (pa.fwd_launches - before[0], pa.bwd_launches - before[1]) == (2, 2)
+    assert fa.fwd_launches == before[2]
+    card_grads = {n: p.grad.cpu() for n, p in card.model.named_parameters()}
+    want = host.train_step(text, img)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    for name, p in host.model.named_parameters():
+        tol = 1e-2 * p.grad.abs().max().item()
+        assert (card_grads[name] - p.grad).abs().max().item() <= tol, name
+
+
+# ---------------------------------------------------------------------------
+# K7: the chunked long-cache decode kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 8, 64, 1280), (2, 14, 128, 2560), (1, 3, 32, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_chunked_kernel_matches_plain(dtype, shape):
+    b, h, d, S = shape
+    q, cache = _cache(b, h, S, d, dtype, seed=S + d)
+    row = (torch.arange(S, device="cuda") % 3 != 1).int()
+    for length, blk, mask in ((S, 256, None), (S // 4 + 7, 256, None), (S // 2, 128, row),
+                              (0, 256, None)):
+        before = dec.chunked_launches
+        out = dec.decode_attend_chunked(q, cache, length, blk=blk, mask_row=mask)
+        assert dec.chunked_launches == before + 1
+        ref = dec.decode_attend_chunked_plain(q, cache.kv, cache.scale, length, blk=blk,
+                                              mask_row=mask)
+        torch.cuda.synchronize()
+        assert out.dtype == q.dtype and out.shape == q.shape
+        if length == 0:
+            assert not out.any()
+            continue
+        tol = dec.chunked_tolerance(q, cache.kv, cache.scale, length, ref, mask_row=mask)
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= tol).all()), (length, (diff / tol).max().item())
+
+
+def test_chunked_wrapper_raises_instead_of_falling_back():
+    q, cache = _cache(2, 2, 512, 32, torch.float32, seed=3)
+    with pytest.raises(ValueError):
+        dec.decode_attend_chunked(q, cache, 100, blk=96)            # block must divide S
+    with pytest.raises(ValueError):
+        dec.decode_attend_chunked(q[..., ::2], cache, 100)          # strided, d mismatch

@@ -283,8 +283,11 @@ def test_resolve_use_pallas_table(setting, seq, device):
 
 
 def test_persist_and_unknown_settings_raise():
-    with pytest.raises(NotImplementedError):
-        tfl.resolve_use_pallas("persist", 512, "cuda")
+    """"persist" (K8, ported since) resolves by the JAX package's gate:
+    K8 where persistent_fits holds, dense where it does not; an unknown
+    setting still raises."""
+    assert tfl.resolve_use_pallas("persist", 512, "cuda", dim_head=128) == "persist"
+    assert tfl.resolve_use_pallas("persist", 1280, "cuda", dim_head=64) is False
     with pytest.raises(ValueError):
         tfl.resolve_use_pallas("sometimes", 512, "cuda")
 

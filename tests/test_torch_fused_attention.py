@@ -189,15 +189,11 @@ def test_resolve_use_pallas_table(setting, seq, device, want):
 
 @pytest.mark.parametrize("setting, seq, want", [
     ("flash", 512, "flash"), ("on", 512, "flash"), (True, 512, "flash"), ("1", 512, "flash"),
-    ("persist", 512, NotImplementedError), ("auto", 2048, "flash"), ("auto", 4096, "flash")])
+    ("persist", 512, "persist"), ("auto", 2048, "flash"), ("auto", 4096, "flash")])
 def test_unported_attention_modes_raise(setting, seq, want):
-    """The settings that raised before K4 was ported: the flash ones now
-    resolve to K4 on the card, and only "persist" (K8) still raises."""
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError):
-            tflash.resolve_use_pallas(setting, seq, "cuda")
-    else:
-        assert tflash.resolve_use_pallas(setting, seq, "cuda") == want
+    """The settings that raised before K4 and K8 were ported: the flash ones
+    now resolve to K4 on the card, and "persist" to K8 where it fits."""
+    assert tflash.resolve_use_pallas(setting, seq, "cuda") == want
     with pytest.raises(ValueError):
         tflash.resolve_use_pallas("bogus", seq, "cuda")
 
