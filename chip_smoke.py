@@ -133,10 +133,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 busy share and top kernels, beside phase train's K1 step (the
                 step-1 losses agree within 1e-2 relative).
 
-Phases 11-17 run beside their kin: flash_kernel, persist_kernel and
-chunked_kernel after serve_kernel; flash_parity and persist_parity after
-serve_parity; train_persist after train; train_long last. Each prints its
-seconds.
+18. ring_kernel K6 (the ring's chunk kernels: forward, dq, dk/dv over one
+                (q-chunk, k-chunk) pair at global offsets) against its plain
+                versions, f32 and bf16, comparing o, lse, dq, dk and dv per
+                element: the slice's pair (b=2, h=8, c=1088, d=64) on the
+                diagonal, wholly before and wholly in the future (o = 0, lse
+                = -1e9); a ragged pair (c=544, d=128) with n_valid inside the
+                k chunk; axial_row, axial_col and conv specs on global
+                positions; non-causal; and the zigzag ring's strided
+                sub-chunk views. Then the three kernels' times in bf16 at
+                the slice's pair (diagonal, before, future) beside their
+                bounds (visible pairs at the bf16 tensor rate, or bytes),
+                the plain versions' and SDPA's with the pair's boolean mask;
+                and the whole ring at the layer (b=2, h=8, n=4,352, P=2,
+                zigzag) beside K4 and SDPA on the whole sequence.
+19. ring_parity  the long-sequence model at full width, depth 2, batch 1, f32,
+                sp=2 and sp=4 (P ranks in this process): the loss and every
+                parameter's gradient of one step through K6 equal the same
+                step through K6's plain versions and through the dense ring
+                body.
+20. train_ring  the sequence-parallel training path: phase train_long's recipe
+                with TrainConfig(mesh=MeshConfig(sp=2)), 6 steps; losses
+                finite and falling, K6 launched 128 / 64 / 64 times per step
+                (forward / dq / dk-dv; remat recomputes the forward), K1, K4
+                and K8 never; step-1 loss within 1e-2 relative of train_long's;
+                ms/step, tokens/s, peak memory, one profiled step's busy share
+                and top kernels.
+
+Phases 11-20 run beside their kin: flash_kernel, persist_kernel,
+chunked_kernel and ring_kernel after serve_kernel; flash_parity,
+persist_parity and ring_parity after serve_parity; train_persist after
+train; train_long and then train_ring last. Each prints its seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -1719,6 +1746,356 @@ def phase_chunked_kernel(torch, card):
     return errs, timing
 
 
+# ---------------------------------------------------------------------------
+# K6 and the sequence-parallel (ring) training path
+# ---------------------------------------------------------------------------
+
+K6_TOL = {"o_dq_dk_dv": "chunk_attention.kernel_tolerance: 2e-5*max(1,max|want|), per "
+                        "element (f32 outputs)",
+          "lse": "chunk_attention.lse_tolerance: 1e-5*max(1,|want|), per element"}
+LS_TEXT, LS_FMAP, LS_N = 257, 64, 4352       # the long-sequence model's layout
+
+
+def k6_bounds(b, h, vis, d, itemsize):
+    """Least card time of K6's three functions on one pair whose (cq, ck)
+    visibility is ``vis`` (the same for every row of b and head of h):
+    {"fwd"|"dq"|"dkv": (bound ms, "bytes"|"operations", flops, bytes)}.
+    Operations count the visible (query, key) pairs at the bf16 tensor
+    rate, K4's convention: 4·d flops a pair forward, 6·d dq, 8·d dk/dv.
+    Bytes count each input that some visible pair needs read once (the q
+    and dO rows, lse and delta entries of rows that see a key; the k and v
+    rows of keys that some row sees) and each output written once (all of
+    o and lse; dq; dk and dv, f32): a pair with nothing visible needs only
+    its outputs written."""
+    cq, ck = vis.shape
+    pairs = b * h * int(vis.sum())
+    rows, cols = int(vis.any(1).sum()), int(vis.any(0).sum())
+    q_in, kv_in = b * h * rows * d * itemsize, 2 * b * h * cols * d * itemsize
+    stats_in = 2 * b * h * rows * 4                    # lse and delta
+    o_out, dkv_out = b * h * cq * d * 4, 2 * b * h * ck * d * 4
+    work = {"fwd": (4 * d * pairs, q_in + kv_in + o_out + b * h * cq * 4),
+            "dq": (6 * d * pairs, 2 * q_in + kv_in + stats_in + o_out),
+            "dkv": (8 * d * pairs, 2 * q_in + kv_in + stats_in + dkv_out)}
+    res = {}
+    for k, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[k] = (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+                  ops, nbytes)
+    return res
+
+
+def _k6_cases():
+    """(name, b, h, c, d, q_off, k_off, n_valid, causal, spec): the card
+    tests' cases (tests/test_torch_cuda.py)."""
+    ax = lambda axis: ("axial", LS_TEXT, LS_FMAP, axis)  # noqa: E731
+    return [("slice_diagonal", 2, 8, 1088, 64, 1088, 1088, LS_N, True, None),
+            ("slice_before", 2, 8, 1088, 64, 3264, 0, LS_N, True, None),
+            ("slice_future", 2, 8, 1088, 64, 0, 3264, LS_N, True, None),
+            ("ragged_cut", 2, 4, 544, 128, 1088, 544, 900, True, None),
+            ("axial_row", 2, 4, 544, 64, 1632, 1088, LS_N, True, ax(0)),
+            ("axial_col", 2, 4, 544, 64, 1632, 544, LS_N, True, ax(1)),
+            ("conv", 2, 4, 544, 64, 1632, 1088, LS_N, True, ("conv", LS_TEXT, LS_FMAP, 5, 1)),
+            ("non_causal", 1, 2, 300, 32, 0, 300, 600, False, None)]
+
+
+def phase_ring_kernel(torch, card):
+    import torch.nn.functional as F
+    from dalle_tpu_torch.ops import chunk_attention as ca
+    from dalle_tpu_torch.ops import flash_attention as fl
+    from dalle_tpu_torch.parallel import ring_attention as ra
+    t_phase = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 13)
+    errs, shares, n_cases = {}, {}, 0
+    saved = ca.fwd_launches, ca.dq_launches, ca.dkv_launches
+
+    def all_three(q, k, v, do, q_off, k_off, kw):
+        o, lse = ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw)
+        ro, rlse = ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw)
+        args = (q, k, v, do, torch.where(rlse <= -5e8, 1e9, rlse),
+                (do.float() * ro).sum(-1), q_off, k_off)
+        got = {"o": o, "lse": lse, "dq": ca.chunk_flash_dq(*args, **kw)}
+        got["dk"], got["dv"] = ca.chunk_flash_dkv(*args, **kw)
+        want = {"o": ro, "lse": rlse, "dq": ca.chunk_flash_dq_plain(*args, **kw)}
+        want["dk"], want["dv"] = ca.chunk_flash_dkv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        return got, want
+
+    def record(key, g, w, out):
+        tol = ca.lse_tolerance(w) if out == "lse" else ca.kernel_tolerance(w)
+        diff = (g - w).abs()
+        share = (diff / tol).max().item()
+        errs[key], shares[key] = diff.max().item(), share
+        check(g.dtype == torch.float32 and math.isfinite(share) and share <= 1.0,
+              f"K6 {key}: an element is {share} of its bound (max abs err {diff.max().item()})")
+
+    for name, b, h, c, d, q_off, k_off, n_valid, causal, spec in _k6_cases():
+        kw = dict(scale=d ** -0.5, n_valid=n_valid, causal=causal, mask_spec=spec)
+        for dt in ("float32", "bfloat16"):
+            q, k, v, do = (torch.randn(b, h, c, d, device="cuda", generator=gen)
+                           .to(getattr(torch, dt)) for _ in range(4))
+            got, want = all_three(q, k, v, do, q_off, k_off, kw)
+            n_cases += 1
+            for out in got:
+                record(f"{out}/{name}/{dt}", got[out], want[out], out)
+            if name == "slice_future":
+                check(not got["o"].any() and bool((got["lse"] == -1e9).all()),
+                      "K6: a chunk wholly in the future did not give o = 0, lse = -1e9")
+    # the zigzag ring's operands: sub-chunk views, no copies
+    m = 544
+    q2, k2, v2, do2 = (torch.randn(2, 4, 2 * m, 64, device="cuda", generator=gen).bfloat16()
+                       for _ in range(4))
+    views = [t[:, :, m:] for t in (q2, k2, v2, do2)]
+    got, want = all_three(*views, 2176, 1632, dict(scale=0.125, n_valid=LS_N, causal=True,
+                                                   mask_spec=("axial", LS_TEXT, LS_FMAP, 0)))
+    n_cases += 1
+    for out in got:
+        record(f"{out}/zigzag_views/bfloat16", got[out], want[out], out)
+    ca.fwd_launches, ca.dq_launches, ca.dkv_launches = saved
+    by = {f"{out}/{dt}": max(v for key, v in errs.items()
+                             if key.startswith(out + "/") and key.endswith("/" + dt))
+          for out in ("o", "lse", "dq", "dk", "dv") for dt in ("float32", "bfloat16")}
+    worst = {f"{out}/{dt}": max(v for key, v in shares.items()
+                                if key.startswith(out + "/") and key.endswith("/" + dt))
+             for out in ("o", "lse", "dq", "dk", "dv") for dt in ("float32", "bfloat16")}
+    emit("ring_kernel", kernels=["chunk_attention_fwd", "chunk_attention_dq",
+                                 "chunk_attention_dkv"],
+         cases=n_cases, tolerance=K6_TOL, max_abs_err=by, worst_share_of_bound=worst)
+
+    # times in bf16 at the slice's pair (zigzag sub-chunks of 1,088 rows at
+    # sp=2) on the diagonal, wholly before and wholly in the future
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    timing = {}
+    b, h, c, d = 2, 8, 1088, 64
+    q, k, v, do = (torch.randn(b, h, c, d, device="cuda", generator=gen).bfloat16()
+                   for _ in range(4))
+    for name, q_off, k_off in (("diagonal", 1088, 1088), ("before", 3264, 0),
+                               ("future", 0, 3264)):
+        kw = dict(scale=d ** -0.5, n_valid=LS_N, causal=True)
+        o, lse = ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw)
+        lse = torch.where(lse <= -5e8, 1e9, lse)
+        delta = (do.float() * o).sum(-1)
+        args = (q, k, v, do, lse, delta, q_off, k_off)
+        saved = ca.fwd_launches, ca.dq_launches, ca.dkv_launches
+        ms = {"fwd": median_ms(lambda: ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw), 20, flush),
+              "dq": median_ms(lambda: ca.chunk_flash_dq(*args, **kw), 20, flush),
+              "dkv": median_ms(lambda: ca.chunk_flash_dkv(*args, **kw), 20, flush)}
+        ca.fwd_launches, ca.dq_launches, ca.dkv_launches = saved
+        plain = {"fwd": median_ms(lambda: ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw),
+                                  5, flush),
+                 "dq": median_ms(lambda: ca.chunk_flash_dq_plain(*args, **kw), 5, flush),
+                 "dkv": median_ms(lambda: ca.chunk_flash_dkv_plain(*args, **kw), 5, flush)}
+        # the library yardstick: SDPA with the pair's boolean mask, forward,
+        # and its backward alone for dq and dk/dv
+        vis = ca.chunk_visible(c, c, q_off, k_off, n_valid=LS_N, device="cuda")
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        with torch.no_grad():
+            lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vis),
+                                20, flush)
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vis)
+        lib_bwd = median_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+                            20, flush)
+        del ol
+        pairs = b * h * int(vis.sum())
+        bounds = k6_bounds(b, h, vis, d, 2)
+        row = {"q_off": q_off, "k_off": k_off, "visible_pairs": pairs}
+        for w in ("fwd", "dq", "dkv"):
+            bound, by_what, ops, nbytes = bounds[w]
+            row[w] = {"ms": ms[w], "plain_ms": plain[w],
+                      "library_ms": lib_fwd if w == "fwd" else lib_bwd,
+                      "bound_ms": bound, "bound_by": by_what, "flops": ops, "bytes": nbytes,
+                      "roofline_share": bound / ms[w]}
+        timing[name] = row
+
+    # the whole ring at the layer (b=2, h=8, n=4,352, d=64, bf16, P=2, zigzag,
+    # 16 launches of each kernel) against K4 and SDPA on the whole sequence,
+    # forward and forward + backward
+    q, k, v, do = (torch.randn(b, h, LS_N, d, device="cuda", generator=gen).bfloat16()
+                   for _ in range(4))
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    sched = fl.flash_schedule(LS_N, device="cuda")
+    fns = {"ring_k6": lambda a, b_, c_: ra.ring_attention(a, b_, c_, nper=2, zigzag=True,
+                                                          kernel=True),
+           "k4": lambda a, b_, c_: fl.flash_attention(a, b_, c_, schedule=sched),
+           "sdpa": lambda a, b_, c_: F.scaled_dot_product_attention(a, b_, c_, is_causal=True)}
+    saved = (ca.fwd_launches, ca.dq_launches, ca.dkv_launches, fl.fwd_launches,
+             fl.bwd_dq_launches, fl.bwd_dkv_launches)
+    layer = {}
+    for name, fn in fns.items():
+        with torch.no_grad():
+            fwd = median_ms(lambda: fn(q, k, v), 10, flush)
+        both = median_ms(lambda: torch.autograd.grad(fn(ql, kl, vl), (ql, kl, vl), do), 10, flush)
+        layer[name] = {"fwd_ms": fwd, "fwd_bwd_ms": both}
+    (ca.fwd_launches, ca.dq_launches, ca.dkv_launches, fl.fwd_launches,
+     fl.bwd_dq_launches, fl.bwd_dkv_launches) = saved
+    emit("ring_kernel_timing", dtype="bfloat16", pair=dict(b=b, h=h, c=c, d=d, n_valid=LS_N),
+         library="torch.nn.functional.scaled_dot_product_attention with the pair's boolean "
+                 "mask, forward, and its backward alone for dq and dk/dv",
+         by_case=timing, layer=dict(shape=dict(b=b, h=h, n=LS_N, d=d), nper=2, zigzag=True,
+                                    by_path=layer),
+         card=card, seconds=time.perf_counter() - t_phase)
+    return errs, timing
+
+
+def phase_ring_parity(torch):
+    from dalle_tpu_torch import (DalleTrainer, MeshConfig, OptimConfig, PrecisionConfig,
+                                 TrainConfig)
+    from dalle_tpu_torch.ops import chunk_attention as ca
+    from dalle_tpu_torch.parallel import ring_attention as ra
+    t_phase = time.perf_counter()
+    cfg = longseq_config(depth=2)
+    text, img = _train_batch(cfg, 1, SMOKE_SEED + 14)
+    text = torch.from_numpy(text).cuda()
+    img = torch.from_numpy(img).cuda()
+
+    def counts():
+        return ca.fwd_launches, ca.dq_launches, ca.dkv_launches
+
+    names = ("chunk_flash_fwd", "chunk_flash_dq", "chunk_flash_dkv")
+    plains = (ca.chunk_flash_fwd_plain, ca.chunk_flash_dq_plain, ca.chunk_flash_dkv_plain)
+    kernels = [getattr(ra, nm) for nm in names]
+    use_kernel = ra._use_kernel
+    rows = {}
+    for sp in (2, 4):
+        tc = TrainConfig(batch_size=1, seed=SMOKE_SEED + 14, mesh=MeshConfig(sp=sp),
+                         optim=OptimConfig(learning_rate=3e-4, grad_clip_norm=0.5),
+                         precision=PrecisionConfig(compute="float32"))
+        tr = DalleTrainer(cfg, tc)
+        check(tr.model.transformer.attention_mode(torch.device("cuda")) == "ring",
+              f"sp={sp} does not route attention through the ring")
+
+        def grads():
+            tr.optimizer.zero_grad()
+            before = counts()
+            loss, _ = tr.loss_and_backward(text, img)
+            torch.cuda.synchronize()
+            launched = tuple(a - b for a, b in zip(counts(), before))
+            return loss.item(), {n: p.grad.clone() for n, p in tr.model.named_parameters()}, \
+                launched
+
+        loss_k, g_k, launched_k = grads()
+        try:
+            for nm, fn in zip(names, plains):
+                setattr(ra, nm, fn)
+            loss_p, g_p, launched_p = grads()
+            ra._use_kernel = lambda *a: False           # the dense ring body
+            loss_d, g_d, launched_d = grads()
+        finally:
+            for nm, fn in zip(names, kernels):
+                setattr(ra, nm, fn)
+            ra._use_kernel = use_kernel
+        per_layer = 4 * sp * sp
+        want = (2 * per_layer * cfg.depth, per_layer * cfg.depth, per_layer * cfg.depth)
+        check(launched_k == want, f"sp={sp}: the kernel step launched K6 {launched_k}, "
+                                  f"expected {want}")
+        check(launched_p == (0, 0, 0) and launched_d == (0, 0, 0),
+              f"sp={sp}: the plain and dense steps launched K6 {launched_p} {launched_d}")
+        # f32 compute, the same inputs, f32 arithmetic on every side: summation
+        # order only, 1e-5 of the loss and 1e-4 of each tensor's largest
+        # gradient
+        row = {"loss_kernel": loss_k, "launches_kernel_step": dict(zip(names, launched_k))}
+        for other, loss_o, g_o in (("plain", loss_p, g_p), ("dense_body", loss_d, g_d)):
+            worst, worst_name = 0.0, ""
+            for name, go in g_o.items():
+                share = (g_k[name] - go).abs().max().item() / max(go.abs().max().item(), 1e-30)
+                if share > worst or not math.isfinite(share):
+                    worst, worst_name = share, name
+            loss_err = abs(loss_k - loss_o) / abs(loss_o)
+            check(math.isfinite(loss_k) and loss_err <= 1e-5,
+                  f"sp={sp}: loss {loss_k} vs {other} {loss_o}")
+            check(worst <= 1e-4, f"sp={sp}: gradient of {worst_name} vs {other}: {worst} of "
+                                 "its largest entry")
+            row[other] = dict(loss=loss_o, loss_rel_err=loss_err, worst_grad_err_share=worst,
+                              worst_grad_tensor=worst_name)
+        rows[f"sp{sp}"] = row
+        del tr, g_k, g_p, g_d
+        torch.cuda.empty_cache()
+    emit("ring_parity", config="longseq (scripts/bench_sweep.py)", depth=cfg.depth,
+         dim=cfg.dim, heads=cfg.heads, seq=cfg.total_seq_len, batch=1, compute="float32",
+         by_sp=rows, tolerance=dict(loss_rel=1e-5, grad_share_of_largest=1e-4),
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_train_ring(torch, card, k4_row):
+    from dalle_tpu_torch import DalleTrainer, MeshConfig, OptimConfig, TrainConfig
+    from dalle_tpu_torch.ops import chunk_attention as ca
+    from dalle_tpu_torch.ops import flash_attention as fl
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.ops import persistent_attention as pa
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = longseq_config()
+    b, steps, sp = 2, 6, 2
+    # phase train_long's recipe and seed with sp=2: step 1 sees the same
+    # weights and batch
+    tc = TrainConfig(batch_size=b, seed=SMOKE_SEED, mesh=MeshConfig(sp=sp),
+                     optim=OptimConfig(optimizer="adam", learning_rate=3e-4, grad_clip_norm=0.5))
+    tr = DalleTrainer(cfg, tc)
+    check(tr.model.transformer.attention_mode(torch.device("cuda")) == "ring",
+          "sp=2 does not route attention through the ring")
+    text, img = _train_batch(cfg, b, SMOKE_SEED)
+    text = torch.from_numpy(text).cuda()
+    img = torch.from_numpy(img).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    # the sequence-parallel training path starts here
+    ca.fwd_launches = ca.dq_launches = ca.dkv_launches = 0
+    fl.fwd_launches = fl.bwd_dq_launches = fl.bwd_dkv_launches = 0
+    fa.fwd_launches = fa.bwd_launches = 0
+    pa.fwd_launches = pa.bwd_launches = 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = tr.train_step(text, img)               # ends in a host read of the metrics
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    launches = {"chunk_flash_fwd": ca.fwd_launches, "chunk_flash_dq": ca.dq_launches,
+                "chunk_flash_dkv": ca.dkv_launches}
+    others = {"k4": (fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches),
+              "k1": (fa.fwd_launches, fa.bwd_launches), "k8": (pa.fwd_launches, pa.bwd_launches)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over {steps} steps: {losses}")
+    per_layer = 4 * sp * sp
+    want = {"chunk_flash_fwd": 2 * per_layer * cfg.depth * steps,    # remat recomputes it
+            "chunk_flash_dq": per_layer * cfg.depth * steps,
+            "chunk_flash_dkv": per_layer * cfg.depth * steps}
+    check(launches == want, f"K6 launched {launches} in {steps} steps, expected {want}")
+    check(all(not any(v) for v in others.values()),
+          f"K4, K1 or K8 launched on the ring path: {others}")
+    # the same bf16 step through the ring and through K4: both f32 inside
+    # attention, the roundings around it the same; sums in another order
+    rel = abs(losses[0] - k4_row["losses"][0]) / abs(k4_row["losses"][0])
+    check(rel <= 1e-2, f"step-1 loss through the ring {losses[0]} vs K4 {k4_row['losses'][0]}")
+    ms = statistics.median(walls[1:]) * 1e3
+    tokens = b * cfg.total_seq_len
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(text, img)
+        wall = time.perf_counter() - t0
+    ca.fwd_launches, ca.dq_launches, ca.dkv_launches = launches.values()
+    dev_us, by_kernel = device_time(torch, prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    row = dict(config="longseq (scripts/bench_sweep.py)", seq=cfg.total_seq_len, batch=b,
+               sp=sp, steps=steps, use_remat=cfg.use_remat, compute=tc.precision.compute,
+               losses=losses, grad_norm_last=m["grad_norm"],
+               ms_per_step_first=walls[0] * 1e3, ms_per_step=ms,
+               tokens_per_s=tokens / ms * 1e3,
+               model_tflops_per_s=tr.flops_per_step / ms / 1e9, peak_gib=peak,
+               launches=launches, other_launches=others,
+               device_ms_profiled_step=dev_us / 1e3 if dev_us else "not measured",
+               device_busy_share=(dev_us / 1e3) / ms if dev_us else "not measured",
+               wall_ms_profiled=wall * 1e3, top_device_ms={k: v / 1e3 for k, v in top},
+               k4_step=dict(ms_per_step=k4_row["ms_per_step"],
+                            tokens_per_s=k4_row["tokens_per_s"], peak_gib=k4_row["peak_gib"],
+                            loss_step1=k4_row["losses"][0]),
+               loss_step1_rel_to_k4=rel, tolerance=dict(loss_step1_rel=1e-2),
+               card=card, seconds=time.perf_counter() - t_phase)
+    emit("train_ring", **row)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def main() -> int:
     try:
         import torch
@@ -1743,16 +2120,19 @@ def main() -> int:
     k4_errs, k4_timing = phase_flash_kernel(torch, card)
     k8_errs, k8_timing = phase_persist_kernel(torch, card)
     k7_errs, k7_timing = phase_chunked_kernel(torch, card)
+    k6_errs, k6_timing = phase_ring_kernel(torch, card)
     phase_decode_vs_forward(torch)
     phase_train_parity(torch)
     phase_serve_parity(torch)
     phase_flash_parity(torch)
     phase_persist_parity(torch)
+    phase_ring_parity(torch)
     launches, _ = phase_generate(torch, card)
     serve_launches, _ = phase_serve(torch, card)
     k1_launches, k1_row = phase_train(torch, card)
     k8_launches, _ = phase_train_persist(torch, card, k1_row)
-    k4_launches, _ = phase_train_long(torch, card)
+    k4_launches, k4_row = phase_train_long(torch, card)
+    k6_launches, _ = phase_train_ring(torch, card, k4_row)
 
     f32 = timing["float32"]
     kernels = [{
@@ -1866,6 +2246,29 @@ def main() -> int:
                     for k, v in k7_timing.items()},
         "tolerance": "decode_attention.chunked_tolerance, per element",
     })
+    # K6: the headline time is the slice's pair on the diagonal in bf16;
+    # the pair wholly before and wholly in the future are beside it
+    for which, name, line in (("fwd", "chunk_flash_fwd", 213),
+                              ("dq", "chunk_flash_dq", 244),
+                              ("dkv", "chunk_flash_dkv", 274)):
+        t = k6_timing["diagonal"][which]
+        outs = ("o", "lse") if which == "fwd" else (("dq",) if which == "dq" else ("dk", "dv"))
+        mine = {k: v for k, v in k6_errs.items() if k.split("/")[0] in outs}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_tpu_torch/csrc/chunk_attention.cu",
+            "replaces": f"dalle_tpu/ops/chunk_attention.py:{line}",
+            "launches": k6_launches[name],
+            "max_abs_err": max(mine.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "timed_at": "b=2 h=8 c=1088 d=64, bfloat16, causal pair on the diagonal",
+            "by_case": {k: {"ms": v[which]["ms"], "bound_ms": v[which]["bound_ms"],
+                            "plain_ms": v[which]["plain_ms"],
+                            "library_ms": v[which]["library_ms"]}
+                        for k, v in k6_timing.items()},
+            "tolerance": K6_TOL,
+        })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,15 @@ with ``use_pallas="persist"`` the whole-sequence kernels
 Serving: ``DalleWithVae.serve_engine`` builds the continuous-batching
 ``serve.DecodeEngine``, whose windowed attention over a dense or paged cache
 runs in hand-written CUDA kernels (``csrc/decode_window_attention.cu``).
+Sequence-parallel training (``TrainConfig(mesh=MeshConfig(sp=P))``) runs
+every attention layer as ring attention over P ranks
+(``parallel/ring_attention.py``), each chunk pair through the chunk kernels
+(``ops/chunk_attention.py``, ``csrc/chunk_attention.cu``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """
 
-from .config import (DalleConfig, DVAEConfig, OptimConfig, PrecisionConfig,
+from .config import (DalleConfig, DVAEConfig, MeshConfig, OptimConfig, PrecisionConfig,
                      TrainConfig, TransformerConfig, dalle_1p4b)
 from .convert import adam_state_from_optax, dalle_state_dict, dvae_state_dict
 from .device import resolve_device
@@ -25,7 +29,7 @@ from .models.dvae import DiscreteVAE, init_dvae
 from .models.wrapper import DalleWithVae, DiscreteVAEAdapter
 from .train.trainer_dalle import DalleTrainer
 
-__all__ = ["DalleConfig", "DVAEConfig", "OptimConfig", "PrecisionConfig",
+__all__ = ["DalleConfig", "DVAEConfig", "MeshConfig", "OptimConfig", "PrecisionConfig",
            "TrainConfig", "TransformerConfig", "dalle_1p4b",
            "adam_state_from_optax", "dalle_state_dict", "dvae_state_dict",
            "resolve_device", "DALLE", "init_dalle", "DiscreteVAE", "init_dvae",

@@ -1,6 +1,6 @@
 """Model and training configuration for the PyTorch port.
 
-A copy of ``DVAEConfig``, ``TransformerConfig``, ``DalleConfig``,
+A copy of ``DVAEConfig``, ``TransformerConfig``, ``DalleConfig``, ``MeshConfig``,
 ``PrecisionConfig`` and ``OptimConfig`` from the JAX package
 (``dalle_tpu/config.py``): same fields, same defaults, same derived
 properties, so a config built for one package builds the same model and
@@ -157,6 +157,32 @@ def dalle_1p4b(**overrides) -> DalleConfig:
 
 
 # ---------------------------------------------------------------------------
+# Mesh / parallelism
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh. Axes: dp (data), fsdp (param/opt-state sharding),
+    tp (tensor), sp (sequence, for ring attention). The port's trainer takes
+    ``sp`` only: its ranks run in one process on one card
+    (``parallel/ring_attention.LocalRing``)."""
+    dp: int = 1
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1
+    # names, in mesh order
+    axis_names: Tuple[str, ...] = ("dp", "fsdp", "sp", "tp")
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.fsdp * self.tp * self.sp
+
+    def shape(self) -> Tuple[int, ...]:
+        m = {"dp": self.dp, "fsdp": self.fsdp, "tp": self.tp, "sp": self.sp}
+        return tuple(m[a] for a in self.axis_names)
+
+
+# ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
 
@@ -207,3 +233,4 @@ class TrainConfig:
     runtime_lr_scale: bool = False
     optim: OptimConfig = field(default_factory=OptimConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)

@@ -54,12 +54,16 @@ class AxialPositionalEmbedding(nn.Module):
 
 
 class DALLE(nn.Module):
-    def __init__(self, cfg: DalleConfig):
+    """``sp`` > 1 runs the full-sequence forward's attention as ring
+    attention over that many ranks (``Transformer``); generation is
+    unchanged."""
+
+    def __init__(self, cfg: DalleConfig, sp: int = 1):
         super().__init__()
         c = self.cfg = cfg
         self.num_text_tokens = c.num_text_tokens + c.text_seq_len  # + per-pos pads
         self.total_tokens = self.num_text_tokens + c.image_vocab_size
-        self.transformer = Transformer(c.transformer())
+        self.transformer = Transformer(c.transformer(), sp=sp)
         if c.share_input_output_emb:
             # one (total_tokens, dim) table serves both embeddings and the
             # output projection
@@ -394,13 +398,14 @@ class DALLE(nn.Module):
         return self.serve_img_logits(y[:, 0]), cache
 
 
-def init_dalle(cfg: DalleConfig, *, seed: int = 0, device=None) -> DALLE:
+def init_dalle(cfg: DalleConfig, *, seed: int = 0, device=None, sp: int = 1) -> DALLE:
     """A DALLE with random weights from a seeded ``torch.Generator``, built
-    directly on ``device`` (default: the CUDA card; pass "cpu" explicitly)."""
+    directly on ``device`` (default: the CUDA card; pass "cpu" explicitly);
+    ``sp`` as in ``DALLE``."""
     dev = resolve_device(device)
     with torch.device(dev):
         # the buffers made from numpy tables (rotary, static masks) ignore
         # the default device; .to moves them, the parameters are there already
-        model = DALLE(cfg).to(dev)
+        model = DALLE(cfg, sp=sp).to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return model.reset_parameters(gen).eval()

@@ -25,6 +25,14 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
   non-causal ones. K1's mask tables and K4's schedules (block lists plus a
   structured spec, or an int8 table) are built once per (layer kind,
   length, device) and kept; K8 reads K1's tables.
+* ``Transformer(cfg, sp=P)`` with P > 1 is sequence parallel, the JAX
+  package's ``sp_mesh``: the mode is "ring" whatever ``use_pallas`` says,
+  and every layer's full-sequence forward runs ``ring_attention`` (zigzag,
+  ``parallel/ring_attention.py``) on the split q, k, v after rotary, over P
+  ranks in this process; its pairs go through the chunk kernels K6 where
+  they tile (``ops/chunk_attention.py``). Full, axial and conv layers only;
+  causal, no key mask; the stable softmax is ignored. Prefill and decode
+  keep the dense core.
 * ``use_remat`` recomputes each attn+ff block pair in the backward
   (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package;
   the recompute runs K1's, K4's or K8's forward again.
@@ -53,6 +61,7 @@ from ..ops.fused_attention import MaskTable, fused_qkv_attention, mask_table
 from ..ops.paged_kv import PagedKVCache
 from ..ops.persistent_attention import persistent_attention
 from ..ops.rotary import apply_rotary, dalle_pos_emb
+from ..parallel.ring_attention import ring_attention
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -118,8 +127,11 @@ class Attention(nn.Module):
     def forward(self, x, *, key_mask=None, rotary=None, static_mask=None,
                 fused: bool = False, persist: bool = False,
                 table: Optional[MaskTable] = None,
-                flash: Optional[FlashSchedule] = None):
-        """``fused`` sends a causal, non-stable layer without a key mask
+                flash: Optional[FlashSchedule] = None,
+                ring: int = 1, ring_spec=None):
+        """``ring`` > 1 sends the layer through ring attention over that many
+        ranks, with the structured spec ``ring_spec`` of its static mask;
+        ``fused`` sends a causal, non-stable layer without a key mask
         through K1, ``persist`` through K8, both with visibility ``table``
         (None = plain causal); ``flash`` (a schedule) sends a layer without a
         key mask through K4; otherwise ``static_mask`` feeds the dense core."""
@@ -136,6 +148,19 @@ class Attention(nn.Module):
         if rotary is not None:
             rot = rotary[:x.shape[1]][None, None]
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
+        if ring > 1:
+            # full causal plus the structured (axial/conv) masks, whose test
+            # is a function of global positions; a tabled mask has none
+            if key_mask is not None or not self.causal:
+                raise ValueError("sequence parallelism requires causal attention "
+                                 "and no key mask")
+            if static_mask is not None and (ring_spec is None
+                                            or ring_spec[0] not in ("axial", "conv")):
+                raise ValueError("sequence parallelism supports full/axial/conv "
+                                 "attention only")
+            out = ring_attention(q, k, v, nper=ring, causal=True, zigzag=True,
+                                 mask_spec=ring_spec if static_mask is not None else None)
+            return self._merge(out.to(x.dtype))
         if persist and key_mask is None and self.causal and not self.stable:
             out = persistent_attention(q, k, v, None if table is None else table.table)
             return self._merge(out.to(x.dtype))
@@ -215,9 +240,10 @@ class Transformer(nn.Module):
     """depth × (attn, ff) with the per-layer attention kind from the cyclic
     ``attn_types`` tuple, layer sharing, the rotary table and static masks."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, sp: int = 1):
         super().__init__()
         c = self.cfg = cfg
+        self.sp = sp
         if c.shift_tokens:
             raise NotImplementedError("shift_tokens is not ported yet")
         if c.reversible:
@@ -335,16 +361,21 @@ class Transformer(nn.Module):
         table = (self.fused_table(ind, n, x.device) if mode in ("fused", "persist")
                  else None)
         sched = self.flash_schedule(ind, n, x.device) if mode == "flash" else None
+        ring = self.sp if mode == "ring" else 1
         x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary, static_mask=mask,
                    fused=mode == "fused", persist=mode == "persist", table=table,
-                   flash=sched)
+                   flash=sched, ring=ring, ring_spec=self._mask_specs[self.mask_keys[ind]])
         return x + lf(x, ff)
 
     def attention_mode(self, device, key_mask=None):
-        """The resolved full-sequence mode on ``device``: "fused", "flash",
-        "persist" or False. A key mask takes the dense path, and K1 and K8
-        take only causal layers without the stable softmax."""
+        """The resolved full-sequence mode on ``device``: "ring" whenever
+        ``sp`` > 1 (before any kernel setting, as in the JAX package), else
+        "fused", "flash", "persist" or False. A key mask takes the dense
+        path, and K1 and K8 take only causal layers without the stable
+        softmax."""
         c = self.cfg
+        if self.sp > 1:
+            return "ring"
         mode = resolve_use_pallas(c.use_pallas, c.seq_len, device, c.dim_head)
         if key_mask is not None or (mode in ("fused", "persist")
                                     and (not c.causal or c.stable)):

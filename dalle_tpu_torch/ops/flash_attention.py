@@ -464,19 +464,22 @@ def _on_card(t: torch.Tensor, fn: str) -> bool:
     return True
 
 
-def _check_cuda(q, k, v, sched: FlashSchedule, do=None, lse=None, delta=None) -> int:
-    """The shapes, types and layouts the kernels take; raises on anything
-    else and returns dim_head. q, k, v (and dO) may be strided views (the
-    head split of the qkv projection) as long as the head dim is dense."""
+def _check_operands(q, k, v, do=None, *, same_length: bool = True):
+    """The q, k, v (and dO) that the flash and chunk kernels take: f32 or
+    bf16 (b, h, n, d) of one dtype on one device, dim_head in
+    ``DIM_HEADS``, dense along the head dim (strided views along b, h, n
+    are fine). k and v have q's length, or any length when not
+    ``same_length``. Raises on anything else; returns (b, h, nq, nk, d)."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 4:
-        raise ValueError(f"q must be (b, h, n, d), got {tuple(q.shape)}")
-    b, h, n, d = q.shape
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q, k must be (b, h, n, d), got {tuple(q.shape)}, {tuple(k.shape)}")
+    b, h, nq, d = q.shape
+    nk = nq if same_length else k.shape[2]
     if d not in DIM_HEADS:
         raise ValueError(f"dim_head {d} must be one of {DIM_HEADS}")
-    named = [(k, "k"), (v, "v")] + ([] if do is None else [(do, "dout")])
-    for t, what in [(q, "q")] + named:
+    named = [(k, "k", nk), (v, "v", nk)] + ([] if do is None else [(do, "dout", nq)])
+    for t, what, n in [(q, "q", nq)] + named:
         if t.dtype != q.dtype or tuple(t.shape) != (b, h, n, d):
             raise ValueError(f"{what} must be {q.dtype} {(b, h, n, d)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
@@ -484,6 +487,14 @@ def _check_cuda(q, k, v, sched: FlashSchedule, do=None, lse=None, delta=None) ->
             raise ValueError(f"{what} must be on {q.device}, not {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{what} must be dense along the head dim")
+    return b, h, nq, nk, d
+
+
+def _check_cuda(q, k, v, sched: FlashSchedule, do=None, lse=None, delta=None) -> int:
+    """The shapes, types and layouts the kernels take; raises on anything
+    else and returns dim_head. q, k, v (and dO) may be strided views (the
+    head split of the qkv projection) as long as the head dim is dense."""
+    b, h, n, _, d = _check_operands(q, k, v, do)
     if sched.n != n:
         raise ValueError(f"the schedule is for n={sched.n}, not {n}")
     nt = -(-n // TILE)

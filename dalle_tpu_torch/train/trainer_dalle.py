@@ -7,6 +7,12 @@ copies of the f32 master weights cast to the compute dtype, the backward
 into the masters, global-norm clipping and the optimizer update. PyTorch
 runs it eagerly; the JAX package jits it into one program.
 
+``train_cfg.mesh.sp`` > 1 trains sequence parallel: the model's attention
+runs as ring attention over sp ranks in this process
+(``parallel/ring_attention.LocalRing``), the JAX trainer's ``sp`` mesh axis;
+full, axial and conv_like layers only. dp, fsdp and tp > 1 need more than
+one card and raise ``NotImplementedError``.
+
 Later slices bring checkpoints (``train/checkpoints.py``), NaN rollback,
 device prefetch, scanned multi-steps and the observability taps.
 """
@@ -59,10 +65,23 @@ class DalleTrainer:
                  null_cond_prob: float = 0.0):
         if train_cfg.runtime_lr_scale:
             raise NotImplementedError("runtime_lr_scale is not ported yet")
+        mesh = train_cfg.mesh
+        if max(mesh.dp, mesh.fsdp, mesh.tp) > 1:
+            raise NotImplementedError("dp, fsdp and tp > 1 are not ported: the port "
+                                      "trains on one card (mesh.sp runs its ranks there)")
+        if mesh.sp > 1:
+            sp_ok = {"full", "axial_row", "axial_col", "conv_like"}
+            bad = set(model_cfg.attn_types or ("full",)) - sp_ok
+            if bad:
+                raise ValueError(
+                    f"sequence parallelism (sp > 1) supports attn_types {sorted(sp_ok)}; "
+                    f"got unsupported {sorted(bad)} (tabled 'sparse' masks have no "
+                    "element test on global positions)")
         self.model_cfg, self.train_cfg = model_cfg, train_cfg
         self.device = resolve_device(device)
         self.null_cond_prob = null_cond_prob
-        self.model = init_dalle(model_cfg, seed=train_cfg.seed, device=self.device).train()
+        self.model = init_dalle(model_cfg, seed=train_cfg.seed, device=self.device,
+                                sp=mesh.sp).train()
         self.names = [n for n, _ in self.model.named_parameters()]
         self._loss_backward = _LossBackward(self.model)
         self.optimizer = make_optimizer(train_cfg.optim, list(self.model.parameters()))

@@ -23,7 +23,10 @@ slab bit for bit. The whole-sequence kernels (K8: forward, and the backward's
 dq and dk/dv kernels) are held to their plain versions within
 ``fused_attention.kernel_tolerance`` (the same arithmetic as K1), and the
 chunked decode kernel (K7) to its plain version within
-``decode_attention.chunked_tolerance``.
+``decode_attention.chunked_tolerance``. The chunk kernels (K6: forward, dq,
+dk/dv of one ring pair) are held to their plain versions within
+``chunk_attention.kernel_tolerance`` and ``lse_tolerance``, and the ring
+through them to K4 on the whole sequence.
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ import torch
 
 from dalle_tpu_torch.config import DalleConfig, OptimConfig, PrecisionConfig, TrainConfig
 from dalle_tpu_torch.models.dalle import init_dalle
+from dalle_tpu_torch.ops import chunk_attention as ca
 from dalle_tpu_torch.ops import decode_attention as dec
 from dalle_tpu_torch.ops import flash_attention as fl
 from dalle_tpu_torch.ops import fused_attention as fa
@@ -579,3 +583,171 @@ def test_chunked_wrapper_raises_instead_of_falling_back():
         dec.decode_attend_chunked(q, cache, 100, blk=96)            # block must divide S
     with pytest.raises(ValueError):
         dec.decode_attend_chunked(q[..., ::2], cache, 100)          # strided, d mismatch
+
+
+# ---------------------------------------------------------------------------
+# K6: the chunk kernels (ring attention's inner step)
+# ---------------------------------------------------------------------------
+
+LS_TEXT, LS_FMAP, LS_N = 257, 64, 4352     # the long-sequence model's layout
+
+
+def _k6_all(q, k, v, do, q_off, k_off, kw):
+    """The three kernels, and the plain versions on the same inputs; the
+    backward takes the plain forward's lse, flipped as the ring flips it."""
+    o, lse = ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw)
+    ro, rlse = ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw)
+    blse = torch.where(rlse <= -5e8, 1e9, rlse)
+    delta = (do.float() * ro).sum(-1)
+    args = (q, k, v, do, blse, delta, q_off, k_off)
+    got = [o, lse, ca.chunk_flash_dq(*args, **kw), *ca.chunk_flash_dkv(*args, **kw)]
+    want = [ro, rlse, ca.chunk_flash_dq_plain(*args, **kw), *ca.chunk_flash_dkv_plain(*args, **kw)]
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_k6_close(got, want, lse=False):
+    tol = ca.lse_tolerance(want) if lse else ca.kernel_tolerance(want)
+    diff = (got - want).abs()
+    share = (diff / tol).max().item()
+    assert share <= 1.0, (share, diff.max().item())
+
+
+K6_CASES = {
+    # (b, h, c, d, q_off, k_off, n_valid, causal, spec): the slice's pair
+    # (zigzag sub-chunks of 1,088 rows at sp=2) on the diagonal, wholly
+    # before and wholly in the future; a ragged one (544 rows, not a
+    # multiple of the 64-row tile) with n_valid inside the k chunk; the
+    # layer kinds' specs on global positions; non-causal
+    "slice_diagonal": (2, 8, 1088, 64, 1088, 1088, LS_N, True, None),
+    "slice_before": (2, 8, 1088, 64, 3264, 0, LS_N, True, None),
+    "slice_future": (2, 8, 1088, 64, 0, 3264, LS_N, True, None),
+    "ragged_cut": (2, 4, 544, 128, 1088, 544, 900, True, None),
+    "axial_row": (2, 4, 544, 64, 1632, 1088, LS_N, True, ("axial", LS_TEXT, LS_FMAP, 0)),
+    "axial_col": (2, 4, 544, 64, 1632, 544, LS_N, True, ("axial", LS_TEXT, LS_FMAP, 1)),
+    "conv": (2, 4, 544, 64, 1632, 1088, LS_N, True, ("conv", LS_TEXT, LS_FMAP, 5, 1)),
+    "non_causal": (1, 2, 300, 32, 0, 300, 600, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_kernels_match_plain(dtype, case):
+    b, h, c, d, q_off, k_off, n_valid, causal, spec = K6_CASES[case]
+    q, k, v, do = _k4_case(b, h, c, d, dtype, seed=c + d + q_off)
+    kw = dict(scale=d ** -0.5, n_valid=n_valid, causal=causal, mask_spec=spec)
+    before = ca.fwd_launches, ca.dq_launches, ca.dkv_launches
+    got, want = _k6_all(q, k, v, do, q_off, k_off, kw)
+    assert (ca.fwd_launches, ca.dq_launches, ca.dkv_launches) == tuple(x + 1 for x in before)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _assert_k6_close(g, w, lse=i == 1)
+    if case == "slice_future":
+        assert not got[0].any() and bool((got[1] == -1e9).all())
+        assert not any(g.any() for g in got[2:])
+
+
+def test_chunk_kernels_take_zigzag_views_without_copies():
+    """The zigzag ring hands sub-chunk views of its rotating k/v, and rows
+    of q, dO, lse and delta: the kernels on the views equal the kernels on
+    contiguous copies bit for bit, and the plain versions within the
+    bound."""
+    m = 544
+    q2, k2, v2, do2 = _k4_case(2, 4, 2 * m, 64, torch.bfloat16, seed=31)
+    lse2 = torch.randn(2, 4, 2 * m, device="cuda") + 5.0
+    delta2 = torch.randn(2, 4, 2 * m, device="cuda")
+    kw = dict(scale=0.125, n_valid=LS_N, causal=True, mask_spec=("axial", LS_TEXT, LS_FMAP, 0))
+    views = [t[:, :, m:] for t in (q2, k2, v2, do2, lse2, delta2)]
+    assert not views[0].is_contiguous()
+    copies = [t.contiguous() for t in views]
+    for fn, plain in ((ca.chunk_flash_dq, ca.chunk_flash_dq_plain),
+                      (ca.chunk_flash_dkv, ca.chunk_flash_dkv_plain)):
+        a = fn(*views, 2176, 1632, **kw)
+        b = fn(*copies, 2176, 1632, **kw)
+        p = plain(*copies, 2176, 1632, **kw)
+        a, b, p = (x if isinstance(x, tuple) else (x,) for x in (a, b, p))
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        for x, y in zip(a, p):
+            _assert_k6_close(x, y)
+    o_v, lse_v = ca.chunk_flash_fwd(*views[:3], 2176, 1632, **kw)
+    o_c, lse_c = ca.chunk_flash_fwd(*copies[:3], 2176, 1632, **kw)
+    assert torch.equal(o_v, o_c) and torch.equal(lse_v, lse_c)
+
+
+def test_chunk_wrapper_raises_instead_of_falling_back():
+    q, k, v, do = _k4_case(1, 2, 64, 32, torch.float32, seed=4)
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    kw = dict(scale=0.2, n_valid=128)
+    with pytest.raises(TypeError):
+        ca.chunk_flash_fwd(q.half(), k.half(), v.half(), 0, 0, **kw)
+    with pytest.raises(ValueError):
+        ca.chunk_flash_fwd(q[..., ::2], k[..., ::2], v[..., ::2], 0, 0, **kw)   # d 16 strided
+    with pytest.raises(ValueError):
+        ca.chunk_flash_dq(q, k, v, do, lse.double(), lse, 0, 0, **kw)
+    with pytest.raises(ValueError):
+        ca.chunk_flash_fwd(q, k, v, 0, 0, mask_spec=("block", 64), **kw)
+
+
+@pytest.mark.parametrize("spec", [None, ("axial", LS_TEXT, LS_FMAP, 1)],
+                         ids=["full", "axial_col"])
+def test_ring_at_the_layer_matches_k4_on_the_whole_sequence(spec):
+    """The slice's layer (b=2, h=8, n=4,352, d=64, f32) through the zigzag
+    ring at P = 2, every pair on K6 (16 launches of each kernel), against
+    K4 on the whole sequence: output and gradients. Both compute in f32;
+    the sums run in another order (kernel_tolerance)."""
+    from dalle_tpu_torch.parallel import ring_attention as ra
+    base = _k4_case(2, 8, LS_N, 64, torch.float32, seed=41)
+    mask = None if spec is None else build_mask("axial_col", LS_TEXT, LS_FMAP)
+    outs = {}
+    for name in ("ring", "k4"):
+        q, k, v = (t.clone().requires_grad_(True) for t in base[:3])
+        before = ca.fwd_launches, ca.dq_launches, ca.dkv_launches
+        if name == "ring":
+            o = ra.ring_attention(q, k, v, nper=2, zigzag=True, mask_spec=spec)
+        else:
+            o = fl.flash_attention(q, k, v, mask=mask, mask_spec=spec)
+        o.backward(base[3])
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(
+            (ca.fwd_launches, ca.dq_launches, ca.dkv_launches), before))
+        assert launched == ((16, 16, 16) if name == "ring" else (0, 0, 0))
+        outs[name] = [o.detach(), q.grad, k.grad, v.grad]
+    for g, w in zip(outs["ring"], outs["k4"]):
+        _assert_k6_close(g, w)
+
+
+def test_sp_train_step_on_the_card_goes_through_k6_and_matches_the_cpu(monkeypatch):
+    """One sp=2 training step at 2,048 tokens (zigzag sub-chunks of 512 rows:
+    "auto" takes K6 on the card), f32 compute, remat on: K6 launched 4·P²
+    times a layer each way (the forward twice), K4, K1 and K8 never; the
+    loss and gradients equal the same step on the CPU, whose pairs run K6's
+    plain versions (summation order: 1e-5 of the loss, 1e-4 of each
+    tensor's largest gradient)."""
+    from dalle_tpu_torch.config import MeshConfig
+    from dalle_tpu_torch.parallel import ring_attention as ra
+    cfg = DalleConfig(num_text_tokens=60, text_seq_len=112, dim=64, depth=2, heads=2,
+                      dim_head=32, image_size=352, image_vocab_size=48, image_fmap_size=44,
+                      attn_types=("full", "axial_row"))
+    tc = TrainConfig(batch_size=2, optim=OptimConfig(learning_rate=1e-3),
+                     precision=PrecisionConfig(compute="float32"), mesh=MeshConfig(sp=2))
+    card, host = DalleTrainer(cfg, tc, device="cuda"), DalleTrainer(cfg, tc, device="cpu")
+    host.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    text = rng.randint(1, cfg.num_text_tokens, (2, cfg.text_seq_len))
+    img = rng.randint(0, cfg.image_vocab_size, (2, cfg.image_seq_len))
+    counts = lambda: (ca.fwd_launches, ca.dq_launches, ca.dkv_launches, fl.fwd_launches,  # noqa: E731
+                      fa.fwd_launches, pa.fwd_launches)
+    before = counts()
+    got = card.train_step(text, img)
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    assert launched == (2 * 16 * cfg.depth, 16 * cfg.depth, 16 * cfg.depth, 0, 0, 0)
+    card_grads = {n: p.grad.cpu() for n, p in card.model.named_parameters()}
+    use = ra._use_kernel
+    monkeypatch.setattr(ra, "_use_kernel", lambda kernel, chunk, device: use(
+        True if kernel is None else kernel, chunk, device))
+    want = host.train_step(text, img)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    for name, p in host.model.named_parameters():
+        tol = 1e-4 * p.grad.abs().max().item()
+        assert (card_grads[name] - p.grad).abs().max().item() <= tol, name
