@@ -75,21 +75,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 busy share.
 
 11. flash_kernel K4 (block-sparse flash attention: forward, dq, dk/dv) against
-                its plain versions, f32 and bf16, comparing o, lse, dq, dk and
+                its plain versions, f32 operands on the f32 route (the TPU's
+                arithmetic, kernel_tolerance) and bf16 operands on the
+                tensor-core route (against operands="bf16",
+                tc_kernel_tolerance; and its cost against the f32
+                arithmetic, rounding_tolerance), each launch counted by
+                route, comparing o, lse, dq, dk and
                 dv per element: the long-sequence slice's shape (b=2, h=8,
                 n=4352, d=64) with no mask, the axial_row, axial_col and
                 conv_like specs and sparse through ("block", 128); the
                 DALL·E-1.4B attention shape (b=8, h=14, n=512, d=128) causal
                 and axial_row; a ragged one (b=3, h=6, n=77, d=64) with a
                 tabled 16-block sparse mask and a fully masked row; and a
-                non-causal one (n=300, d=32). Then the three kernels' times
-                in bf16 at the slice's layer kinds and the 1.4B shape beside
-                their bounds (visible pairs at the bf16 tensor rate, or
-                bytes), the plain versions' and SDPA's.
+                non-causal one (n=300, d=32); the route's tiles, shared
+                memory and nvcc's registers and spills. Then the three
+                kernels' times in bf16 at the slice's layer kinds and the
+                1.4B shape beside their bounds (visible pairs at the bf16
+                tensor rate, or bytes), the plain versions', SDPA's and the
+                f32 route's on the same values.
 12. flash_parity at the long-sequence model's full width (dim 512, 8 × 64,
                 4,352 tokens), depth 4, batch 1, f32 compute: the loss and
                 every parameter's gradient of one step through K4's kernels
-                equal the same step through its plain versions; and
+                (f32 route) equal the same step through its plain versions;
+                the same step in bf16 compute through the tensor-core route
+                against the plain versions with operands="bf16" (loss within
+                2^-8, gradients within 2^-4 of their largest entry); and
                 DALL·E-1.4B at depth 2 in "flash" mode against "off", f32
                 logits.
 13. train_long  the long-sequence training path: DalleTrainer.train_step on
@@ -97,7 +107,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 (use_pallas "auto", remat on, loss_chunk 0), bf16 compute,
                 Adam (lr 3e-4, clip 0.5), 6 steps on one fixed batch; losses
                 finite and falling, K4's forward launched 8 times per step
-                (remat recomputes it) and dq, dk/dv 4 times each, K1 never.
+                (remat recomputes it) and dq, dk/dv 4 times each, every one
+                on the tensor-core route, K1 never.
                 Then ms/step, tokens/s, model FLOP/s, peak memory, one
                 profiled step's busy share and top kernels, and for the
                 record the same step with dense attention and with K1.
@@ -1067,9 +1078,49 @@ def longseq_config(**overrides):
     return DalleConfig(**{**ls, **overrides})
 
 
-K4_TOL = {"o_dq_dk_dv": "flash_attention.kernel_tolerance: 2e-5*max(1,max|want|) "
+K4_TOL = {"o_dq_dk_dv": "f32 route: flash_attention.kernel_tolerance: 2e-5*max(1,max|want|) "
                         "+ (2^-7*|want| for bf16), per element",
+          "o_dq_dk_dv_bf16": "tensor-core route against the plain versions with "
+                             "operands='bf16': flash_attention.tc_kernel_tolerance: "
+                             "2^-7*rounding_bound + kernel_tolerance, per element",
+          "cost_bf16": "tensor-core route against the TPU's f32 arithmetic (reported and "
+                       "checked): flash_attention.rounding_tolerance: 2^-8*rounding_bound + "
+                       "kernel_tolerance, per element",
           "lse": "flash_attention.lse_tolerance: 1e-5*max(1,|want|), per element"}
+# K4's launch counters: every launch, then those of the tensor-core route
+K4_COUNTERS = ("fwd_launches", "bwd_dq_launches", "bwd_dkv_launches",
+               "tc_fwd_launches", "tc_bwd_dq_launches", "tc_bwd_dkv_launches")
+
+
+def k4_counts(fl):
+    return tuple(getattr(fl, c) for c in K4_COUNTERS)
+
+
+def k4_set_counts(fl, counts):
+    for c, x in zip(K4_COUNTERS, counts):
+        setattr(fl, c, x)
+
+
+def k4_tc_build(torch):
+    """The tensor-core route's build as nvcc reported it (registers, spills
+    per kernel instance) and its tiles and shared memory per CTA, from the
+    formulas of csrc/flash_attention.cu (tc_*_smem)."""
+    from dalle_tpu_torch.ops import _build
+    log = _build.build_logs.get("flash_attention", "")
+    ptxas, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn and "tc_" in fn and ("registers" in line or "spill" in line):
+            ptxas.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    smem = {d: {"fwd": 5 * 64 * (d + 8) * 2, "dq": 6 * 64 * (d + 8) * 2,
+                "dkv": 6 * 64 * (d + 8) * 2 + 4 * 64 * 4} for d in (16, 32, 64, 128)}
+    return {"threads_per_cta": {"fwd": 128, "dq": 256, "dkv": 256}, "rows_per_cta": 64,
+            "rows_per_warp": 16, "columns_per_warp": {"fwd": 64, "dq": 32, "dkv": 32},
+            "instruction": "mma.sync.aligned.m16n8k16 bf16 -> f32", "stages": 2,
+            "smem_bytes_per_cta": smem, "ptxas": ptxas or "no build log in this process"}
 
 
 def _k4_masks(kind, n, text_len, fmap):
@@ -1126,8 +1177,8 @@ def phase_flash_kernel(torch, card):
              ("dalle1p4b", 8, 14, 512, 128, True, ("none", "axial_row"), 257, 16),
              ("ragged", 3, 6, 77, 64, True, ("holes",), 13, 8),
              ("non_causal", 2, 4, 300, 32, False, ("none",), 0, 0)]
-    errs, shares, n_cases = {}, {}, 0
-    saved = fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches
+    errs, shares, costs, n_cases = {}, {}, {}, 0
+    saved = k4_counts(fl)
     for name, b, h, n, d, causal, kinds, text_len, fmap in cases:
         for kind in kinds:
             mask, spec = _k4_masks(kind, n, text_len, fmap)
@@ -1135,20 +1186,36 @@ def phase_flash_kernel(torch, card):
             for dt in ("float32", "bfloat16"):
                 q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen)
                                .to(getattr(torch, dt)) for _ in range(4))
-                ro, rlse = fl.flash_fwd_plain(q, k, v, sched)
+                # the plain version in the route's arithmetic: the TPU's f32
+                # for f32 operands, the tensor cores' roundings for bf16
+                ops = "bf16" if dt == "bfloat16" else "f32"
+                before = k4_counts(fl)
+                ro, rlse = fl.flash_fwd_plain(q, k, v, sched, operands=ops)
                 delta = (do.float() * ro.float()).sum(-1).contiguous()
                 o, lse = fl.flash_attention_fwd(q, k, v, sched)
                 got = {"o": o, "lse": lse,
                        "dq": fl.flash_attention_bwd_dq(q, k, v, do, rlse, delta, sched)}
                 got["dk"], got["dv"] = fl.flash_attention_bwd_dkv(q, k, v, do, rlse, delta, sched)
                 want = {"o": ro, "lse": rlse,
-                        "dq": fl.flash_bwd_dq_plain(q, k, v, do, rlse, delta, sched)}
-                want["dk"], want["dv"] = fl.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, sched)
+                        "dq": fl.flash_bwd_dq_plain(q, k, v, do, rlse, delta, sched,
+                                                    operands=ops)}
+                want["dk"], want["dv"] = fl.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, sched,
+                                                                operands=ops)
                 torch.cuda.synchronize()
+                tc = int(ops == "bf16")
+                routed = tuple(a - b_ for a, b_ in zip(k4_counts(fl), before))
+                check(routed == (1, 1, 1, tc, tc, tc),
+                      f"K4 {name}/{kind}/{dt}: launches by route {routed}")
                 n_cases += 1
+                bound = (fl.rounding_bound(q, k, v, do, rlse, delta, sched) if tc else {})
                 for out, g in got.items():
                     w = want[out]
-                    tol = fl.lse_tolerance(w) if out == "lse" else fl.kernel_tolerance(w)
+                    if out == "lse":
+                        tol = fl.lse_tolerance(w)
+                    elif tc:
+                        tol = fl.tc_kernel_tolerance(w, bound[out])
+                    else:
+                        tol = fl.kernel_tolerance(w)
                     diff = (g.float() - w.float()).abs()
                     share = (diff / tol).max().item()
                     key = f"{out}/{name}/{kind}/{dt}"
@@ -1156,20 +1223,38 @@ def phase_flash_kernel(torch, card):
                     check(math.isfinite(share) and share <= 1.0,
                           f"K4 {key}: an element is {share} of its bound (max abs err "
                           f"{diff.max().item()})")
+                if tc:
+                    # the cost of the route: the bf16 kernel against the TPU's
+                    # f32 arithmetic on the same inputs and backward statistics
+                    f32 = {"o": fl.flash_fwd_plain(q, k, v, sched)[0],
+                           "dq": fl.flash_bwd_dq_plain(q, k, v, do, rlse, delta, sched)}
+                    f32["dk"], f32["dv"] = fl.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, sched)
+                    for out, w in f32.items():
+                        share = ((got[out].float() - w.float()).abs()
+                                 / fl.rounding_tolerance(w, bound[out])).max().item()
+                        costs[f"{out}/{name}/{kind}"] = share
+                        check(math.isfinite(share) and share <= 1.0,
+                              f"K4 bf16 {out}/{name}/{kind} against the f32 arithmetic: "
+                              f"{share} of the rounding bound")
                 if kind == "holes":
                     check(torch.equal(o[:, :, 5], torch.zeros_like(o[:, :, 5]))
                           and bool((lse[:, :, 5] == 1e9).all()),
-                          "K4: the fully masked row is not zero with lse 1e9")
-    fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches = saved
+                          f"K4 {dt}: the fully masked row is not zero with lse 1e9")
+    k4_set_counts(fl, saved)
     by = {f"{out}/{dt}": max(v for key, v in errs.items()
                              if key.startswith(out + "/") and key.endswith("/" + dt))
           for out in ("o", "lse", "dq", "dk", "dv") for dt in ("float32", "bfloat16")}
     worst = {f"{out}/{dt}": max(v for key, v in shares.items()
                                 if key.startswith(out + "/") and key.endswith("/" + dt))
              for out in ("o", "lse", "dq", "dk", "dv") for dt in ("float32", "bfloat16")}
+    cost = {out: max(v for key, v in costs.items() if key.startswith(out + "/"))
+            for out in ("o", "dq", "dk", "dv")}
     emit("flash_kernel", kernels=["flash_attention_fwd", "flash_attention_bwd_dq",
                                   "flash_attention_bwd_dkv"],
-         cases=n_cases, tolerance=K4_TOL, max_abs_err=by, worst_share_of_bound=worst)
+         routes={"float32": "fwd_kernel, dq_kernel, dkv_kernel (f32 FMA)",
+                 "bfloat16": "tc_fwd_kernel, tc_dq_kernel, tc_dkv_kernel (tensor cores)"},
+         cases=n_cases, tolerance=K4_TOL, max_abs_err=by, worst_share_of_bound=worst,
+         bf16_worst_share_of_rounding_bound_against_f32=cost, tc_build=k4_tc_build(torch))
 
     # times in bf16 (the training path's dtype): each layer kind of the
     # slice, and the DALL·E-1.4B attention shape beside K1's
@@ -1186,18 +1271,24 @@ def phase_flash_kernel(torch, card):
                        for _ in range(4))
         o, lse = fl.flash_attention_fwd(q, k, v, sched)
         delta = (do.float() * o.float()).sum(-1).contiguous()
-        saved = fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches
-        ms = {"fwd": median_ms(lambda: fl.flash_attention_fwd(q, k, v, sched), 20, flush),
-              "dq": median_ms(lambda: fl.flash_attention_bwd_dq(q, k, v, do, lse, delta, sched),
-                              20, flush),
-              "dkv": median_ms(lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta, sched),
-                               20, flush)}
-        fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches = saved
-        plain = {"fwd": median_ms(lambda: fl.flash_fwd_plain(q, k, v, sched), 5, flush),
-                 "dq": median_ms(lambda: fl.flash_bwd_dq_plain(q, k, v, do, lse, delta, sched),
-                                 5, flush),
-                 "dkv": median_ms(lambda: fl.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                                                 sched), 5, flush)}
+        saved = k4_counts(fl)
+
+        def kernels(q, k, v, do, iters):
+            return {"fwd": median_ms(lambda: fl.flash_attention_fwd(q, k, v, sched), iters, flush),
+                    "dq": median_ms(lambda: fl.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                                      sched), iters, flush),
+                    "dkv": median_ms(lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                                        sched), iters, flush)}
+        ms = kernels(q, k, v, do, 20)
+        # the f32 route (f32 FMA on the CUDA cores) on the same values, same call
+        f32_ms = kernels(*(t.float() for t in (q, k, v, do)), 5)
+        k4_set_counts(fl, saved)
+        plain = {"fwd": median_ms(lambda: fl.flash_fwd_plain(q, k, v, sched, operands="bf16"),
+                                  5, flush),
+                 "dq": median_ms(lambda: fl.flash_bwd_dq_plain(q, k, v, do, lse, delta, sched,
+                                                               operands="bf16"), 5, flush),
+                 "dkv": median_ms(lambda: fl.flash_bwd_dkv_plain(q, k, v, do, lse, delta, sched,
+                                                                 operands="bf16"), 5, flush)}
         # the library yardstick: SDPA forward, and its backward alone (dq, dk
         # and dv together); a masked layer passes its boolean (n, n) mask
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
@@ -1221,10 +1312,11 @@ def phase_flash_kernel(torch, card):
             row[w] = {"ms": ms[w], "plain_ms": plain[w],
                       "library_ms": lib_fwd if w == "fwd" else lib_bwd,
                       "bound_ms": bound, "bound_by": by_what, "flops": ops, "bytes": nbytes,
-                      "roofline_share": bound / ms[w]}
+                      "roofline_share": bound / ms[w], "f32_route_ms": f32_ms[w]}
         row["share_of_backward_bound"] = {w: bounds["bwd"][0] / ms[w] for w in ("dq", "dkv")}
         timing[name] = row
-    emit("flash_kernel_timing", dtype="bfloat16",
+    emit("flash_kernel_timing", dtype="bfloat16", route="tensor cores (f32_route_ms: the same "
+         "values as f32 through the f32 route)",
          shapes={"slice": dict(b=2, h=8, n=4352, d=64), "dalle1p4b": dict(b=8, h=14, n=512, d=128)},
          library="torch.nn.functional.scaled_dot_product_attention (is_causal, or a boolean "
                  "(n, n) mask) forward, and its backward alone for dq and dk/dv",
@@ -1232,66 +1324,96 @@ def phase_flash_kernel(torch, card):
     return errs, timing
 
 
-def phase_flash_parity(torch):
-    from dalle_tpu_torch import (DalleTrainer, OptimConfig, PrecisionConfig, TrainConfig,
-                                 dalle_1p4b, init_dalle)
-    from dalle_tpu_torch.ops import flash_attention as fl
-    t_phase = time.perf_counter()
+def _k4_step_parity(torch, fl, compute, seed):
+    """One long-sequence step (depth 4, batch 1) through K4's kernels and
+    through its plain versions in the route's arithmetic ("bf16" operands
+    for bf16 compute), on the same weights and batch: (loss through the
+    kernels, loss through the plain versions, worst gradient share of the
+    tensor's largest entry, its tensor, launches by route of the kernel
+    step, tensors compared)."""
+    import functools
+    from dalle_tpu_torch import DalleTrainer, OptimConfig, PrecisionConfig, TrainConfig
     cfg = longseq_config()
-    tc = TrainConfig(batch_size=1, seed=SMOKE_SEED + 8,
+    tc = TrainConfig(batch_size=1, seed=seed,
                      optim=OptimConfig(learning_rate=3e-4, grad_clip_norm=0.5),
-                     precision=PrecisionConfig(compute="float32"))
+                     precision=PrecisionConfig(compute=compute))
     tr = DalleTrainer(cfg, tc)
-    text, img = _train_batch(cfg, 1, SMOKE_SEED + 8)
+    text, img = _train_batch(cfg, 1, seed)
     text = torch.from_numpy(text).cuda()
     img = torch.from_numpy(img).cuda()
 
-    def counts():
-        return fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches
-
     def grads():
         tr.optimizer.zero_grad()
-        before = counts()
+        before = k4_counts(fl)
         loss, _ = tr.loss_and_backward(text, img)
         torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip(counts(), before))
+        launched = tuple(a - b for a, b in zip(k4_counts(fl), before))
         return loss.item(), {n: p.grad.clone() for n, p in tr.model.named_parameters()}, launched
 
     loss_k, g_k, launched_k = grads()
+    ops = "bf16" if compute == "bfloat16" else "f32"
     names = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     kernels = [getattr(fl, nm) for nm in names]
     for nm, fn in zip(names, (fl.flash_fwd_plain, fl.flash_bwd_dq_plain, fl.flash_bwd_dkv_plain)):
-        setattr(fl, nm, fn)
+        setattr(fl, nm, functools.partial(fn, operands=ops))
     try:
         loss_p, g_p, launched_p = grads()
     finally:
         for nm, fn in zip(names, kernels):
             setattr(fl, nm, fn)
-    d = cfg.depth
-    check(launched_k == (2 * d, d, d), f"kernel step launched K4 {launched_k}")
-    check(launched_p == (0, 0, 0), f"plain step launched K4 {launched_p}")
-    # f32 compute, the same inputs, both sides f32 arithmetic: summation
-    # order only, 1e-5 of the loss and 1e-4 of each tensor's largest gradient
+    check(launched_p == (0,) * 6, f"plain step launched K4 {launched_p}")
     worst, worst_name = 0.0, ""
     for name, gp in g_p.items():
         share = (g_k[name] - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
         if share > worst or not math.isfinite(share):
             worst, worst_name = share, name
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    check(math.isfinite(loss_k) and loss_err <= 1e-5, f"loss {loss_k} vs plain {loss_p}")
-    check(worst <= 1e-4, f"gradient of {worst_name}: {worst} of its largest entry")
     tensors = len(g_p)
     del tr, g_k, g_p
     torch.cuda.empty_cache()
+    return loss_k, loss_p, worst, worst_name, launched_k, tensors
+
+
+def phase_flash_parity(torch):
+    from dalle_tpu_torch import dalle_1p4b, init_dalle
+    from dalle_tpu_torch.ops import flash_attention as fl
+    t_phase = time.perf_counter()
+    cfg = longseq_config()
+    d = cfg.depth
+    loss_k, loss_p, worst, worst_name, launched_k, tensors = _k4_step_parity(
+        torch, fl, "float32", SMOKE_SEED + 8)
+    # f32 compute: every launch on the f32 route
+    check(launched_k == (2 * d, d, d, 0, 0, 0), f"kernel step launched K4 {launched_k}")
+    # f32 compute, the same inputs, both sides f32 arithmetic: summation
+    # order only, 1e-5 of the loss and 1e-4 of each tensor's largest gradient
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(math.isfinite(loss_k) and loss_err <= 1e-5, f"loss {loss_k} vs plain {loss_p}")
+    check(worst <= 1e-4, f"gradient of {worst_name}: {worst} of its largest entry")
+
+    # bf16 compute: every launch on the tensor-core route, against the plain
+    # versions with operands="bf16". Bounds, stated before the first run:
+    # the two sides round the same p and dS to bf16 and differ where one
+    # lands on a rounding boundary (an attention output a bf16 ulp apart on a
+    # few elements); the rest of the step computes in bf16, where each
+    # rounding is 2^-8, so the loss within 2^-8 relative and each gradient
+    # within 2^-4 of its tensor's largest entry (a kernel that was wrong
+    # anywhere would be off by O(1))
+    b_loss_k, b_loss_p, b_worst, b_worst_name, b_launched, _ = _k4_step_parity(
+        torch, fl, "bfloat16", SMOKE_SEED + 8)
+    check(b_launched == (2 * d, d, d, 2 * d, d, d),
+          f"bf16 kernel step launched K4 {b_launched} (all, then tensor-core route)")
+    b_loss_err = abs(b_loss_k - b_loss_p) / abs(b_loss_p)
+    check(math.isfinite(b_loss_k) and b_loss_err <= 2.0 ** -8,
+          f"bf16 loss {b_loss_k} vs plain (operands='bf16') {b_loss_p}")
+    check(b_worst <= 2.0 ** -4, f"bf16 gradient of {b_worst_name}: {b_worst} of its largest entry")
 
     # DALL·E-1.4B at depth 2: the forward through K4 against dense, f32 logits
     model = init_dalle(dalle_1p4b(depth=2, use_pallas="flash"), seed=SMOKE_SEED + 9).eval()
     t1, i1 = _train_batch(model.cfg, 4, SMOKE_SEED + 9)
     t1, i1 = torch.from_numpy(t1).cuda(), torch.from_numpy(i1).cuda()
-    before = counts()
+    before = fl.fwd_launches
     with torch.no_grad():
         flash = model(t1, i1)
-        launched = counts()[0] - before[0]
+        launched = fl.fwd_launches - before
         model.transformer.cfg = dataclasses.replace(model.transformer.cfg, use_pallas="off")
         dense = model(t1, i1)
     torch.cuda.synchronize()
@@ -1302,7 +1424,12 @@ def phase_flash_parity(torch):
          heads=cfg.heads, seq=cfg.total_seq_len, batch=1, compute="float32",
          loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_err, tensors=tensors,
          worst_grad_err_share=worst, worst_grad_tensor=worst_name,
-         launches_kernel_step=dict(zip(names, launched_k)),
+         launches_kernel_step=dict(zip(K4_COUNTERS, launched_k)),
+         bf16_step=dict(compute="bfloat16", plain="operands='bf16'", loss_kernel=b_loss_k,
+                        loss_plain=b_loss_p, loss_rel_err=b_loss_err,
+                        worst_grad_err_share=b_worst, worst_grad_tensor=b_worst_name,
+                        launches_kernel_step=dict(zip(K4_COUNTERS, b_launched)),
+                        tolerance=dict(loss_rel=2.0 ** -8, grad_share_of_largest=2.0 ** -4)),
          dalle1p4b_depth2_flash_vs_dense_max_abs_logit_err=logit_err,
          tolerance=dict(loss_rel=1e-5, grad_share_of_largest=1e-4, logits_abs=1e-4),
          seconds=time.perf_counter() - t_phase)
@@ -1329,7 +1456,7 @@ def phase_train_long(torch, card):
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
     # the long-sequence training path starts here
-    fl.fwd_launches = fl.bwd_dq_launches = fl.bwd_dkv_launches = 0
+    k4_set_counts(fl, (0,) * len(K4_COUNTERS))
     fa.fwd_launches = fa.bwd_launches = 0
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1339,6 +1466,9 @@ def phase_train_long(torch, card):
     launches = {"flash_attention_fwd": fl.fwd_launches,
                 "flash_attention_bwd_dq": fl.bwd_dq_launches,
                 "flash_attention_bwd_dkv": fl.bwd_dkv_launches}
+    tc_launches = {"flash_attention_fwd": fl.tc_fwd_launches,
+                   "flash_attention_bwd_dq": fl.tc_bwd_dq_launches,
+                   "flash_attention_bwd_dkv": fl.tc_bwd_dkv_launches}
     k1 = (fa.fwd_launches, fa.bwd_launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
@@ -1347,6 +1477,8 @@ def phase_train_long(torch, card):
             "flash_attention_bwd_dq": cfg.depth * steps,
             "flash_attention_bwd_dkv": cfg.depth * steps}
     check(launches == want, f"K4 launched {launches} in {steps} steps, expected {want}")
+    # the bf16 step goes wholly through the tensor-core route
+    check(tc_launches == want, f"K4's tensor-core route launched {tc_launches} of {launches}")
     check(k1 == (0, 0), f"K1 launched {k1} on the long-sequence path")
     ms = statistics.median(walls[1:]) * 1e3
     tokens = b * cfg.total_seq_len
@@ -1356,23 +1488,32 @@ def phase_train_long(torch, card):
                grad_norm_last=m["grad_norm"], ms_per_step_first=walls[0] * 1e3,
                ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
                model_tflops_per_s=tr.flops_per_step / ms / 1e9, params=tr.num_params,
-               peak_gib=peak, launches=launches, k1_launches=dict(zip(("fwd", "bwd"), k1)),
-               card=card)
+               peak_gib=peak, launches=launches, tc_route_launches=tc_launches,
+               k1_launches=dict(zip(("fwd", "bwd"), k1)), card=card)
     emit("train_long", **row)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    saved = fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches
+    saved = k4_counts(fl)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         tr.train_step(text, img)
         wall = time.perf_counter() - t0
-    fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches = saved
+    k4_set_counts(fl, saved)
     dev_us, by_kernel = device_time(torch, prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    # K4 in the profiled step: its three tensor-core kernels, by kind
+    k4_us = {w: sum(v for k, v in by_kernel.items() if f"tc_{w}_kernel" in k)
+             for w in ("fwd", "dq", "dkv")}
+    # where the host's time goes: self CPU time by op, the largest first
+    host = sorted(((e.key[:80], e.self_cpu_time_total) for e in prof.key_averages()),
+                  key=lambda kv: -kv[1])[:12]
     emit("train_long_profile", wall_ms_profiled=wall * 1e3,
          device_ms=dev_us / 1e3 if dev_us else "not measured",
          device_busy_share=(dev_us / 1e3) / ms if dev_us else "not measured",
-         top_device_ms={k: v / 1e3 for k, v in top}, card=card)
+         k4_device_ms=({w: v / 1e3 for w, v in k4_us.items()} | {"all": sum(k4_us.values()) / 1e3}
+                       if dev_us else "not measured"),
+         top_device_ms={k: v / 1e3 for k, v in top},
+         top_host_self_ms={k: v / 1e3 for k, v in host}, card=card)
     del tr
     torch.cuda.empty_cache()
 
@@ -1384,15 +1525,14 @@ def phase_train_long(torch, card):
     for mode in ("off", "fused"):
         other = DalleTrainer(dataclasses.replace(cfg, use_pallas=mode), tc)
         torch.cuda.reset_peak_memory_stats()
-        saved = (fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches,
-                 fa.fwd_launches, fa.bwd_launches)
+        saved = k4_counts(fl) + (fa.fwd_launches, fa.bwd_launches)
         o_losses, o_walls = [], []
         for _ in range(3):
             t0 = time.perf_counter()
             o_losses.append(other.train_step(text, img)["loss"])
             o_walls.append(time.perf_counter() - t0)
-        (fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches,
-         fa.fwd_launches, fa.bwd_launches) = saved
+        k4_set_counts(fl, saved[:-2])
+        fa.fwd_launches, fa.bwd_launches = saved[-2:]
         rel = abs(o_losses[0] - losses[0]) / abs(losses[0])
         check(rel <= 1e-2, f"step-1 loss with use_pallas={mode} {o_losses[0]} vs K4 {losses[0]}")
         others[mode] = dict(ms_per_step=statistics.median(o_walls[1:]) * 1e3,
@@ -1917,16 +2057,15 @@ def phase_ring_kernel(torch, card):
                                                           kernel=True),
            "k4": lambda a, b_, c_: fl.flash_attention(a, b_, c_, schedule=sched),
            "sdpa": lambda a, b_, c_: F.scaled_dot_product_attention(a, b_, c_, is_causal=True)}
-    saved = (ca.fwd_launches, ca.dq_launches, ca.dkv_launches, fl.fwd_launches,
-             fl.bwd_dq_launches, fl.bwd_dkv_launches)
+    saved = (ca.fwd_launches, ca.dq_launches, ca.dkv_launches) + k4_counts(fl)
     layer = {}
     for name, fn in fns.items():
         with torch.no_grad():
             fwd = median_ms(lambda: fn(q, k, v), 10, flush)
         both = median_ms(lambda: torch.autograd.grad(fn(ql, kl, vl), (ql, kl, vl), do), 10, flush)
         layer[name] = {"fwd_ms": fwd, "fwd_bwd_ms": both}
-    (ca.fwd_launches, ca.dq_launches, ca.dkv_launches, fl.fwd_launches,
-     fl.bwd_dq_launches, fl.bwd_dkv_launches) = saved
+    ca.fwd_launches, ca.dq_launches, ca.dkv_launches = saved[:3]
+    k4_set_counts(fl, saved[3:])
     emit("ring_kernel_timing", dtype="bfloat16", pair=dict(b=b, h=h, c=c, d=d, n_valid=LS_N),
          library="torch.nn.functional.scaled_dot_product_attention with the pair's boolean "
                  "mask, forward, and its backward alone for dq and dk/dv",
@@ -2039,7 +2178,7 @@ def phase_train_ring(torch, card, k4_row):
     losses, walls = [], []
     # the sequence-parallel training path starts here
     ca.fwd_launches = ca.dq_launches = ca.dkv_launches = 0
-    fl.fwd_launches = fl.bwd_dq_launches = fl.bwd_dkv_launches = 0
+    k4_set_counts(fl, (0,) * len(K4_COUNTERS))
     fa.fwd_launches = fa.bwd_launches = 0
     pa.fwd_launches = pa.bwd_launches = 0
     for _ in range(steps):
@@ -2183,8 +2322,9 @@ def main() -> int:
                             "library_ms": v["library_ms"]} for k, v in w_timing.items()},
             "tolerance": "decode_attention.window_tolerance, per element",
         })
-    # K4: the headline time is the slice's full-causal layer in bf16; the
-    # axial layers and the DALL·E-1.4B shape are beside it
+    # K4: the headline time is the slice's full-causal layer in bf16 (the
+    # tensor-core route); the axial layers and the DALL·E-1.4B shape are
+    # beside it, and the f32 route on the same values
     for which, name, line in (("fwd", "flash_attention_fwd", 354),
                               ("dq", "flash_attention_bwd_dq", 404),
                               ("dkv", "flash_attention_bwd_dkv", 436)):
@@ -2199,10 +2339,14 @@ def main() -> int:
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "timed_at": "b=2 h=8 n=4352 d=64, bfloat16, full causal",
+            "timed_at": "b=2 h=8 n=4352 d=64, bfloat16 (tensor-core route), full causal",
+            "kernel_functions": {"bfloat16": f"tc_{which}_kernel (mma.sync, cp.async ring)",
+                                 "float32": f"{which}_kernel (f32 FMA)"},
+            "f32_route_ms": t["f32_route_ms"],
             "by_case": {k: {"ms": v[which]["ms"], "bound_ms": v[which]["bound_ms"],
                             "plain_ms": v[which]["plain_ms"],
-                            "library_ms": v[which]["library_ms"]}
+                            "library_ms": v[which]["library_ms"],
+                            "f32_route_ms": v[which]["f32_route_ms"]}
                         for k, v in k4_timing.items()},
             "tolerance": K4_TOL,
         })

@@ -3,13 +3,14 @@
 //
 // Replaces dalle_tpu/ops/flash_attention.py::_make_flash_fn's three Pallas
 // calls: the forward (_fwd_kernel, pallas_call at :354), dq (_bwd_dq_kernel,
-// :404) and dk/dv (_bwd_dkv_kernel, :436). The arithmetic is the TPU
-// kernel's: q, k, v (and dO) are cast to f32 and q is scaled; scores, p and
-// every product are f32; a hidden pair scores -1e9 and its p is forced to 0
-// (s <= -5e8); the forward keeps a running max m, sum l and accumulator per
-// row (online softmax, k tiles in list order) and writes o = acc / l and
-// lse = m + log(l); a row with no visible key gets o = 0 and lse = +1e9, so
-// the backward's p = exp(s - lse) is 0 there. Backward: dS = p * (dP -
+// :404) and dk/dv (_bwd_dkv_kernel, :436). The function is the TPU
+// kernel's (the f32 route below also keeps its arithmetic: q, k, v and dO
+// cast to f32, q scaled, scores, p and every product f32): a hidden pair
+// scores -1e9 and its p is forced to 0 (s <= -5e8); the forward keeps a
+// running max m, sum l and accumulator per row (online softmax, k tiles in
+// list order) and writes o = acc / l and lse = m + log(l); a row with no
+// visible key gets o = 0 and lse = +1e9, so the backward's p = exp(s - lse)
+// is 0 there. Backward: dS = p * (dP -
 // delta) with delta = rowsum(dO * o) computed by the caller; dq = scale *
 // dS.k; dk = dS^T.(scale * q), dv = p^T.dO.
 //
@@ -27,29 +28,62 @@
 // dk, dv) are smaller. So the function is bound by operations on tensor
 // cores. chip_smoke.py recomputes these from its inputs.
 //
-// Design (first version: simple, exact, deterministic; no atomics). The TPU
-// kernel computes in f32, so this one does too, with FMA on the CUDA cores
-// (67 TFLOP/s f32 is ~1/15 of the bf16 tensor rate the bound assumes):
-//   * one CTA of 256 threads per (64-row tile, head, batch row); thread
-//     (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16*i and columns
-//     tx + 16*j (i, j < 4) of each 64x64 score tile, so the 16 threads of a
-//     row are one half-warp and row reductions are 4 shuffles;
-//   * tiles live in shared memory as f32, row stride d + 1 (conflict-free
-//     column reads); the score tile p (or dS) is staged there for the
-//     second product;
-//   * forward and dq: the q tile (and dO) is loaded once, the listed k and v
-//     tiles are streamed; dk/dv: the k and v tiles are loaded once, the
-//     listed q and dO tiles (and their lse, delta) are streamed;
-//   * operands are read through their (b, h, n) strides (the head split of
-//     the qkv projection is a strided view), scalar loads along d; outputs
-//     are written contiguous (b, h, n, d).
-// No tensor cores, no TMA or cp.async staging, no pipelining: those, and
-// bf16 wgmma with f32 accumulation, are for a later version (PERF.md).
+// Two routes, chosen by the operands' dtype in run():
+//
+// f32 operands: the TPU's arithmetic, on the CUDA cores (fwd_kernel,
+// dq_kernel, dkv_kernel). q is scaled before the product; every product is
+// f32 FMA. One CTA of 256 threads per (64-row tile, head, batch row); thread
+// (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16*i and columns tx + 16*j
+// of each 64x64 score tile; tiles sit in shared memory as f32 (row stride
+// d + 1) and the score tile is staged there for the second product. Held to
+// flash_attention.kernel_tolerance.
+//
+// bf16 operands: the tensor-core route (tc_fwd_kernel, tc_dq_kernel,
+// tc_dkv_kernel), designed for this card:
+//   * one CTA per 64-row tile, its tile index the slowest of the grid and
+//     the heaviest tiles first (causality: the last q tiles, the first k
+//     tiles); warps run bf16 mma.sync.m16n8k16 with f32 accumulators
+//     (tc_tile.cuh). The forward has four warps of 16 rows; dq and dk/dv
+//     have eight, two on each 16 rows, each over half of every streamed
+//     tile's columns, and add their accumulators once at the end (a fixed
+//     order, so the result is repeatable);
+//   * the resident tile (q, or q and dO; k and v for dk/dv) is loaded once
+//     by 16-byte cp.async; the listed tiles stream through a two-stage
+//     shared-memory ring: the copies of tile t+1 are issued before tile t is
+//     computed, one __syncthreads a tile; rows at or past n are zero-filled
+//     by the copy itself;
+//   * tiles are bf16 with a row stride of d + 8 (ldmatrix without bank
+//     conflicts); no score tile goes through shared memory: the C fragments
+//     of S (or dP) are the A fragments of the next product once rounded;
+//   * the online softmax lives in registers, row max and sum over the four
+//     lanes of a row; the element test runs on the accumulator fragments
+//     from each lane's (row, column), and is skipped for a tile that is
+//     wholly visible (kind none, inside n, at or below the diagonal);
+//   * dk/dv computes the transposed tile (keys are the M dimension), so P^T
+//     and dS^T stay in registers as A operands.
+// Rounding: S = (q*k^T)*scale, the bf16 products exact in f32 and the scale
+// applied to the f32 sum (1/sqrt(d) is not a power of two at d = 128, so
+// q is not rounded after scaling). p (forward: exp(s - m), the running max;
+// backward: exp(s - lse)) and dS are rounded to bf16 before the second
+// product; the forward's sum l is the f32 sum of the unrounded p, as in the
+// TPU kernel; dq and dk are scaled once, at the end; exp is __expf
+// (ex2.approx, about 2^-21 relative). The plain versions
+// with operands="bf16" compute exactly this, and the kernels are held to
+// them within flash_attention.tc_kernel_tolerance (a p or dS on a rounding
+// boundary may round the other way); against the TPU's f32 arithmetic the
+// route costs at most 2^-8 of the absolute products (rounding_bound).
+// Operands need 16-byte aligned rows: base and (b, h, n) strides multiples
+// of 8 elements (the wrapper checks).
+//
+// Both routes: deterministic, no atomics; operands read through their
+// (b, h, n) strides; outputs written contiguous (b, h, n, d).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -65,11 +99,9 @@ enum MaskKind { kNone = 0, kAxialRow = 1, kAxialCol = 2, kConv = 3, kTable = 4 }
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<bf16>(bf16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
 struct Mask {
   int kind, text_len, fmap, span, dil, n, causal;
@@ -483,6 +515,522 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// ---------------------------------------------------------------------------
+// the tensor-core route (bf16 operands)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;    // the forward's four warps, 16 rows of the tile each
+
+template <int D> __host__ __device__ constexpr int tc_ld() { return D + 8; }
+template <int D> __host__ __device__ constexpr int tc_tile_elems() { return kTile * tc_ld<D>(); }
+// q + two stages of k and v
+template <int D> constexpr int tc_fwd_smem() { return 5 * tc_tile_elems<D>() * 2; }
+// q, dO + two stages of k and v
+template <int D> constexpr int tc_dq_smem() { return 6 * tc_tile_elems<D>() * 2; }
+// k, v + two stages of q, dO, lse and delta
+template <int D> constexpr int tc_dkv_smem() {
+  return 6 * tc_tile_elems<D>() * 2 + 4 * kTile * 4;
+}
+
+// rows [row0, row0 + 64) of one (b, h) slice (row stride sn) into a bf16
+// shared tile of row stride D + 8, by 16-byte cp.async; rows at or past n
+// are zero
+template <int D, int kThr>
+__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src, long long sn, int row0,
+                                             int n) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThr) {
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    const int pos = row0 + r;
+    const bool ok = pos < n;
+    tc::cp_async16(dst + r * tc_ld<D>() + c * 8,
+                   src + (ok ? static_cast<long long>(pos) * sn + c * 8 : 0), ok);
+  }
+}
+
+// 64 f32 row statistics of (b, h, n) at rows [row0, row0 + 64), 0 past n
+__device__ __forceinline__ void tc_load_stats(float* dst, const float* src, int row0, int n) {
+  if (threadIdx.x < kTile) {
+    const int pos = row0 + threadIdx.x;
+    const bool ok = pos < n;
+    tc::cp_async4(dst + threadIdx.x, src + (ok ? pos : 0), ok);
+  }
+}
+
+// a tile pair that needs no element test: no spec or table, both tiles
+// inside n, and (when causal) every key at or before every query
+__device__ __forceinline__ bool tile_all_visible(const Mask& mk, int q0, int k0) {
+  return mk.kind == kNone && q0 + kTile <= mk.n && k0 + kTile <= mk.n &&
+         (!mk.causal || k0 + kTile - 1 <= q0);
+}
+
+// pos_info without the integer division: r = floor((i + 0.5) / fmap) in
+// f32 is exact while i + 0.5 < 2^22 (the quotient lies at least 0.5 / fmap
+// from an integer, and the f32 error stays below (i + 0.5) * 2^-23 / fmap);
+// run() keeps n below that
+__device__ __forceinline__ Pos tc_pos(const Mask& mk, float inv_fmap, int p) {
+  Pos o{p, 0, 0};
+  if (mk.kind >= kAxialRow && mk.kind <= kConv && p >= mk.text_len) {
+    const int i = p - mk.text_len;
+    o.r = __float2int_rz((static_cast<float>(i) + 0.5f) * inv_fmap);
+    o.c = i - o.r * mk.fmap;
+  }
+  return o;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int NJ>
+__device__ __forceinline__ void tc_zero(float (&x)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+}
+
+// s (NJ n8 tiles: 16 rows x 8*NJ columns) += A * B^T over D; A is the 16 rows
+// at arow0 of shared tile `a`, B the 8*NJ rows at brow0 of tile `b`, both
+// [row][d]
+template <int D, int NJ>
+__device__ __forceinline__ void tc_dot_nt(float (&s)[NJ][4], const bf16* a, int arow0,
+                                          const bf16* b, int brow0, int lane) {
+  constexpr int kLd = tc_ld<D>();
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t af[4];
+    tc::ldsm_x4(af, tc::a_addr(a, kLd, arow0, kd * 16, lane));
+#pragma unroll
+    for (int np = 0; np < NJ / 2; ++np) {
+      uint32_t bf[4];
+      tc::ldsm_x4(bf, tc::b_addr(b, kLd, brow0 + np * 16, kd * 16, lane));
+      tc::mma16816(s[2 * np], af, bf[0], bf[1]);
+      tc::mma16816(s[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (D/8 n8 tiles) += bf16(p) * B: p the 16 x 8*NJ fragments of a score
+// tile, B the 8*NJ rows at brow0 of shared tile `b` ([row][d], read
+// transposed by ldmatrix)
+template <int D, int NJ>
+__device__ __forceinline__ void tc_dot_pv(float (&acc)[D / 8][4], const float (&p)[NJ][4],
+                                          const bf16* b, int brow0, int lane) {
+  constexpr int kLd = tc_ld<D>();
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    uint32_t af[4];
+    tc::c_to_a(af, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bf[4];
+      tc::ldsm_x4_t(bf, tc::bt_addr(b, kLd, brow0 + kk * 16, dp * 16, lane));
+      tc::mma16816(acc[2 * dp], af, bf[0], bf[1]);
+      tc::mma16816(acc[2 * dp + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// this lane's part of rows `row` and row + 8 of a 16-row accumulator, times
+// `mul`, as bf16 rows of a contiguous (b, h, n, d) output
+template <int D>
+__device__ __forceinline__ void tc_store_rows(bf16* out, size_t row_base, int row, int n,
+                                              const float (&acc)[D / 8][4], float mul, int t4) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    if (r >= n) continue;
+    bf16* dst = out + (row_base + r) * D + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8) =
+          __floats2bfloat162_rn(acc[dn][2 * hr] * mul, acc[dn][2 * hr + 1] * mul);
+  }
+}
+
+// forward: grid (h, b, nt); o and lse
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) tc_fwd_kernel(const Params p) {
+  constexpr int kLd = tc_ld<D>();
+  constexpr int kEl = tc_tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sK = sQ + kEl;              // two stages
+  bf16* sV = sK + 2 * kEl;          // two stages
+
+  // the last q tiles first: under causality they visit the most k tiles
+  const int qt = gridDim.z - 1 - blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
+  const int n = p.mk.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = qt * kTile;
+  const bf16* k = slice<bf16>(p.k, p.st[1], bb, hh);
+  const bf16* v = slice<bf16>(p.v, p.st[2], bb, hh);
+  const int* ids = p.ids + static_cast<size_t>(qt) * p.max_ids;
+  const int count = p.cnt[qt];
+
+  tc_load_tile<D, kTcThreads>(sQ, slice<bf16>(p.q, p.st[0], bb, hh), p.st[0][2], q0, n);
+  if (count > 0) {
+    tc_load_tile<D, kTcThreads>(sK, k, p.st[1][2], ids[0] * kTile, n);
+    tc_load_tile<D, kTcThreads>(sV, v, p.st[2][2], ids[0] * kTile, n);
+  }
+  tc::cp_async_commit();
+
+  const int row = q0 + warp * 16 + g;   // this lane's rows: row and row + 8
+  const float inv_fmap = 1.f / p.mk.fmap;
+  const Pos qp[2] = {tc_pos(p.mk, inv_fmap, row), tc_pos(p.mk, inv_fmap, row + 8)};
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sums
+  float acc[D / 8][4];
+  tc_zero(acc);
+  uint32_t qf[D / 16][4];               // q's A fragments, loaded once
+
+  for (int t = 0; t < count; ++t) {
+    const int stage = t & 1;
+    const int k0 = ids[t] * kTile;
+    tc::cp_async_wait<0>();
+    __syncthreads();    // tile t has landed, and every warp is done with t - 1
+    if (t == 0) {
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        tc::ldsm_x4(qf[kd], tc::a_addr(sQ, kLd, warp * 16, kd * 16, lane));
+    }
+    if (t + 1 < count) {
+      const int k1 = ids[t + 1] * kTile;
+      tc_load_tile<D, kTcThreads>(sK + (stage ^ 1) * kEl, k, p.st[1][2], k1, n);
+      tc_load_tile<D, kTcThreads>(sV + (stage ^ 1) * kEl, v, p.st[2][2], k1, n);
+    }
+    tc::cp_async_commit();
+    const bf16* cK = sK + stage * kEl;
+    const bf16* cV = sV + stage * kEl;
+
+    float s[8][4];
+    tc_zero(s);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        tc::ldsm_x4(bf, tc::b_addr(cK, kLd, np * 16, kd * 16, lane));
+        tc::mma16816(s[2 * np], qf[kd], bf[0], bf[1]);
+        tc::mma16816(s[2 * np + 1], qf[kd], bf[2], bf[3]);
+      }
+    if (tile_all_visible(p.mk, q0, k0)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const Pos kp = tc_pos(p.mk, inv_fmap, k0 + j * 8 + 2 * t4 + c);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float& x = s[j][2 * hr + c];
+            x = visible(p.mk, qp[hr], kp) ? x * p.scale : kNegInf;
+          }
+        }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx));
+      const float corr = __expf(m[hr] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[j][2 * hr + c];
+          x = x > 0.5f * kNegInf ? __expf(x - m_new) : 0.f;
+          sum += x;
+        }
+      l[hr] = l[hr] * corr + sum;
+      m[hr] = m_new;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        acc[dn][2 * hr] *= corr;
+        acc[dn][2 * hr + 1] *= corr;
+      }
+    }
+    tc_dot_pv<D, 8>(acc, s, cV, 0, lane);
+  }
+  tc::cp_async_wait<0>();
+
+  const size_t row_base = (static_cast<size_t>(bb) * p.heads + hh) * n;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float sum = quad_sum(l[hr]);
+    const int r = row + 8 * hr;
+    if (r >= n) continue;
+    // o = acc / l, divided as the plain version does
+    const float safe_l = sum > 0.f ? sum : 1.f;
+    bf16* dst = static_cast<bf16*>(p.out0) + (row_base + r) * D + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8) =
+          __floats2bfloat162_rn(acc[dn][2 * hr] / safe_l, acc[dn][2 * hr + 1] / safe_l);
+    if (t4 == 0) p.lse_out[row_base + r] = sum > 0.f ? m[hr] + logf(safe_l) : -kNegInf;
+  }
+}
+
+// The backward kernels run eight warps: warp w takes the 16 rows
+// 16*(w % 4) of the resident tile against half (w / 4) of each streamed
+// tile's 64 columns, and the two halves' accumulators are added at the end
+// through shared memory (group 0 + group 1, a fixed order).
+constexpr int kTcBwdThreads = 256;
+
+// acc of group 1 (warps 4..7) into group 0's, through `red`, a free shared
+// buffer of 64*D floats; lane-major, so the 32 lanes hit 32 banks
+template <int D>
+__device__ __forceinline__ void tc_reduce_halves(float (&acc)[D / 8][4], float* red, int warp,
+                                                 int lane) {
+  float* mine = red + (warp & 3) * (D / 2) * 32 + lane;
+  if (warp >= 4) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(dn * 4 + e) * 32] = acc[dn][e];
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] += mine[(dn * 4 + e) * 32];
+  }
+}
+
+// dq: grid (h, b, nt), the last q tiles first
+template <int D>
+__global__ void __launch_bounds__(kTcBwdThreads) tc_dq_kernel(const Params p) {
+  constexpr int kEl = tc_tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sdO = sQ + kEl;
+  bf16* sK = sdO + kEl;             // two stages
+  bf16* sV = sK + 2 * kEl;          // two stages
+
+  const int qt = gridDim.z - 1 - blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
+  const int n = p.mk.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;   // rows, key columns
+  const int q0 = qt * kTile;
+  const bf16* k = slice<bf16>(p.k, p.st[1], bb, hh);
+  const bf16* v = slice<bf16>(p.v, p.st[2], bb, hh);
+  const int* ids = p.ids + static_cast<size_t>(qt) * p.max_ids;
+  const int count = p.cnt[qt];
+  const size_t row_base = (static_cast<size_t>(bb) * p.heads + hh) * n;
+
+  tc_load_tile<D, kTcBwdThreads>(sQ, slice<bf16>(p.q, p.st[0], bb, hh), p.st[0][2], q0, n);
+  tc_load_tile<D, kTcBwdThreads>(sdO, slice<bf16>(p.dout, p.st[3], bb, hh), p.st[3][2], q0, n);
+  if (count > 0) {
+    tc_load_tile<D, kTcBwdThreads>(sK, k, p.st[1][2], ids[0] * kTile, n);
+    tc_load_tile<D, kTcBwdThreads>(sV, v, p.st[2][2], ids[0] * kTile, n);
+  }
+  tc::cp_async_commit();
+
+  const int row = q0 + wr + g;
+  const float inv_fmap = 1.f / p.mk.fmap;
+  const Pos qp[2] = {tc_pos(p.mk, inv_fmap, row), tc_pos(p.mk, inv_fmap, row + 8)};
+  float lse[2], delta[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    lse[hr] = r < n ? p.lse_in[row_base + r] : 0.f;
+    delta[hr] = r < n ? p.delta[row_base + r] : 0.f;
+  }
+  float acc[D / 8][4];
+  tc_zero(acc);
+
+  for (int t = 0; t < count; ++t) {
+    const int stage = t & 1;
+    const int k0 = ids[t] * kTile;
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < count) {
+      const int k1 = ids[t + 1] * kTile;
+      tc_load_tile<D, kTcBwdThreads>(sK + (stage ^ 1) * kEl, k, p.st[1][2], k1, n);
+      tc_load_tile<D, kTcBwdThreads>(sV + (stage ^ 1) * kEl, v, p.st[2][2], k1, n);
+    }
+    tc::cp_async_commit();
+    const bf16* cK = sK + stage * kEl;
+    const bf16* cV = sV + stage * kEl;
+
+    float s[4][4], dp[4][4];
+    tc_zero(s);
+    tc_zero(dp);
+    tc_dot_nt<D, 4>(s, sQ, wr, cK, wc, lane);
+    tc_dot_nt<D, 4>(dp, sdO, wr, cV, wc, lane);
+    const bool all = tile_all_visible(p.mk, q0, k0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const Pos kp = tc_pos(p.mk, inv_fmap, k0 + wc + j * 8 + 2 * t4 + c);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int e = 2 * hr + c;
+          const float x = all || visible(p.mk, qp[hr], kp) ? s[j][e] * p.scale : kNegInf;
+          const float pr = __expf(x - lse[hr]);
+          s[j][e] = pr * (dp[j][e] - delta[hr]);      // dS
+        }
+      }
+    tc_dot_pv<D, 4>(acc, s, cK, wc, lane);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();                      // the ring is free: it holds the reduction
+  tc_reduce_halves<D>(acc, reinterpret_cast<float*>(sK), warp, lane);
+  if (warp < 4) tc_store_rows<D>(static_cast<bf16*>(p.out0), row_base, row, n, acc, p.scale, t4);
+}
+
+// dk, dv: grid (h, b, nt) over k tiles, the first k tiles first (under
+// causality they are visited by the most q tiles); the transposed tile, keys
+// as rows
+// (at d <= 64, two CTAs an SM: at most 128 registers a thread)
+template <int D>
+__global__ void __launch_bounds__(kTcBwdThreads, D <= 64 ? 2 : 1) tc_dkv_kernel(const Params p) {
+  constexpr int kEl = tc_tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sV = sK + kEl;
+  bf16* sQ = sV + kEl;              // two stages
+  bf16* sdO = sQ + 2 * kEl;         // two stages
+  float* sLse = reinterpret_cast<float*>(sdO + 2 * kEl);   // two stages
+  float* sDelta = sLse + 2 * kTile;                        // two stages
+
+  const int kt = blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
+  const int n = p.mk.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;   // key rows, query columns
+  const int k0 = kt * kTile;
+  const bf16* q = slice<bf16>(p.q, p.st[0], bb, hh);
+  const bf16* dout = slice<bf16>(p.dout, p.st[3], bb, hh);
+  const int* ids = p.ids + static_cast<size_t>(kt) * p.max_ids;
+  const int count = p.cnt[kt];
+  const size_t row_base = (static_cast<size_t>(bb) * p.heads + hh) * n;
+  const float* lse_in = p.lse_in + row_base;
+  const float* delta_in = p.delta + row_base;
+
+  tc_load_tile<D, kTcBwdThreads>(sK, slice<bf16>(p.k, p.st[1], bb, hh), p.st[1][2], k0, n);
+  tc_load_tile<D, kTcBwdThreads>(sV, slice<bf16>(p.v, p.st[2], bb, hh), p.st[2][2], k0, n);
+  if (count > 0) {
+    const int r0 = ids[0] * kTile;
+    tc_load_tile<D, kTcBwdThreads>(sQ, q, p.st[0][2], r0, n);
+    tc_load_tile<D, kTcBwdThreads>(sdO, dout, p.st[3][2], r0, n);
+    tc_load_stats(sLse, lse_in, r0, n);
+    tc_load_stats(sDelta, delta_in, r0, n);
+  }
+  tc::cp_async_commit();
+
+  const int key = k0 + wr + g;           // this lane's keys: key and key + 8
+  const float inv_fmap = 1.f / p.mk.fmap;
+  const Pos kp[2] = {tc_pos(p.mk, inv_fmap, key), tc_pos(p.mk, inv_fmap, key + 8)};
+  float dk[D / 8][4], dv[D / 8][4];
+  tc_zero(dk);
+  tc_zero(dv);
+
+  for (int t = 0; t < count; ++t) {
+    const int stage = t & 1;
+    const int q0 = ids[t] * kTile;
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < count) {
+      const int r1 = ids[t + 1] * kTile, o = stage ^ 1;
+      tc_load_tile<D, kTcBwdThreads>(sQ + o * kEl, q, p.st[0][2], r1, n);
+      tc_load_tile<D, kTcBwdThreads>(sdO + o * kEl, dout, p.st[3][2], r1, n);
+      tc_load_stats(sLse + o * kTile, lse_in, r1, n);
+      tc_load_stats(sDelta + o * kTile, delta_in, r1, n);
+    }
+    tc::cp_async_commit();
+    const bf16* cQ = sQ + stage * kEl;
+    const bf16* cdO = sdO + stage * kEl;
+    const float* cLse = sLse + stage * kTile;
+    const float* cDelta = sDelta + stage * kTile;
+    const bool all = tile_all_visible(p.mk, q0, k0);
+
+    float s[4][4], dp[4][4];
+    tc_zero(s);
+    tc_zero(dp);
+    tc_dot_nt<D, 4>(s, sK, wr, cQ, wc, lane);      // S^T = K*Q^T
+    tc_dot_nt<D, 4>(dp, sV, wr, cdO, wc, lane);    // dP^T = V*dO^T
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = wc + j * 8 + 2 * t4 + c;
+        const Pos qpos = tc_pos(p.mk, inv_fmap, q0 + col);
+        const float lse = cLse[col], delta = cDelta[col];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int e = 2 * hr + c;
+          const float x = all || visible(p.mk, qpos, kp[hr]) ? s[j][e] * p.scale : kNegInf;
+          const float pr = __expf(x - lse);
+          s[j][e] = pr;                               // P^T
+          dp[j][e] = pr * (dp[j][e] - delta);         // dS^T
+        }
+      }
+    tc_dot_pv<D, 4>(dv, s, cdO, wc, lane);     // dv += bf16(P^T)*dO
+    tc_dot_pv<D, 4>(dk, dp, cQ, wc, lane);     // dk += bf16(dS^T)*Q
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();                      // the ring is free: it holds the reductions
+  float* red = reinterpret_cast<float*>(sQ);
+  tc_reduce_halves<D>(dk, red, warp, lane);
+  tc_reduce_halves<D>(dv, red + 64 * D, warp, lane);
+  if (warp < 4) {
+    tc_store_rows<D>(static_cast<bf16*>(p.out0), row_base, key, n, dk, p.scale, t4);
+    tc_store_rows<D>(static_cast<bf16*>(p.out1), row_base, key, n, dv, 1.f, t4);
+  }
+}
+
+template <int D>
+int tc_launch(int which, const Params& p, int b, cudaStream_t stream) {
+  void (*kernel)(const Params);
+  int smem, threads = kTcBwdThreads;
+  if (which == kFwd) {
+    kernel = tc_fwd_kernel<D>;
+    smem = tc_fwd_smem<D>();
+    threads = kTcThreads;
+  } else if (which == kDq) {
+    kernel = tc_dq_kernel<D>;
+    smem = tc_dq_smem<D>();
+  } else {
+    kernel = tc_dkv_kernel<D>;
+    smem = tc_dkv_smem<D>();
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the tile index slowest, so that every (head, batch row) starts its
+  // heaviest tiles first
+  const dim3 grid(p.heads, b, (p.mk.n + kTile - 1) / kTile);
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tc_dispatch_d(int which, const Params& p, int b, int d, cudaStream_t stream) {
+  switch (d) {
+    case 16: return tc_launch<16>(which, p, b, stream);
+    case 32: return tc_launch<32>(which, p, b, stream);
+    case 64: return tc_launch<64>(which, p, b, stream);
+    case 128: return tc_launch<128>(which, p, b, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T, int D>
 int launch(int which, const Params& p, int b, cudaStream_t stream) {
   void (*kernel)(const Params);
@@ -542,8 +1090,10 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
   p.heads = h;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // f32: the TPU's arithmetic on the CUDA cores; bf16: the tensor cores
   if (dtype == kF32) return dispatch_d<float>(which, p, b, d, s);
-  if (dtype == kBF16) return dispatch_d<bf16>(which, p, b, d, s);
+  if (dtype == kBF16) return n < (1 << 22) ? tc_dispatch_d(which, p, b, d, s)
+                                            : static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

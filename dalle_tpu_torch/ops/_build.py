@@ -6,8 +6,9 @@ Nothing happens at import: the first call that needs a kernel builds it. All
 sources build at once, one ``nvcc`` process each, started together.
 
 The library lands in ``build/kernels/`` at the repository root, named by a
-hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused. A failed build raises; there is no fallback.
+hash of its source, the local headers it includes (``#include "x.cuh"``,
+followed through headers) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. A failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,17 +16,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report (registers, spills) per source built
@@ -42,8 +45,25 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _sources(src: Path) -> List[Path]:
+    """``src`` and the local headers it includes, directly or through other
+    headers, each once (a quoted include found next to its includer)."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        text = f.read_text(encoding="utf-8", errors="replace")
+        todo += [f.parent / name for name in _INCLUDE.findall(text)
+                 if (f.parent / name).is_file()]
+    return seen
+
+
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources(src):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -14,14 +14,21 @@ atomics. All three are built at first use (``_build.py``). On a CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 version, which walks the same block lists in the same order with the same
 online softmax. ``fwd_launches``, ``bwd_dq_launches`` and
-``bwd_dkv_launches`` count kernel launches.
+``bwd_dkv_launches`` count kernel launches, and ``tc_fwd_launches``,
+``tc_bwd_dq_launches`` and ``tc_bwd_dkv_launches`` those of them that took
+the tensor-core route.
 
-The arithmetic is the TPU kernel's: q, k and v are cast to f32, q is scaled,
-and scores, p and every product are f32; hidden pairs score -1e9 and p is
-forced to 0 where s <= -5e8. A row with no visible key gets l = 0, output 0
-and lse = +1e9, so its backward p is 0. ``delta = rowsum(dO·o)`` is a plain
-PyTorch op between the forward and the backward kernels, as it sits outside
-any kernel in the JAX package.
+The kernels have two routes, chosen by the operands' dtype. f32 operands
+keep the TPU kernel's arithmetic: q, k and v are cast to f32, q is scaled,
+and scores, p and every product are f32. bf16 operands run on the tensor
+cores: s = (q·kᵀ)·scale in f32, and p and dS are rounded to bf16 before
+the second product (``operands="bf16"`` in the plain versions; the bound
+against the f32 arithmetic is ``rounding_bound``). A bf16 operand needs
+16-byte aligned rows, else the wrapper raises. Either way hidden pairs
+score -1e9 and p is forced to 0 where s <= -5e8. A row with no visible key
+gets l = 0, output 0 and lse = +1e9, so its backward p is 0.
+``delta = rowsum(dO·o)`` is a plain PyTorch op between the forward and the
+backward kernels, as it sits outside any kernel in the JAX package.
 
 The TPU's block geometry does not carry over: its 128-lane rule, the
 ``_auto_block`` VMEM sizes and the lane-replicated (bq, 128) lse are Mosaic
@@ -72,6 +79,10 @@ PALLAS_AUTO_MIN_SEQ = 2048
 fwd_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+# the share of those that took the tensor-core route (bf16 operands)
+tc_fwd_launches = 0
+tc_bwd_dq_launches = 0
+tc_bwd_dkv_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
@@ -326,14 +337,39 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
 
 
-def flash_fwd_plain(q, k, v, sched: FlashSchedule, scale: Optional[float] = None):
+def _rounder(operands: str):
+    """``operands`` → the rounding applied to a second product's operand:
+    none for "f32" (the TPU's arithmetic), bf16 for "bf16" (the tensor-core
+    route)."""
+    if operands == "f32":
+        return lambda x: x
+    if operands == "bf16":
+        return lambda x: x.to(torch.bfloat16).float()
+    raise ValueError(f"operands must be 'f32' or 'bf16', got {operands!r}")
+
+
+def _inputs(sc: float, operands: str, q, *rest):
+    """f32 tiles of q (scaled for "f32") and the other operands (rounded to
+    bf16 for "bf16", where the kernel scales s instead of q)."""
+    nt = -(-q.shape[2] // TILE)
+    rnd = _rounder(operands)
+    qs = _tiles(q, nt) * sc if operands == "f32" else rnd(_tiles(q, nt))
+    return (qs,) + tuple(rnd(_tiles(x, nt)) for x in rest)
+
+
+def flash_fwd_plain(q, k, v, sched: FlashSchedule, scale: Optional[float] = None,
+                    operands: str = "f32"):
     """The forward kernel's function → (o in q's dtype (b, h, n, d), lse f32
     (b, h, n)): each q tile walks its k tiles in list order with the online
-    softmax (running max m, sum l and accumulator in f32)."""
+    softmax (running max m, sum l and accumulator in f32). ``operands``
+    "f32" is the TPU's arithmetic (the f32 route); "bf16" the tensor-core
+    route's: s = (q·k)·scale, and p rounded to bf16 before p·v (l sums the
+    unrounded p)."""
     b, h, n, d = q.shape
     nt = -(-n // TILE)
-    qs = _tiles(q, nt) * _scale(q, scale)
-    kt, vt = _tiles(k, nt), _tiles(v, nt)
+    sc = _scale(q, scale)
+    rnd = _rounder(operands)
+    qs, kt, vt = _inputs(sc, operands, q, k, v)
     qpos = _tile_pos(torch.arange(nt, device=q.device))[:, :, None]      # (nt, T, 1)
     acc = torch.zeros(b, h, nt, TILE, d, device=q.device)
     m = torch.full((b, h, nt, TILE, 1), NEG_INF, device=q.device)
@@ -343,12 +379,14 @@ def flash_fwd_plain(q, k, v, sched: FlashSchedule, scale: Optional[float] = None
         jb = sched.k_ids[:, t].long()
         kb, vb = kt[:, :, jb], vt[:, :, jb]
         s = torch.einsum("bhqid,bhqjd->bhqij", qs, kb)
+        if operands == "bf16":
+            s = s * sc
         s = torch.where(_visible(sched, qpos, _tile_pos(jb)[:, None, :]), s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m_new), 0.0)
         corr = torch.exp(m - m_new)
         l = torch.where(live, l * corr + p.sum(dim=-1, keepdim=True), l)
-        acc = torch.where(live, acc * corr + torch.einsum("bhqij,bhqjd->bhqid", p, vb), acc)
+        acc = torch.where(live, acc * corr + torch.einsum("bhqij,bhqjd->bhqid", rnd(p), vb), acc)
         m = torch.where(live, m_new, m)
     safe_l = torch.where(l > 0, l, 1.0)
     o = (acc / safe_l).reshape(b, h, nt * TILE, d)[:, :, :n]
@@ -357,14 +395,16 @@ def flash_fwd_plain(q, k, v, sched: FlashSchedule, scale: Optional[float] = None
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, sched: FlashSchedule,
-                       scale: Optional[float] = None) -> torch.Tensor:
+                       scale: Optional[float] = None, operands: str = "f32") -> torch.Tensor:
     """The dq kernel's function: p = exp(s - lse), dS = p·(dP - delta),
-    dq = scale · Σ dS·k over each q tile's k tiles in list order."""
+    dq = scale · Σ dS·k over each q tile's k tiles in list order; with
+    ``operands="bf16"`` s = (q·k)·scale and dS is rounded to bf16 before
+    dS·k."""
     b, h, n, d = q.shape
     nt = -(-n // TILE)
     sc = _scale(q, scale)
-    qs, dot = _tiles(q, nt) * sc, _tiles(do, nt)
-    kt, vt = _tiles(k, nt), _tiles(v, nt)
+    rnd = _rounder(operands)
+    qs, kt, vt, dot = _inputs(sc, operands, q, k, v, do)
     lse_t, delta_t = _tiles(lse[..., None], nt), _tiles(delta[..., None], nt)
     qpos = _tile_pos(torch.arange(nt, device=q.device))[:, :, None]
     dq = torch.zeros(b, h, nt, TILE, d, device=q.device)
@@ -373,22 +413,27 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, sched: FlashSchedule,
         jb = sched.k_ids[:, t].long()
         kb, vb = kt[:, :, jb], vt[:, :, jb]
         s = torch.einsum("bhqid,bhqjd->bhqij", qs, kb)
+        if operands == "bf16":
+            s = s * sc
         s = torch.where(_visible(sched, qpos, _tile_pos(jb)[:, None, :]), s, NEG_INF)
         p = torch.exp(s - lse_t)
         dp = torch.einsum("bhqid,bhqjd->bhqij", dot, vb)
         ds = p * (dp - delta_t)
-        dq = torch.where(live, dq + torch.einsum("bhqij,bhqjd->bhqid", ds, kb), dq)
+        dq = torch.where(live, dq + torch.einsum("bhqij,bhqjd->bhqid", rnd(ds), kb), dq)
     return (dq * sc).reshape(b, h, nt * TILE, d)[:, :, :n].to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, sched: FlashSchedule,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, operands: str = "f32"):
     """The dk/dv kernel's function: each k tile walks its q tiles in list
-    order; dv = Σ pᵀ·dO, dk = Σ dSᵀ·(scale·q), so dk needs no final scale."""
+    order; dv = Σ pᵀ·dO, dk = Σ dSᵀ·(scale·q), so dk needs no final scale.
+    With ``operands="bf16"``: s = (q·k)·scale, p and dS rounded to bf16
+    before pᵀ·dO and dSᵀ·q, and dk = scale · Σ dSᵀ·q."""
     b, h, n, d = q.shape
     nt = -(-n // TILE)
-    qs, dot = _tiles(q, nt) * _scale(q, scale), _tiles(do, nt)
-    kt, vt = _tiles(k, nt), _tiles(v, nt)
+    sc = _scale(q, scale)
+    rnd = _rounder(operands)
+    qs, kt, vt, dot = _inputs(sc, operands, q, k, v, do)
     lse_t, delta_t = _tiles(lse[..., None], nt), _tiles(delta[..., None], nt)
     kpos = _tile_pos(torch.arange(nt, device=q.device))[:, None, :]     # (nt, 1, T)
     dk = torch.zeros(b, h, nt, TILE, d, device=q.device)
@@ -398,16 +443,55 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, sched: FlashSchedule,
         ib = sched.q_ids[:, t].long()
         qb, dob = qs[:, :, ib], dot[:, :, ib]
         s = torch.einsum("bhkid,bhkjd->bhkij", qb, kt)                  # (query, key)
+        if operands == "bf16":
+            s = s * sc
         s = torch.where(_visible(sched, _tile_pos(ib)[:, :, None], kpos), s, NEG_INF)
         p = torch.exp(s - lse_t[:, :, ib])
-        dv = torch.where(live, dv + torch.einsum("bhkij,bhkid->bhkjd", p, dob), dv)
+        dv = torch.where(live, dv + torch.einsum("bhkij,bhkid->bhkjd", rnd(p), dob), dv)
         dp = torch.einsum("bhkid,bhkjd->bhkij", dob, vt)
         ds = p * (dp - delta_t[:, :, ib])
-        dk = torch.where(live, dk + torch.einsum("bhkij,bhkid->bhkjd", ds, qb), dk)
+        dk = torch.where(live, dk + torch.einsum("bhkij,bhkid->bhkjd", rnd(ds), qb), dk)
+    if operands == "bf16":
+        dk = dk * sc
 
     def out(x):
         return x.reshape(b, h, nt * TILE, d)[:, :, :n].to(q.dtype)
     return out(dk), out(dv)
+
+
+def rounding_bound(q, k, v, do, lse, delta, sched: FlashSchedule,
+                   scale: Optional[float] = None) -> dict:
+    """Per element of o, dq, dk and dv (f32 (b, h, n, d)), the sum of the
+    absolute products whose first factor the tensor-core route rounds to
+    bf16: Σ|P|·|v| for o (P = exp(s - lse) = p / l), scale·Σ|dS|·|k| for
+    dq, scale·Σ|dS|ᵀ·|q| for dk and Σ|P|ᵀ·|dO| for dv, over the pairs the
+    schedule makes visible. Rounding to nearest moves each factor by at
+    most 2^-8 of itself, so 2^-8 of this bounds what the rounding changes
+    in the f32 sum; ``rounding_tolerance`` and ``tc_kernel_tolerance`` are
+    built on it."""
+    b, h, n, d = q.shape
+    nt = -(-n // TILE)
+    sc = _scale(q, scale)
+    qs, kt, vt, dot = (_tiles(x, nt) for x in (q, k, v, do))
+    lse_t, delta_t = _tiles(lse[..., None], nt), _tiles(delta[..., None], nt)
+    qpos = _tile_pos(torch.arange(nt, device=q.device))[:, :, None]
+    out = {w: torch.zeros(b, h, nt, TILE, d, device=q.device) for w in ("o", "dq", "dk", "dv")}
+    for t in range(sched.k_ids.shape[1]):
+        live = (t < sched.k_cnt)[:, None, None]
+        jb = sched.k_ids[:, t].long()
+        kb, vb = kt[:, :, jb], vt[:, :, jb]
+        s = torch.einsum("bhqid,bhqjd->bhqij", qs, kb) * sc
+        vis = _visible(sched, qpos, _tile_pos(jb)[:, None, :]) & live
+        p = torch.where(vis, torch.exp(s - lse_t), 0.0)
+        dp = torch.einsum("bhqid,bhqjd->bhqij", dot, vb)
+        ds = (p * (dp - delta_t)).abs()
+        out["o"] += torch.einsum("bhqij,bhqjd->bhqid", p, vb.abs())
+        out["dq"] += torch.einsum("bhqij,bhqjd->bhqid", ds, kb.abs())
+        out["dk"].index_add_(2, jb, torch.einsum("bhqij,bhqid->bhqjd", ds, qs.abs()))
+        out["dv"].index_add_(2, jb, torch.einsum("bhqij,bhqid->bhqjd", p, dot.abs()))
+    out["dq"] *= sc
+    out["dk"] *= sc
+    return {w: x.reshape(b, h, nt * TILE, d)[:, :, :n] for w, x in out.items()}
 
 
 def kernel_tolerance(want: torch.Tensor) -> torch.Tensor:
@@ -429,6 +513,30 @@ def lse_tolerance(want: torch.Tensor) -> torch.Tensor:
     in another order, 1e-5 of max(1, |lse|); an empty row's +1e9 is exact
     on both sides."""
     return 1e-5 * want.abs().clamp(min=1.0)
+
+
+def tc_kernel_tolerance(want: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """Per-element bound on |tensor-core kernel − plain version with
+    ``operands="bf16"``| for an output ``want`` (o, dq, dk or dv) of that
+    plain version, with ``bound`` its entry of ``rounding_bound``. Both
+    sides round the same p and dS to bf16 but reach them through f32 sums
+    taken in another order (and the kernel's exp through ex2.approx, within
+    about 2^-21 of the plain version's), so a value on a rounding boundary
+    may round up on one side and down on the other: one bf16 ulp, at most
+    2^-7 of the value. If every rounded factor flipped, the output would
+    move by 2^-7·bound; add ``kernel_tolerance`` for the f32 order of the sums and
+    the rounding of a bf16 output."""
+    return 2.0 ** -7 * bound.float() + kernel_tolerance(want)
+
+
+def rounding_tolerance(want: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """Per-element bound on |tensor-core route − the TPU's f32 arithmetic|
+    (``want`` from the plain version with ``operands="f32"``, ``bound``
+    from ``rounding_bound``): rounding to nearest moves each p or dS by at
+    most half a bf16 ulp, 2^-8 of itself, so the output by at most
+    2^-8·bound; plus ``kernel_tolerance``. The cost of the route, not a
+    bound the kernel is held to on the card."""
+    return 2.0 ** -8 * bound.float() + kernel_tolerance(want)
 
 
 # ---------------------------------------------------------------------------
@@ -514,6 +622,12 @@ def _check_cuda(q, k, v, sched: FlashSchedule, do=None, lse=None, delta=None) ->
                                or tuple(t.shape) != (b, h, n) or not t.is_contiguous()
                                or t.device != q.device):
             raise ValueError(f"{what} must be contiguous float32 {(b, h, n)}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core route copies 16-byte row pieces with cp.async
+        for t, what in ((q, "q"), (k, "k"), (v, "v"), (do, "dout")):
+            if t is not None and (t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+                raise ValueError(f"bf16 {what} must start on 16 bytes with (b, h, n) "
+                                 f"strides that are multiples of 8, got strides {t.stride()}")
     return d
 
 
@@ -534,7 +648,7 @@ def _stream(t):
 
 def flash_attention_fwd(q, k, v, sched: FlashSchedule, scale: Optional[float] = None):
     """Forward: (o (b, h, n, d) in q's dtype, lse f32 (b, h, n))."""
-    global fwd_launches
+    global fwd_launches, tc_fwd_launches
     if not _on_card(q, "flash_attention_fwd"):
         return flash_fwd_plain(q, k, v, sched, scale)
     d = _check_cuda(q, k, v, sched)
@@ -550,6 +664,7 @@ def flash_attention_fwd(q, k, v, sched: FlashSchedule, scale: Optional[float] = 
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel failed to launch: CUDA error {rc}")
     fwd_launches += 1
+    tc_fwd_launches += int(q.dtype == torch.bfloat16)
     return o, lse
 
 
@@ -557,7 +672,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, sched: FlashSchedule,
                            scale: Optional[float] = None) -> torch.Tensor:
     """dq (b, h, n, d) in q's dtype from the saved inputs, the output
     gradient, the forward's lse and delta = rowsum(dO·o), f32 (b, h, n)."""
-    global bwd_dq_launches
+    global bwd_dq_launches, tc_bwd_dq_launches
     if not _on_card(q, "flash_attention_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, sched, scale)
     d = _check_cuda(q, k, v, sched, do, lse, delta)
@@ -573,13 +688,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, sched: FlashSchedule,
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_dq kernel failed to launch: CUDA error {rc}")
     bwd_dq_launches += 1
+    tc_bwd_dq_launches += int(q.dtype == torch.bfloat16)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sched: FlashSchedule,
                             scale: Optional[float] = None):
     """(dk, dv) (b, h, n, d) in q's dtype, as ``flash_attention_bwd_dq``."""
-    global bwd_dkv_launches
+    global bwd_dkv_launches, tc_bwd_dkv_launches
     if not _on_card(q, "flash_attention_bwd_dkv"):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, sched, scale)
     d = _check_cuda(q, k, v, sched, do, lse, delta)
@@ -596,6 +712,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sched: FlashSchedule,
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv kernel failed to launch: CUDA error {rc}")
     bwd_dkv_launches += 1
+    tc_bwd_dkv_launches += int(q.dtype == torch.bfloat16)
     return dk, dv
 
 

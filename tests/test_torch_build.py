@@ -1,0 +1,33 @@
+"""The kernel build's cache key (``dalle_tpu_torch/ops/_build.py``), on the
+CPU: no ``nvcc`` is needed to name a library. A source is rebuilt when it or
+a local header it includes changes, and only then."""
+
+from dalle_tpu_torch.ops import _build
+
+
+def test_target_covers_the_local_headers_a_source_includes(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (csrc / "tile.cuh").write_text('#pragma once\n#include "inner.cuh"\nint tile();\n')
+    (csrc / "inner.cuh").write_text("int inner();\n")
+    (csrc / "other.cuh").write_text("int other();\n")
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n#include "tile.cuh"\nint a();\n')
+    (csrc / "b.cu").write_text("int b();\n")
+
+    def targets():
+        return {s: _build._target(csrc / f"{s}.cu") for s in ("a", "b")}
+
+    assert [p.name for p in _build._sources(csrc / "a.cu")] == ["a.cu", "tile.cuh", "inner.cuh"]
+    first = targets()
+    assert all(t.parent == tmp_path / "build" and t.suffix == ".so" for t in first.values())
+    assert targets() == first                        # unchanged sources, same names
+    (csrc / "inner.cuh").write_text("int inner(int);\n")   # a header of a header
+    second = targets()
+    assert second["a"] != first["a"] and second["b"] == first["b"]
+    (csrc / "tile.cuh").write_text('#pragma once\n#include "inner.cuh"\nint tile(int);\n')
+    third = targets()
+    assert third["a"] != second["a"] and third["b"] == first["b"]
+    (csrc / "other.cuh").write_text("int other(int);\n")   # included by nobody
+    assert targets() == third

@@ -16,7 +16,11 @@ The fused attention kernels (K1) are held to their plain versions element
 by element, within ``fused_attention.kernel_tolerance`` (its docstring gives
 the reasons), and their row max and sum within 1e-5. The flash kernels (K4:
 forward, dq, dk/dv) are held to theirs within
-``flash_attention.kernel_tolerance`` and ``lse_tolerance``. The windowed kernels
+``flash_attention.kernel_tolerance`` and ``lse_tolerance`` for f32 operands
+(the TPU's arithmetic); bf16 operands take the tensor-core route, held to
+the plain versions with ``operands="bf16"`` within
+``flash_attention.tc_kernel_tolerance`` (one bf16 ulp of every rounded p and
+dS, from ``rounding_bound``) and ``lse_tolerance``. The windowed kernels
 (K3 over the dense slab, K5 over the paged pool) are held to theirs within
 ``decode_attention.window_tolerance``, and K5 must equal K3 on the gathered
 slab bit for bit. The whole-sequence kernels (K8: forward, and the backward's
@@ -277,24 +281,41 @@ def _k4_case(b, h, n, d, dtype, seed):
     return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for _ in range(4)]
 
 
-def _assert_k4_close(got, want, lse=False):
-    tol = fl.lse_tolerance(want) if lse else fl.kernel_tolerance(want)
+def _assert_k4_close(got, want, lse=False, bound=None):
+    """lse_tolerance for lse; for o, dq, dk, dv kernel_tolerance (f32
+    route) or, given the rounding bound, tc_kernel_tolerance (bf16)."""
+    if lse:
+        tol = fl.lse_tolerance(want)
+    else:
+        tol = fl.kernel_tolerance(want) if bound is None else fl.tc_kernel_tolerance(want, bound)
     diff = (got.float() - want.float()).abs()
     share = (diff / tol).max().item()
     assert share <= 1.0, (share, diff.max().item())
 
 
 def _k4_all(q, k, v, do, sched):
-    """The three kernels, and the plain versions on the same inputs."""
+    """The three kernels, the plain versions in the route's arithmetic on
+    the same inputs (o, lse, dq, dk, dv each), and for bf16 the rounding
+    bounds of o, dq, dk, dv (None for f32)."""
+    ops = "bf16" if q.dtype == torch.bfloat16 else "f32"
     o, lse = fl.flash_attention_fwd(q, k, v, sched)
-    ro, rlse = fl.flash_fwd_plain(q, k, v, sched)
+    ro, rlse = fl.flash_fwd_plain(q, k, v, sched, operands=ops)
     delta = (do.float() * ro.float()).sum(-1).contiguous()
     got = [o, lse, fl.flash_attention_bwd_dq(q, k, v, do, rlse, delta, sched),
            *fl.flash_attention_bwd_dkv(q, k, v, do, rlse, delta, sched)]
-    want = [ro, rlse, fl.flash_bwd_dq_plain(q, k, v, do, rlse, delta, sched),
-            *fl.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, sched)]
+    want = [ro, rlse, fl.flash_bwd_dq_plain(q, k, v, do, rlse, delta, sched, operands=ops),
+            *fl.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, sched, operands=ops)]
+    bounds = None
+    if ops == "bf16":
+        rb = fl.rounding_bound(q, k, v, do, rlse, delta, sched)
+        bounds = [rb["o"], None, rb["dq"], rb["dk"], rb["dv"]]
     torch.cuda.synchronize()
-    return got, want
+    return got, want, bounds
+
+
+def _k4_counts():
+    return (fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches,
+            fl.tc_fwd_launches, fl.tc_bwd_dq_launches, fl.tc_bwd_dkv_launches)
 
 
 @pytest.mark.parametrize("case", [
@@ -309,13 +330,14 @@ def test_flash_kernels_match_plain(dtype, case):
     mask, spec = _k4_mask(kind, n, text_len, fmap)
     sched = fl.flash_schedule(n, mask, spec, causal, device="cuda")
     q, k, v, do = _k4_case(b, h, n, d, dtype, seed=n + d)
-    before = fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches
-    got, want = _k4_all(q, k, v, do, sched)
-    assert (fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches) == tuple(
-        x + 1 for x in before)
+    before = _k4_counts()
+    got, want, bounds = _k4_all(q, k, v, do, sched)
+    # each kernel once, on the route of the dtype: tensor cores for bf16
+    tc = int(dtype == torch.bfloat16)
+    assert _k4_counts() == tuple(x + step for x, step in zip(before, (1, 1, 1, tc, tc, tc)))
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and g.shape == w.shape
-        _assert_k4_close(g, w, lse=i == 1)
+        _assert_k4_close(g, w, lse=i == 1, bound=None if bounds is None else bounds[i])
     if kind == "holes":
         # the fully masked row: zero output, lse +1e9, finite gradients
         assert torch.equal(got[0][:, :, 5], torch.zeros_like(got[0][:, :, 5]))
@@ -332,12 +354,13 @@ def test_flash_kernels_are_deterministic():
 
 def test_flash_structured_spec_equals_table_on_the_card():
     n, text_len, fmap = 300, 45, 16
-    q, k, v, do = _k4_case(2, 2, n, 64, torch.float32, seed=5)
-    for kind in ("axial_row", "axial_col", "conv_like"):
-        mask, spec = _k4_mask(kind, n, text_len, fmap)
-        a = _k4_all(q, k, v, do, fl.flash_schedule(n, mask, spec, device="cuda"))[0]
-        t = _k4_all(q, k, v, do, fl.flash_schedule(n, mask, None, device="cuda"))[0]
-        assert all(torch.equal(x, y) for x, y in zip(a, t)), kind
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _k4_case(2, 2, n, 64, dtype, seed=5)
+        for kind in ("axial_row", "axial_col", "conv_like"):
+            mask, spec = _k4_mask(kind, n, text_len, fmap)
+            a = _k4_all(q, k, v, do, fl.flash_schedule(n, mask, spec, device="cuda"))[0]
+            t = _k4_all(q, k, v, do, fl.flash_schedule(n, mask, None, device="cuda"))[0]
+            assert all(torch.equal(x, y) for x, y in zip(a, t)), (kind, dtype)
 
 
 def test_flash_wrapper_raises_instead_of_falling_back():
@@ -349,6 +372,16 @@ def test_flash_wrapper_raises_instead_of_falling_back():
         fl.flash_attention_fwd(q.half(), k.half(), v.half(), sched)
     with pytest.raises(ValueError):
         fl.flash_attention_fwd(q, k, v, fl.flash_schedule(17, device="cuda"))
+    # the tensor-core route raises on a bf16 row that cp.async cannot copy
+    # whole: a base off 16 bytes, or an n stride that is no multiple of 8
+    base = torch.zeros(2 * 16 * 32 + 4, dtype=torch.bfloat16, device="cuda")
+    shifted = base[4:].view(1, 2, 16, 32)
+    padded = torch.zeros(1, 2, 16, 36, dtype=torch.bfloat16, device="cuda")[..., :32]
+    before = _k4_counts()
+    for bad in (shifted, padded):
+        with pytest.raises(ValueError):
+            fl.flash_attention_fwd(bad, bad, bad, sched)
+    assert _k4_counts() == before
 
 
 def test_flash_transformer_on_the_card_matches_dense():
