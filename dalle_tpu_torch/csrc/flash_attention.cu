@@ -578,66 +578,6 @@ __device__ __forceinline__ Pos tc_pos(const Mask& mk, float inv_fmap, int p) {
   return o;
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int NJ>
-__device__ __forceinline__ void tc_zero(float (&x)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
-}
-
-// s (NJ n8 tiles: 16 rows x 8*NJ columns) += A * B^T over D; A is the 16 rows
-// at arow0 of shared tile `a`, B the 8*NJ rows at brow0 of tile `b`, both
-// [row][d]
-template <int D, int NJ>
-__device__ __forceinline__ void tc_dot_nt(float (&s)[NJ][4], const bf16* a, int arow0,
-                                          const bf16* b, int brow0, int lane) {
-  constexpr int kLd = tc_ld<D>();
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    uint32_t af[4];
-    tc::ldsm_x4(af, tc::a_addr(a, kLd, arow0, kd * 16, lane));
-#pragma unroll
-    for (int np = 0; np < NJ / 2; ++np) {
-      uint32_t bf[4];
-      tc::ldsm_x4(bf, tc::b_addr(b, kLd, brow0 + np * 16, kd * 16, lane));
-      tc::mma16816(s[2 * np], af, bf[0], bf[1]);
-      tc::mma16816(s[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (D/8 n8 tiles) += bf16(p) * B: p the 16 x 8*NJ fragments of a score
-// tile, B the 8*NJ rows at brow0 of shared tile `b` ([row][d], read
-// transposed by ldmatrix)
-template <int D, int NJ>
-__device__ __forceinline__ void tc_dot_pv(float (&acc)[D / 8][4], const float (&p)[NJ][4],
-                                          const bf16* b, int brow0, int lane) {
-  constexpr int kLd = tc_ld<D>();
-#pragma unroll
-  for (int kk = 0; kk < NJ / 2; ++kk) {
-    uint32_t af[4];
-    tc::c_to_a(af, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      tc::ldsm_x4_t(bf, tc::bt_addr(b, kLd, brow0 + kk * 16, dp * 16, lane));
-      tc::mma16816(acc[2 * dp], af, bf[0], bf[1]);
-      tc::mma16816(acc[2 * dp + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
 // this lane's part of rows `row` and row + 8 of a 16-row accumulator, times
 // `mul`, as bf16 rows of a contiguous (b, h, n, d) output
 template <int D>
@@ -689,7 +629,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_fwd_kernel(const Params p) {
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};              // this lane's share of the row sums
   float acc[D / 8][4];
-  tc_zero(acc);
+  tc::zero(acc);
   uint32_t qf[D / 16][4];               // q's A fragments, loaded once
 
   for (int t = 0; t < count; ++t) {
@@ -712,7 +652,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_fwd_kernel(const Params p) {
     const bf16* cV = sV + stage * kEl;
 
     float s[8][4];
-    tc_zero(s);
+    tc::zero(s);
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd)
 #pragma unroll
@@ -745,7 +685,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_fwd_kernel(const Params p) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
-      const float m_new = fmaxf(m[hr], quad_max(mx));
+      const float m_new = fmaxf(m[hr], tc::quad_max(mx));
       const float corr = __expf(m[hr] - m_new);
       float sum = 0.f;
 #pragma unroll
@@ -764,14 +704,14 @@ __global__ void __launch_bounds__(kTcThreads) tc_fwd_kernel(const Params p) {
         acc[dn][2 * hr + 1] *= corr;
       }
     }
-    tc_dot_pv<D, 8>(acc, s, cV, 0, lane);
+    tc::dot_pv<D, 8>(acc, s, cV, 0, lane);
   }
   tc::cp_async_wait<0>();
 
   const size_t row_base = (static_cast<size_t>(bb) * p.heads + hh) * n;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const float sum = quad_sum(l[hr]);
+    const float sum = tc::quad_sum(l[hr]);
     const int r = row + 8 * hr;
     if (r >= n) continue;
     // o = acc / l, divided as the plain version does
@@ -790,27 +730,6 @@ __global__ void __launch_bounds__(kTcThreads) tc_fwd_kernel(const Params p) {
 // tile's 64 columns, and the two halves' accumulators are added at the end
 // through shared memory (group 0 + group 1, a fixed order).
 constexpr int kTcBwdThreads = 256;
-
-// acc of group 1 (warps 4..7) into group 0's, through `red`, a free shared
-// buffer of 64*D floats; lane-major, so the 32 lanes hit 32 banks
-template <int D>
-__device__ __forceinline__ void tc_reduce_halves(float (&acc)[D / 8][4], float* red, int warp,
-                                                 int lane) {
-  float* mine = red + (warp & 3) * (D / 2) * 32 + lane;
-  if (warp >= 4) {
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mine[(dn * 4 + e) * 32] = acc[dn][e];
-  }
-  __syncthreads();
-  if (warp < 4) {
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dn][e] += mine[(dn * 4 + e) * 32];
-  }
-}
 
 // dq: grid (h, b, nt), the last q tiles first
 template <int D>
@@ -853,7 +772,7 @@ __global__ void __launch_bounds__(kTcBwdThreads) tc_dq_kernel(const Params p) {
     delta[hr] = r < n ? p.delta[row_base + r] : 0.f;
   }
   float acc[D / 8][4];
-  tc_zero(acc);
+  tc::zero(acc);
 
   for (int t = 0; t < count; ++t) {
     const int stage = t & 1;
@@ -870,10 +789,10 @@ __global__ void __launch_bounds__(kTcBwdThreads) tc_dq_kernel(const Params p) {
     const bf16* cV = sV + stage * kEl;
 
     float s[4][4], dp[4][4];
-    tc_zero(s);
-    tc_zero(dp);
-    tc_dot_nt<D, 4>(s, sQ, wr, cK, wc, lane);
-    tc_dot_nt<D, 4>(dp, sdO, wr, cV, wc, lane);
+    tc::zero(s);
+    tc::zero(dp);
+    tc::dot_nt<D, 4>(s, sQ, wr, cK, wc, lane);
+    tc::dot_nt<D, 4>(dp, sdO, wr, cV, wc, lane);
     const bool all = tile_all_visible(p.mk, q0, k0);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -888,11 +807,11 @@ __global__ void __launch_bounds__(kTcBwdThreads) tc_dq_kernel(const Params p) {
           s[j][e] = pr * (dp[j][e] - delta[hr]);      // dS
         }
       }
-    tc_dot_pv<D, 4>(acc, s, cK, wc, lane);
+    tc::dot_pv<D, 4>(acc, s, cK, wc, lane);
   }
   tc::cp_async_wait<0>();
   __syncthreads();                      // the ring is free: it holds the reduction
-  tc_reduce_halves<D>(acc, reinterpret_cast<float*>(sK), warp, lane);
+  tc::reduce_halves<D>(acc, reinterpret_cast<float*>(sK), warp, lane);
   if (warp < 4) tc_store_rows<D>(static_cast<bf16*>(p.out0), row_base, row, n, acc, p.scale, t4);
 }
 
@@ -940,8 +859,8 @@ __global__ void __launch_bounds__(kTcBwdThreads, D <= 64 ? 2 : 1) tc_dkv_kernel(
   const float inv_fmap = 1.f / p.mk.fmap;
   const Pos kp[2] = {tc_pos(p.mk, inv_fmap, key), tc_pos(p.mk, inv_fmap, key + 8)};
   float dk[D / 8][4], dv[D / 8][4];
-  tc_zero(dk);
-  tc_zero(dv);
+  tc::zero(dk);
+  tc::zero(dv);
 
   for (int t = 0; t < count; ++t) {
     const int stage = t & 1;
@@ -963,10 +882,10 @@ __global__ void __launch_bounds__(kTcBwdThreads, D <= 64 ? 2 : 1) tc_dkv_kernel(
     const bool all = tile_all_visible(p.mk, q0, k0);
 
     float s[4][4], dp[4][4];
-    tc_zero(s);
-    tc_zero(dp);
-    tc_dot_nt<D, 4>(s, sK, wr, cQ, wc, lane);      // S^T = K*Q^T
-    tc_dot_nt<D, 4>(dp, sV, wr, cdO, wc, lane);    // dP^T = V*dO^T
+    tc::zero(s);
+    tc::zero(dp);
+    tc::dot_nt<D, 4>(s, sK, wr, cQ, wc, lane);      // S^T = K*Q^T
+    tc::dot_nt<D, 4>(dp, sV, wr, cdO, wc, lane);    // dP^T = V*dO^T
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -983,14 +902,14 @@ __global__ void __launch_bounds__(kTcBwdThreads, D <= 64 ? 2 : 1) tc_dkv_kernel(
           dp[j][e] = pr * (dp[j][e] - delta);         // dS^T
         }
       }
-    tc_dot_pv<D, 4>(dv, s, cdO, wc, lane);     // dv += bf16(P^T)*dO
-    tc_dot_pv<D, 4>(dk, dp, cQ, wc, lane);     // dk += bf16(dS^T)*Q
+    tc::dot_pv<D, 4>(dv, s, cdO, wc, lane);     // dv += bf16(P^T)*dO
+    tc::dot_pv<D, 4>(dk, dp, cQ, wc, lane);     // dk += bf16(dS^T)*Q
   }
   tc::cp_async_wait<0>();
   __syncthreads();                      // the ring is free: it holds the reductions
   float* red = reinterpret_cast<float*>(sQ);
-  tc_reduce_halves<D>(dk, red, warp, lane);
-  tc_reduce_halves<D>(dv, red + 64 * D, warp, lane);
+  tc::reduce_halves<D>(dk, red, warp, lane);
+  tc::reduce_halves<D>(dv, red + 64 * D, warp, lane);
   if (warp < 4) {
     tc_store_rows<D>(static_cast<bf16*>(p.out0), row_base, key, n, dk, p.scale, t4);
     tc_store_rows<D>(static_cast<bf16*>(p.out1), row_base, key, n, dv, 1.f, t4);

@@ -1,5 +1,5 @@
 // Fused-boundary causal attention straight off the merged qkv layout, forward
-// and backward, for Hopper (sm_90a).
+// and backward, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces dalle_tpu/ops/fused_attention.py::_fused_fwd (Pallas body
 // _fwd_kernel) and ::_fused_bwd (body _bwd_kernel). The operand is the qkv
@@ -15,6 +15,7 @@
 // Backward: dp = dO.v, o = p16.v recomputed in f32, delta = rowsum(o * dO),
 //   ds = bf16(p * (dp - delta)), dq = ds.k * scale, dk = ds^T.q * scale with
 //   the UNSCALED bf16 q, dv = p16^T.dO, all accumulated in f32.
+// Every product is bf16 x bf16 into f32: exactly mma.sync.m16n8k16's.
 // Visibility is j <= i, or an int8 (n, n) table (causality included) with an
 // int8 (nt, nt) map of the 64x64 tiles that hold any visible pair.
 //
@@ -27,118 +28,139 @@
 //            qkv + dO + (m, l) read, dqkv written = 103 MB -> 31 us.
 // Both are bound by bytes. chip_smoke.py recomputes these from its inputs.
 //
-// Design (first version: simple, exact, deterministic; no atomics):
-//   * tiles of 64 query rows and 64 key rows; bf16 tiles in shared memory,
-//     products by nvcuda::wmma 16x16x16 bf16 fragments with f32 accumulators;
-//   * forward, one CTA of 4 warps per (64-row q tile, head, batch row); each
-//     warp owns 16 query rows. Pass 1 streams the k tiles at or below the
-//     diagonal for each row's max and sum; pass 2 streams k and v again,
-//     forms p in f32, rounds it to bf16 and accumulates p16.v. The per-row
-//     (m, l) are saved, f32 (b, h, n), for the backward;
-//   * backward (a), one CTA of 4 warps per q tile: recompute p from (m, l),
-//     o = p16.v, delta (written, f32 (b, h, n)), then a second sweep for dq;
-//   * backward (b), one CTA of 8 warps per 64-row k tile: walk the q tiles at
-//     or below the diagonal; warps 0-3 accumulate dv, warps 4-7 dk;
-//   * tiles wholly above the diagonal, and tiles the map marks empty, are
-//     never read. The row max, sum and delta use a fixed order, so repeated
-//     runs give the same bits.
-// The bound is bytes, and this design reads each k/v tile once per q tile
-// (twice in the forward): it is far from the bound. Staging with TMA/cp.async,
-// wgmma, and one pass with an online softmax are for a later version.
+// Design (helpers in tc_tile.cuh):
+//   * 64-row q and k tiles, bf16 in shared memory with a row stride of D + 8,
+//     read by ldmatrix. bf16 operands arrive by 16-byte cp.async into a ring
+//     of two stages, so the next tile's copy overlaps this tile's products;
+//     f32 operands take a vector load rounded to bf16 instead (the TPU kernel
+//     casts qkv to bf16 first) and then the same products;
+//   * scores, p and dS stay in registers from one product into the next (the
+//     C fragments of two n8 tiles are the A fragment of one k16 step);
+//   * forward, one CTA of 4 warps per (64-row q tile, head, batch row), each
+//     warp 16 rows; 68 KB of shared memory at d = 128, three CTAs an SM.
+//     q's A fragments are loaded once and scaled in registers.
+//     Pass 1 streams the k tiles for each row's max and sum (online over the
+//     tiles, quad shuffles); pass 2 streams k and v, forms p = exp(s - m) / l
+//     with the FINAL (m, l), rounds it to bf16 and accumulates p16.v. Two
+//     passes, because the TPU kernel rounds p after dividing by the whole
+//     row's sum: a one-pass online softmax would round exp(s - m_running)
+//     and rescale later, another function. (m, l) are saved, f32 (b, h, n);
+//   * dq, one CTA of 8 warps per q tile: warp w takes the 16 rows 16*(w % 4)
+//     against half (w / 4) of each k tile's columns. Sweep 1 recomputes p
+//     and o = p16.v in f32, adds o's two halves (fixed order) and forms
+//     delta = rowsum(o * dO), written f32 (b, h, n). Sweep 2 forms
+//     dp = dO.v^T and ds = bf16(p * (dp - delta)) and accumulates ds.k;
+//     dq is scaled once, at the end;
+//   * dk/dv, one CTA of 8 warps per k tile with k and v resident; q, dO and
+//     the rows' (m, l, delta) stream through the ring. The transposed tile
+//     (keys as rows) keeps P^T and dS^T in registers as A operands;
+//     s^T = k.qs^T scales q's B fragments in registers, dk = ds^T.q takes the
+//     unscaled q; the two column halves are added in a fixed order;
+//   * the heaviest tiles launch first: the last q tiles, the first k tiles.
+//     Tiles wholly above the diagonal, and tiles the map marks empty, are
+//     never read. Without a table the element test runs only on the
+//     diagonal tile and on the ragged last q tile; with one, it reads the
+//     table once per fragment element.
+// No atomics, and every sum in a fixed order: repeated runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kTile = 64;              // query rows and key rows per tile
-constexpr int kLdS = kTile + 4;        // f32 score tile row stride
-constexpr int kLdP = kTile + 8;        // bf16 probability tile row stride
+constexpr int kTile = 64;            // query rows and key rows per tile
+constexpr int kFwdThreads = 128;     // four warps, 16 rows of the q tile each
+constexpr int kBwdThreads = 256;     // eight warps: 4 row blocks x 2 column halves
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+template <int D> __host__ __device__ constexpr int tile_elems() { return kTile * (D + 8); }
+// two stages of k and of v (q lands in v's first stage, which pass 1 leaves free)
+template <int D> constexpr int fwd_smem() { return 4 * tile_elems<D>() * 2; }
+// q, dO + two stages of (k, v) + the rows' delta
+template <int D> constexpr int dq_smem() { return 6 * tile_elems<D>() * 2 + kTile * 4; }
+// k, v + two stages of (q, dO) and of the rows' (m, l, delta)
+template <int D> constexpr int dkv_smem() { return 6 * tile_elems<D>() * 2 + 2 * 3 * kTile * 4; }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// eight consecutive values as f32, each rounded to bf16 (the TPU kernel casts
-// its operands to bf16 first)
-template <typename T> __device__ __forceinline__ void load8(const T* src, float* f);
-
-template <> __device__ __forceinline__ void load8<float>(const float* src, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  const float4 b = *reinterpret_cast<const float4*>(src + 4);
-  f[0] = round_bf16(a.x); f[1] = round_bf16(a.y); f[2] = round_bf16(a.z); f[3] = round_bf16(a.w);
-  f[4] = round_bf16(b.x); f[5] = round_bf16(b.y); f[6] = round_bf16(b.z); f[7] = round_bf16(b.w);
-}
-
-template <> __device__ __forceinline__ void load8<bf16>(const bf16* src, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-
-// 64 rows x D columns of the operand (row stride ld elements) into a bf16
-// shared tile of row stride D + 8; rows at or past `rows` are zero. With
-// `scaled`, each value becomes bf16(f32(bf16(x)) * scale), the query rounding.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const T* src, size_t ld, int rows,
-                                          bool scaled, float scale, int nthreads) {
+// rows [0, rows) of a 64-row tile of an operand (row stride ld elements)
+// into a shared bf16 tile of row stride D + 8; the rows from `rows` on are
+// zero. bf16: 16-byte cp.async (the caller commits and waits)
+template <int D, int kThr>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t ld, int rows) {
   constexpr int kChunks = D / 8;
-  constexpr int kLd = D + 8;
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += nthreads) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    float f[8];
-    if (r < rows) {
-      load8<T>(src + static_cast<size_t>(r) * ld + c, f);
-      if (scaled) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) f[i] *= scale;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = 0.f;
-    }
-    uint4 packed;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = packed;
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThr) {
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    const bool ok = r < rows;
+    tc::cp_async16(dst + r * (D + 8) + c * 8, src + (ok ? r * ld + c * 8 : 0), ok);
   }
 }
 
-// f32 (64, D) tile in shared memory (row stride D + 4) -> rows [0, rows) of
-// the operand-typed output at row stride ld
-template <typename T, int D>
-__device__ __forceinline__ void store_tile(T* dst, size_t ld, const float* src, int rows,
-                                           int nthreads) {
-  constexpr int kLd = D + 4;
-  for (int idx = threadIdx.x; idx < rows * D; idx += nthreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    dst[static_cast<size_t>(r) * ld + c] = from_f32<T>(src[r * kLd + c]);
+// f32: two 16-byte loads rounded to bf16 and stored (seen after the next
+// barrier)
+template <int D, int kThr>
+__device__ __forceinline__ void load_tile(bf16* dst, const float* src, size_t ld, int rows) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThr) {
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) {
+      const float4 a = *reinterpret_cast<const float4*>(src + r * ld + c * 8);
+      const float4 b = *reinterpret_cast<const float4*>(src + r * ld + c * 8 + 4);
+      packed = make_uint4(tc::pack_bf16(a.x, a.y), tc::pack_bf16(a.z, a.w),
+                          tc::pack_bf16(b.x, b.y), tc::pack_bf16(b.z, b.w));
+    }
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = packed;
   }
+}
+
+// the (m, l, delta) rows [row0, row0 + 64) of (b, h, n) f32 into dst[0:64],
+// dst[64:128], dst[128:192] by 4-byte cp.async; 0 past n
+__device__ __forceinline__ void load_stats(float* dst, const float* m, const float* l,
+                                           const float* delta, int row0, int n) {
+  const int t = threadIdx.x;
+  if (t < 3 * kTile) {
+    const float* src = t < kTile ? m : (t < 2 * kTile ? l : delta);
+    const int pos = row0 + (t & (kTile - 1));
+    const bool ok = pos < n;
+    tc::cp_async4(dst + t, src + (ok ? pos : 0), ok);
+  }
+}
+
+template <typename T> __device__ __forceinline__ void store_pair(T* dst, float a, float b);
+template <> __device__ __forceinline__ void store_pair<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store_pair<bf16>(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// this lane's part of rows `row` and row + 8 of a 16-row accumulator, times
+// `mul`, into the operand-typed rows of `dst` (row stride ld); rows at or
+// past n are not written
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, size_t ld, int row, int n,
+                                           const float (&acc)[D / 8][4], float mul, int t4) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    if (r >= n) continue;
+    T* out = dst + r * ld + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      store_pair<T>(out + dn * 8, acc[dn][2 * hr] * mul, acc[dn][2 * hr + 1] * mul);
+  }
+}
+
+// a (q tile, k tile) pair that needs no element test: no table, the k tile
+// wholly before the q tile, and every query row inside n
+__device__ __forceinline__ bool all_visible(const int8_t* table, int n, int q0, int k0) {
+  return table == nullptr && k0 + kTile <= q0 && q0 + kTile <= n;
 }
 
 __device__ __forceinline__ bool visible(const int8_t* table, int n, int i, int j) {
@@ -146,364 +168,408 @@ __device__ __forceinline__ bool visible(const int8_t* table, int n, int i, int j
   return table != nullptr ? table[static_cast<size_t>(i) * n + j] != 0 : j <= i;
 }
 
-__device__ __forceinline__ bool tile_used(const int8_t* tiles, int nt, int qt, int kt) {
-  return tiles == nullptr || tiles[qt * nt + kt] != 0;
-}
-
-// S[row0:row0+16, col0:col0+16*NC] = A[row0:+16, :D] . B[col0:+16*NC, :D]^T,
-// A and B bf16 tiles of row stride D + 8, S f32 of row stride kLdS
-template <int D, int NC>
-__device__ __forceinline__ void warp_abt(float* S, const bf16* A, const bf16* B, int row0,
-                                         int col0) {
-  constexpr int kLd = D + 8;
-  FragC acc[NC];
+// s = -inf where query `row` (+ 8) may not see key col0 + 8j + 2*t4 (+ 1):
+// this lane's elements of a 16 x 8*NJ block of scores
+template <int NJ>
+__device__ __forceinline__ void mask_scores(float (&s)[NJ][4], const int8_t* table, int n,
+                                            int row, int col0, int t4) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c) wmma::fill_fragment(acc[c], 0.f);
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-  for (int k = 0; k < D; k += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + row0 * kLd + k, kLd);
+    for (int c = 0; c < 2; ++c) {
+      const int col = col0 + 8 * j + 2 * t4 + c;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      FragBCol b;
-      wmma::load_matrix_sync(b, B + (col0 + 16 * c) * kLd + k, kLd);
-      wmma::mma_sync(acc[c], a, b, acc[c]);
+      for (int hr = 0; hr < 2; ++hr)
+        if (!visible(table, n, row + 8 * hr, col)) s[j][2 * hr + c] = -INFINITY;
     }
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    wmma::store_matrix_sync(S + row0 * kLdS + col0 + 16 * c, acc[c], kLdS, wmma::mem_row_major);
 }
 
-// acc[0:D/16] += P[row0:row0+16, 0:64] . V[0:64, 0:D]; P bf16 of row stride
-// kLdP, V bf16 of row stride D + 8
-template <int D>
-__device__ __forceinline__ void warp_pv(FragC* acc, const bf16* P, const bf16* V, int row0) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, P + row0 * kLdP + kk, kLdP);
-#pragma unroll
-    for (int f = 0; f < D / 16; ++f) {
-      FragBRow b;
-      wmma::load_matrix_sync(b, V + kk * kLd + 16 * f, kLd);
-      wmma::mma_sync(acc[f], a, b, acc[f]);
-    }
-  }
+// the first k tile at or after kt, up to qt, that the map marks used for q
+// tile qt (kt itself without a map); qt + 1 when there is none
+__device__ __forceinline__ int next_k(const int8_t* tiles, int nt, int qt, int kt) {
+  if (tiles != nullptr)
+    while (kt <= qt && tiles[static_cast<size_t>(qt) * nt + kt] == 0) ++kt;
+  return kt;
 }
 
-template <int D>
-__device__ __forceinline__ void warp_stage(float* dst, FragC* acc, int row0, float mul) {
-  constexpr int kLd = D + 4;
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) {
-    if (mul != 1.f) {
-#pragma unroll
-      for (int t = 0; t < acc[f].num_elements; ++t) acc[f].x[t] *= mul;
-    }
-    wmma::store_matrix_sync(dst + row0 * kLd + 16 * f, acc[f], kLd, wmma::mem_row_major);
-  }
-}
-
-template <int D> __host__ __device__ constexpr int tile_bytes() { return kTile * (D + 8) * 2; }
-constexpr int kScoreBytes = kTile * kLdS * 4;
-constexpr int kProbBytes = kTile * kLdP * 2;
-
-template <int D> __host__ __device__ constexpr int fwd_smem() { return 3 * tile_bytes<D>() + kScoreBytes + kProbBytes; }
-template <int D> __host__ __device__ constexpr int bwd_dq_smem() {
-  return 4 * tile_bytes<D>() + 2 * kScoreBytes + kProbBytes;
-}
-template <int D> __host__ __device__ constexpr int bwd_dkv_smem() {
-  return 5 * tile_bytes<D>() + 2 * kScoreBytes + 2 * kProbBytes + 3 * kTile * 4;
+// the first q tile at or after qt that the map marks used for k tile kt;
+// nt when there is none
+__device__ __forceinline__ int next_q(const int8_t* tiles, int nt, int kt, int qt) {
+  if (tiles != nullptr)
+    while (qt < nt && tiles[static_cast<size_t>(qt) * nt + kt] == 0) ++qt;
+  return qt;
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (nt, h, b), 4 warps
+// forward: grid (h, b, nt), the last q tiles first; 4 warps
 // ---------------------------------------------------------------------------
+// (three CTAs an SM: at most 168 registers a thread)
 template <typename T, int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kFwdThreads, 3)
 fwd_kernel(const T* __restrict__ qkv, const int8_t* __restrict__ table,
            const int8_t* __restrict__ tiles, T* __restrict__ out, float* __restrict__ m_out,
            float* __restrict__ l_out, int n, int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + tile_bytes<D>());
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * tile_bytes<D>());
-  float* sS = reinterpret_cast<float*>(smem + 3 * tile_bytes<D>());
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * tile_bytes<D>() + kScoreBytes);
-  float* sO = reinterpret_cast<float*>(sK);     // after the sweeps: K and V are done
+  constexpr int kLd = D + 8, kEl = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);   // two stages
+  bf16* sV = sK + 2 * kEl;                    // two stages
+  // q is read once, at step 0, whose copies go to stage 1; v's stage 0 is
+  // first written at step 1, after every warp has passed step 0's barrier
+  bf16* sQ = sV;
 
-  const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
-  const int nt = (n + kTile - 1) / kTile;
+  const int nt = gridDim.z;
+  const int qt = nt - 1 - blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
   const int hd = heads * D;
   const size_t ld = 3 * static_cast<size_t>(hd);
-  const T* base = qkv + static_cast<size_t>(bb) * n * ld;
+  const T* q = qkv + static_cast<size_t>(bb) * n * ld + hh * D;
+  const T* k = q + hd;
+  const T* v = q + 2 * hd;
   const int q0 = qt * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;   // row statistics
-  const int i = q0 + row;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int row = q0 + warp * 16 + (lane >> 2);   // this lane's rows: row and row + 8
+  const size_t stat = (static_cast<size_t>(bb) * heads + hh) * n;
 
-  load_tile<T, D>(sQ, base + static_cast<size_t>(q0) * ld + hh * D, ld, min(kTile, n - q0),
-                  true, scale, 128);
+  int kt = next_k(tiles, nt, qt, 0);
+  load_tile<D, kFwdThreads>(sQ, q + q0 * ld, ld, min(kTile, n - q0));
+  load_tile<D, kFwdThreads>(sK, k + kt * kTile * ld, ld, min(kTile, n - kt * kTile));
+  tc::cp_async_commit();
 
-  // pass 1: row max and sum over the visible pairs (online over k tiles)
-  float m = -INFINITY, l = 0.f;
-  for (int kt = 0; kt <= qt; ++kt) {
-    if (!tile_used(tiles, nt, qt, kt)) continue;
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(sK, base + static_cast<size_t>(k0) * ld + hd + hh * D, ld,
-                    min(kTile, n - k0), false, 0.f, 128);
-    __syncthreads();
-    warp_abt<D, 4>(sS, sQ, sK, 16 * warp, 0);
-    __syncwarp();
-    float tmax = -INFINITY;
-    for (int c = half * 32; c < half * 32 + 32; ++c)
-      if (visible(table, n, i, k0 + c)) tmax = fmaxf(tmax, sS[row * kLdS + c]);
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    // every lane of the warp reaches the shuffles; a row with nothing
-    // visible yet (m_new = -inf) keeps (m, l) as they are
-    const float m_new = fmaxf(m, tmax);
-    float sum = 0.f;
-    if (m_new != -INFINITY) {
-      for (int c = half * 32; c < half * 32 + 32; ++c)
-        if (visible(table, n, i, k0 + c)) sum += expf(sS[row * kLdS + c] - m_new);
+  uint32_t qf[D / 16][4];           // bf16(f32(q) * scale), loaded once
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};          // pass 1: this lane's share of the row sums
+  float acc[D / 8][4];
+  tc::zero(acc);
+  bool pass2 = false;
+  for (int step = 0;; ++step) {
+    const int stage = step & 1;
+    // the next step: the next used k tile of this pass, or after pass 1's
+    // last tile the first of pass 2
+    int nkt = next_k(tiles, nt, qt, kt + 1);
+    bool npass2 = pass2;
+    if (nkt > qt && !pass2) {
+      npass2 = true;
+      nkt = next_k(tiles, nt, qt, 0);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (m_new != -INFINITY) {
-      l = l * expf(m - m_new) + sum;
-      m = m_new;
-    }
-  }
-  if (half == 0 && i < n) {
-    const size_t at = (static_cast<size_t>(bb) * heads + hh) * n + i;
-    m_out[at] = m;
-    l_out[at] = l;
-  }
-
-  // pass 2: p = exp(s - m) / l, rounded to bf16, times v
-  FragC acc[D / 16];
+    const bool more = nkt <= qt;
+    tc::cp_async_wait<0>();
+    __syncthreads();    // this step's tiles have landed, every warp is done with the last step's
+    if (step == 0) {
 #pragma unroll
-  for (int f = 0; f < D / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-  for (int kt = 0; kt <= qt; ++kt) {
-    if (!tile_used(tiles, nt, qt, kt)) continue;
-    const int k0 = kt * kTile;
-    const int rows = min(kTile, n - k0);
-    __syncthreads();
-    load_tile<T, D>(sK, base + static_cast<size_t>(k0) * ld + hd + hh * D, ld, rows, false,
-                    0.f, 128);
-    load_tile<T, D>(sV, base + static_cast<size_t>(k0) * ld + 2 * hd + hh * D, ld, rows, false,
-                    0.f, 128);
-    __syncthreads();
-    warp_abt<D, 4>(sS, sQ, sK, 16 * warp, 0);
-    __syncwarp();
-    for (int c = half * 32; c < half * 32 + 32; ++c) {
-      const float p = visible(table, n, i, k0 + c) ? expf(sS[row * kLdS + c] - m) / l : 0.f;
-      sP[row * kLdP + c] = __float2bfloat16(p);
-    }
-    __syncwarp();
-    warp_pv<D>(acc, sP, sV, 16 * warp);
-  }
-  __syncthreads();
-  warp_stage<D>(sO, acc, 16 * warp, 1.f);
-  __syncthreads();
-  store_tile<T, D>(out + (static_cast<size_t>(bb) * n + q0) * hd + hh * D, hd, sO,
-                   min(kTile, n - q0), 128);
-}
-
-// ---------------------------------------------------------------------------
-// backward (a): delta and dq; grid (nt, h, b), 4 warps
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(128)
-bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-              const int8_t* __restrict__ table, const int8_t* __restrict__ tiles,
-              const float* __restrict__ m_in, const float* __restrict__ l_in,
-              float* __restrict__ delta_out, T* __restrict__ dqkv, int n, int heads,
-              float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + tile_bytes<D>());
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * tile_bytes<D>());
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * tile_bytes<D>());
-  float* sS = reinterpret_cast<float*>(smem + 4 * tile_bytes<D>());
-  float* sdP = reinterpret_cast<float*>(smem + 4 * tile_bytes<D>() + kScoreBytes);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * tile_bytes<D>() + 2 * kScoreBytes);
-  float* sO = reinterpret_cast<float*>(sK);
-
-  const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
-  const int nt = (n + kTile - 1) / kTile;
-  const int hd = heads * D;
-  const size_t ld = 3 * static_cast<size_t>(hd);
-  const T* base = qkv + static_cast<size_t>(bb) * n * ld;
-  const int q0 = qt * kTile;
-  const int qrows = min(kTile, n - q0);
-  const int warp = threadIdx.x >> 5;
-  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int i = q0 + row;
-  const size_t at = (static_cast<size_t>(bb) * heads + hh) * n + i;
-  const float m = i < n ? m_in[at] : 0.f;
-  const float l = i < n ? l_in[at] : 1.f;
-
-  load_tile<T, D>(sQ, base + static_cast<size_t>(q0) * ld + hh * D, ld, qrows, true, scale, 128);
-  load_tile<T, D>(sdO, dout + (static_cast<size_t>(bb) * n + q0) * hd + hh * D, hd, qrows,
-                  false, 0.f, 128);
-
-  // sweep 1: o = p16.v in f32, then delta = rowsum(o * dO)
-  FragC acc[D / 16];
+      for (int kd = 0; kd < D / 16; ++kd) {
+        tc::ldsm_x4(qf[kd], tc::a_addr(sQ, kLd, warp * 16, kd * 16, lane));
 #pragma unroll
-  for (int f = 0; f < D / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-  for (int kt = 0; kt <= qt; ++kt) {
-    if (!tile_used(tiles, nt, qt, kt)) continue;
-    const int k0 = kt * kTile;
-    const int rows = min(kTile, n - k0);
-    __syncthreads();
-    load_tile<T, D>(sK, base + static_cast<size_t>(k0) * ld + hd + hh * D, ld, rows, false,
-                    0.f, 128);
-    load_tile<T, D>(sV, base + static_cast<size_t>(k0) * ld + 2 * hd + hh * D, ld, rows, false,
-                    0.f, 128);
-    __syncthreads();
-    warp_abt<D, 4>(sS, sQ, sK, 16 * warp, 0);
-    __syncwarp();
-    for (int c = half * 32; c < half * 32 + 32; ++c) {
-      const float p = visible(table, n, i, k0 + c) ? expf(sS[row * kLdS + c] - m) / l : 0.f;
-      sP[row * kLdP + c] = __float2bfloat16(p);
-    }
-    __syncwarp();
-    warp_pv<D>(acc, sP, sV, 16 * warp);
-  }
-  __syncthreads();
-  warp_stage<D>(sO, acc, 16 * warp, 1.f);
-  __syncwarp();
-  float delta = 0.f;
-  for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
-    delta += sO[row * (D + 4) + c] * __bfloat162float(sdO[row * (D + 8) + c]);
-  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
-  if (half == 0 && i < n) delta_out[at] = delta;
-
-  // sweep 2: ds = bf16(p * (dp - delta)), dq += ds.k
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-  for (int kt = 0; kt <= qt; ++kt) {
-    if (!tile_used(tiles, nt, qt, kt)) continue;
-    const int k0 = kt * kTile;
-    const int rows = min(kTile, n - k0);
-    __syncthreads();
-    load_tile<T, D>(sK, base + static_cast<size_t>(k0) * ld + hd + hh * D, ld, rows, false,
-                    0.f, 128);
-    load_tile<T, D>(sV, base + static_cast<size_t>(k0) * ld + 2 * hd + hh * D, ld, rows, false,
-                    0.f, 128);
-    __syncthreads();
-    warp_abt<D, 4>(sS, sQ, sK, 16 * warp, 0);
-    warp_abt<D, 4>(sdP, sdO, sV, 16 * warp, 0);
-    __syncwarp();
-    for (int c = half * 32; c < half * 32 + 32; ++c) {
-      float ds = 0.f;
-      if (visible(table, n, i, k0 + c)) {
-        const float p = expf(sS[row * kLdS + c] - m) / l;
-        ds = p * (sdP[row * kLdS + c] - delta);
+        for (int e = 0; e < 4; ++e) qf[kd][e] = tc::scale_bf16x2(qf[kd][e], scale);
       }
-      sP[row * kLdP + c] = __float2bfloat16(ds);
     }
-    __syncwarp();
-    warp_pv<D>(acc, sP, sK, 16 * warp);
+    if (more) {
+      const int k1 = nkt * kTile, rows = min(kTile, n - k1);
+      load_tile<D, kFwdThreads>(sK + (stage ^ 1) * kEl, k + k1 * ld, ld, rows);
+      if (npass2) load_tile<D, kFwdThreads>(sV + (stage ^ 1) * kEl, v + k1 * ld, ld, rows);
+    }
+    tc::cp_async_commit();
+
+    const int k0 = kt * kTile;
+    const bf16* cK = sK + stage * kEl;
+    float s[8][4];
+    tc::zero(s);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        tc::ldsm_x4(bf, tc::b_addr(cK, kLd, np * 16, kd * 16, lane));
+        tc::mma16816(s[2 * np], qf[kd], bf[0], bf[1]);
+        tc::mma16816(s[2 * np + 1], qf[kd], bf[2], bf[3]);
+      }
+    if (!all_visible(table, n, q0, k0)) mask_scores(s, table, n, row, k0, t4);
+
+    if (!pass2) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+        const float m_new = fmaxf(m[hr], tc::quad_max(mx));
+        // a row with nothing visible yet keeps (m, l) as they are
+        if (m_new != -INFINITY) {
+          const float corr = expf(m[hr] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum += expf(s[j][2 * hr] - m_new) + expf(s[j][2 * hr + 1] - m_new);
+          l[hr] = l[hr] * corr + sum;
+          m[hr] = m_new;
+        }
+      }
+      if (npass2) {       // pass 1 is done: each row's (m, l)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          l[hr] = tc::quad_sum(l[hr]);
+          const int r = row + 8 * hr;
+          if (r < n && t4 == 0) {
+            m_out[stat + r] = m[hr];
+            l_out[stat + r] = l[hr];
+          }
+          if (m[hr] == -INFINITY) {   // a row past n, which sees nothing
+            m[hr] = 0.f;
+            l[hr] = 1.f;
+          }
+        }
+      }
+    } else {
+      // p = exp(s - m) / l in f32 with the final (m, l); dot_pv rounds it
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
+      tc::dot_pv<D, 8>(acc, s, sV + stage * kEl, 0, lane);
+    }
+    if (!more) break;
+    kt = nkt;
+    pass2 = npass2;
   }
-  __syncthreads();
-  warp_stage<D>(sO, acc, 16 * warp, scale);
-  __syncthreads();
-  store_tile<T, D>(dqkv + (static_cast<size_t>(bb) * n + q0) * ld + hh * D, ld, sO, qrows, 128);
+  store_rows<T, D>(out + static_cast<size_t>(bb) * n * hd + hh * D, hd, row, n, acc, 1.f, t4);
 }
 
 // ---------------------------------------------------------------------------
-// backward (b): dk and dv; grid (nt, h, b), 8 warps
+// backward (a): delta and dq; grid (h, b, nt), the last q tiles first; 8 warps
+// (two CTAs an SM: at most 128 registers a thread)
 // ---------------------------------------------------------------------------
 template <typename T, int D>
-__global__ void __launch_bounds__(256)
-bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-               const int8_t* __restrict__ table, const int8_t* __restrict__ tiles,
-               const float* __restrict__ m_in, const float* __restrict__ l_in,
-               const float* __restrict__ delta_in, T* __restrict__ dqkv, int n, int heads,
-               float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kBwdThreads, 2)
+dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+          const int8_t* __restrict__ table, const int8_t* __restrict__ tiles,
+          const float* __restrict__ m_in, const float* __restrict__ l_in,
+          float* __restrict__ delta_out, T* __restrict__ dqkv, int n, int heads, float scale) {
+  constexpr int kLd = D + 8, kEl = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + kEl;
+  bf16* sKV = sdO + kEl;            // two stages of [k, v]
+  float* sDelta = reinterpret_cast<float*>(sKV + 4 * kEl);
+
+  const int nt = gridDim.z;
+  const int qt = nt - 1 - blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
+  const int hd = heads * D;
+  const size_t ld = 3 * static_cast<size_t>(hd);
+  const T* q = qkv + static_cast<size_t>(bb) * n * ld + hh * D;
+  const T* k = q + hd;
+  const T* v = q + 2 * hd;
+  const T* dO = dout + static_cast<size_t>(bb) * n * hd + hh * D;
+  const int q0 = qt * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;   // rows, key columns
+  const int row = q0 + wr + (lane >> 2);
+  const size_t stat = (static_cast<size_t>(bb) * heads + hh) * n;
+
+  int kt = next_k(tiles, nt, qt, 0);
+  load_tile<D, kBwdThreads>(sQ, q + q0 * ld, ld, min(kTile, n - q0));
+  load_tile<D, kBwdThreads>(sdO, dO + q0 * static_cast<size_t>(hd), hd, min(kTile, n - q0));
+  load_tile<D, kBwdThreads>(sKV, k + kt * kTile * ld, ld, min(kTile, n - kt * kTile));
+  load_tile<D, kBwdThreads>(sKV + kEl, v + kt * kTile * ld, ld, min(kTile, n - kt * kTile));
+  tc::cp_async_commit();
+
+  float m[2], l[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    m[hr] = r < n ? m_in[stat + r] : 0.f;
+    l[hr] = r < n ? l_in[stat + r] : 1.f;
+  }
+  float acc[D / 8][4];              // sweep 1: o; sweep 2: dq
+  tc::zero(acc);
+  bool sweep2 = false;
+  for (int step = 0;; ++step) {
+    const int stage = step & 1;
+    int nkt = next_k(tiles, nt, qt, kt + 1);
+    bool nsweep2 = sweep2;
+    if (nkt > qt && !sweep2) {
+      nsweep2 = true;
+      nkt = next_k(tiles, nt, qt, 0);
+    }
+    const bool more = nkt <= qt;
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (step == 0) {      // qs = bf16(f32(q) * scale), in place
+      for (int idx = threadIdx.x; idx < kTile * D / 8; idx += kBwdThreads) {
+        uint4* p = reinterpret_cast<uint4*>(sQ + (idx / (D / 8)) * kLd + (idx % (D / 8)) * 8);
+        uint4 x = *p;
+        x.x = tc::scale_bf16x2(x.x, scale);
+        x.y = tc::scale_bf16x2(x.y, scale);
+        x.z = tc::scale_bf16x2(x.z, scale);
+        x.w = tc::scale_bf16x2(x.w, scale);
+        *p = x;
+      }
+      __syncthreads();
+    }
+    if (more) {
+      const int k1 = nkt * kTile, rows = min(kTile, n - k1);
+      bf16* next = sKV + (stage ^ 1) * 2 * kEl;
+      load_tile<D, kBwdThreads>(next, k + k1 * ld, ld, rows);
+      load_tile<D, kBwdThreads>(next + kEl, v + k1 * ld, ld, rows);
+    }
+    tc::cp_async_commit();
+
+    const int k0 = kt * kTile;
+    bf16* cK = sKV + stage * 2 * kEl;
+    const bf16* cV = cK + kEl;
+    float s[4][4];
+    tc::zero(s);
+    tc::dot_nt<D, 4>(s, sQ, wr, cK, wc, lane);
+    if (!all_visible(table, n, q0, k0)) mask_scores(s, table, n, row, k0 + wc, t4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];   // p
+
+    if (!sweep2) {
+      tc::dot_pv<D, 4>(acc, s, cV, wc, lane);      // o += p16 . v
+      if (nsweep2) {
+        // sweep 1 is done. This stage's k and v are read by every warp:
+        // they hold the sum of o's two halves
+        __syncthreads();
+        tc::reduce_halves<D>(acc, reinterpret_cast<float*>(cK), warp, lane);
+        if (warp < 4) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = wr + (lane >> 2) + 8 * hr;
+            float d = 0.f;
+#pragma unroll
+            for (int dn = 0; dn < D / 8; ++dn) {
+              const float2 f = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(sdO + r * kLd + dn * 8 + 2 * t4));
+              d += acc[dn][2 * hr] * f.x + acc[dn][2 * hr + 1] * f.y;
+            }
+            d = tc::quad_sum(d);
+            if (t4 == 0) {
+              sDelta[r] = d;
+              if (q0 + r < n) delta_out[stat + q0 + r] = d;
+            }
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) delta[hr] = sDelta[wr + (lane >> 2) + 8 * hr];
+        tc::zero(acc);
+      }
+    } else {
+      float dp[4][4];
+      tc::zero(dp);
+      tc::dot_nt<D, 4>(dp, sdO, wr, cV, wc, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - delta[e >> 1];   // dS
+      tc::dot_pv<D, 4>(acc, s, cK, wc, lane);      // dq += bf16(dS) . k
+    }
+    if (!more) break;
+    kt = nkt;
+    sweep2 = nsweep2;
+  }
+  __syncthreads();                  // the ring is free: it holds the sum of the halves
+  tc::reduce_halves<D>(acc, reinterpret_cast<float*>(sKV), warp, lane);
+  if (warp < 4)
+    store_rows<T, D>(dqkv + static_cast<size_t>(bb) * n * ld + hh * D, ld, row, n, acc, scale, t4);
+}
+
+// ---------------------------------------------------------------------------
+// backward (b): dk and dv; grid (h, b, nt) over k tiles, the first k tiles
+// first (under causality they meet the most q tiles); 8 warps, each 16 key
+// rows of the resident tile against half of each streamed q tile
+// (at d <= 64, two CTAs an SM: at most 128 registers a thread)
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, D <= 64 ? 2 : 1)
+dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+           const int8_t* __restrict__ table, const int8_t* __restrict__ tiles,
+           const float* __restrict__ m_in, const float* __restrict__ l_in,
+           const float* __restrict__ delta_in, T* __restrict__ dqkv, int n, int heads,
+           float scale) {
+  constexpr int kEl = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + tile_bytes<D>());
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * tile_bytes<D>());
-  bf16* sQs = reinterpret_cast<bf16*>(smem + 3 * tile_bytes<D>());
-  bf16* sdO = reinterpret_cast<bf16*>(smem + 4 * tile_bytes<D>());
-  float* sSt = reinterpret_cast<float*>(smem + 5 * tile_bytes<D>());
-  float* sdPt = reinterpret_cast<float*>(smem + 5 * tile_bytes<D>() + kScoreBytes);
-  bf16* sPt = reinterpret_cast<bf16*>(smem + 5 * tile_bytes<D>() + 2 * kScoreBytes);
-  bf16* sdSt = reinterpret_cast<bf16*>(smem + 5 * tile_bytes<D>() + 2 * kScoreBytes +
-                                       kProbBytes);
-  float* sM = reinterpret_cast<float*>(smem + 5 * tile_bytes<D>() + 2 * kScoreBytes +
-                                       2 * kProbBytes);
-  float* sL = sM + kTile;
-  float* sD = sL + kTile;
-  float* sOut = reinterpret_cast<float*>(sQ);    // dv then dk, (64, D + 4) each
+  bf16* sV = sK + kEl;
+  bf16* sQD = sV + kEl;             // two stages of [q, dO]
+  float* sStat = reinterpret_cast<float*>(sQD + 4 * kEl);   // two stages of [m, l, delta]
 
-  const int kt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
-  const int nt = (n + kTile - 1) / kTile;
+  const int nt = gridDim.z;
+  const int kt = blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
   const int hd = heads * D;
   const size_t ld = 3 * static_cast<size_t>(hd);
-  const T* base = qkv + static_cast<size_t>(bb) * n * ld;
+  const T* q = qkv + static_cast<size_t>(bb) * n * ld + hh * D;
+  const T* dO = dout + static_cast<size_t>(bb) * n * hd + hh * D;
   const int k0 = kt * kTile;
-  const int krows = min(kTile, n - k0);
-  const int warp = threadIdx.x >> 5;
-  const int rb = warp & 3;           // this warp's 16 key rows
-  const bool is_dk = warp >= 4;      // warps 0-3 accumulate dv, 4-7 dk
-  const size_t stat0 = (static_cast<size_t>(bb) * heads + hh) * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;   // key rows, query columns
+  const int key = k0 + wr + (lane >> 2);                   // this lane's keys: key, key + 8
+  const size_t stat = (static_cast<size_t>(bb) * heads + hh) * n;
 
-  load_tile<T, D>(sK, base + static_cast<size_t>(k0) * ld + hd + hh * D, ld, krows, false, 0.f,
-                  256);
-  load_tile<T, D>(sV, base + static_cast<size_t>(k0) * ld + 2 * hd + hh * D, ld, krows, false,
-                  0.f, 256);
+  int qt = next_q(tiles, nt, kt, kt);
+  load_tile<D, kBwdThreads>(sK, q + hd + k0 * ld, ld, min(kTile, n - k0));
+  load_tile<D, kBwdThreads>(sV, q + 2 * hd + k0 * ld, ld, min(kTile, n - k0));
+  load_tile<D, kBwdThreads>(sQD, q + qt * kTile * ld, ld, min(kTile, n - qt * kTile));
+  load_tile<D, kBwdThreads>(sQD + kEl, dO + qt * kTile * static_cast<size_t>(hd), hd,
+                            min(kTile, n - qt * kTile));
+  load_stats(sStat, m_in + stat, l_in + stat, delta_in + stat, qt * kTile, n);
+  tc::cp_async_commit();
 
-  FragC acc[D / 16];
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-  for (int qt = kt; qt < nt; ++qt) {
-    if (!tile_used(tiles, nt, qt, kt)) continue;
+  float dk[D / 8][4], dv[D / 8][4];
+  tc::zero(dk);
+  tc::zero(dv);
+  for (int step = 0;; ++step) {
+    const int stage = step & 1;
+    const int nqt = next_q(tiles, nt, kt, qt + 1);
+    const bool more = nqt < nt;
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (more) {
+      const int r1 = nqt * kTile, rows = min(kTile, n - r1);
+      bf16* next = sQD + (stage ^ 1) * 2 * kEl;
+      load_tile<D, kBwdThreads>(next, q + r1 * ld, ld, rows);
+      load_tile<D, kBwdThreads>(next + kEl, dO + r1 * static_cast<size_t>(hd), hd, rows);
+      load_stats(sStat + (stage ^ 1) * 3 * kTile, m_in + stat, l_in + stat, delta_in + stat,
+                 r1, n);
+    }
+    tc::cp_async_commit();
+
     const int q0 = qt * kTile;
-    const int qrows = min(kTile, n - q0);
-    __syncthreads();
-    const T* qsrc = base + static_cast<size_t>(q0) * ld + hh * D;
-    load_tile<T, D>(sQ, qsrc, ld, qrows, false, 0.f, 256);
-    load_tile<T, D>(sQs, qsrc, ld, qrows, true, scale, 256);
-    load_tile<T, D>(sdO, dout + (static_cast<size_t>(bb) * n + q0) * hd + hh * D, hd, qrows,
-                    false, 0.f, 256);
-    if (threadIdx.x < kTile) {
-      const int r = threadIdx.x;
-      const bool in = r < qrows;
-      sM[r] = in ? m_in[stat0 + q0 + r] : 0.f;
-      sL[r] = in ? l_in[stat0 + q0 + r] : 1.f;
-      sD[r] = in ? delta_in[stat0 + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    // s^T (keys x queries) and dp^T: each warp 16 key rows x 32 query columns
-    warp_abt<D, 2>(sSt, sK, sQs, 16 * rb, 32 * (warp >> 2));
-    warp_abt<D, 2>(sdPt, sV, sdO, 16 * rb, 32 * (warp >> 2));
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTile * kTile; idx += 256) {
-      const int r = idx >> 6, c = idx & (kTile - 1);
-      float p = 0.f, ds = 0.f;
-      if (visible(table, n, q0 + c, k0 + r)) {
-        p = expf(sSt[r * kLdS + c] - sM[c]) / sL[c];
-        ds = p * (sdPt[r * kLdS + c] - sD[c]);
+    const bf16* cQ = sQD + stage * 2 * kEl;
+    const bf16* cdO = cQ + kEl;
+    const float* cSt = sStat + stage * 3 * kTile;
+    float s[4][4], dp[4][4];
+    tc::zero(s);
+    tc::zero(dp);
+    tc::dot_nt<D, 4, true>(s, sK, wr, cQ, wc, lane, scale);   // s^T = k . qs^T
+    tc::dot_nt<D, 4>(dp, sV, wr, cdO, wc, lane);              // dp^T = v . dO^T
+    const bool all = all_visible(table, n, q0, k0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = wc + 8 * j + 2 * t4 + c;
+        const float mq = cSt[col], lq = cSt[kTile + col], dq = cSt[2 * kTile + col];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int e = 2 * hr + c;
+          const bool vis = all || visible(table, n, q0 + col, key + 8 * hr);
+          const float p = vis ? expf(s[j][e] - mq) / lq : 0.f;
+          s[j][e] = p;                               // P^T
+          dp[j][e] = p * (dp[j][e] - dq);            // dS^T
+        }
       }
-      sPt[r * kLdP + c] = __float2bfloat16(p);
-      sdSt[r * kLdP + c] = __float2bfloat16(ds);
-    }
-    __syncthreads();
-    if (is_dk) warp_pv<D>(acc, sdSt, sQ, 16 * rb);    // dk += ds^T . q
-    else       warp_pv<D>(acc, sPt, sdO, 16 * rb);    // dv += p16^T . dO
+    tc::dot_pv<D, 4>(dv, s, cdO, wc, lane);    // dv += bf16(P^T) . dO
+    tc::dot_pv<D, 4>(dk, dp, cQ, wc, lane);    // dk += bf16(dS^T) . q, unscaled
+    if (!more) break;
+    qt = nqt;
   }
-  __syncthreads();
-  warp_stage<D>(sOut + (is_dk ? kTile * (D + 4) : 0), acc, 16 * rb, is_dk ? scale : 1.f);
-  __syncthreads();
-  T* drow = dqkv + (static_cast<size_t>(bb) * n + k0) * ld + hh * D;
-  store_tile<T, D>(drow + hd, ld, sOut + kTile * (D + 4), krows, 256);
-  store_tile<T, D>(drow + 2 * hd, ld, sOut, krows, 256);
+  __syncthreads();                  // the ring is free: it holds the sums of the halves
+  float* red = reinterpret_cast<float*>(sQD);
+  tc::reduce_halves<D>(dk, red, warp, lane);
+  tc::reduce_halves<D>(dv, red + kTile * D, warp, lane);
+  if (warp < 4) {
+    T* drow = dqkv + static_cast<size_t>(bb) * n * ld + hh * D;
+    store_rows<T, D>(drow + hd, ld, key, n, dk, scale, t4);
+    store_rows<T, D>(drow + 2 * hd, ld, key, n, dv, 1.f, t4);
+  }
 }
 
 template <typename T, int D>
@@ -514,9 +580,11 @@ int launch_fwd(const void* qkv, const int8_t* table, const int8_t* tiles, void* 
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTile - 1) / kTile, heads, b);
-  kernel<<<grid, 128, kSmem, stream>>>(static_cast<const T*>(qkv), table, tiles,
-                                       static_cast<T*>(out), m, l, n, heads, scale);
+  // the tile index slowest, so that every (head, batch row) starts its
+  // heaviest tiles first
+  const dim3 grid(heads, b, (n + kTile - 1) / kTile);
+  kernel<<<grid, kFwdThreads, kSmem, stream>>>(static_cast<const T*>(qkv), table, tiles,
+                                               static_cast<T*>(out), m, l, n, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -524,23 +592,25 @@ template <typename T, int D>
 int launch_bwd(const void* qkv, const void* dout, const int8_t* table, const int8_t* tiles,
                const float* m, const float* l, float* delta, void* dqkv, int b, int n,
                int heads, float scale, cudaStream_t stream) {
-  auto dq = bwd_dq_kernel<T, D>;
-  auto dkv = bwd_dkv_kernel<T, D>;
-  constexpr int kSmemDq = bwd_dq_smem<D>();
-  constexpr int kSmemDkv = bwd_dkv_smem<D>();
+  auto dq = dq_kernel<T, D>;
+  auto dkv = dkv_kernel<T, D>;
+  constexpr int kSmemDq = dq_smem<D>();
+  constexpr int kSmemDkv = dkv_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemDq);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTile - 1) / kTile, heads, b);
+  const dim3 grid(heads, b, (n + kTile - 1) / kTile);
   const T* q = static_cast<const T*>(qkv);
   const T* o = static_cast<const T*>(dout);
   T* g = static_cast<T*>(dqkv);
-  dq<<<grid, 128, kSmemDq, stream>>>(q, o, table, tiles, m, l, delta, g, n, heads, scale);
+  dq<<<grid, kBwdThreads, kSmemDq, stream>>>(q, o, table, tiles, m, l, delta, g, n, heads,
+                                             scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv<<<grid, 256, kSmemDkv, stream>>>(q, o, table, tiles, m, l, delta, g, n, heads, scale);
+  dkv<<<grid, kBwdThreads, kSmemDkv, stream>>>(q, o, table, tiles, m, l, delta, g, n, heads,
+                                               scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,11 @@
 // Shared tiles are row-major bf16 with a row stride of D + 8 elements
 // (2*D + 16 bytes): the eight 16-byte rows one ldmatrix phase reads fall in
 // eight different bank groups, for every D that is a multiple of 16.
+//
+// Below the PTX wrappers: warp-level products on such tiles (a 16-row block
+// of scores against 8*NJ columns, and bf16(scores) times a tile), the quad
+// reductions over a C fragment's row, and the fixed-order sum of two warp
+// groups' accumulators, shared by the tensor-core kernels of K1 and K4.
 
 #pragma once
 
@@ -112,6 +117,104 @@ __device__ __forceinline__ const __nv_bfloat16* b_addr(const __nv_bfloat16* tile
 __device__ __forceinline__ const __nv_bfloat16* bt_addr(const __nv_bfloat16* tile, int ld,
                                                         int k0, int n0, int lane) {
   return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
+}
+
+// (lo, hi) of a packed bf16 pair times s in f32, rounded to bf16 again: the
+// TPU kernels' query scaling, bf16(f32(q) * scale), on a fragment register
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+// max and sum over the four lanes of a quad (one row of a C fragment)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero(float (&x)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+}
+
+// s (NJ n8 tiles: 16 rows x 8*NJ columns) += A * B^T over D; A is the 16 rows
+// at arow0 of shared tile `a`, B the 8*NJ rows at brow0 of tile `b`, both
+// [row][d] of row stride D + 8. With kScaleB, each B value is first
+// replaced by bf16(f32(b) * bscale).
+template <int D, int NJ, bool kScaleB = false>
+__device__ __forceinline__ void dot_nt(float (&s)[NJ][4], const __nv_bfloat16* a, int arow0,
+                                       const __nv_bfloat16* b, int brow0, int lane,
+                                       float bscale = 1.f) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t af[4];
+    ldsm_x4(af, a_addr(a, kLd, arow0, kd * 16, lane));
+#pragma unroll
+    for (int np = 0; np < NJ / 2; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b_addr(b, kLd, brow0 + np * 16, kd * 16, lane));
+      if (kScaleB) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bf[e] = scale_bf16x2(bf[e], bscale);
+      }
+      mma16816(s[2 * np], af, bf[0], bf[1]);
+      mma16816(s[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (D/8 n8 tiles) += bf16(p) * B: p the 16 x 8*NJ fragments of a score
+// tile, B the 8*NJ rows at brow0 of shared tile `b` ([row][d] of row stride
+// D + 8, read transposed by ldmatrix)
+template <int D, int NJ>
+__device__ __forceinline__ void dot_pv(float (&acc)[D / 8][4], const float (&p)[NJ][4],
+                                       const __nv_bfloat16* b, int brow0, int lane) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    uint32_t af[4];
+    c_to_a(af, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, bt_addr(b, kLd, brow0 + kk * 16, dp * 16, lane));
+      mma16816(acc[2 * dp], af, bf[0], bf[1]);
+      mma16816(acc[2 * dp + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// Eight warps where warp w takes the 16 rows 16*(w % 4) of a tile against
+// half (w / 4) of the other operand's 64 columns: acc of group 1 (warps
+// 4..7) into group 0's, through `red`, a free shared buffer of 64*D floats;
+// lane-major, so the 32 lanes hit 32 banks. Group 0 + group 1 in that fixed
+// order, so repeated runs give the same bits.
+template <int D>
+__device__ __forceinline__ void reduce_halves(float (&acc)[D / 8][4], float* red, int warp,
+                                              int lane) {
+  float* mine = red + (warp & 3) * (D / 2) * 32 + lane;
+  if (warp >= 4) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(dn * 4 + e) * 32] = acc[dn][e];
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] += mine[(dn * 4 + e) * 32];
+  }
 }
 
 }  // namespace tc

@@ -18,7 +18,10 @@ scaled in f32 and rounded again; scores and the softmax are f32, hidden
 pairs at -1e9; p rounds to bf16 before p·v; every product accumulates in
 f32. The forward also returns each row's max m and sum l, f32 (b, h, n),
 which the backward uses to recompute p (the Pallas backward recomputes
-them from the scores; the two agree to f32 rounding).
+them from the scores; the two agree to f32 rounding). Every product is
+bf16 × bf16 into f32, so the kernels run it on the tensor cores for f32
+and bf16 qkv alike; they are held to the plain versions within
+``kernel_tolerance``, and a peaked softmax within ``flip_tolerance``.
 
 Visibility: plain causal (``table=None``), or a ``MaskTable`` built from a
 static mask or a structured spec as the JAX package's ``validity_table``
@@ -101,15 +104,18 @@ def mask_table(n: int, mask=None, mask_spec=None, device=None) -> Optional[MaskT
                      torch.from_numpy(tiles.astype(np.int8)).to(device))
 
 
-def layer_table(kind: str, n: int, device=None) -> Optional[MaskTable]:
+def layer_table(kind: str, n: int, device=None,
+                fmap: Optional[int] = None) -> Optional[MaskTable]:
     """The transformer's table for a layer kind ("full", "axial_row",
     "conv_like" or "sparse") at training length n, with the DALL·E layout:
-    a 16×16 image grid when n > 256, else 4×4, after n + 1 - grid² text
-    positions (<bos> included). For checks of the kernels against their
-    plain versions at the shapes the model gives."""
+    an ``fmap``×``fmap`` image grid (by default 16×16 when n > 256, else
+    4×4) after n + 1 - fmap² text positions (<bos> included). For checks of
+    the kernels against their plain versions at the shapes the model gives
+    (``fmap=64`` at n = 4,352 is the long-sequence model's)."""
     if kind == "full":
         return None
-    fmap = 16 if n > 256 else 4
+    if fmap is None:
+        fmap = 16 if n > 256 else 4
     text_len = n + 1 - fmap * fmap
     spec = {"axial_row": ("axial", text_len, fmap, 0),
             "conv_like": ("conv", text_len, fmap, 5, 1)}.get(kind)
@@ -129,6 +135,45 @@ def kernel_tolerance(want: torch.Tensor) -> torch.Tensor:
     if want.dtype == torch.bfloat16:
         return w * 2.0 ** -7 + margin
     return torch.full_like(w, margin)
+
+
+def rounding_bound(qkv: torch.Tensor, dout: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor, heads: int, table: Optional[MaskTable] = None,
+                   scale: Optional[float] = None):
+    """Per element of out (b, n, h·d) and dqkv (b, n, 3·h·d), f32: the sums
+    of the absolute products whose first factor the kernels round to bf16,
+    with (m, l) the forward's. out: Σ_j p·|v|; dv: Σ_i p·|dO|; dq and dk:
+    Σ (|ds| + p·E)·|k| and Σ (|ds| + p·E)ᵀ·|q|, times scale, where
+    E_i = Σ_d (Σ_j p·|v|)·|dO| carries a rounding of p16 in o through delta
+    into ds = p·(dp − delta). Moving every rounded factor by one bf16 ulp
+    (at most 2^-7 of itself) moves an output by at most 2^-7 of this."""
+    b, n, _ = qkv.shape
+    scale = _scale(qkv, heads, scale)
+    q, k, v = _split_bf16(qkv, heads)
+    vis = _visible(n, table, qkv.device)
+    p = torch.where(vis, torch.exp(_scores(q, k, scale, vis) - m[..., None]) / l[..., None], 0.0)
+    q, k, v = q.float().abs(), k.float(), v.float()
+    do = dout.to(torch.bfloat16).reshape(b, n, heads, -1).float()
+    o = torch.einsum("bhij,bjhd->bihd", p.to(torch.bfloat16).float(), v)
+    delta = (o * do).sum(dim=-1).transpose(1, 2)[..., None]
+    dp = torch.einsum("bihd,bjhd->bhij", do, v)
+    pv = torch.einsum("bhij,bjhd->bihd", p, v.abs())
+    e = (pv * do.abs()).sum(dim=-1).transpose(1, 2)[..., None]            # (b, h, i, 1)
+    w = (p * (dp - delta)).abs() + p * e
+    dq = torch.einsum("bhij,bjhd->bihd", w, k.abs()) * scale
+    dk = torch.einsum("bhij,bihd->bjhd", w, q) * scale
+    dv = torch.einsum("bhij,bihd->bjhd", p, do.abs())
+    return pv.reshape(b, n, -1), torch.cat([t.reshape(b, n, -1) for t in (dq, dk, dv)], dim=-1)
+
+
+def flip_tolerance(want: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """Per-element bound on |kernel − plain version| for an output ``want``
+    of the plain version, with ``bound`` its entry of ``rounding_bound``:
+    ``kernel_tolerance`` assumes one flipped p of a few hundredths, but a
+    peaked softmax puts p near 1, where one flip costs 2^-8·|v|, more than
+    its margin. If every rounded factor flipped, the output would move by
+    2^-7·bound; add ``kernel_tolerance`` for the rest."""
+    return 2.0 ** -7 * bound.float() + kernel_tolerance(want)
 
 
 # ---------------------------------------------------------------------------

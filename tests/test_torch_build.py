@@ -31,3 +31,22 @@ def test_target_covers_the_local_headers_a_source_includes(tmp_path, monkeypatch
     assert third["a"] != second["a"] and third["b"] == first["b"]
     (csrc / "other.cuh").write_text("int other(int);\n")   # included by nobody
     assert targets() == third
+
+
+def test_fused_attention_is_rebuilt_when_the_tile_header_changes(tmp_path, monkeypatch):
+    """K1's source includes the tensor-core tile helpers: an edit of
+    ``tc_tile.cuh`` alone renames (so rebuilds) its library."""
+    real = _build.CSRC
+    assert [p.name for p in _build._sources(real / "fused_attention.cu")] == [
+        "fused_attention.cu", "tc_tile.cuh"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("fused_attention.cu", "tc_tile.cuh"):
+        (csrc / name).write_text((real / name).read_text())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build._target(csrc / "fused_attention.cu")
+    assert _build._target(csrc / "fused_attention.cu") == first
+    header = csrc / "tc_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._target(csrc / "fused_attention.cu") != first

@@ -173,6 +173,199 @@ def test_kernel_tolerance_is_per_element():
     torch.testing.assert_close(tfa.kernel_tolerance(want[:2]), torch.full((2,), 2e-3))
 
 
+def test_layer_table_takes_the_grid_width():
+    """``fmap`` overrides the default grid: an 8×8 image after 8 text
+    tokens is the transformer's layout, which the default (4×4 below 257
+    positions) is not."""
+    cfg = DalleConfig(num_text_tokens=60, text_seq_len=8, dim=32, depth=1, heads=2,
+                      dim_head=16, image_vocab_size=48, image_fmap_size=8,
+                      attn_types=("axial_row",))
+    want = DALLE(cfg).transformer.fused_table(0, 72, "cpu")
+    got = tfa.layer_table("axial_row", 72, fmap=8)
+    assert torch.equal(got.table, want.table) and torch.equal(got.tiles, want.tiles)
+    assert not torch.equal(tfa.layer_table("axial_row", 72).table, want.table)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' order of work, written out in tensor code
+# ---------------------------------------------------------------------------
+
+def _tile_slices(n):
+    return [slice(k0, min(k0 + tfa.TILE, n)) for k0 in range(0, n, tfa.TILE)]
+
+
+def _kernel_order_fwd(qkv, heads, table=None):
+    """The forward kernel's order of work: pass 1 updates each row's
+    (m, l) online over 64-key tiles; pass 2 forms p = exp(s - m) / l with
+    the final (m, l), rounds it to bf16 and adds p16·v tile by tile."""
+    b, n, _ = qkv.shape
+    scale = tfa._scale(qkv, heads, None)
+    q, k, v = tfa._split_bf16(qkv, heads)
+    vis = tfa._visible(n, table, qkv.device)
+    qs = (q.float() * scale).to(torch.bfloat16).float()
+
+    def scores(sl):
+        s = torch.einsum("bihd,bjhd->bhij", qs, k[:, sl].float())
+        return torch.where(vis[:, sl], s, -torch.inf)
+
+    m = torch.full((b, heads, n), -torch.inf)
+    l = torch.zeros(b, heads, n)
+    for sl in _tile_slices(n):                                  # pass 1
+        s = scores(sl)
+        m_new = torch.maximum(m, s.amax(-1))
+        seen = m_new > -torch.inf
+        corr = torch.exp(m - torch.where(seen, m_new, 0.0))
+        tile_sum = torch.exp(s - torch.where(seen, m_new, 0.0)[..., None]).sum(-1)
+        l = torch.where(seen, l * corr + tile_sum, l)
+        m = torch.where(seen, m_new, m)
+    o = torch.zeros(b, n, heads, q.shape[-1])
+    for sl in _tile_slices(n):                                  # pass 2
+        p16 = (torch.exp(scores(sl) - m[..., None]) / l[..., None]).to(torch.bfloat16)
+        o += torch.einsum("bhij,bjhd->bihd", p16.float(), v[:, sl].float())
+    return o.reshape(b, n, -1).to(qkv.dtype), m, l
+
+
+def _kernel_order_bwd(qkv, dout, m, l, heads, table=None):
+    """The backward kernels' order of work. dq: sweep 1 adds p16·v tile by
+    tile into two halves (each 64-key tile's first and last 32 keys), adds
+    the halves, and forms delta = rowsum(o·dO) from that f32 o; sweep 2
+    adds bf16(p·(dp − delta))·k into two halves the same way, scaled once
+    at the end. dk/dv: for each 64-key tile, q tile by q tile, s^T from the
+    scaled q and dk from the unscaled one, in two halves of each q tile."""
+    b, n, _ = qkv.shape
+    scale = tfa._scale(qkv, heads, None)
+    q, k, v = (t.float() for t in tfa._split_bf16(qkv, heads))
+    do = dout.to(torch.bfloat16).reshape(b, n, heads, -1).float()
+    vis = tfa._visible(n, table, qkv.device)
+    qs = (q * scale).to(torch.bfloat16).float()
+
+    def p_ds(qsl, ksl, delta=None):
+        s = torch.einsum("bihd,bjhd->bhij", qs[:, qsl], k[:, ksl])
+        p = torch.where(vis[qsl, ksl], torch.exp(s - m[:, :, qsl, None]) / l[:, :, qsl, None],
+                        0.0)
+        if delta is None:
+            return p, None
+        dp = torch.einsum("bihd,bjhd->bhij", do[:, qsl], v[:, ksl])
+        return p, (p * (dp - delta[:, :, qsl, None])).to(torch.bfloat16).float()
+
+    def halves(sl):
+        mid = min(sl.start + tfa.TILE // 2, sl.stop)
+        return [slice(sl.start, mid), slice(mid, sl.stop)]
+
+    everything = slice(0, n)
+    o = [torch.zeros_like(q), torch.zeros_like(q)]
+    dq = [torch.zeros_like(q), torch.zeros_like(q)]
+    for sl in _tile_slices(n):
+        for half, hs in enumerate(halves(sl)):
+            p, _ = p_ds(everything, hs)
+            o[half] += torch.einsum("bhij,bjhd->bihd", p.to(torch.bfloat16).float(), v[:, hs])
+    delta = ((o[0] + o[1]) * do).sum(-1).transpose(1, 2)          # (b, h, n)
+    for sl in _tile_slices(n):
+        for half, hs in enumerate(halves(sl)):
+            _, ds = p_ds(everything, hs, delta)
+            dq[half] += torch.einsum("bhij,bjhd->bihd", ds, k[:, hs])
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for ksl in _tile_slices(n):
+        parts = [[0.0, 0.0], [0.0, 0.0]]                          # [dk, dv][half]
+        for qsl in _tile_slices(n):
+            for half, hs in enumerate(halves(qsl)):
+                p, ds = p_ds(hs, ksl, delta)
+                parts[0][half] = parts[0][half] + torch.einsum("bhij,bihd->bjhd", ds, q[:, hs])
+                parts[1][half] = parts[1][half] + torch.einsum(
+                    "bhij,bihd->bjhd", p.to(torch.bfloat16).float(), do[:, hs])
+        dk[:, ksl] = (parts[0][0] + parts[0][1]) * scale
+        dv[:, ksl] = parts[1][0] + parts[1][1]
+    grads = ((dq[0] + dq[1]) * scale, dk, dv)
+    return torch.cat([t.reshape(b, n, -1) for t in grads], dim=-1).to(qkv.dtype)
+
+
+@pytest.mark.parametrize("peaked", [False, True], ids=["random", "peaked"])
+@pytest.mark.parametrize("n", [77, 513])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_kernel_order_of_work_matches_the_plain_versions(dt, n, peaked):
+    """The CUDA kernels' tile order and roundings (online (m, l), p rounded
+    with the final (m, l), delta from the f32 o, the two column halves)
+    against the plain versions within ``kernel_tolerance``, m within 1e-5
+    and l within 1e-5 relative; peaked scales q by 8, so one key dominates
+    each row."""
+    h, d = 2, 32
+    rng = np.random.RandomState(n + peaked)
+    qkv = rng.standard_normal((2, n, 3 * h * d)).astype(np.float32)
+    if peaked:
+        qkv[..., :h * d] *= 8
+    do = rng.standard_normal((2, n, h * d)).astype(np.float32)
+    _, tq = _as(qkv, dt)
+    _, tdo = _as(do, dt)
+    table = tfa.layer_table("axial_row", n) if n == 513 else None
+    out, m, l = _kernel_order_fwd(tq, h, table)
+    ro, rm, rl = tfa.fused_attention_fwd_plain(tq, h, table)
+    torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    dqkv = _kernel_order_bwd(tq, tdo, rm, rl, h, table)
+    rdq = tfa.fused_attention_bwd_plain(tq, tdo, rm, rl, h, table)
+    for got, want in ((out, ro), (dqkv, rdq)):
+        assert got.dtype == want.dtype
+        share = ((got.float() - want.float()).abs() / tfa.kernel_tolerance(want)).max().item()
+        assert share <= 1.0, share
+
+
+def _one_ulp_up(x):
+    """Every nonzero bf16 value one ulp further from zero, as f32."""
+    bits = x.to(torch.bfloat16).view(torch.int16)
+    return torch.where(x != 0, (bits + 1).view(torch.bfloat16), 0).float()
+
+
+def _plain_with_flips(qkv, dout, heads, table=None):
+    """The plain forward and backward with every p16 and ds rounded one ulp
+    the wrong way (away from zero): the worst case ``rounding_bound`` covers."""
+    b, n, _ = qkv.shape
+    scale = tfa._scale(qkv, heads, None)
+    q, k, v = tfa._split_bf16(qkv, heads)
+    vis = tfa._visible(n, table, qkv.device)
+    s = tfa._scores(q, k, scale, vis)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - m) / torch.exp(s - m).sum(dim=-1, keepdim=True), 0.0)
+    p16 = _one_ulp_up(p)
+    q, k, v = q.float(), k.float(), v.float()
+    do = dout.to(torch.bfloat16).reshape(b, n, heads, -1).float()
+    o = torch.einsum("bhij,bjhd->bihd", p16, v)
+    delta = (o * do).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = _one_ulp_up(p * (torch.einsum("bihd,bjhd->bhij", do, v) - delta))
+    grads = (torch.einsum("bhij,bjhd->bihd", ds, k) * scale,
+             torch.einsum("bhij,bihd->bjhd", ds, q) * scale,
+             torch.einsum("bhij,bihd->bjhd", p16, do))
+    return (o.reshape(b, n, -1).to(qkv.dtype),
+            torch.cat([t.reshape(b, n, -1) for t in grads], dim=-1).to(qkv.dtype))
+
+
+@pytest.mark.parametrize("peaked", [False, True], ids=["random", "peaked"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rounding_bound_covers_every_factor_rounded_the_wrong_way(dt, peaked):
+    """``flip_tolerance`` holds the plain versions with every p16 and ds one
+    bf16 ulp off; on the peaked input (q scaled by 8) ``kernel_tolerance``
+    does not, which is why the peaked card case is held to the former."""
+    h, d, n = 2, 32, 150
+    rng = np.random.RandomState(7 + peaked)
+    qkv = rng.standard_normal((2, n, 3 * h * d)).astype(np.float32)
+    if peaked:
+        qkv[..., :h * d] *= 8
+    do = rng.standard_normal((2, n, h * d)).astype(np.float32)
+    _, tq = _as(qkv, dt)
+    _, tdo = _as(do, dt)
+    table = tfa.layer_table("axial_row", n)
+    ro, m, l = tfa.fused_attention_fwd_plain(tq, h, table)
+    rdq = tfa.fused_attention_bwd_plain(tq, tdo, m, l, h, table)
+    bounds = tfa.rounding_bound(tq, tdo, m, l, h, table)
+    shares = []
+    for got, want, bound in zip(_plain_with_flips(tq, tdo, h, table), (ro, rdq), bounds):
+        assert bound.shape == want.shape and bound.dtype == torch.float32
+        diff = (got.float() - want.float()).abs()
+        assert (diff / tfa.flip_tolerance(want, bound)).max().item() <= 1.0
+        shares.append((diff / tfa.kernel_tolerance(want)).max().item())
+    if peaked and dt == "f32":
+        assert max(shares) > 1.0, shares
+
+
 # ---------------------------------------------------------------------------
 # mode resolution, options left out, launch counts, CUDA-launch checks
 # ---------------------------------------------------------------------------
