@@ -52,16 +52,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 peak memory, one profiled step's busy share and top kernels,
                 and, for the record, the step with dense attention.
 8. serve_kernel K3 (windowed decode attention over the dense slab) and K5
-                (the same over a paged pool) against their plain versions:
-                f32, bf16 and int8 caches, windows of 1, 16 and 257 queries,
-                ragged starts (0, S-w, a parked row at S), the serving shape
-                (b=8, h=14, d=128, S=512) and a ragged one (b=3, h=6, d=64,
-                S=300); K5 with 16-token blocks, pages in a random order and
-                some unmapped. K5 must equal K3 on the gathered slab bit for
-                bit on every row that is not parked. Then both kernels' times
-                at the serving shape (w=1 and 257) beside their bounds, the
-                plain versions' and SDPA's with a boolean mask on the
-                dequantized cache (the library yardstick).
+                (the same over a paged pool) against their plain versions on
+                every route of window_plan (tensor-core tiles of 64 rows
+                for a refill window over a bf16 or int8 cache, a
+                cluster split for a decode step, f32 FMA for an f32 cache at
+                w > 1): f32, bf16 and int8 caches, windows of 1, 2, 15, 16,
+                17, 63, 64, 65 and 257 queries, ragged starts (S-w, 0, a
+                parked row at S), the serving shape (b=8, h=14, d=128,
+                S=512), the same at b=1 and a ragged one (b=3, h=6, d=64,
+                S=300); a peaked softmax (q × 8) at w=1 and 257; all within
+                window_tolerance; K5 with 16-token blocks, pages in a
+                random order and some unmapped. K5 must equal K3 on the
+                gathered slab bit for bit on every row that is not parked,
+                and a second call must give the same bits; every route must
+                have run. Reports the plans, the route counters and nvcc's
+                registers and spills per kernel. Then both kernels' times
+                at the serving shape (w=1 and 257 at b=8, 257 at b=1, and
+                the paged engine's 16-query prefill chunks at b=8 and b=1)
+                beside their bounds, the plain versions', SDPA's with a
+                boolean mask on the dequantized cache (the library
+                yardstick), and a decode step on each split of 2, 4, 8.
 9. serve_parity at full width and depth 2, in f32: the dense engine's tokens
                 for four requests (one ragged) equal the sequential
                 generate_images_tokens' (K2) under the same generator seeds,
@@ -76,7 +86,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 tokens with another. Every request completes with in-range
                 tokens of its length; K3 launches 24 times per attending
                 dispatch in the dense run and never in the paged one, K5 the
-                other way round. Then requests/s, tokens/s, TTFT, ms per
+                other way round; the refill windows run on the tensor-core
+                route and the decode steps on the cluster split, none on
+                the f32 route. Then requests/s, tokens/s, TTFT, ms per
                 step, the radix ledger, peak memory and a profiled window's
                 busy share.
 
@@ -824,16 +836,16 @@ def phase_train(torch, card):
 # K3 / K5 and the serving engine
 # ---------------------------------------------------------------------------
 
-def window_bounds(b, h, w, d, start, S, itemsize, qsize, scaled):
-    """Least card time of K3/K5 for these inputs (every row at ``start``):
+def window_bounds(b, h, w, d, starts, S, itemsize, qsize, scaled):
+    """Least card time of K3/K5 for these inputs (row i at ``starts[i]``):
     (bound ms, "bytes" or "operations", flops, bytes). Bytes: q in and out
     once, and the cache rows (K and V, and their f32 scales for int8) that
     the window can see, once. Operations: 4·d flops per visible (query,
     position) pair (the q·k and p·v products), at the f32 rate for an f32
     cache and the bf16 tensor rate otherwise (the products' operands are
     bf16 there)."""
-    seen = b * min(S, start + w)
-    pairs = b * h * sum(min(S, start + j + 1) for j in range(w))
+    seen = sum(min(S, st + w) for st in starts)
+    pairs = h * sum(min(S, st + j + 1) for st in starts for j in range(w))
     nbytes = (2 * b * h * w * d * qsize + seen * 2 * h * d * itemsize
               + (seen * 2 * h * 4 if scaled else 0) + b * 4)
     ops = 4 * d * pairs
@@ -860,74 +872,119 @@ def _paged_copy(torch, cache, bt, gen):
     return pc
 
 
+WINDOW_COUNTERS = ("window_launches", "paged_launches", "window_tc_launches",
+                   "window_split_launches", "window_fma_launches")
+# the widths phase serve_kernel holds: a decode step, the tile edges of the
+# tensor-core route (16, 64 rows) and a refill window
+WINDOW_WIDTHS = (1, 2, 15, 16, 17, 63, 64, 65, 257)
+
+
+def window_counts(dec):
+    return {c: getattr(dec, c) for c in WINDOW_COUNTERS}
+
+
+def window_set_counts(dec, counts):
+    for c, x in counts.items():
+        setattr(dec, c, x)
+
+
 def phase_serve_kernel(torch, card):
     import torch.nn.functional as F
     from dalle_tpu_torch.ops import decode_attention as dec
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 4)
     hgen = torch.Generator().manual_seed(SMOKE_SEED + 4)
-    shares, errs, cases = {}, {}, 0
-    for name, b, h, d, S in (("main", 8, 14, 128, 512), ("ragged", 3, 6, 64, 300)):
+    sms = dec._sm_count(torch.device("cuda"))
+    shares, errs, plans, cases = {}, {}, {}, 0
+    saved = window_counts(dec)
+    window_set_counts(dec, dict.fromkeys(WINDOW_COUNTERS, 0))
+    shapes = (("main", 8, 14, 128, 512), ("b1", 1, 14, 128, 512), ("ragged", 3, 6, 64, 300))
+    for name, b, h, d, S in shapes:
         for dt in ("float32", "bfloat16", "int8"):
             dtype = getattr(torch, dt)
             qdt = torch.float32 if dt == "float32" else torch.bfloat16
             cache = _cache(torch, b, h, d, S, dtype, gen)
             pc = _paged_copy(torch, cache, 16, hgen)
             dense = pc.gather_dense()
-            for w in (1, 16, 257):
-                q = torch.randn(b, h, w, d, device="cuda", generator=gen).to(qdt)
-                st = [0, S - w, S] + torch.randint(0, S - w + 1, (b,), generator=hgen).tolist()
+            runs = [(w, False) for w in WINDOW_WIDTHS]
+            if name != "ragged":                  # a peaked softmax (q × 8) on both routes
+                runs += [(1, True), (257, True)]
+            for w, peaked in runs:
+                q = torch.randn(b, h, w, d, device="cuda", generator=gen)
+                q = (q * (8.0 if peaked else 1.0)).to(qdt)
+                st = [S - w, 0, S] + torch.randint(0, S - w + 1, (b,), generator=hgen).tolist()
                 starts = torch.tensor(st[:b], dtype=torch.int32, device="cuda")
-                for kname, got, want in (
-                        ("K3", dec.decode_attend_window(q, cache, starts),
-                         dec.decode_attend_window_plain(q, cache.kv, cache.scale, starts)),
-                        ("K5", dec.decode_attend_window_paged(q, pc, starts),
-                         dec.decode_attend_window_paged_plain(q, pc, starts))):
+                tag = f"{name}/{dt}/w{w}" + ("/peaked" if peaked else "")
+                plans[tag] = dec.window_plan(b, h, w, S, dtype, sms)
+                outs = {"K3": dec.decode_attend_window(q, cache, starts),
+                        "K5": dec.decode_attend_window_paged(q, pc, starts)}
+                for kname, slab in (("K3", cache), ("K5", dense)):
+                    got = outs[kname]
+                    want = dec.decode_attend_window_plain(q, slab.kv, slab.scale, starts)
                     torch.cuda.synchronize()
                     diff = (got.float() - want.float()).abs()
                     share = dec.window_share(got, want, dtype)
-                    key = f"{kname}/{name}/{dt}/w{w}"
+                    key = f"{kname}/{tag}"
                     errs[key], shares[key] = diff.max().item(), share
                     cases += 1
                     check(math.isfinite(share) and share <= 1.0,
                           f"{key}: an element is {share} of its bound "
                           f"(max abs err {diff.max().item()})")
-                paged = dec.decode_attend_window_paged(q, pc, starts)
+                again = dec.decode_attend_window(q, cache, starts)
                 slab = dec.decode_attend_window(q, dense, starts)
                 torch.cuda.synchronize()
+                check(torch.equal(again, outs["K3"]), f"K3 is not repeatable: {tag}")
                 live = starts < S
-                check(torch.equal(paged[live], slab[live]),
-                      f"K5 != K3 on the gathered slab: {name}/{dt}/w{w}")
+                check(torch.equal(outs["K5"][live], slab[live]),
+                      f"K5 != K3 on the gathered slab: {tag}")
+    routes = {c: getattr(dec, c) for c in WINDOW_COUNTERS[2:]}
+    window_set_counts(dec, saved)
+    check(all(routes.values()), f"serve_kernel: a route never ran ({routes})")
     by = {f"{k}/{dt}": max(v for key, v in errs.items()
                            if key.startswith(k + "/") and f"/{dt}/" in key)
           for k in ("K3", "K5") for dt in ("float32", "bfloat16", "int8")}
     worst = {f"{k}/{dt}": max(v for key, v in shares.items()
                               if key.startswith(k + "/") and f"/{dt}/" in key)
              for k in ("K3", "K5") for dt in ("float32", "bfloat16", "int8")}
+    peaked = {k: v for k, v in shares.items() if "/peaked" in k}
+    build = {k: ptxas_report("decode_window_attention", k)
+             or "no build log in this process"
+             for k in ("tc_window_kernel", "split_window_kernel", "fma_window_kernel")}
     emit("serve_kernel", kernels=["decode_attend_window", "decode_attend_window_paged"],
-         cases=cases, tolerance="decode_attention.window_tolerance, per element",
-         max_abs_err=by, worst_share_of_bound=worst, k5_equals_k3_on_slab=True)
+         cases=cases, widths=list(WINDOW_WIDTHS), sm_count=sms,
+         tolerance="decode_attention.window_tolerance, per element",
+         max_abs_err=by, worst_share_of_bound=worst, peaked_shares=peaked,
+         plans=plans, route_launches=routes, k5_equals_k3_on_slab=True,
+         repeatable=True, build=build)
 
     # times at the serving shape: a decode step (w=1, every position
-    # visible) and a refill window (w=257 from position 0)
-    b, h, d, S = 8, 14, 128, 512
+    # visible) and a refill window (w=257 from position 0) at b=8, the b=1
+    # refill of DecodeEngine._refill_row, and the paged engine's prefill
+    # chunks (w = block_tokens = 16 at position 128): at b=8 with the other
+    # rows parked at S, as serve_refill_window launches them, and at b=1
+    h, d, S = 14, 128, 512
+    cases = {"w1": (8, 1, [S - 1] * 8), "w257": (8, 257, [0] * 8),
+             "w257/b1": (1, 257, [0]), "w16": (8, 16, [128] + [S] * 7),
+             "w16/b1": (1, 16, [128])}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    timing = {}
+    timing, sweep = {}, {}
+    saved = window_counts(dec)
     for dt in ("float32", "bfloat16", "int8"):
         dtype = getattr(torch, dt)
         qdt = torch.float32 if dt == "float32" else torch.bfloat16
-        cache = _cache(torch, b, h, d, S, dtype, gen)
-        pc = _paged_copy(torch, cache, 16, hgen)
-        pc.bind(torch.arange(b * (S // 16), dtype=torch.int32).view(b, -1).numpy())
-        kd, vd = (t.contiguous() for t in cache.read_kv(dtype=qdt))
-        for w, st in ((1, S - 1), (257, 0)):
+        for case, (b, w, sts) in cases.items():
+            cache = _cache(torch, b, h, d, S, dtype, gen)
+            pc = _paged_copy(torch, cache, 16, hgen)
+            pc.bind(torch.arange(b * (S // 16), dtype=torch.int32).view(b, -1).numpy())
+            kd, vd = (t.contiguous() for t in cache.read_kv(dtype=qdt))
             q = torch.randn(b, h, w, d, device="cuda", generator=gen).to(qdt)
-            starts = torch.full((b,), st, dtype=torch.int32, device="cuda")
+            starts = torch.tensor(sts, dtype=torch.int32, device="cuda")
             pos = torch.arange(S, device="cuda")
-            mask = pos[None, :] <= (st + torch.arange(w, device="cuda"))[:, None]
-            saved = dec.window_launches, dec.paged_launches
+            qpos = starts[:, None].long() + torch.arange(w, device="cuda")[None, :]
+            mask = pos[None, :] <= qpos[0][:, None]                     # (w, S)
+            if len(set(sts)) > 1:                                       # (b, 1, w, S)
+                mask = (pos[None, None, :] <= qpos[:, :, None])[:, None]
             k3 = median_ms(lambda: dec.decode_attend_window(q, cache, starts), 50, flush)
             k5 = median_ms(lambda: dec.decode_attend_window_paged(q, pc, starts), 50, flush)
-            dec.window_launches, dec.paged_launches = saved
             plain = median_ms(lambda: dec.decode_attend_window_plain(
                 q, cache.kv, cache.scale, starts), 10, flush)
             plain5 = median_ms(lambda: dec.decode_attend_window_paged_plain(q, pc, starts),
@@ -935,19 +992,32 @@ def phase_serve_kernel(torch, card):
             lib = median_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
                             50, flush)
             bound, by_what, ops, nbytes = window_bounds(
-                b, h, w, d, st, S, cache.kv.element_size(), q.element_size(),
+                b, h, w, d, sts, S, cache.kv.element_size(), q.element_size(),
                 cache.scale is not None)
-            timing[f"{dt}/w{w}"] = {
+            key = f"{dt}/{case}"
+            timing[key] = {
+                "plan": dec.window_plan(b, h, w, S, dtype, sms),
                 "K3_ms": k3, "K5_ms": k5, "plain_ms": plain, "K5_plain_ms": plain5,
                 "library_ms": lib, "bound_ms": bound, "bound_by": by_what, "flops": ops,
                 "bytes": nbytes, "K3_roofline_share": bound / k3,
                 "K5_roofline_share": bound / k5}
-    emit("serve_kernel_timing", shape=dict(b=b, h=h, d=d, S=S),
-         cases={"w1": "starts = S-1 (a decode step over the full cache)",
-                "w257": "starts = 0 (a refill window)"},
+            # a decode step on every split, for the record (the plan's
+            # choice beside the others)
+            if w == 1:
+                sweep[key] = {f"split/1/{n}": median_ms(lambda: dec._launch_window(
+                    q, cache.kv, cache.scale, None, starts, S, 0, 0, None, ("split", 1, n)),
+                    50, flush) for n in (2, 4, 8)}
+    window_set_counts(dec, saved)
+    emit("serve_kernel_timing", shape=dict(h=h, d=d, S=S),
+         cases={"w1": "b=8, starts = S-1 (a decode step over the full cache)",
+                "w257": "b=8, starts = 0 (a refill window)",
+                "w257/b1": "b=1, starts = 0 (DecodeEngine._refill_row)",
+                "w16": "b=8, starts = [128, S x 7] (a paged prefill chunk, "
+                       "the other rows parked)",
+                "w16/b1": "b=1, starts = 128 (a paged prefill chunk)"},
          library="torch.nn.functional.scaled_dot_product_attention with a boolean "
                  "(w, S) mask on the dequantized (b,h,S,d) cache",
-         card=card, by_case=timing)
+         card=card, by_case=timing, k3_ms_by_plan=sweep)
     return errs, timing
 
 
@@ -1080,9 +1150,10 @@ def phase_serve(torch, card):
         eng = wrapper.serve_engine(slots=8, precision="bf16_int8kv", **kw)
         subs = _serve_traffic(cfg, mode == "paged")
         torch.cuda.reset_peak_memory_stats()
-        dec.window_launches = dec.paged_launches = 0      # the main path starts here
+        window_set_counts(dec, dict.fromkeys(WINDOW_COUNTERS, 0))   # the main path starts here
         done, wall = _run_served(torch, eng, subs)
         k3, k5 = dec.window_launches, dec.paged_launches
+        routes = {c: getattr(dec, c) for c in WINDOW_COUNTERS[2:]}
         st = eng.stats
         check(sorted(c.request_id for c in done) == list(range(len(subs))),
               f"serve {mode}: {len(done)} of {len(subs)} requests completed")
@@ -1096,11 +1167,18 @@ def phase_serve(torch, card):
         check(mine == want and other == 0,
               f"serve {mode}: K3 launched {k3}, K5 {k5}, expected {want} for "
               f"{st.window_dispatches} attending dispatches and 0")
+        # the int8 cache of bf16_int8kv: refill windows on the tensor cores,
+        # decode steps on the cluster split, nothing on the f32 route
+        check(routes["window_tc_launches"] > 0 and routes["window_split_launches"] > 0
+              and routes["window_fma_launches"] == 0
+              and sum(routes.values()) == k3 + k5,
+              f"serve {mode}: route launches {routes} for K3 {k3} + K5 {k5}")
         if mode == "paged":
             check(st.radix_full_hits >= 4 and st.radix_partial_hits >= 1,
                   f"serve paged: radix hits {st.radix_full_hits} full, "
                   f"{st.radix_partial_hits} partial")
-        launches[mode] = {"decode_attend_window": k3, "decode_attend_window_paged": k5}
+        launches[mode] = {"decode_attend_window": k3, "decode_attend_window_paged": k5,
+                          **routes}
         ttft = sorted(c.ttft_s for c in done)
         tokens = sum(int(c.tokens.shape[0]) for c in done)
         rows[mode] = dict(
@@ -1124,7 +1202,7 @@ def phase_serve(torch, card):
         q.submit(request_id=i, **s)
     q.close()
     eng.run(q, max_steps=8)                 # admitted and warm; rows stay active
-    saved = dec.window_launches, dec.paged_launches
+    saved = window_counts(dec)
     steps = 16
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1137,7 +1215,7 @@ def phase_serve(torch, card):
         for _ in range(steps):
             eng._multi_step()
         wall = time.perf_counter() - t0
-    dec.window_launches, dec.paged_launches = saved
+    window_set_counts(dec, saved)
     dev_us, by_kernel = device_time(torch, prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("serve_profile", precision="bf16_int8kv", slots=8, decode_steps=steps,
@@ -2416,8 +2494,16 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "timed_at": "b=8 h=14 d=128 S=512 w=1 starts=S-1, int8 cache, bf16 q",
-            "by_case": {k: {"ms": v[f"{kname}_ms"], "bound_ms": v["bound_ms"],
-                            "library_ms": v["library_ms"]} for k, v in w_timing.items()},
+            "plan": t["plan"],
+            "launches_by_route": {k: v for k, v in serve_launches[mode].items()
+                                  if k.startswith("window_")},
+            "kernel_functions": {"tc": "tc_window_kernel (mma.sync, cp.async ring)",
+                                 "split": "split_window_kernel (cluster of 2-8 CTAs)",
+                                 "fma": "fma_window_kernel (f32 FMA)"},
+            "by_case": {k: {"plan": v["plan"], "ms": v[f"{kname}_ms"],
+                            "bound_ms": v["bound_ms"], "library_ms": v["library_ms"],
+                            "plain_ms": v["plain_ms" if kname == "K3" else "K5_plain_ms"]}
+                        for k, v in w_timing.items()},
             "tolerance": "decode_attention.window_tolerance, per element",
         })
     # K4: the headline time is the slice's full-causal layer in bf16 (the

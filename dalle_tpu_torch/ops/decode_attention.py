@@ -9,10 +9,13 @@ the same function in plain tensor code. ``launches`` counts kernel launches.
 ``decode_attend_window`` (K3) and ``decode_attend_window_paged`` (K5) port
 ``decode_attend_window_kernel`` and ``decode_attend_window_paged``: w
 queries per row at per-row starts, over the dense slab or the paged block
-pool, both launched from ``csrc/decode_window_attention.cu``. Their plain
-versions are ``decode_attend_window_plain`` and
-``decode_attend_window_paged_plain``; ``window_launches`` and
-``paged_launches`` count their launches.
+pool, both launched from ``csrc/decode_window_attention.cu`` along the route
+``window_plan`` picks (tensor-core tiles for refill windows, a cluster split
+for decode steps, f32 FMA for an f32 cache at w > 1). Their plain versions
+are ``decode_attend_window_plain`` and ``decode_attend_window_paged_plain``;
+``window_launches`` and ``paged_launches`` count their launches, and
+``window_tc_launches``, ``window_split_launches`` and
+``window_fma_launches`` the launches of each route.
 
 ``decode_attend_chunked`` (K7) ports ``decode_attend_kernel_chunked``: K2's
 contract over ``blk``-sized cache blocks with an online softmax, blocks past
@@ -169,11 +172,49 @@ def decode_attend(q: torch.Tensor, cache, length: int, *,
 # ---------------------------------------------------------------------------
 
 # launches of the windowed kernel over a dense slab (K3) and over a paged pool
-# (K5) since the last reset
+# (K5) since the last reset, and of each route of either (``window_plan``)
 window_launches = 0
 paged_launches = 0
+window_tc_launches = 0
+window_split_launches = 0
+window_fma_launches = 0
 _window_fn = None
 _window_smem_fn = None
+_sm_counts = {}
+
+# the routes of csrc/decode_window_attention.cu, by the code its entry point takes
+WINDOW_ROUTES = {"fma": 0, "tc": 1, "split": 2}
+WINDOW_KEYS = 64        # cache positions per K/V tile of the tc route
+TC_ROWS = 64            # queries per CTA of the tc route
+MAX_SPLIT = 8           # the portable thread-block cluster size
+SPLIT_CTAS_PER_SM = 8   # the split kernel's residency (its launch bounds)
+
+
+def window_plan(b: int, h: int, w: int, S: int, kv_dtype, sm_count: int):
+    """K3/K5's launch plan for q (b, h, w, d) over a cache of S positions →
+    (route, tile_rows, nsplit).
+
+    * w = 1 (a decode step), every cache dtype: ``"split"``. The visible
+      positions of each (row, head) are split across a cluster of
+      ``nsplit`` CTAs: 2, doubled up to 8 (the portable cluster limit)
+      while the doubled grid still runs in one wave (8 CTAs an SM) and each
+      rank of a full cache keeps at least 64 positions.
+    * w > 1, bf16 or int8 cache: ``"tc"``, tensor-core tiles of 64 query
+      rows whatever the width and grid: 32- and 16-row tiles lost every
+      timed case, the engine's 16-query prefill chunks and 14-CTA grids
+      included, as a CTA of fewer warps keeps fewer copies in flight
+      (``PERF.md`` §6).
+    * w > 1, f32 cache: ``"fma"``, the f32 FMA kernel (the TPU's f32
+      arithmetic) on tiles of 16 queries."""
+    if w == 1:
+        nsplit = 2
+        while (nsplit < MAX_SPLIT and 2 * nsplit * b * h <= SPLIT_CTAS_PER_SM * sm_count
+               and S >= 2 * nsplit * WINDOW_KEYS):
+            nsplit *= 2
+        return "split", 1, nsplit
+    if kv_dtype == torch.float32:
+        return "fma", 16, 1
+    return "tc", TC_ROWS, 1
 
 
 def decode_attend_window_plain(q, kv, kv_scale, starts, *,
@@ -250,22 +291,35 @@ def _window_kernel():
         from ._build import library
         lib = library("decode_window_attention")
         fn = lib.decode_attend_window
+        # q, q dtype, kv, kv dtype, scales, pages, starts, out, b h w S d
+        # block_tokens max_blocks, scale, route tile_rows nsplit, stream
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        # kv dtype, route, tile_rows, nsplit, w, S, d
         smem = lib.decode_window_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 4
+        smem.argtypes = [ctypes.c_int] * 7
         smem.restype = ctypes.c_longlong
         _window_fn, _window_smem_fn = fn, smem
     return _window_fn
 
 
-def _check_window(q, kv, kv_scale, starts, scale_shape, S):
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def _check_window(q, kv, kv_scale, starts, scale_shape, S, plan):
     """What the windowed kernel takes; raises on anything else. ``kv`` is the
-    dense slab or the pool, ``S`` the logical cache length."""
+    dense slab or the pool, ``S`` the logical cache length, ``plan`` the
+    launch plan (``window_plan``)."""
     b, h, w, d = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -291,27 +345,34 @@ def _check_window(q, kv, kv_scale, starts, scale_shape, S):
     if kv.data_ptr() % 16:
         raise ValueError("cache must be 16-byte aligned")
     _window_kernel()
-    smem = _window_smem_fn(_DTYPE_CODE[kv.dtype], w, S, d)
+    route, rows, nsplit = plan
+    smem = _window_smem_fn(_DTYPE_CODE[kv.dtype], WINDOW_ROUTES[route], rows, nsplit,
+                           w, S, d)
     if not 0 < smem <= _MAX_SMEM:
-        raise ValueError(f"cache length {S} exceeds the windowed kernel's shared "
-                         f"memory ({smem} bytes)")
+        raise ValueError(f"the windowed kernel's plan {plan} does not fit a {kv.dtype} "
+                         f"cache of {S} positions at w={w}, d={d} ({smem} bytes of "
+                         "shared memory)")
 
 
-def _launch_window(q, kv, kv_scale, pages, starts, S, bt, max_blocks, scale):
+def _launch_window(q, kv, kv_scale, pages, starts, S, bt, max_blocks, scale, plan):
     b, h, w, d = q.shape
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
     if b * h * w == 0:
         return out
+    route, rows, nsplit = plan
     rc = _window_kernel()(
         q.data_ptr(), _DTYPE_CODE[q.dtype], kv.data_ptr(), _DTYPE_CODE[kv.dtype],
         None if kv_scale is None else kv_scale.data_ptr(),
         None if pages is None else pages.data_ptr(), starts.data_ptr(),
         out.data_ptr(), b, h, w, S, d, bt, max_blocks, float(scale),
+        WINDOW_ROUTES[route], rows, nsplit,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attend_window kernel failed to launch: CUDA error {rc}")
+        raise RuntimeError(f"decode_attend_window kernel ({route} route) failed to "
+                           f"launch: CUDA error {rc}")
+    globals()[f"window_{route}_launches"] += 1
     return out
 
 
@@ -331,12 +392,13 @@ def decode_attend_window(q: torch.Tensor, cache, starts, *,
     if q.device.type == "cpu":
         return decode_attend_window_plain(q, kv, kv_scale, starts, scale=scale)
     starts = _cuda_starts(q, starts)
-    b, h, _, _ = q.shape
+    b, h, w, _ = q.shape
     S = kv.shape[1]
-    _check_window(q, kv, kv_scale, starts, (b, 2 * h, S), S)
+    plan = window_plan(b, h, w, S, kv.dtype, _sm_count(q.device))
+    _check_window(q, kv, kv_scale, starts, (b, 2 * h, S), S, plan)
     if kv.shape[0] != b:
         raise ValueError(f"cache batch {kv.shape[0]} != q batch {b}")
-    out = _launch_window(q, kv, kv_scale, None, starts, S, 0, 0, scale)
+    out = _launch_window(q, kv, kv_scale, None, starts, S, 0, 0, scale, plan)
     window_launches += 1
     return out
 
@@ -349,10 +411,11 @@ def decode_attend_window_paged(q: torch.Tensor, cache, starts, *,
     if q.device.type == "cpu":
         return decode_attend_window_paged_plain(q, cache, starts, scale=scale)
     starts = _cuda_starts(q, starts)
-    b, h, _, _ = q.shape
+    b, h, w, _ = q.shape
     pool, pool_scale, pages = cache.pool, cache.scale, cache.pages
     bt, S = cache.block_tokens, cache.max_seq
-    _check_window(q, pool, pool_scale, starts, (pool.shape[0], bt, 2 * h), S)
+    plan = window_plan(b, h, w, S, pool.dtype, _sm_count(q.device))
+    _check_window(q, pool, pool_scale, starts, (pool.shape[0], bt, 2 * h), S, plan)
     if pool.shape[1] != bt:
         raise ValueError(f"pool {tuple(pool.shape)} does not hold blocks of {bt}")
     if (pages is None or pages.dtype != torch.int32 or pages.dim() != 2
@@ -360,7 +423,8 @@ def decode_attend_window_paged(q: torch.Tensor, cache, starts, *,
             or not pages.is_contiguous() or pages.shape[1] * bt < S):
         raise ValueError(f"pages must be a contiguous int32 ({b}, >= {-(-S // bt)}) "
                          "page table on the query's device")
-    out = _launch_window(q, pool, pool_scale, pages, starts, S, bt, pages.shape[1], scale)
+    out = _launch_window(q, pool, pool_scale, pages, starts, S, bt, pages.shape[1], scale,
+                         plan)
     paged_launches += 1
     return out
 

@@ -24,8 +24,9 @@ the plain versions with ``operands="bf16"`` within
 ``flash_attention.tc_kernel_tolerance`` (one bf16 ulp of every rounded p and
 dS, from ``rounding_bound``) and ``lse_tolerance``. The windowed kernels
 (K3 over the dense slab, K5 over the paged pool) are held to theirs within
-``decode_attention.window_tolerance``, and K5 must equal K3 on the gathered
-slab bit for bit. The whole-sequence kernels (K8: forward, and the backward's
+``decode_attention.window_tolerance`` on every route of ``window_plan``,
+a peaked softmax included, and K5 must equal K3 on the gathered slab bit
+for bit. The whole-sequence kernels (K8: forward, and the backward's
 dq and dk/dv kernels) are held to their plain versions within
 ``fused_attention.kernel_tolerance`` (the same arithmetic as K1), and the
 chunked decode kernel (K7) to its plain version within
@@ -484,27 +485,42 @@ def _paged(cache, bt, seed):
     return pc.append_rows(k.contiguous(), v.contiguous(), np.zeros(b, np.int64))
 
 
-@pytest.mark.parametrize("w", [1, 16, 257])
-@pytest.mark.parametrize("shape", [(8, 14, 128, 512), (3, 6, 64, 300)])
+def _route_counts():
+    return {r: getattr(dec, f"window_{r}_launches") for r in dec.WINDOW_ROUTES}
+
+
+@pytest.mark.parametrize("peaked", [False, True], ids=["random", "peaked"])
+@pytest.mark.parametrize("w", [1, 2, 15, 16, 17, 63, 64, 65, 257])
+@pytest.mark.parametrize("shape", [(8, 14, 128, 512), (1, 14, 128, 512),
+                                   (8, 6, 64, 300), (1, 6, 64, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_window_kernels_match_plain_and_paged_equals_dense(dtype, shape, w):
+def test_window_kernels_match_plain_and_paged_equals_dense(dtype, shape, w, peaked):
+    """Every route of ``window_plan`` (tensor-core tiles of 64 rows; the
+    cluster split of a decode step; f32 FMA) against the plain
+    versions, within ``window_tolerance``, a peaked softmax (q × 8)
+    included. Each launch is counted on its route, a second call gives the
+    same bits, and K5 equals K3 on the gathered slab."""
     b, h, d, S = shape
     q1, cache = _cache(b, h, S, d, dtype, seed=w + S)
     gen = torch.Generator("cuda").manual_seed(w)
-    q = torch.randn(b, h, w, d, device="cuda", generator=gen).to(q1.dtype)
-    st = [0, S - w, S] + list(np.random.RandomState(w).randint(0, S - w + 1, b))
+    q = torch.randn(b, h, w, d, device="cuda", generator=gen) * (8.0 if peaked else 1.0)
+    q = q.to(q1.dtype)
+    st = [S - w, 0, S] + list(np.random.RandomState(w).randint(0, S - w + 1, b))
     starts = torch.tensor(st[:b], dtype=torch.int32, device="cuda")
     pc = _paged(cache, 16, seed=w)
-    before = dec.window_launches, dec.paged_launches
+    route = dec.window_plan(b, h, w, S, dtype, dec._sm_count(q.device))[0]
+    before = dec.window_launches, dec.paged_launches, _route_counts()
     out3 = dec.decode_attend_window(q, cache, starts)
     out5 = dec.decode_attend_window_paged(q, pc, starts)
     assert (dec.window_launches, dec.paged_launches) == (before[0] + 1, before[1] + 1)
-    for got, want in ((out3, dec.decode_attend_window_plain(q, cache.kv, cache.scale, starts)),
-                      (out5, dec.decode_attend_window_paged_plain(q, pc, starts))):
+    assert _route_counts() == {r: n + 2 * (r == route) for r, n in before[2].items()}
+    for got, slab in ((out3, cache), (out5, pc.gather_dense())):
+        want = dec.decode_attend_window_plain(q, slab.kv, slab.scale, starts)
         torch.cuda.synchronize()
         assert got.dtype == q.dtype and got.shape == q.shape
         share = dec.window_share(got, want, dtype)
         assert share <= 1.0, share
+    assert torch.equal(dec.decode_attend_window(q, cache, starts), out3)
     slab = dec.decode_attend_window(q, pc.gather_dense(), starts)
     live = starts < S
     assert torch.equal(out5[live], slab[live])
@@ -520,6 +536,14 @@ def test_window_wrapper_raises_instead_of_falling_back():
     pc = PagedKVCache.init(4, 8, 2, 16, 32, device="cuda")
     with pytest.raises(ValueError):
         dec.decode_attend_window_paged(q, pc, starts)               # no page table
+    # plans the routes refuse: an f32 cache on the tensor cores, a tile
+    # height the tensor-core route does not have, a cluster beyond the
+    # portable 8, a bf16 cache on the f32 route
+    for kv, plan in ((cache.kv, ("tc", 64, 1)), (cache.kv.to(torch.bfloat16), ("tc", 16, 1)),
+                     (cache.kv, ("split", 1, 16)),
+                     (cache.kv.to(torch.bfloat16), ("fma", 16, 1))):
+        with pytest.raises(RuntimeError):
+            dec._launch_window(q, kv, None, None, starts, 16, 0, 0, None, plan)
 
 
 def test_engine_on_the_card_goes_through_k3_and_k5_and_matches_sequential():
