@@ -164,18 +164,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 18. ring_kernel K6 (the ring's chunk kernels: forward, dq, dk/dv over one
                 (q-chunk, k-chunk) pair at global offsets) against its plain
-                versions, f32 and bf16, comparing o, lse, dq, dk and dv per
-                element: the slice's pair (b=2, h=8, c=1088, d=64) on the
+                versions, comparing o, lse, dq, dk and dv per element: f32
+                operands on the f32 route (the TPU's arithmetic,
+                kernel_tolerance), bf16 operands on the tensor-core route
+                (K4's design, tc_*_kernel, against operands="bf16",
+                tc_kernel_tolerance; and its cost against the f32
+                arithmetic, rounding_tolerance), each launch counted by
+                route: the slice's pair (b=2, h=8, c=1088, d=64) on the
                 diagonal, wholly before and wholly in the future (o = 0, lse
-                = -1e9); a ragged pair (c=544, d=128) with n_valid inside the
-                k chunk; axial_row, axial_col and conv specs on global
+                = -1e9, zero gradients), and a peaked softmax (q x 8) on the
+                diagonal; a ragged pair (c=544, d=128) with n_valid inside
+                the k chunk; axial_row, axial_col and conv specs on global
                 positions; non-causal; and the zigzag ring's strided
-                sub-chunk views. Then the three kernels' times in bf16 at
-                the slice's pair (diagonal, before, future) beside their
-                bounds (visible pairs at the bf16 tensor rate, or bytes),
-                the plain versions' and SDPA's with the pair's boolean mask;
-                and the whole ring at the layer (b=2, h=8, n=4,352, P=2,
-                zigzag) beside K4 and SDPA on the whole sequence.
+                sub-chunk views, bit for bit their contiguous copies; the
+                route's shared memory and nvcc's registers and spills. Then
+                the three kernels' times in bf16 at the slice's pair
+                (diagonal, before, future) beside their bounds (visible
+                pairs at the bf16 tensor rate, or bytes), the plain
+                versions', SDPA's with the pair's boolean mask and the f32
+                route's on the same values; and the whole ring at the layer
+                (b=2, h=8, n=4,352, P=2, zigzag) beside K4 and SDPA on the
+                whole sequence.
 19. ring_parity  the long-sequence model at full width, depth 2, batch 1, f32,
                 sp=2 and sp=4 (P ranks in this process): the loss and every
                 parameter's gradient of one step through K6 equal the same
@@ -184,10 +193,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 20. train_ring  the sequence-parallel training path: phase train_long's recipe
                 with TrainConfig(mesh=MeshConfig(sp=2)), 6 steps; losses
                 finite and falling, K6 launched 128 / 64 / 64 times per step
-                (forward / dq / dk-dv; remat recomputes the forward), K1, K4
-                and K8 never; step-1 loss within 1e-2 relative of train_long's;
-                ms/step, tokens/s, peak memory, one profiled step's busy share
-                and top kernels.
+                (forward / dq / dk-dv; remat recomputes the forward), every
+                one on the tensor-core route, K1, K4 and K8 never; step-1
+                loss within 1e-2 relative of train_long's; ms/step,
+                tokens/s, peak memory, one profiled step's busy share and
+                top kernels.
 
 Phases 11-20 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
@@ -2063,10 +2073,37 @@ def phase_chunked_kernel(torch, card):
 # K6 and the sequence-parallel (ring) training path
 # ---------------------------------------------------------------------------
 
-K6_TOL = {"o_dq_dk_dv": "chunk_attention.kernel_tolerance: 2e-5*max(1,max|want|), per "
-                        "element (f32 outputs)",
+K6_TOL = {"o_dq_dk_dv": "f32 route: chunk_attention.kernel_tolerance: 2e-5*max(1,max|want|), "
+                        "per element (f32 outputs)",
+          "o_dq_dk_dv_bf16": "tensor-core route against the plain versions with "
+                             "operands='bf16': chunk_attention.tc_kernel_tolerance: "
+                             "2^-7*rounding_bound + kernel_tolerance, per element",
+          "cost_bf16": "tensor-core route against the TPU's f32 arithmetic (reported and "
+                       "checked): chunk_attention.rounding_tolerance: 2^-8*rounding_bound + "
+                       "kernel_tolerance, per element",
           "lse": "chunk_attention.lse_tolerance: 1e-5*max(1,|want|), per element"}
+# K6's launch counters: every launch, then those of the tensor-core route
+K6_COUNTERS = ("fwd_launches", "dq_launches", "dkv_launches",
+               "tc_fwd_launches", "tc_dq_launches", "tc_dkv_launches")
 LS_TEXT, LS_FMAP, LS_N = 257, 64, 4352       # the long-sequence model's layout
+
+
+def k6_counts(ca):
+    return tuple(getattr(ca, c) for c in K6_COUNTERS)
+
+
+def k6_set_counts(ca, counts):
+    for c, x in zip(K6_COUNTERS, counts):
+        setattr(ca, c, x)
+
+
+def k6_tc_build(torch):
+    """K6's tensor-core kernels as nvcc reported them (registers, spills
+    per instance) and their tiles and shared memory per CTA: K4's design
+    and formulas (csrc/chunk_attention.cu tc_*_smem ≡ flash_attention.cu's)."""
+    row = k4_tc_build(torch)
+    row["ptxas"] = ptxas_report("chunk_attention", "tc_") or "no build log in this process"
+    return row
 
 
 def k6_bounds(b, h, vis, d, itemsize):
@@ -2098,17 +2135,19 @@ def k6_bounds(b, h, vis, d, itemsize):
 
 
 def _k6_cases():
-    """(name, b, h, c, d, q_off, k_off, n_valid, causal, spec): the card
-    tests' cases (tests/test_torch_cuda.py)."""
+    """(name, b, h, c, d, q_off, k_off, n_valid, causal, spec, q scale): the
+    card tests' cases (tests/test_torch_cuda.py)."""
     ax = lambda axis: ("axial", LS_TEXT, LS_FMAP, axis)  # noqa: E731
-    return [("slice_diagonal", 2, 8, 1088, 64, 1088, 1088, LS_N, True, None),
-            ("slice_before", 2, 8, 1088, 64, 3264, 0, LS_N, True, None),
-            ("slice_future", 2, 8, 1088, 64, 0, 3264, LS_N, True, None),
-            ("ragged_cut", 2, 4, 544, 128, 1088, 544, 900, True, None),
-            ("axial_row", 2, 4, 544, 64, 1632, 1088, LS_N, True, ax(0)),
-            ("axial_col", 2, 4, 544, 64, 1632, 544, LS_N, True, ax(1)),
-            ("conv", 2, 4, 544, 64, 1632, 1088, LS_N, True, ("conv", LS_TEXT, LS_FMAP, 5, 1)),
-            ("non_causal", 1, 2, 300, 32, 0, 300, 600, False, None)]
+    return [("slice_diagonal", 2, 8, 1088, 64, 1088, 1088, LS_N, True, None, 1.0),
+            ("slice_before", 2, 8, 1088, 64, 3264, 0, LS_N, True, None, 1.0),
+            ("slice_future", 2, 8, 1088, 64, 0, 3264, LS_N, True, None, 1.0),
+            ("peaked_diagonal", 2, 8, 1088, 64, 1088, 1088, LS_N, True, None, 8.0),
+            ("ragged_cut", 2, 4, 544, 128, 1088, 544, 900, True, None, 1.0),
+            ("axial_row", 2, 4, 544, 64, 1632, 1088, LS_N, True, ax(0), 1.0),
+            ("axial_col", 2, 4, 544, 64, 1632, 544, LS_N, True, ax(1), 1.0),
+            ("conv", 2, 4, 544, 64, 1632, 1088, LS_N, True, ("conv", LS_TEXT, LS_FMAP, 5, 1),
+             1.0),
+            ("non_causal", 1, 2, 300, 32, 0, 300, 600, False, None, 1.0)]
 
 
 def phase_ring_kernel(torch, card):
@@ -2118,61 +2157,103 @@ def phase_ring_kernel(torch, card):
     from dalle_tpu_torch.parallel import ring_attention as ra
     t_phase = time.perf_counter()
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 13)
-    errs, shares, n_cases = {}, {}, 0
-    saved = ca.fwd_launches, ca.dq_launches, ca.dkv_launches
+    errs, shares, costs, n_cases = {}, {}, {}, 0
+    saved = k6_counts(ca)
 
     def all_three(q, k, v, do, q_off, k_off, kw):
+        """The kernels, and the plain versions in the route's arithmetic
+        (the TPU's f32 for f32 operands, the tensor cores' roundings for
+        bf16); for bf16 also the f32 arithmetic and the rounding bound."""
+        ops = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        before = k6_counts(ca)
         o, lse = ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw)
-        ro, rlse = ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw)
+        ro, rlse = ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, operands=ops, **kw)
         args = (q, k, v, do, torch.where(rlse <= -5e8, 1e9, rlse),
                 (do.float() * ro).sum(-1), q_off, k_off)
         got = {"o": o, "lse": lse, "dq": ca.chunk_flash_dq(*args, **kw)}
         got["dk"], got["dv"] = ca.chunk_flash_dkv(*args, **kw)
-        want = {"o": ro, "lse": rlse, "dq": ca.chunk_flash_dq_plain(*args, **kw)}
-        want["dk"], want["dv"] = ca.chunk_flash_dkv_plain(*args, **kw)
+        want = {"o": ro, "lse": rlse, "dq": ca.chunk_flash_dq_plain(*args, operands=ops, **kw)}
+        want["dk"], want["dv"] = ca.chunk_flash_dkv_plain(*args, operands=ops, **kw)
         torch.cuda.synchronize()
-        return got, want
+        tc = int(ops == "bf16")
+        routed = tuple(a - b_ for a, b_ in zip(k6_counts(ca), before))
+        check(routed == (1, 1, 1, tc, tc, tc), f"K6 {ops}: launches by route {routed}")
+        if not tc:
+            return got, want, None, None
+        bound = ca.rounding_bound(*args, **kw)
+        f32 = {"o": ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw)[0],
+               "dq": ca.chunk_flash_dq_plain(*args, **kw)}
+        f32["dk"], f32["dv"] = ca.chunk_flash_dkv_plain(*args, **kw)
+        return got, want, bound, f32
 
-    def record(key, g, w, out):
-        tol = ca.lse_tolerance(w) if out == "lse" else ca.kernel_tolerance(w)
-        diff = (g - w).abs()
-        share = (diff / tol).max().item()
-        errs[key], shares[key] = diff.max().item(), share
-        check(g.dtype == torch.float32 and math.isfinite(share) and share <= 1.0,
-              f"K6 {key}: an element is {share} of its bound (max abs err {diff.max().item()})")
+    def record(key, got, want, bound, f32):
+        for out, g in got.items():
+            w = want[out]
+            if out == "lse":
+                tol = ca.lse_tolerance(w)
+            elif bound is not None:
+                tol = ca.tc_kernel_tolerance(w, bound[out])
+            else:
+                tol = ca.kernel_tolerance(w)
+            diff = (g - w).abs()
+            share = (diff / tol).max().item()
+            k = f"{out}/{key}"
+            errs[k], shares[k] = diff.max().item(), share
+            check(g.dtype == torch.float32 and math.isfinite(share) and share <= 1.0,
+                  f"K6 {k}: an element is {share} of its bound (max abs err "
+                  f"{diff.max().item()})")
+            if bound is not None and out != "lse":
+                # the cost of the route: against the TPU's f32 arithmetic on
+                # the same inputs and backward statistics
+                cost = ((g - f32[out]).abs()
+                        / ca.rounding_tolerance(f32[out], bound[out])).max().item()
+                costs[k] = cost
+                check(math.isfinite(cost) and cost <= 1.0,
+                      f"K6 bf16 {k} against the f32 arithmetic: {cost} of the rounding bound")
 
-    for name, b, h, c, d, q_off, k_off, n_valid, causal, spec in _k6_cases():
+    for name, b, h, c, d, q_off, k_off, n_valid, causal, spec, mul in _k6_cases():
         kw = dict(scale=d ** -0.5, n_valid=n_valid, causal=causal, mask_spec=spec)
         for dt in ("float32", "bfloat16"):
             q, k, v, do = (torch.randn(b, h, c, d, device="cuda", generator=gen)
                            .to(getattr(torch, dt)) for _ in range(4))
-            got, want = all_three(q, k, v, do, q_off, k_off, kw)
+            q = (q.float() * mul).to(q.dtype)
+            got, want, bound, f32 = all_three(q, k, v, do, q_off, k_off, kw)
             n_cases += 1
-            for out in got:
-                record(f"{out}/{name}/{dt}", got[out], want[out], out)
+            record(f"{name}/{dt}", got, want, bound, f32)
             if name == "slice_future":
-                check(not got["o"].any() and bool((got["lse"] == -1e9).all()),
-                      "K6: a chunk wholly in the future did not give o = 0, lse = -1e9")
-    # the zigzag ring's operands: sub-chunk views, no copies
+                check(not got["o"].any() and bool((got["lse"] == -1e9).all())
+                      and not any(got[x].any() for x in ("dq", "dk", "dv")),
+                      "K6: a chunk wholly in the future did not give o = 0, lse = -1e9 and "
+                      "zero gradients")
+    # the zigzag ring's operands: sub-chunk views, no copies; the kernels on
+    # them equal the kernels on contiguous copies bit for bit
     m = 544
     q2, k2, v2, do2 = (torch.randn(2, 4, 2 * m, 64, device="cuda", generator=gen).bfloat16()
                        for _ in range(4))
     views = [t[:, :, m:] for t in (q2, k2, v2, do2)]
-    got, want = all_three(*views, 2176, 1632, dict(scale=0.125, n_valid=LS_N, causal=True,
-                                                   mask_spec=("axial", LS_TEXT, LS_FMAP, 0)))
+    zkw = dict(scale=0.125, n_valid=LS_N, causal=True, mask_spec=("axial", LS_TEXT, LS_FMAP, 0))
+    got, want, bound, f32 = all_three(*views, 2176, 1632, zkw)
+    copied, _, _, _ = all_three(*(t.contiguous() for t in views), 2176, 1632, zkw)
+    check(all(torch.equal(got[x], copied[x]) for x in got),
+          "K6: the zigzag views and their contiguous copies gave other bits")
     n_cases += 1
-    for out in got:
-        record(f"{out}/zigzag_views/bfloat16", got[out], want[out], out)
-    ca.fwd_launches, ca.dq_launches, ca.dkv_launches = saved
+    record("zigzag_views/bfloat16", got, want, bound, f32)
+    k6_set_counts(ca, saved)
     by = {f"{out}/{dt}": max(v for key, v in errs.items()
                              if key.startswith(out + "/") and key.endswith("/" + dt))
           for out in ("o", "lse", "dq", "dk", "dv") for dt in ("float32", "bfloat16")}
     worst = {f"{out}/{dt}": max(v for key, v in shares.items()
                                 if key.startswith(out + "/") and key.endswith("/" + dt))
              for out in ("o", "lse", "dq", "dk", "dv") for dt in ("float32", "bfloat16")}
+    cost = {out: max(v for key, v in costs.items() if key.startswith(out + "/"))
+            for out in ("o", "dq", "dk", "dv")}
     emit("ring_kernel", kernels=["chunk_attention_fwd", "chunk_attention_dq",
                                  "chunk_attention_dkv"],
-         cases=n_cases, tolerance=K6_TOL, max_abs_err=by, worst_share_of_bound=worst)
+         routes={"float32": "fwd_kernel, dq_kernel, dkv_kernel (f32 FMA)",
+                 "bfloat16": "tc_fwd_kernel, tc_dq_kernel, tc_dkv_kernel (tensor cores)"},
+         cases=n_cases, tolerance=K6_TOL, max_abs_err=by, worst_share_of_bound=worst,
+         bf16_worst_share_of_rounding_bound_against_f32=cost,
+         bf16_share_of_rounding_bound_by_case=costs, tc_build=k6_tc_build(torch))
 
     # times in bf16 at the slice's pair (zigzag sub-chunks of 1,088 rows at
     # sp=2) on the diagonal, wholly before and wholly in the future
@@ -2188,15 +2269,26 @@ def phase_ring_kernel(torch, card):
         lse = torch.where(lse <= -5e8, 1e9, lse)
         delta = (do.float() * o).sum(-1)
         args = (q, k, v, do, lse, delta, q_off, k_off)
-        saved = ca.fwd_launches, ca.dq_launches, ca.dkv_launches
-        ms = {"fwd": median_ms(lambda: ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw), 20, flush),
-              "dq": median_ms(lambda: ca.chunk_flash_dq(*args, **kw), 20, flush),
-              "dkv": median_ms(lambda: ca.chunk_flash_dkv(*args, **kw), 20, flush)}
-        ca.fwd_launches, ca.dq_launches, ca.dkv_launches = saved
-        plain = {"fwd": median_ms(lambda: ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw),
+        saved = k6_counts(ca)
+
+        def kernels(q, k, v, do, iters):
+            a = (q, k, v, do, lse, delta, q_off, k_off)
+            return {"fwd": median_ms(lambda: ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw),
+                                     iters, flush),
+                    "dq": median_ms(lambda: ca.chunk_flash_dq(*a, **kw), iters, flush),
+                    "dkv": median_ms(lambda: ca.chunk_flash_dkv(*a, **kw), iters, flush)}
+        ms = kernels(q, k, v, do, 20)
+        # the f32 route (f32 FMA on the CUDA cores, the first design) on the
+        # same values, same call
+        f32_ms = kernels(*(t.float() for t in (q, k, v, do)), 10)
+        k6_set_counts(ca, saved)
+        plain = {"fwd": median_ms(lambda: ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off,
+                                                                   operands="bf16", **kw),
                                   5, flush),
-                 "dq": median_ms(lambda: ca.chunk_flash_dq_plain(*args, **kw), 5, flush),
-                 "dkv": median_ms(lambda: ca.chunk_flash_dkv_plain(*args, **kw), 5, flush)}
+                 "dq": median_ms(lambda: ca.chunk_flash_dq_plain(*args, operands="bf16", **kw),
+                                 5, flush),
+                 "dkv": median_ms(lambda: ca.chunk_flash_dkv_plain(*args, operands="bf16", **kw),
+                                  5, flush)}
         # the library yardstick: SDPA with the pair's boolean mask, forward,
         # and its backward alone for dq and dk/dv
         vis = ca.chunk_visible(c, c, q_off, k_off, n_valid=LS_N, device="cuda")
@@ -2216,7 +2308,7 @@ def phase_ring_kernel(torch, card):
             row[w] = {"ms": ms[w], "plain_ms": plain[w],
                       "library_ms": lib_fwd if w == "fwd" else lib_bwd,
                       "bound_ms": bound, "bound_by": by_what, "flops": ops, "bytes": nbytes,
-                      "roofline_share": bound / ms[w]}
+                      "roofline_share": bound / ms[w], "f32_route_ms": f32_ms[w]}
         timing[name] = row
 
     # the whole ring at the layer (b=2, h=8, n=4,352, d=64, bf16, P=2, zigzag,
@@ -2230,16 +2322,17 @@ def phase_ring_kernel(torch, card):
                                                           kernel=True),
            "k4": lambda a, b_, c_: fl.flash_attention(a, b_, c_, schedule=sched),
            "sdpa": lambda a, b_, c_: F.scaled_dot_product_attention(a, b_, c_, is_causal=True)}
-    saved = (ca.fwd_launches, ca.dq_launches, ca.dkv_launches) + k4_counts(fl)
+    saved = k6_counts(ca) + k4_counts(fl)
     layer = {}
     for name, fn in fns.items():
         with torch.no_grad():
             fwd = median_ms(lambda: fn(q, k, v), 10, flush)
         both = median_ms(lambda: torch.autograd.grad(fn(ql, kl, vl), (ql, kl, vl), do), 10, flush)
         layer[name] = {"fwd_ms": fwd, "fwd_bwd_ms": both}
-    ca.fwd_launches, ca.dq_launches, ca.dkv_launches = saved[:3]
-    k4_set_counts(fl, saved[3:])
-    emit("ring_kernel_timing", dtype="bfloat16", pair=dict(b=b, h=h, c=c, d=d, n_valid=LS_N),
+    k6_set_counts(ca, saved[:len(K6_COUNTERS)])
+    k4_set_counts(fl, saved[len(K6_COUNTERS):])
+    emit("ring_kernel_timing", dtype="bfloat16", route="tensor cores (f32_route_ms: the same "
+         "values as f32 through the f32 route)", pair=dict(b=b, h=h, c=c, d=d, n_valid=LS_N),
          library="torch.nn.functional.scaled_dot_product_attention with the pair's boolean "
                  "mask, forward, and its backward alone for dq and dk/dv",
          by_case=timing, layer=dict(shape=dict(b=b, h=h, n=LS_N, d=d), nper=2, zigzag=True,
@@ -2350,7 +2443,7 @@ def phase_train_ring(torch, card, k4_row):
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
     # the sequence-parallel training path starts here
-    ca.fwd_launches = ca.dq_launches = ca.dkv_launches = 0
+    k6_set_counts(ca, (0,) * len(K6_COUNTERS))
     k4_set_counts(fl, (0,) * len(K4_COUNTERS))
     fa.fwd_launches = fa.bwd_launches = 0
     pa.fwd_launches = pa.bwd_launches = 0
@@ -2361,6 +2454,8 @@ def phase_train_ring(torch, card, k4_row):
         losses.append(m["loss"])
     launches = {"chunk_flash_fwd": ca.fwd_launches, "chunk_flash_dq": ca.dq_launches,
                 "chunk_flash_dkv": ca.dkv_launches}
+    tc_launches = {"chunk_flash_fwd": ca.tc_fwd_launches, "chunk_flash_dq": ca.tc_dq_launches,
+                   "chunk_flash_dkv": ca.tc_dkv_launches}
     others = {"k4": (fl.fwd_launches, fl.bwd_dq_launches, fl.bwd_dkv_launches),
               "k1": (fa.fwd_launches, fa.bwd_launches), "k8": (pa.fwd_launches, pa.bwd_launches)}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2371,10 +2466,12 @@ def phase_train_ring(torch, card, k4_row):
             "chunk_flash_dq": per_layer * cfg.depth * steps,
             "chunk_flash_dkv": per_layer * cfg.depth * steps}
     check(launches == want, f"K6 launched {launches} in {steps} steps, expected {want}")
+    check(tc_launches == want, f"K6's tensor-core route took {tc_launches} of {want} launches")
     check(all(not any(v) for v in others.values()),
           f"K4, K1 or K8 launched on the ring path: {others}")
-    # the same bf16 step through the ring and through K4: both f32 inside
-    # attention, the roundings around it the same; sums in another order
+    # the same bf16 step through the ring and through K4: both on the
+    # tensor cores, rounding p and dS to bf16 at the same points, the
+    # roundings around attention the same; sums in another order
     rel = abs(losses[0] - k4_row["losses"][0]) / abs(k4_row["losses"][0])
     check(rel <= 1e-2, f"step-1 loss through the ring {losses[0]} vs K4 {k4_row['losses'][0]}")
     ms = statistics.median(walls[1:]) * 1e3
@@ -2384,7 +2481,7 @@ def phase_train_ring(torch, card, k4_row):
         t0 = time.perf_counter()
         tr.train_step(text, img)
         wall = time.perf_counter() - t0
-    ca.fwd_launches, ca.dq_launches, ca.dkv_launches = launches.values()
+    k6_set_counts(ca, (*launches.values(), *tc_launches.values()))
     dev_us, by_kernel = device_time(torch, prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     row = dict(config="longseq (scripts/bench_sweep.py)", seq=cfg.total_seq_len, batch=b,
@@ -2393,7 +2490,7 @@ def phase_train_ring(torch, card, k4_row):
                ms_per_step_first=walls[0] * 1e3, ms_per_step=ms,
                tokens_per_s=tokens / ms * 1e3,
                model_tflops_per_s=tr.flops_per_step / ms / 1e9, peak_gib=peak,
-               launches=launches, other_launches=others,
+               launches=launches, tc_launches=tc_launches, other_launches=others,
                device_ms_profiled_step=dev_us / 1e3 if dev_us else "not measured",
                device_busy_share=(dev_us / 1e3) / ms if dev_us else "not measured",
                wall_ms_profiled=wall * 1e3, top_device_ms={k: v / 1e3 for k, v in top},
@@ -2444,7 +2541,7 @@ def main() -> int:
     k1_launches, k1_row = phase_train(torch, card)
     k8_launches, _ = phase_train_persist(torch, card, k1_row)
     k4_launches, k4_row = phase_train_long(torch, card)
-    k6_launches, _ = phase_train_ring(torch, card, k4_row)
+    k6_launches, k6_row = phase_train_ring(torch, card, k4_row)
 
     f32 = timing["float32"]
     kernels = [{
@@ -2590,10 +2687,16 @@ def main() -> int:
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "timed_at": "b=2 h=8 c=1088 d=64, bfloat16, causal pair on the diagonal",
+            "timed_at": "b=2 h=8 c=1088 d=64, bfloat16 (tensor-core route), causal pair on "
+                        "the diagonal",
+            "launches_tensor_core_route": k6_row["tc_launches"][name],
+            "kernel_functions": {"bfloat16": f"tc_{which}_kernel (mma.sync, cp.async ring)",
+                                 "float32": f"{which}_kernel (f32 FMA)"},
+            "f32_route_ms": t["f32_route_ms"],
             "by_case": {k: {"ms": v[which]["ms"], "bound_ms": v[which]["bound_ms"],
                             "plain_ms": v[which]["plain_ms"],
-                            "library_ms": v[which]["library_ms"]}
+                            "library_ms": v[which]["library_ms"],
+                            "f32_route_ms": v[which]["f32_route_ms"]}
                         for k, v in k6_timing.items()},
             "tolerance": K6_TOL,
         })

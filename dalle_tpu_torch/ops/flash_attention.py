@@ -622,13 +622,22 @@ def _check_cuda(q, k, v, sched: FlashSchedule, do=None, lse=None, delta=None) ->
                                or tuple(t.shape) != (b, h, n) or not t.is_contiguous()
                                or t.device != q.device):
             raise ValueError(f"{what} must be contiguous float32 {(b, h, n)}")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core route copies 16-byte row pieces with cp.async
-        for t, what in ((q, "q"), (k, "k"), (v, "v"), (do, "dout")):
-            if t is not None and (t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
-                raise ValueError(f"bf16 {what} must start on 16 bytes with (b, h, n) "
-                                 f"strides that are multiples of 8, got strides {t.stride()}")
+    _check_tc_rows(q, k, v, do)
     return d
+
+
+def _check_tc_rows(q, k, v, do=None):
+    """bf16 operands take the tensor-core route, which copies 16-byte row
+    pieces with cp.async: each must start on 16 bytes, with (b, h, n)
+    strides that are multiples of 8 elements (every d in ``DIM_HEADS`` is a
+    multiple of 16, so a dense tensor, or rows sliced from one, passes).
+    Raises on any other; f32 operands need neither."""
+    if q.dtype != torch.bfloat16:
+        return
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (do, "dout")):
+        if t is not None and (t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(f"bf16 {what} must start on 16 bytes with (b, h, n) "
+                             f"strides that are multiples of 8, got strides {t.stride()}")
 
 
 def _strides(*ts) -> ctypes.Array:

@@ -34,7 +34,14 @@ Two bodies share the schedule:
   lse), and its backward is a second ring pass of K6's dq and dk/dv, with
   dk/dv riding the ring home (P hops, the last included). k/v rotate in
   their input dtype. Wholly-future quadrants still launch and visit no
-  tile, as the TPU kernels do.
+  tile, as the TPU kernels do. f32 inputs keep the TPU kernels' f32
+  arithmetic on the card; bf16 inputs (bf16 compute) take K6's
+  tensor-core route, which rounds p and dS to bf16 before the second
+  product as K4's bf16 route does, so the ring rounds where the
+  single-chip long-sequence layer rounds: within
+  ``chunk_attention.rounding_tolerance`` (2^-8 of the absolute products)
+  of the f32 arithmetic a pair. On the CPU every pair runs the f32
+  arithmetic.
 
 ``zigzag`` (causal only) places sub-chunks (i, 2P-1-i) on rank i, so every
 rank holds one early and one late sub-chunk and the causal work is even.

@@ -50,3 +50,21 @@ def test_fused_attention_is_rebuilt_when_the_tile_header_changes(tmp_path, monke
     header = csrc / "tc_tile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build._target(csrc / "fused_attention.cu") != first
+
+
+def test_chunk_attention_is_rebuilt_when_the_tile_header_changes(tmp_path, monkeypatch):
+    """K6's source includes the tensor-core tile helpers for its bf16 route:
+    an edit of ``tc_tile.cuh`` alone renames (so rebuilds) its library."""
+    real = _build.CSRC
+    assert [p.name for p in _build._sources(real / "chunk_attention.cu")] == [
+        "chunk_attention.cu", "tc_tile.cuh"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("chunk_attention.cu", "tc_tile.cuh"):
+        (csrc / name).write_text((real / name).read_text())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build._target(csrc / "chunk_attention.cu")
+    header = csrc / "tc_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._target(csrc / "chunk_attention.cu") != first

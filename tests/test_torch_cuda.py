@@ -709,56 +709,94 @@ def test_chunked_wrapper_raises_instead_of_falling_back():
 LS_TEXT, LS_FMAP, LS_N = 257, 64, 4352     # the long-sequence model's layout
 
 
-def _k6_all(q, k, v, do, q_off, k_off, kw):
-    """The three kernels, and the plain versions on the same inputs; the
-    backward takes the plain forward's lse, flipped as the ring flips it."""
+K6_COUNTERS = ("fwd_launches", "dq_launches", "dkv_launches",
+               "tc_fwd_launches", "tc_dq_launches", "tc_dkv_launches")
+
+
+def _k6_counts():
+    return tuple(getattr(ca, c) for c in K6_COUNTERS)
+
+
+def _k6_all(q, k, v, do, q_off, k_off, kw, operands="f32"):
+    """The three kernels, and the plain versions on the same inputs in the
+    route's arithmetic; the backward takes the plain forward's lse, flipped
+    as the ring flips it. Also returns that lse and delta."""
     o, lse = ca.chunk_flash_fwd(q, k, v, q_off, k_off, **kw)
-    ro, rlse = ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw)
+    ro, rlse = ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, operands=operands, **kw)
     blse = torch.where(rlse <= -5e8, 1e9, rlse)
     delta = (do.float() * ro).sum(-1)
     args = (q, k, v, do, blse, delta, q_off, k_off)
     got = [o, lse, ca.chunk_flash_dq(*args, **kw), *ca.chunk_flash_dkv(*args, **kw)]
-    want = [ro, rlse, ca.chunk_flash_dq_plain(*args, **kw), *ca.chunk_flash_dkv_plain(*args, **kw)]
+    want = [ro, rlse, ca.chunk_flash_dq_plain(*args, operands=operands, **kw),
+            *ca.chunk_flash_dkv_plain(*args, operands=operands, **kw)]
     torch.cuda.synchronize()
-    return got, want
+    return got, want, blse, delta
 
 
-def _assert_k6_close(got, want, lse=False):
-    tol = ca.lse_tolerance(want) if lse else ca.kernel_tolerance(want)
+def _assert_k6_close(got, want, lse=False, bound=None, tol=None):
+    """lse_tolerance for lse; for o, dq, dk, dv kernel_tolerance (f32
+    route) or, given the rounding bound, ``tol`` (tc_kernel_tolerance for
+    the tensor-core route against operands="bf16")."""
+    if lse:
+        tol = ca.lse_tolerance(want)
+    elif bound is None:
+        tol = ca.kernel_tolerance(want)
+    else:
+        tol = (tol or ca.tc_kernel_tolerance)(want, bound)
     diff = (got - want).abs()
     share = (diff / tol).max().item()
     assert share <= 1.0, (share, diff.max().item())
 
 
 K6_CASES = {
-    # (b, h, c, d, q_off, k_off, n_valid, causal, spec): the slice's pair
-    # (zigzag sub-chunks of 1,088 rows at sp=2) on the diagonal, wholly
-    # before and wholly in the future; a ragged one (544 rows, not a
-    # multiple of the 64-row tile) with n_valid inside the k chunk; the
-    # layer kinds' specs on global positions; non-causal
-    "slice_diagonal": (2, 8, 1088, 64, 1088, 1088, LS_N, True, None),
-    "slice_before": (2, 8, 1088, 64, 3264, 0, LS_N, True, None),
-    "slice_future": (2, 8, 1088, 64, 0, 3264, LS_N, True, None),
-    "ragged_cut": (2, 4, 544, 128, 1088, 544, 900, True, None),
-    "axial_row": (2, 4, 544, 64, 1632, 1088, LS_N, True, ("axial", LS_TEXT, LS_FMAP, 0)),
-    "axial_col": (2, 4, 544, 64, 1632, 544, LS_N, True, ("axial", LS_TEXT, LS_FMAP, 1)),
-    "conv": (2, 4, 544, 64, 1632, 1088, LS_N, True, ("conv", LS_TEXT, LS_FMAP, 5, 1)),
-    "non_causal": (1, 2, 300, 32, 0, 300, 600, False, None),
+    # (b, h, c, d, q_off, k_off, n_valid, causal, spec, q scale): the
+    # slice's pair (zigzag sub-chunks of 1,088 rows at sp=2) on the
+    # diagonal, wholly before and wholly in the future; a peaked softmax
+    # (q x 8) on the diagonal; a ragged one (544 rows, not a multiple of
+    # the 64-row tile) with n_valid inside the k chunk; the layer kinds'
+    # specs on global positions; non-causal
+    "slice_diagonal": (2, 8, 1088, 64, 1088, 1088, LS_N, True, None, 1.0),
+    "slice_before": (2, 8, 1088, 64, 3264, 0, LS_N, True, None, 1.0),
+    "slice_future": (2, 8, 1088, 64, 0, 3264, LS_N, True, None, 1.0),
+    "peaked_diagonal": (2, 8, 1088, 64, 1088, 1088, LS_N, True, None, 8.0),
+    "ragged_cut": (2, 4, 544, 128, 1088, 544, 900, True, None, 1.0),
+    "axial_row": (2, 4, 544, 64, 1632, 1088, LS_N, True, ("axial", LS_TEXT, LS_FMAP, 0), 1.0),
+    "axial_col": (2, 4, 544, 64, 1632, 544, LS_N, True, ("axial", LS_TEXT, LS_FMAP, 1), 1.0),
+    "conv": (2, 4, 544, 64, 1632, 1088, LS_N, True, ("conv", LS_TEXT, LS_FMAP, 5, 1), 1.0),
+    "non_causal": (1, 2, 300, 32, 0, 300, 600, False, None, 1.0),
 }
 
 
 @pytest.mark.parametrize("case", sorted(K6_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_kernels_match_plain(dtype, case):
-    b, h, c, d, q_off, k_off, n_valid, causal, spec = K6_CASES[case]
+    """f32 operands on the f32 route against the plain versions (the TPU's
+    arithmetic) within kernel_tolerance; bf16 operands on the tensor-core
+    route against operands="bf16" within tc_kernel_tolerance, and against
+    the f32 arithmetic on the same inputs within rounding_tolerance; every
+    launch counted, the bf16 ones on the tc_* counters too."""
+    b, h, c, d, q_off, k_off, n_valid, causal, spec, mul = K6_CASES[case]
     q, k, v, do = _k4_case(b, h, c, d, dtype, seed=c + d + q_off)
+    q = (q.float() * mul).to(dtype)                 # exact: mul is a power of two
     kw = dict(scale=d ** -0.5, n_valid=n_valid, causal=causal, mask_spec=spec)
-    before = ca.fwd_launches, ca.dq_launches, ca.dkv_launches
-    got, want = _k6_all(q, k, v, do, q_off, k_off, kw)
-    assert (ca.fwd_launches, ca.dq_launches, ca.dkv_launches) == tuple(x + 1 for x in before)
+    tc = dtype == torch.bfloat16
+    before = _k6_counts()
+    got, want, blse, delta = _k6_all(q, k, v, do, q_off, k_off, kw, "bf16" if tc else "f32")
+    assert _k6_counts() == tuple(x + i for x, i in zip(before, (1, 1, 1, tc, tc, tc)))
+    bound = (ca.rounding_bound(q, k, v, do, blse, delta, q_off, k_off, **kw) if tc
+             else dict.fromkeys(("o", "dq", "dk", "dv")))
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == torch.float32 and g.shape == w.shape
-        _assert_k6_close(g, w, lse=i == 1)
+        out = ("o", "lse", "dq", "dk", "dv")[i]
+        _assert_k6_close(g, w, lse=i == 1, bound=bound.get(out))
+    if tc:
+        # the cost of the route: the bf16 kernels against the TPU's f32
+        # arithmetic on the same inputs and backward statistics
+        args = (q, k, v, do, blse, delta, q_off, k_off)
+        f32 = [ca.chunk_flash_fwd_plain(q, k, v, q_off, k_off, **kw)[0],
+               ca.chunk_flash_dq_plain(*args, **kw), *ca.chunk_flash_dkv_plain(*args, **kw)]
+        for g, w, out in zip([got[0]] + got[2:], f32, ("o", "dq", "dk", "dv")):
+            _assert_k6_close(g, w, bound=bound[out], tol=ca.rounding_tolerance)
     if case == "slice_future":
         assert not got[0].any() and bool((got[1] == -1e9).all())
         assert not any(g.any() for g in got[2:])
@@ -766,9 +804,9 @@ def test_chunk_kernels_match_plain(dtype, case):
 
 def test_chunk_kernels_take_zigzag_views_without_copies():
     """The zigzag ring hands sub-chunk views of its rotating k/v, and rows
-    of q, dO, lse and delta: the kernels on the views equal the kernels on
-    contiguous copies bit for bit, and the plain versions within the
-    bound."""
+    of q, dO, lse and delta: the tensor-core kernels on the views equal the
+    kernels on contiguous copies bit for bit, and the plain versions with
+    operands="bf16" within the bound."""
     m = 544
     q2, k2, v2, do2 = _k4_case(2, 4, 2 * m, 64, torch.bfloat16, seed=31)
     lse2 = torch.randn(2, 4, 2 * m, device="cuda") + 5.0
@@ -777,19 +815,22 @@ def test_chunk_kernels_take_zigzag_views_without_copies():
     views = [t[:, :, m:] for t in (q2, k2, v2, do2, lse2, delta2)]
     assert not views[0].is_contiguous()
     copies = [t.contiguous() for t in views]
-    for fn, plain in ((ca.chunk_flash_dq, ca.chunk_flash_dq_plain),
-                      (ca.chunk_flash_dkv, ca.chunk_flash_dkv_plain)):
+    bound = ca.rounding_bound(*copies, 2176, 1632, **kw)
+    before = _k6_counts()
+    for fn, plain, outs in ((ca.chunk_flash_dq, ca.chunk_flash_dq_plain, ("dq",)),
+                            (ca.chunk_flash_dkv, ca.chunk_flash_dkv_plain, ("dk", "dv"))):
         a = fn(*views, 2176, 1632, **kw)
         b = fn(*copies, 2176, 1632, **kw)
-        p = plain(*copies, 2176, 1632, **kw)
+        p = plain(*copies, 2176, 1632, operands="bf16", **kw)
         a, b, p = (x if isinstance(x, tuple) else (x,) for x in (a, b, p))
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
-        for x, y in zip(a, p):
-            _assert_k6_close(x, y)
+        for x, y, out in zip(a, p, outs):
+            _assert_k6_close(x, y, bound=bound[out])
     o_v, lse_v = ca.chunk_flash_fwd(*views[:3], 2176, 1632, **kw)
     o_c, lse_c = ca.chunk_flash_fwd(*copies[:3], 2176, 1632, **kw)
     assert torch.equal(o_v, o_c) and torch.equal(lse_v, lse_c)
+    assert _k6_counts() == tuple(x + i for x, i in zip(before, (2, 2, 2, 2, 2, 2)))
 
 
 def test_chunk_wrapper_raises_instead_of_falling_back():
@@ -804,6 +845,13 @@ def test_chunk_wrapper_raises_instead_of_falling_back():
         ca.chunk_flash_dq(q, k, v, do, lse.double(), lse, 0, 0, **kw)
     with pytest.raises(ValueError):
         ca.chunk_flash_fwd(q, k, v, 0, 0, mask_spec=("block", 64), **kw)
+    # a bf16 operand the tensor cores' 16-byte copies cannot take raises,
+    # rather than run on the f32 route
+    qb = torch.zeros(2 * 64 * 32 + 4, dtype=torch.bfloat16, device="cuda")[4:].view(1, 2, 64, 32)
+    before = _k6_counts()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ca.chunk_flash_fwd(qb, k.bfloat16(), v.bfloat16(), 0, 0, **kw)
+    assert _k6_counts() == before
 
 
 @pytest.mark.parametrize("spec", [None, ("axial", LS_TEXT, LS_FMAP, 1)],
