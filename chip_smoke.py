@@ -132,16 +132,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 record the same step with dense attention and with K1.
 
 14. persist_kernel K8 (whole-sequence attention: forward, and the backward's
-                dq and dk/dv kernels) against its plain versions, comparing o,
-                dq, dk and dv per element with fused_attention.kernel_tolerance
-                (K1's arithmetic): the DALL·E-1.4B layer (b=8, h=14, n=512,
-                d=128) causal and axial_row, the DALL·E-small layer (b=64, h=8,
-                n=512, d=64), a ragged one (n=77) with a row that sees nothing
-                and a conv_like table, n=513 causal and axial_row, and f32
-                inputs (q rounded twice). Then both kernels' times in bf16 at
-                the 1.4B and small layers beside their bounds, the plain
-                versions', SDPA's and K1's on the same data in its merged
-                (b, n, 3·h·d) layout.
+                dq and dk/dv kernels; mma.sync tiles, a cp.async ring, a
+                two-pass softmax, K1's design) against its plain versions,
+                comparing o, dq, dk and dv per element with
+                fused_attention.kernel_tolerance (K1's arithmetic): the
+                DALL·E-1.4B layer (b=8, h=14, n=512, d=128) causal and with
+                its axial_row MaskTable, the DALL·E-small layer (b=64, h=8,
+                n=512, d=64), a ragged one (n=77) with a row that sees
+                nothing and a conv_like table, n=513 causal and axial_row,
+                f32 inputs (q rounded twice), n=2,048 at d=128, and a peaked
+                softmax (q scaled by 8) held to flip_tolerance; the backward
+                from the forward's (m, l) equals the one that recomputes
+                them, bit for bit; the head views of a (b, n, 3·h·d)
+                projection equal contiguous copies and two runs the same
+                bits; nvcc's registers and spills per instance. Then both
+                kernels' times in bf16 at the 1.4B and small layers beside
+                their bounds, the plain versions', SDPA's (with the kernels
+                it ran) and K1's on the same data in its merged (b, n, 3·h·d)
+                layout.
 15. chunked_kernel K7 (chunked long-cache decode attention) against its plain
                 version within decode_attention.chunked_tolerance: the JAX
                 package's bench shapes (b=64 h=8 S=1280 d=64, b=16 h=14 S=2560
@@ -614,12 +622,13 @@ def _k1_timing(torch, fa, b, n, h, d, gen, flush):
     return timing
 
 
-def k1_build():
-    """K1's kernels as nvcc reported them, by instance ("fwd_kernel<bf16,128>":
-    registers, spills), and their shared memory per CTA from the formulas of
-    csrc/fused_attention.cu (*_smem)."""
+def k1_build(source="fused_attention"):
+    """K1's kernels (or K8's copy of their design, ``source``
+    "persistent_attention") as nvcc reported them, by instance
+    ("fwd_kernel<bf16,128>": registers, spills), and their shared memory per
+    CTA from the formulas of the source (*_smem, the same in both)."""
     ptxas = {}
-    for fn, lines in ptxas_report("fused_attention", "_kernelI").items():
+    for fn, lines in ptxas_report(source, "_kernelI").items():
         m = re.search(r"(fwd_kernel|dq_kernel|dkv_kernel)I(f|13__nv_bfloat16)Li(\d+)E", fn)
         name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>" if m else fn
         ptxas[name] = lines
@@ -1734,7 +1743,9 @@ def phase_train_long(torch, card):
 # ---------------------------------------------------------------------------
 
 K8_TOL = {"o_dq_dk_dv": "fused_attention.kernel_tolerance (K1's arithmetic): "
-                        "2e-3*max(1,max|want|) + (2^-7*|want| for bf16), per element"}
+                        "2e-3*max(1,max|want|) + (2^-7*|want| for bf16), per element",
+          "peaked": "fused_attention.flip_tolerance: 2^-7 * persistent_attention."
+                    "rounding_bound + kernel_tolerance, per element"}
 
 
 def k8_bounds(b, h, n, d, itemsize, table):
@@ -1758,8 +1769,10 @@ def k8_bounds(b, h, n, d, itemsize, table):
 
 
 def _k8_table(torch, kind, n):
-    """None (causal), K1's layer table, or "holes": causal with row 5 empty
-    (its softmax spreads 1/n over every key, as the TPU's -1e9 fill does)."""
+    """None (causal), a layer's MaskTable (table and tile map, as the
+    transformer hands it to K8), or "holes": a raw causal table with row 5
+    empty (its softmax spreads 1/n over every key, as the TPU's -1e9 fill
+    does; the wrapper builds its tile map and empty-row flags)."""
     from dalle_tpu_torch.ops import fused_attention as fa
     if kind == "none":
         return None
@@ -1767,7 +1780,20 @@ def _k8_table(torch, kind, n):
         tbl = torch.ones(n, n, dtype=torch.int8, device="cuda").tril()
         tbl[5] = 0
         return tbl
-    return fa.layer_table(kind, n, device="cuda").table
+    return fa.layer_table(kind, n, device="cuda")
+
+
+def sdpa_kernels(torch, fn):
+    """The device kernels one call of ``fn`` (an SDPA call) ran, by name:
+    which backend SDPA took on these inputs."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    _, by_kernel = device_time(torch, prof)
+    return sorted(by_kernel, key=lambda k: -by_kernel[k])[:4]
 
 
 def phase_persist_kernel(torch, card):
@@ -1776,70 +1802,126 @@ def phase_persist_kernel(torch, card):
     from dalle_tpu_torch.ops import persistent_attention as pa
     t_phase = time.perf_counter()
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 10)
-    # (name, b, h, n, d, dtype, table kinds)
-    cases = [("dalle1p4b", 8, 14, 512, 128, "bfloat16", ("none", "axial_row")),
-             ("dalle_small", 64, 8, 512, 64, "bfloat16", ("none",)),
-             ("ragged", 3, 6, 77, 64, "bfloat16", ("holes", "conv_like")),
-             ("n513", 4, 8, 513, 64, "bfloat16", ("none", "axial_row")),
-             ("f32_inputs", 2, 4, 256, 64, "float32", ("none", "holes"))]
+    # (name, b, h, n, d, dtype, table kinds, q multiplier)
+    cases = [("dalle1p4b", 8, 14, 512, 128, "bfloat16", ("none", "axial_row"), 1.0),
+             ("dalle_small", 64, 8, 512, 64, "bfloat16", ("none",), 1.0),
+             ("ragged", 3, 6, 77, 64, "bfloat16", ("holes", "conv_like"), 1.0),
+             ("n513", 4, 8, 513, 64, "bfloat16", ("none", "axial_row"), 1.0),
+             ("f32_inputs", 2, 4, 256, 64, "float32", ("none", "holes"), 1.0),
+             ("n2048", 1, 4, 2048, 128, "bfloat16", ("none", "holes"), 1.0),
+             ("peaked", 8, 14, 512, 128, "bfloat16", ("none",), 8.0)]
     errs, shares, n_cases = {}, {}, 0
     saved = pa.fwd_launches, pa.bwd_launches
-    for name, b, h, n, d, dt, kinds in cases:
+    for name, b, h, n, d, dt, kinds, mul in cases:
         for kind in kinds:
             table = _k8_table(torch, kind, n)
             q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen)
                            .to(getattr(torch, dt)) for _ in range(4))
-            got = dict(zip(("o", "dq", "dk", "dv"),
-                           (pa.persist_fwd(q, k, v, table),) + pa.persist_bwd(q, k, v, do, table)))
+            q = q * mul
+            # the backward from the forward's (m, l), as the training step
+            # runs it, and the one that computes them itself: the same bits
+            o, stats = pa.persist_fwd(q, k, v, table, return_stats=True)
+            grads = pa.persist_bwd(q, k, v, do, table, stats=stats)
+            alone = pa.persist_bwd(q, k, v, do, table)
+            got = dict(zip(("o", "dq", "dk", "dv"), (o,) + grads))
             want = dict(zip(("o", "dq", "dk", "dv"),
                             (pa.persist_fwd_plain(q, k, v, table),)
                             + pa.persist_bwd_plain(q, k, v, do, table)))
+            bound = (dict(zip(("o", "dq", "dk", "dv"), pa.rounding_bound(q, k, v, do, table)))
+                     if mul != 1.0 else None)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, z) for a, z in zip(grads, alone)),
+                  f"K8 {name}/{kind}: the backward from the forward's (m, l) differs from "
+                  "the one that recomputes them")
             n_cases += 1
             for out, g in got.items():
                 w = want[out]
                 check(g.dtype == q.dtype and g.shape == q.shape, f"K8 {out} {g.dtype} {g.shape}")
                 diff = (g.float() - w.float()).abs()
-                share = (diff / fa.kernel_tolerance(w)).max().item()
+                tol = (fa.kernel_tolerance(w) if bound is None
+                       else fa.flip_tolerance(w, bound[out]))
+                share = (diff / tol).max().item()
                 key = f"{out}/{name}/{kind}/{dt}"
                 errs[key], shares[key] = diff.max().item(), share
                 check(math.isfinite(share) and share <= 1.0,
                       f"K8 {key}: an element is {share} of its bound (max abs err "
                       f"{diff.max().item()})")
+            del q, k, v, do, o, grads, alone, got, want, bound
+    # the main path's layout: the head views of the (b, n, 3·h·d) projection,
+    # read through their strides, give the bits of contiguous copies, and
+    # two runs give the same bits
+    b, h, n, d = 8, 14, 512, 128
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).bfloat16()
+    views = [t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+    do = torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16()
+
+    def run(q, k, v):
+        o, stats = pa.persist_fwd(q, k, v, return_stats=True)
+        return (o,) + pa.persist_bwd(q, k, v, do, stats=stats)
+
+    runs = [run(*views), run(*views), run(*(t.contiguous() for t in views))]
+    torch.cuda.synchronize()
+    repeat_same = all(torch.equal(a, z) for a, z in zip(runs[0], runs[1]))
+    strided_same = all(torch.equal(a, z) for a, z in zip(runs[0], runs[2]))
+    check(repeat_same, "K8: two runs on the same inputs differ")
+    check(strided_same, "K8: strided head views differ from their contiguous copies")
+    del qkv, views, do, runs
     pa.fwd_launches, pa.bwd_launches = saved
     by = {out: max(v for key, v in errs.items() if key.startswith(out + "/"))
           for out in ("o", "dq", "dk", "dv")}
-    worst = {out: max(v for key, v in shares.items() if key.startswith(out + "/"))
+    worst = {out: max(v for key, v in shares.items()
+                      if key.startswith(out + "/") and "/peaked/" not in key)
              for out in ("o", "dq", "dk", "dv")}
+    peaked = {out: shares[f"{out}/peaked/none/bfloat16"] for out in ("o", "dq", "dk", "dv")}
     emit("persist_kernel", kernels=["persist_fwd", "persist_bwd"], cases=n_cases,
-         tolerance=K8_TOL, max_abs_err=by, worst_share_of_bound=worst)
+         tolerance=K8_TOL, max_abs_err=by, worst_share_of_bound=worst,
+         peaked_share_of_flip_tolerance=peaked, repeat_same_bits=repeat_same,
+         strided_views_same_bits=strided_same, build=k1_build("persistent_attention"))
 
     # times in bf16, causal: the DALL·E-1.4B layer and the DALL·E-small one
     # (where the JAX package measured persist), K1 on the same data in its
-    # merged (b, n, 3·h·d) layout and SDPA beside them
+    # merged (b, n, 3·h·d) layout and SDPA beside them. The backward is
+    # timed as the training step runs it, from the forward's (m, l); the
+    # one that computes them first is beside it
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     timing = {}
     for name, b, h, n, d in (("dalle1p4b", 8, 14, 512, 128), ("dalle_small", 64, 8, 512, 64)):
         q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16()
                        for _ in range(4))
         saved = pa.fwd_launches, pa.bwd_launches, fa.fwd_launches, fa.bwd_launches
-        ms = {"fwd": median_ms(lambda: pa.persist_fwd(q, k, v), 20, flush),
-              "bwd": median_ms(lambda: pa.persist_bwd(q, k, v, do), 20, flush)}
-        plain = {"fwd": median_ms(lambda: pa.persist_fwd_plain(q, k, v), 5, flush),
-                 "bwd": median_ms(lambda: pa.persist_bwd_plain(q, k, v, do), 5, flush)}
+        _, stats = pa.persist_fwd(q, k, v, return_stats=True)
         qkv = torch.cat([t.transpose(1, 2).reshape(b, n, h * d) for t in (q, k, v)], -1)
         do_m = do.transpose(1, 2).reshape(b, n, h * d).contiguous()
         _, m1, l1 = fa.fused_attention_fwd(qkv, h)
-        k1 = {"fwd": median_ms(lambda: fa.fused_attention_fwd(qkv, h), 20, flush),
-              "bwd": median_ms(lambda: fa.fused_attention_bwd(qkv, do_m, m1, l1, h), 20, flush)}
+        # K8 and K1 in three turns; each time is the median of the turns' medians
+        fns = {"fwd": lambda: pa.persist_fwd(q, k, v),
+               "bwd": lambda: pa.persist_bwd(q, k, v, do, stats=stats),
+               "k1_fwd": lambda: fa.fused_attention_fwd(qkv, h),
+               "k1_bwd": lambda: fa.fused_attention_bwd(qkv, do_m, m1, l1, h)}
+        turns = {key: [] for key in fns}
+        for _ in range(3):
+            for key, fn in fns.items():
+                turns[key].append(median_ms(fn, 20, flush))
+        ms = {w: statistics.median(turns[w]) for w in ("fwd", "bwd")}
+        k1 = {w: statistics.median(turns["k1_" + w]) for w in ("fwd", "bwd")}
+        bwd_alone = median_ms(lambda: pa.persist_bwd(q, k, v, do), 20, flush)
+        plain = {"fwd": median_ms(lambda: pa.persist_fwd_plain(q, k, v), 5, flush),
+                 "bwd": median_ms(lambda: pa.persist_bwd_plain(q, k, v, do), 5, flush)}
         pa.fwd_launches, pa.bwd_launches, fa.fwd_launches, fa.bwd_launches = saved
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        with torch.no_grad():
-            lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
-                                20, flush)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+        lib_fwd = median_ms(sdpa_fwd, 20, flush)
         ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        lib_bwd = median_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
-                            20, flush)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+
+        lib_bwd = median_ms(sdpa_bwd, 20, flush)
+        backend = {"fwd": sdpa_kernels(torch, sdpa_fwd), "bwd": sdpa_kernels(torch, sdpa_bwd)}
         del ol
         bounds = k8_bounds(b, h, n, d, 2, None)
         row = {}
@@ -1847,13 +1929,19 @@ def phase_persist_kernel(torch, card):
             bound, by_what, ops, nbytes = bounds[w]
             row[w] = {"ms": ms[w], "plain_ms": plain[w], "library_ms": lib, "k1_ms": k1[w],
                       "bound_ms": bound, "bound_by": by_what, "flops": ops, "bytes": nbytes,
-                      "roofline_share": bound / ms[w]}
+                      "roofline_share": bound / ms[w], "k1_factor": ms[w] / k1[w],
+                      "library_factor": ms[w] / lib, "sdpa_kernels": backend[w],
+                      "ms_turns": turns[w], "k1_ms_turns": turns["k1_" + w]}
+        row["bwd"]["ms_computing_stats_first"] = bwd_alone
         timing[name] = row
     emit("persist_kernel_timing", dtype="bfloat16", mask="causal",
          shapes={"dalle1p4b": dict(b=8, h=14, n=512, d=128),
                  "dalle_small": dict(b=64, h=8, n=512, d=64)},
+         backward="from the forward's (m, l), as the training step runs it; "
+                  "ms_computing_stats_first: persist_bwd without them",
          library="torch.nn.functional.scaled_dot_product_attention(is_causal=True) forward, "
-                 "and its backward alone; k1_ms: K1 on the same data in its (b, n, 3hd) layout",
+                 "and its backward alone (sdpa_kernels: the device kernels it ran); k1_ms: K1 "
+                 "on the same data in its (b, n, 3hd) layout",
          card=card, by_case=timing, seconds=time.perf_counter() - t_phase)
     return errs, timing
 
@@ -1884,7 +1972,15 @@ def phase_persist_parity(torch):
 
     loss_k, g_k, launched_k = grads()
     kernels = pa.persist_fwd, pa.persist_bwd
-    pa.persist_fwd, pa.persist_bwd = pa.persist_fwd_plain, pa.persist_bwd_plain
+
+    def plain_fwd(q, k, v, table=None, scale=None, return_stats=False):
+        out = pa.persist_fwd_plain(q, k, v, table, scale)
+        return (out, None) if return_stats else out
+
+    def plain_bwd(q, k, v, do, table=None, scale=None, stats=None):
+        return pa.persist_bwd_plain(q, k, v, do, table, scale)
+
+    pa.persist_fwd, pa.persist_bwd = plain_fwd, plain_bwd
     try:
         loss_p, g_p, launched_p = grads()
     finally:
@@ -2646,7 +2742,11 @@ def main() -> int:
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "timed_at": "b=8 h=14 n=512 d=128, bfloat16, causal",
+            "timed_at": "b=8 h=14 n=512 d=128, bfloat16, causal"
+                        + ("" if which == "fwd" else ", from the forward's (m, l)"),
+            "kernel_functions": {"fwd": "fwd_kernel",
+                                 "bwd": "dq_kernel then dkv_kernel"}[which],
+            "design": "K1's: mma.sync m16n8k16, cp.async ring, two-pass softmax",
             "by_case": {k: {"ms": v[which]["ms"], "k1_ms": v[which]["k1_ms"],
                             "bound_ms": v[which]["bound_ms"],
                             "plain_ms": v[which]["plain_ms"],

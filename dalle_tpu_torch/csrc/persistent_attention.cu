@@ -1,20 +1,26 @@
 // Whole-sequence causal attention with an exact (not online) softmax, forward
-// and backward, for Hopper (sm_90a).
+// and backward, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces dalle_tpu/ops/persistent_attention.py::_persist_fwd (Pallas body
 // _fwd_kernel) and ::_persist_bwd (body _bwd_kernel). Operands are (b, h, n, d)
 // bf16 with any (b, h, n) strides and a dense head dim (the wrapper casts them
 // to bf16 first, as the TPU wrapper does); outputs are (b, h, n, d) contiguous
 // in f32 or bf16. The arithmetic is the TPU kernel's, rounding for rounding:
-//   qs = bf16(f32(q) * scale); s = qs.k^T in f32; a hidden pair scores -1e9;
+//   qs = bf16(f32(q) * scale); s = qs.k^T in f32; a hidden pair scores -1e9
+//   (here -inf: its exp is exactly 0 either way);
 //   m = the row max, l = sum exp(s - m), p = exp(s - m) / l, p16 = bf16(p);
 //   o = p16.v in f32, written in the output type.
 // Backward: dp = dO.v^T, o = p16.v recomputed in f32, delta = rowsum(o * dO),
 //   ds = bf16(p * (dp - delta)), dq = ds.k * scale, dk = ds^T.q * scale with
 //   the UNSCALED bf16 q, dv = p16^T.dO, all accumulated in f32.
-// Visibility is j <= i, or an int8 (n, n) table (causality included). A row
-// that sees nothing has every score at -1e9 on the TPU, so its softmax is
-// 1/n over all n keys; here such a row (m = -inf) takes p = 1/n directly.
+// Every product is bf16 x bf16 into f32: exactly mma.sync.m16n8k16's.
+// Visibility is j <= i, or an int8 (n, n) table (causality in it, or not)
+// with an int8 (nt, nt) map of the 64x64 tiles that hold a visible pair and,
+// optionally, an int8 (nt,) flag per q tile that holds a row seeing nothing.
+// Such a row has every score at -1e9 on the TPU, so its softmax is 1/n over
+// all n keys, the keys above the diagonal included: its q tile visits every
+// k tile, and the row takes m = 0 with hidden scores 0 and l = n. The forward
+// writes it as m = -inf, l = n, which is how the backward kernels know it.
 //
 // Bound on the card (H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM). At the
 // training main shape (b=8, h=14, n=512, d=128, bf16), with the causal half of
@@ -25,545 +31,564 @@
 //            q, k, v, dO read + dq, dk, dv written = 103 MB  -> 31 us.
 // Both are bound by bytes. chip_smoke.py recomputes these from its inputs.
 //
-// Design. The TPU kernel keeps one (b, h)'s whole (n, n) score tile in VMEM;
-// at n = 512 that is 1 MB of f32, and a Hopper block has 227 KB. So a CTA
-// keeps a STRIP of kRows score rows resident in shared memory instead: it
-// computes the strip's (kRows, n) scores once, takes each row's exact max and
-// sum there, writes bf16(p) back over the scores in place and multiplies by v.
-// kRows = 32: the widest n the routing gate admits (persistent_fits: ~800 at
-// d = 64, ~770 at d = 128) needs 32 * 836 * 4 = 107 KB of f32 rows, beside the
-// q strip and one 64-row k/v tile (another 26 KB at d = 128); 64 rows would
-// take 214 KB for the scores alone and leave no room for the dq kernel's
-// operands. At n = 512 the forward takes 90 KB, two CTAs an SM.
-//   * forward, grid (row strips, h, b), 8 warps: k tiles -> scores, one warp
-//     per row for the softmax, v tiles -> o;
-//   * backward (a), the same grid: scores -> p in f32 kept in place; v tiles
-//     -> o = p16.v, delta; k and v tiles -> dp, ds, dq. Writes each row's
-//     (m, l, delta) to a (3, b, h, n) f32 workspace;
-//   * backward (b), grid (64-column strips, h, b), 8 warps: walks the 64-row
-//     query tiles that can see its columns, recomputes s^T and dp^T against
-//     the row statistics; warps 0-3 accumulate dv, warps 4-7 dk (as the
-//     fused kernel's dk/dv does). No atomics: the same bits every run.
-//   * A strip visits the key columns up to its own extent: the causal edge
-//     without a table; with one, the last visible column of its rows, or all
-//     n when a row sees nothing. The dk/dv kernel skips a query tile with no
-//     visible pair in its columns and no empty row.
-// Products are nvcuda::wmma 16x16x16 bf16 fragments with f32 accumulators,
-// operands staged with plain 16-byte loads. The bound is bytes, and this
-// design reads each k/v tile twice per strip in the forward (three times in
-// dq), so it is far from the bound; cp.async/TMA staging and wgmma are for a
-// later version.
+// Design: the fused-boundary kernels' (csrc/fused_attention.cu), in a copy of
+// their own over K8's layout (helpers in tc_tile.cuh):
+//   * 64-row q and k tiles, bf16 in shared memory with a row stride of D + 8,
+//     read by ldmatrix; they arrive by 16-byte cp.async, row by row through
+//     each operand's strides, into a ring of two stages, so the next tile's
+//     copy overlaps this tile's products. Shared memory does not depend on n;
+//   * scores, p and dS stay in registers from one product into the next (the
+//     C fragments of two n8 tiles are the A fragment of one k16 step);
+//   * forward, one CTA of 4 warps per (64-row q tile, head, batch row), each
+//     warp 16 rows; 68 KB of shared memory at d = 128, three CTAs an SM.
+//     q's A fragments are loaded once and scaled in registers. Pass 1 streams
+//     the k tiles for each row's max and sum (online over the tiles, quad
+//     shuffles); pass 2 streams k and v, forms p = exp(s - m) / l with the
+//     FINAL (m, l), rounds it to bf16 and accumulates p16.v. Two passes,
+//     because the TPU kernel rounds p after dividing by the whole row's sum.
+//     (m, l) are written, f32 (b, h, n), for the backward; without an output
+//     pointer the kernel stops after pass 1 (the backward's own (m, l));
+//   * dq, one CTA of 8 warps per q tile: warp w takes the 16 rows 16*(w % 4)
+//     against half (w / 4) of each k tile's columns. Sweep 1 recomputes p and
+//     o = p16.v in f32, adds o's two halves (fixed order) and forms
+//     delta = rowsum(o * dO), written f32 (b, h, n). Sweep 2 forms
+//     dp = dO.v^T and ds = bf16(p * (dp - delta)) and accumulates ds.k;
+//     dq is scaled once, at the end;
+//   * dk/dv, one CTA of 8 warps per k tile with k and v resident; q, dO and
+//     the rows' (m, l, delta) stream through the ring. The transposed tile
+//     (keys as rows) keeps P^T and dS^T in registers as A operands;
+//     s^T = k.qs^T scales q's B fragments in registers, dk = ds^T.q takes the
+//     unscaled q; the two column halves are added in a fixed order;
+//   * the heaviest tiles launch first: the last q tiles, the first k tiles.
+//     Without a table, tiles wholly above the diagonal are never read and the
+//     element test runs only on the diagonal tile and the ragged last q tile;
+//     with one, a q tile visits the tiles its map row marks (all of them when
+//     it holds a row that sees nothing) and reads the table once per element.
+// No atomics, and every sum in a fixed order: repeated runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kRows = 32;      // score rows a CTA keeps resident
-constexpr int kTile = 64;      // k/v rows per staged tile; dk/dv column strip
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kLdT = kTile + 4;  // f32 (., 64) tile row stride
-constexpr int kLdP = kTile + 8;  // bf16 (., 64) tile row stride
+constexpr int kTile = 64;            // query rows and key rows per tile
+constexpr int kFwdThreads = 128;     // four warps, 16 rows of the q tile each
+constexpr int kBwdThreads = 256;     // eight warps: 4 row blocks x 2 column halves
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 struct Strides {  // elements between batch rows, heads and positions
   long long b, h, n;
 };
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+template <int D> __host__ __device__ constexpr int tile_elems() { return kTile * (D + 8); }
+// two stages of k and of v (q lands in v's first stage, which pass 1 leaves free)
+template <int D> constexpr int fwd_smem() { return 4 * tile_elems<D>() * 2; }
+// q, dO + two stages of (k, v) + the rows' delta
+template <int D> constexpr int dq_smem() { return 6 * tile_elems<D>() * 2 + kTile * 4; }
+// k, v + two stages of (q, dO) and of the rows' (m, l, delta)
+template <int D> constexpr int dkv_smem() { return 6 * tile_elems<D>() * 2 + 2 * 3 * kTile * 4; }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// shared-memory row strides of the staged operands
-template <int D> __host__ __device__ constexpr int ld_op() { return D + 8; }   // bf16 rows
-template <int D> __host__ __device__ constexpr int ld_out() { return D + 4; }  // f32 rows
-
-template <int D> __host__ __device__ constexpr int strip_bytes() { return kRows * (D + 8) * 2; }
-template <int D> __host__ __device__ constexpr int tile_bytes() { return kTile * (D + 8) * 2; }
-
-// the score strip's row stride (f32): the padded width plus 4
-__host__ __device__ inline int score_ld(int n) { return (n + kTile - 1) / kTile * kTile + 4; }
-
-template <int D> __host__ __device__ inline int fwd_smem(int n) {
-  return strip_bytes<D>() + tile_bytes<D>() + kRows * score_ld(n) * 4;
-}
-template <int D> __host__ __device__ inline int dq_smem(int n) {
-  return 2 * strip_bytes<D>() + 2 * tile_bytes<D>() + kRows * score_ld(n) * 4 +
-         kRows * kLdT * 4 + kRows * kLdP * 2;
-}
-template <int D> __host__ __device__ constexpr int dkv_smem() {
-  return 5 * tile_bytes<D>() + 2 * kTile * kLdT * 4 + 2 * kTile * kLdP * 2 + 3 * kTile * 4;
-}
-
-// rows [0, rows) of a (., D) bf16 operand at row stride ld into a shared tile
-// of `count` rows (row stride D + 8); rows at or past `avail` are zero. With
-// `scaled` each value becomes bf16(f32(x) * scale), the query rounding.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long ld, int avail,
-                                          int count, bool scaled, float scale) {
+// rows [0, rows) of a 64-row tile of an operand (row stride ld elements,
+// below 2^25: the wrapper copies any other layout, so 32-bit offsets do)
+// into a shared bf16 tile of row stride D + 8 by 16-byte cp.async; the rows
+// from `rows` on are zero (the caller commits and waits)
+template <int D, int kThr>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld, int rows) {
   constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < count * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r < avail) {
-      raw = *reinterpret_cast<const uint4*>(src + r * ld + c);
-      if (scaled) {
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(p[i]);
-          p[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld_op<D>() + c) = raw;
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThr) {
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    const bool ok = r < rows;
+    tc::cp_async16(dst + r * (D + 8) + c * 8, src + (ok ? r * ld + c * 8 : 0), ok);
   }
 }
 
-// S[row0:+16, scol:+16] (f32, row stride ld) = A[row0:+16, :D] . B[brow:+16, :D]^T
-template <int D>
-__device__ __forceinline__ void warp_abt(float* S, int ld, const bf16* A, const bf16* B,
-                                         int row0, int brow, int scol) {
-  FragC acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int k = 0; k < D; k += 16) {
-    FragA a;
-    FragBCol b;
-    wmma::load_matrix_sync(a, A + row0 * ld_op<D>() + k, ld_op<D>());
-    wmma::load_matrix_sync(b, B + brow * ld_op<D>() + k, ld_op<D>());
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  wmma::store_matrix_sync(S + row0 * ld + scol, acc, ld, wmma::mem_row_major);
-}
-
-// 16 rows x 64 columns of a bf16 P (row stride ldp, starting at column pcol)
-// times the 64 x D tile V: acc[j] += for the output fragments f = f0 + 4j
-template <int D, int NF>
-__device__ __forceinline__ void warp_pv(FragC* acc, const bf16* P, int ldp, int row0, int pcol,
-                                        const bf16* V, int f0) {
-#pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, P + row0 * ldp + pcol + kk, ldp);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int f = f0 + 4 * j;
-      if (f < D / 16) {
-        FragBRow b;
-        wmma::load_matrix_sync(b, V + kk * ld_op<D>() + 16 * f, ld_op<D>());
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
+// the (m, l, delta) rows [row0, row0 + 64) of (b, h, n) f32 into dst[0:64],
+// dst[64:128], dst[128:192] by 4-byte cp.async; 0 past n
+__device__ __forceinline__ void load_stats(float* dst, const float* m, const float* l,
+                                           const float* delta, int row0, int n) {
+  const int t = threadIdx.x;
+  if (t < 3 * kTile) {
+    const float* src = t < kTile ? m : (t < 2 * kTile ? l : delta);
+    const int pos = row0 + (t & (kTile - 1));
+    const bool ok = pos < n;
+    tc::cp_async4(dst + t, src + (ok ? pos : 0), ok);
   }
 }
 
-// the strip's output fragments (rows 16*(warp&1), fragments (warp>>1) + 4j)
-// into an f32 (kRows, D + 4) staging tile, times mul
-template <int D, int NF>
-__device__ __forceinline__ void stage_strip(float* dst, FragC* acc, int warp, float mul) {
+template <typename T> __device__ __forceinline__ void store_pair(T* dst, float a, float b);
+template <> __device__ __forceinline__ void store_pair<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store_pair<bf16>(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// this lane's part of rows `row` and row + 8 of a 16-row accumulator, times
+// `mul`, into the contiguous (., D) rows of `dst`; rows at or past n are not
+// written
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, int row, int n, const float (&acc)[D / 8][4],
+                                           float mul, int t4) {
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = (warp >> 1) + 4 * j;
-    if (f < D / 16) {
-      for (int t = 0; t < acc[j].num_elements; ++t) acc[j].x[t] *= mul;
-      wmma::store_matrix_sync(dst + 16 * (warp & 1) * ld_out<D>() + 16 * f, acc[j], ld_out<D>(),
-                              wmma::mem_row_major);
-    }
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    if (r >= n) continue;
+    T* out = dst + static_cast<size_t>(r) * D + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      store_pair<T>(out + dn * 8, acc[dn][2 * hr] * mul, acc[dn][2 * hr + 1] * mul);
   }
 }
 
-// rows [0, rows) of an f32 (., D + 4) staging tile -> contiguous (., D) output
-template <typename OutT, int D>
-__device__ __forceinline__ void store_rows(OutT* dst, const float* src, int rows) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    dst[static_cast<size_t>(r) * D + c] = from_f32<OutT>(src[r * ld_out<D>() + c]);
-  }
+// a (q tile, k tile) pair that needs no element test: no table, the k tile
+// wholly before the q tile, and every query row inside n
+__device__ __forceinline__ bool all_visible(const int8_t* table, int n, int q0, int k0) {
+  return table == nullptr && k0 + kTile <= q0 && q0 + kTile <= n;
 }
 
 __device__ __forceinline__ bool visible(const int8_t* table, int n, int i, int j) {
+  if (i >= n || j >= n) return false;
   return table != nullptr ? table[static_cast<size_t>(i) * n + j] != 0 : j <= i;
 }
 
-// the key columns the strip of rows [r0, r0 + kRows) needs: the causal edge
-// without a table; with one, one past its rows' last visible column, or n
-// when a row sees nothing (its p is 1/n over every key). Call from all threads.
-__device__ int strip_extent(const int8_t* table, int n, int r0, int* s_ext) {
-  if (table == nullptr) return min(n, r0 + kRows);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) *s_ext = 0;
-  __syncthreads();
-  for (int r = warp; r < kRows && r0 + r < n; r += kWarps) {
-    const int8_t* row = table + static_cast<size_t>(r0 + r) * n;
-    int last = -1;
-    for (int c = lane; c < n; c += 32)
-      if (row[c] != 0) last = c;
+// hide what query `row` (+ 8) may not see of key col0 + 8j + 2*t4 (+ 1) in
+// this lane's elements of a 16 x 8*NJ block of scores: a key past n scores
+// -inf, a hidden one below n scores its row's fill, fill[0] (fill[8]): -inf,
+// or 0 for a row that sees nothing (with m = 0 and l = n its p is 1/n at
+// every key). The fills live in shared memory: they are read only where the
+// element test runs, and registers are the kernels' scarcest resource
+template <int NJ>
+__device__ __forceinline__ void mask_scores(float (&s)[NJ][4], const int8_t* table, int n,
+                                            int row, int col0, int t4, const float* fill) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
-    if (lane == 0) atomicMax(s_ext, last < 0 ? n : last + 1);
-  }
-  __syncthreads();
-  return *s_ext;
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = col0 + 8 * j + 2 * t4 + c;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        if (!visible(table, n, row + 8 * hr, col))
+          s[j][2 * hr + c] = col < n ? fill[8 * hr] : -INFINITY;
+    }
 }
 
-// the scores of the strip's rows against key tiles [0, nkt): S (kRows, ld) f32
-template <int D>
-__device__ __forceinline__ void strip_scores(float* S, int ld, const bf16* sQ, bf16* sK,
-                                             const bf16* kbase, long long kn, int n, int nkt) {
-  const int warp = threadIdx.x >> 5;
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();
-    load_rows<D>(sK, kbase + static_cast<long long>(kt) * kTile * kn, kn, n - kt * kTile, kTile,
-                 false, 0.f);
-    __syncthreads();
-    warp_abt<D>(S, ld, sQ, sK, 16 * (warp & 1), 16 * (warp >> 1), kt * kTile + 16 * (warp >> 1));
-  }
-  __syncthreads();
+// the first k tile at or after kt, up to `last`, that q tile qt visits: each
+// one without a map or when the q tile holds a row that sees nothing, else
+// those the map marks used; last + 1 when there is none
+__device__ __forceinline__ int next_k(const int8_t* tiles, const int8_t* empty, int nt, int qt,
+                                      int kt, int last) {
+  if (tiles != nullptr && (empty == nullptr || empty[qt] == 0))
+    while (kt <= last && tiles[static_cast<size_t>(qt) * nt + kt] == 0) ++kt;
+  return kt;
 }
 
-// the softmax of one score row (one warp): row max and sum over the visible
-// columns of [0, ext). Returns m (-inf for a row that sees nothing) and l.
-__device__ __forceinline__ float2 row_stats(const float* srow, const int8_t* table, int n, int i,
-                                            int ext) {
-  const int lane = threadIdx.x & 31;
-  float m = -INFINITY;
-  for (int c = lane; c < ext; c += 32)
-    if (visible(table, n, i, c)) m = fmaxf(m, srow[c]);
-  m = warp_max(m);
-  float l = 0.f;
-  if (m != -INFINITY) {
-    for (int c = lane; c < ext; c += 32)
-      if (visible(table, n, i, c)) l += expf(srow[c] - m);
-    l = warp_sum(l);
-  } else {
-    l = static_cast<float>(n);
-  }
-  return make_float2(m, l);
-}
-
-__device__ __forceinline__ float prob(float s, float m, float l, bool vis, int c, int n) {
-  if (m == -INFINITY) return c < n ? 1.f / static_cast<float>(n) : 0.f;
-  return vis ? expf(s - m) / l : 0.f;
+// the first q tile at or after qt that visits k tile kt; nt when there is none
+__device__ __forceinline__ int next_q(const int8_t* tiles, const int8_t* empty, int nt, int kt,
+                                      int qt) {
+  if (tiles != nullptr)
+    while (qt < nt && tiles[static_cast<size_t>(qt) * nt + kt] == 0 &&
+           (empty == nullptr || empty[qt] == 0))
+      ++qt;
+  return qt;
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (row strips, h, b), 8 warps
+// forward: grid (h, b, nt), the last q tiles first; 4 warps
+// (three CTAs an SM: at most 168 registers a thread)
 // ---------------------------------------------------------------------------
 template <typename OutT, int D>
-__global__ void __launch_bounds__(kThreads)
-persist_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                   const int8_t* __restrict__ table, OutT* __restrict__ out, int heads, int n,
-                   float scale) {
-  constexpr int NF = (D / 16 + 3) / 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + strip_bytes<D>());
-  float* sS = reinterpret_cast<float*>(smem + strip_bytes<D>() + tile_bytes<D>());
-  float* sO = reinterpret_cast<float*>(sKV);  // after the v sweep
-  __shared__ int s_ext;
+__global__ void __launch_bounds__(kFwdThreads, 3)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           Strides sq, Strides sk, Strides sv, const int8_t* __restrict__ table,
+           const int8_t* __restrict__ tiles, const int8_t* __restrict__ empty,
+           OutT* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out, int n,
+           int heads, float scale) {
+  constexpr int kLd = D + 8, kEl = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);   // two stages
+  bf16* sV = sK + 2 * kEl;                    // two stages
+  // q is read once, at step 0, whose copies go to stage 1; v's stage 0 is
+  // first written at step 1, after every warp has passed step 0's barrier
+  bf16* sQ = sV;
+  __shared__ float sFill[kTile];              // each row's hidden score
 
-  const int r0 = blockIdx.x * kRows, hh = blockIdx.y, bb = blockIdx.z;
-  const int ld = score_ld(n), ldp = 2 * ld;   // the strip as f32, then as bf16
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = gridDim.z;
+  const int qt = nt - 1 - blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
   const bf16* qb = q + bb * sq.b + hh * sq.h;
   const bf16* kb = k + bb * sk.b + hh * sk.h;
   const bf16* vb = v + bb * sv.b + hh * sv.h;
+  const int q0 = qt * kTile;
+  const int last = tiles == nullptr ? qt : nt - 1;   // the last k tile a q tile may visit
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int row = q0 + warp * 16 + (lane >> 2);   // this lane's rows: row and row + 8
+  const size_t stat = (static_cast<size_t>(bb) * heads + hh) * n;
+  if (threadIdx.x < kTile) sFill[threadIdx.x] = -INFINITY;
 
-  load_rows<D>(sQ, qb + r0 * sq.n, sq.n, n - r0, kRows, true, scale);
-  const int ext = strip_extent(table, n, r0, &s_ext);
-  const int nkt = (ext + kTile - 1) / kTile;
-  strip_scores<D>(sS, ld, sQ, sKV, kb, sk.n, n, nkt);
+  int kt = next_k(tiles, empty, nt, qt, 0, last);
+  load_tile<D, kFwdThreads>(sQ, qb + q0 * sq.n, sq.n, min(kTile, n - q0));
+  load_tile<D, kFwdThreads>(sK, kb + kt * kTile * sk.n, sk.n, min(kTile, n - kt * kTile));
+  tc::cp_async_commit();
 
-  // exact softmax per row; bf16(p) overwrites the row's own f32 scores. Each
-  // 32-column chunk is read by the whole warp before any lane writes it: the
-  // bf16 value of column c lands inside f32 column c / 2 <= c.
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int i = r0 + r;
-    float* srow = sS + r * ld;
-    bf16* prow = reinterpret_cast<bf16*>(srow);
-    const float2 ml = i < n ? row_stats(srow, table, n, i, ext) : make_float2(0.f, 1.f);
-    for (int c0 = 0; c0 < nkt * kTile; c0 += 32) {
-      const int c = c0 + lane;
-      float p = 0.f;
-      if (i < n && c < ext) p = prob(srow[c], ml.x, ml.y, visible(table, n, i, c), c, n);
-      __syncwarp();
-      prow[c] = __float2bfloat16(p);
+  uint32_t qf[D / 16][4];           // bf16(f32(q) * scale), loaded once
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};          // pass 1: this lane's share of the row sums
+  float acc[D / 8][4];
+  tc::zero(acc);
+  bool pass2 = false;
+  for (int step = 0;; ++step) {
+    const int stage = step & 1;
+    // the next step: the next k tile of this pass, or after pass 1's last
+    // tile the first of pass 2 (none without an output)
+    int nkt = next_k(tiles, empty, nt, qt, kt + 1, last);
+    bool npass2 = pass2;
+    if (nkt > last && !pass2) {
+      npass2 = true;
+      nkt = next_k(tiles, empty, nt, qt, 0, last);
     }
-  }
-
-  // o = p16 . v
-  FragC acc[NF];
+    const bool more = nkt <= last && (out != nullptr || !npass2);
+    tc::cp_async_wait<0>();
+    __syncthreads();    // this step's tiles have landed, every warp is done with the last step's
+    if (step == 0) {
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
-  const bf16* sP = reinterpret_cast<const bf16*>(sS);
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();
-    load_rows<D>(sKV, vb + static_cast<long long>(kt) * kTile * sv.n, sv.n, n - kt * kTile, kTile,
-                 false, 0.f);
-    __syncthreads();
-    warp_pv<D, NF>(acc, sP, ldp, 16 * (warp & 1), kt * kTile, sKV, warp >> 1);
+      for (int kd = 0; kd < D / 16; ++kd) {
+        tc::ldsm_x4(qf[kd], tc::a_addr(sQ, kLd, warp * 16, kd * 16, lane));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[kd][e] = tc::scale_bf16x2(qf[kd][e], scale);
+      }
+    }
+    if (more) {
+      const int k1 = nkt * kTile, rows = min(kTile, n - k1);
+      load_tile<D, kFwdThreads>(sK + (stage ^ 1) * kEl, kb + k1 * sk.n, sk.n, rows);
+      if (npass2) load_tile<D, kFwdThreads>(sV + (stage ^ 1) * kEl, vb + k1 * sv.n, sv.n, rows);
+    }
+    tc::cp_async_commit();
+
+    const int k0 = kt * kTile;
+    const bf16* cK = sK + stage * kEl;
+    float s[8][4];
+    tc::zero(s);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        tc::ldsm_x4(bf, tc::b_addr(cK, kLd, np * 16, kd * 16, lane));
+        tc::mma16816(s[2 * np], qf[kd], bf[0], bf[1]);
+        tc::mma16816(s[2 * np + 1], qf[kd], bf[2], bf[3]);
+      }
+    if (!all_visible(table, n, q0, k0)) mask_scores(s, table, n, row, k0, t4, sFill + row - q0);
+
+    if (!pass2) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+        const float m_new = fmaxf(m[hr], tc::quad_max(mx));
+        // a row with nothing visible yet keeps (m, l) as they are
+        if (m_new != -INFINITY) {
+          const float corr = expf(m[hr] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum += expf(s[j][2 * hr] - m_new) + expf(s[j][2 * hr + 1] - m_new);
+          l[hr] = l[hr] * corr + sum;
+          m[hr] = m_new;
+        }
+      }
+      if (npass2) {       // pass 1 is done: each row's (m, l)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          l[hr] = tc::quad_sum(l[hr]);
+          const int r = row + 8 * hr;
+          const bool seen = m[hr] != -INFINITY;
+          if (!seen && r < n) {       // a row that sees nothing: p = 1/n at every key
+            l[hr] = static_cast<float>(n);
+            // read again after the next step's barrier; every lane of the
+            // quad has passed this step's reads (the shuffles above)
+            if (t4 == 0) sFill[r - q0] = 0.f;
+          }
+          if (r < n && t4 == 0) {
+            m_out[stat + r] = m[hr];
+            l_out[stat + r] = l[hr];
+          }
+          if (!seen) {
+            m[hr] = 0.f;
+            if (r >= n) l[hr] = 1.f;  // a row past n
+          }
+        }
+      }
+    } else {
+      // p = exp(s - m) / l in f32 with the final (m, l); dot_pv rounds it
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
+      tc::dot_pv<D, 8>(acc, s, sV + stage * kEl, 0, lane);
+    }
+    if (!more) break;
+    kt = nkt;
+    pass2 = npass2;
   }
-  __syncthreads();
-  stage_strip<D, NF>(sO, acc, warp, 1.f);
-  __syncthreads();
-  store_rows<OutT, D>(out + ((static_cast<size_t>(bb) * heads + hh) * n + r0) * D, sO,
-                      min(kRows, n - r0));
+  if (out != nullptr) store_rows<OutT, D>(out + stat * D, row, n, acc, 1.f, t4);
 }
 
 // ---------------------------------------------------------------------------
-// backward (a): row statistics, delta and dq; grid (row strips, h, b), 8 warps
+// backward (a): delta and dq; grid (h, b, nt), the last q tiles first; 8 warps
+// (two CTAs an SM: at most 128 registers a thread)
 // ---------------------------------------------------------------------------
 template <typename OutT, int D>
-__global__ void __launch_bounds__(kThreads)
-persist_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout, Strides sq,
-                  Strides sk, Strides sv, Strides sd, const int8_t* __restrict__ table,
-                  float* __restrict__ stats, OutT* __restrict__ dq, int batch, int heads, int n,
-                  float scale) {
-  constexpr int NF = (D / 16 + 3) / 4;
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kBwdThreads, 2)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dout, Strides sq, Strides sk, Strides sv, Strides sd,
+          const int8_t* __restrict__ table, const int8_t* __restrict__ tiles,
+          const int8_t* __restrict__ empty, const float* __restrict__ m_in,
+          const float* __restrict__ l_in, float* __restrict__ delta_out, OutT* __restrict__ dq,
+          int n, int heads, float scale) {
+  constexpr int kLd = D + 8, kEl = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + strip_bytes<D>());
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * strip_bytes<D>());
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * strip_bytes<D>() + tile_bytes<D>());
-  const int ld = score_ld(n);
-  float* sS = reinterpret_cast<float*>(smem + 2 * strip_bytes<D>() + 2 * tile_bytes<D>());
-  float* sT = sS + kRows * ld;                           // (kRows, 64) dp tile
-  bf16* sP = reinterpret_cast<bf16*>(sT + kRows * kLdT);  // (kRows, 64) p16 / ds tile
-  float* sO = reinterpret_cast<float*>(sK);               // staging, between sweeps
-  __shared__ int s_ext;
-  __shared__ float s_m[kRows], s_l[kRows], s_delta[kRows];
+  bf16* sdO = sQ + kEl;
+  bf16* sKV = sdO + kEl;            // two stages of [k, v]
+  float* sDelta = reinterpret_cast<float*>(sKV + 4 * kEl);
+  __shared__ float sFill[kTile];    // each row's hidden score
 
-  const int r0 = blockIdx.x * kRows, hh = blockIdx.y, bb = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = min(kRows, n - r0);
+  const int nt = gridDim.z;
+  const int qt = nt - 1 - blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
   const bf16* kb = k + bb * sk.b + hh * sk.h;
   const bf16* vb = v + bb * sv.b + hh * sv.h;
+  const int q0 = qt * kTile;
+  const int last = tiles == nullptr ? qt : nt - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;   // rows, key columns
+  const int row = q0 + wr + (lane >> 2);
+  const size_t stat = (static_cast<size_t>(bb) * heads + hh) * n;
 
-  load_rows<D>(sQ, q + bb * sq.b + hh * sq.h + r0 * sq.n, sq.n, rows, kRows, true, scale);
-  load_rows<D>(sdO, dout + bb * sd.b + hh * sd.h + r0 * sd.n, sd.n, rows, kRows, false, 0.f);
-  const int ext = strip_extent(table, n, r0, &s_ext);
-  const int nkt = (ext + kTile - 1) / kTile;
-  strip_scores<D>(sS, ld, sQ, sK, kb, sk.n, n, nkt);
+  int kt = next_k(tiles, empty, nt, qt, 0, last);
+  load_tile<D, kBwdThreads>(sQ, q + bb * sq.b + hh * sq.h + q0 * sq.n, sq.n, min(kTile, n - q0));
+  load_tile<D, kBwdThreads>(sdO, dout + bb * sd.b + hh * sd.h + q0 * sd.n, sd.n,
+                            min(kTile, n - q0));
+  load_tile<D, kBwdThreads>(sKV, kb + kt * kTile * sk.n, sk.n, min(kTile, n - kt * kTile));
+  load_tile<D, kBwdThreads>(sKV + kEl, vb + kt * kTile * sv.n, sv.n, min(kTile, n - kt * kTile));
+  tc::cp_async_commit();
 
-  // p in f32, in place of the scores
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int i = r0 + r;
-    float* srow = sS + r * ld;
-    const float2 ml = i < n ? row_stats(srow, table, n, i, ext) : make_float2(0.f, 1.f);
-    for (int c = lane; c < nkt * kTile; c += 32) {
-      float p = 0.f;
-      if (i < n && c < ext) p = prob(srow[c], ml.x, ml.y, visible(table, n, i, c), c, n);
-      srow[c] = p;
-    }
-    if (lane == 0) {
-      s_m[r] = ml.x;
-      s_l[r] = ml.y;
-    }
-  }
-
-  // sweep 1: o = p16 . v in f32, then delta = rowsum(o * dO)
-  FragC acc[NF];
+  float m[2], l[2], delta[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();
-    load_rows<D>(sV, vb + static_cast<long long>(kt) * kTile * sv.n, sv.n, n - kt * kTile, kTile,
-                 false, 0.f);
-    for (int idx = threadIdx.x; idx < kRows * kTile; idx += kThreads) {
-      const int r = idx / kTile, c = idx - r * kTile;
-      sP[r * kLdP + c] = __float2bfloat16(sS[r * ld + kt * kTile + c]);
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    m[hr] = r < n ? m_in[stat + r] : 0.f;
+    l[hr] = r < n ? l_in[stat + r] : 1.f;
+    const bool blind = m[hr] == -INFINITY;   // a row that sees nothing (l = n): p = 1/n
+    if (blind) m[hr] = 0.f;
+    if (warp < 4 && t4 == 0) sFill[r - q0] = blind ? 0.f : -INFINITY;   // read after a barrier
+  }
+  float acc[D / 8][4];              // sweep 1: o; sweep 2: dq
+  tc::zero(acc);
+  bool sweep2 = false;
+  for (int step = 0;; ++step) {
+    const int stage = step & 1;
+    int nkt = next_k(tiles, empty, nt, qt, kt + 1, last);
+    bool nsweep2 = sweep2;
+    if (nkt > last && !sweep2) {
+      nsweep2 = true;
+      nkt = next_k(tiles, empty, nt, qt, 0, last);
     }
+    const bool more = nkt <= last;
+    tc::cp_async_wait<0>();
     __syncthreads();
-    warp_pv<D, NF>(acc, sP, kLdP, 16 * (warp & 1), 0, sV, warp >> 1);
-  }
-  __syncthreads();
-  stage_strip<D, NF>(sO, acc, warp, 1.f);
-  __syncthreads();
-  for (int r = warp; r < kRows; r += kWarps) {
-    float delta = 0.f;
-    for (int c = lane; c < D; c += 32)
-      delta += sO[r * ld_out<D>() + c] * __bfloat162float(sdO[r * ld_op<D>() + c]);
-    delta = warp_sum(delta);
-    if (lane == 0) s_delta[r] = delta;
-  }
+    if (step == 0) {      // qs = bf16(f32(q) * scale), in place
+      for (int idx = threadIdx.x; idx < kTile * D / 8; idx += kBwdThreads) {
+        uint4* p = reinterpret_cast<uint4*>(sQ + (idx / (D / 8)) * kLd + (idx % (D / 8)) * 8);
+        uint4 x = *p;
+        x.x = tc::scale_bf16x2(x.x, scale);
+        x.y = tc::scale_bf16x2(x.y, scale);
+        x.z = tc::scale_bf16x2(x.z, scale);
+        x.w = tc::scale_bf16x2(x.w, scale);
+        *p = x;
+      }
+      __syncthreads();
+    }
+    if (more) {
+      const int k1 = nkt * kTile, rows = min(kTile, n - k1);
+      bf16* next = sKV + (stage ^ 1) * 2 * kEl;
+      load_tile<D, kBwdThreads>(next, kb + k1 * sk.n, sk.n, rows);
+      load_tile<D, kBwdThreads>(next + kEl, vb + k1 * sv.n, sv.n, rows);
+    }
+    tc::cp_async_commit();
 
-  // sweep 2: dp = dO . v^T, ds = bf16(p * (dp - delta)), dq += ds . k
+    const int k0 = kt * kTile;
+    bf16* cK = sKV + stage * 2 * kEl;
+    const bf16* cV = cK + kEl;
+    float s[4][4];
+    tc::zero(s);
+    tc::dot_nt<D, 4>(s, sQ, wr, cK, wc, lane);
+    if (!all_visible(table, n, q0, k0))
+      mask_scores(s, table, n, row, k0 + wc, t4, sFill + row - q0);
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();
-    const long long off = static_cast<long long>(kt) * kTile;
-    load_rows<D>(sK, kb + off * sk.n, sk.n, n - kt * kTile, kTile, false, 0.f);
-    load_rows<D>(sV, vb + off * sv.n, sv.n, n - kt * kTile, kTile, false, 0.f);
-    __syncthreads();
-    warp_abt<D>(sT, kLdT, sdO, sV, 16 * (warp & 1), 16 * (warp >> 1), 16 * (warp >> 1));
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kRows * kTile; idx += kThreads) {
-      const int r = idx / kTile, c = idx - r * kTile;
-      const float p = sS[r * ld + kt * kTile + c];
-      sP[r * kLdP + c] = __float2bfloat16(p * (sT[r * kLdT + c] - s_delta[r]));
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];   // p
+
+    if (!sweep2) {
+      tc::dot_pv<D, 4>(acc, s, cV, wc, lane);      // o += p16 . v
+      if (nsweep2) {
+        // sweep 1 is done. This stage's k and v are read by every warp:
+        // they hold the sum of o's two halves
+        __syncthreads();
+        tc::reduce_halves<D>(acc, reinterpret_cast<float*>(cK), warp, lane);
+        if (warp < 4) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = wr + (lane >> 2) + 8 * hr;
+            float d = 0.f;
+#pragma unroll
+            for (int dn = 0; dn < D / 8; ++dn) {
+              const float2 f = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(sdO + r * kLd + dn * 8 + 2 * t4));
+              d += acc[dn][2 * hr] * f.x + acc[dn][2 * hr + 1] * f.y;
+            }
+            d = tc::quad_sum(d);
+            if (t4 == 0) {
+              sDelta[r] = d;
+              if (q0 + r < n) delta_out[stat + q0 + r] = d;
+            }
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) delta[hr] = sDelta[wr + (lane >> 2) + 8 * hr];
+        tc::zero(acc);
+      }
+    } else {
+      float dp[4][4];
+      tc::zero(dp);
+      tc::dot_nt<D, 4>(dp, sdO, wr, cV, wc, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - delta[e >> 1];   // dS
+      tc::dot_pv<D, 4>(acc, s, cK, wc, lane);      // dq += bf16(dS) . k
     }
-    __syncthreads();
-    warp_pv<D, NF>(acc, sP, kLdP, 16 * (warp & 1), 0, sK, warp >> 1);
+    if (!more) break;
+    kt = nkt;
+    sweep2 = nsweep2;
   }
-  __syncthreads();
-  stage_strip<D, NF>(sO, acc, warp, scale);
-  __syncthreads();
-  const size_t row0 = (static_cast<size_t>(bb) * heads + hh) * n + r0;
-  store_rows<OutT, D>(dq + row0 * D, sO, rows);
-  const size_t plane = static_cast<size_t>(batch) * heads * n;
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
-    stats[row0 + r] = s_m[r];
-    stats[plane + row0 + r] = s_l[r];
-    stats[2 * plane + row0 + r] = s_delta[r];
-  }
+  __syncthreads();                  // the ring is free: it holds the sum of the halves
+  tc::reduce_halves<D>(acc, reinterpret_cast<float*>(sKV), warp, lane);
+  if (warp < 4) store_rows<OutT, D>(dq + stat * D, row, n, acc, scale, t4);
 }
 
 // ---------------------------------------------------------------------------
-// backward (b): dk and dv; grid (64-column strips, h, b), 8 warps
+// backward (b): dk and dv; grid (h, b, nt) over k tiles, the first k tiles
+// first (under causality they meet the most q tiles); 8 warps, each 16 key
+// rows of the resident tile against half of each streamed q tile
+// (at d <= 64, two CTAs an SM: at most 128 registers a thread)
 // ---------------------------------------------------------------------------
 template <typename OutT, int D>
-__global__ void __launch_bounds__(kThreads)
-persist_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout, Strides sq,
-                   Strides sk, Strides sv, Strides sd, const int8_t* __restrict__ table,
-                   const float* __restrict__ stats, OutT* __restrict__ dk,
-                   OutT* __restrict__ dv, int batch, int heads, int n, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kBwdThreads, D <= 64 ? 2 : 1)
+dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const bf16* __restrict__ dout, Strides sq, Strides sk, Strides sv, Strides sd,
+           const int8_t* __restrict__ table, const int8_t* __restrict__ tiles,
+           const int8_t* __restrict__ empty, const float* __restrict__ m_in,
+           const float* __restrict__ l_in, const float* __restrict__ delta_in,
+           OutT* __restrict__ dk_out, OutT* __restrict__ dv_out, int n, int heads, float scale) {
+  constexpr int kEl = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + tile_bytes<D>());
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * tile_bytes<D>());
-  bf16* sQs = reinterpret_cast<bf16*>(smem + 3 * tile_bytes<D>());
-  bf16* sdO = reinterpret_cast<bf16*>(smem + 4 * tile_bytes<D>());
-  float* sSt = reinterpret_cast<float*>(smem + 5 * tile_bytes<D>());
-  float* sdPt = sSt + kTile * kLdT;
-  bf16* sPt = reinterpret_cast<bf16*>(sdPt + kTile * kLdT);
-  bf16* sdSt = sPt + kTile * kLdP;
-  float* sM = reinterpret_cast<float*>(sdSt + kTile * kLdP);
-  float* sL = sM + kTile;
-  float* sD = sL + kTile;
-  float* sOut = reinterpret_cast<float*>(sQ);  // dv then dk, (64, D + 4) each
+  bf16* sV = sK + kEl;
+  bf16* sQD = sV + kEl;             // two stages of [q, dO]
+  float* sStat = reinterpret_cast<float*>(sQD + 4 * kEl);   // two stages of [m, l, delta]
 
-  const int kt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
-  const int nt = (n + kTile - 1) / kTile;
-  const int c0 = kt * kTile;
-  const int krows = min(kTile, n - c0);
-  const int warp = threadIdx.x >> 5;
-  const int rb = warp & 3;       // this warp's 16 key rows
-  const bool is_dk = warp >= 4;  // warps 0-3 accumulate dv, 4-7 dk
-  const size_t stat0 = (static_cast<size_t>(bb) * heads + hh) * n;
-  const size_t plane = static_cast<size_t>(batch) * heads * n;
+  const int nt = gridDim.z;
+  const int kt = blockIdx.z, hh = blockIdx.x, bb = blockIdx.y;
   const bf16* qb = q + bb * sq.b + hh * sq.h;
   const bf16* db = dout + bb * sd.b + hh * sd.h;
+  const int k0 = kt * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;   // key rows, query columns
+  const int key = k0 + wr + (lane >> 2);                   // this lane's keys: key, key + 8
+  const size_t stat = (static_cast<size_t>(bb) * heads + hh) * n;
 
-  load_rows<D>(sK, k + bb * sk.b + hh * sk.h + c0 * sk.n, sk.n, krows, kTile, false, 0.f);
-  load_rows<D>(sV, v + bb * sv.b + hh * sv.h + c0 * sv.n, sv.n, krows, kTile, false, 0.f);
+  // without a table the q tiles from the diagonal on; with one, any q tile
+  int qt = next_q(tiles, empty, nt, kt, tiles == nullptr ? kt : 0);
+  load_tile<D, kBwdThreads>(sK, k + bb * sk.b + hh * sk.h + k0 * sk.n, sk.n, min(kTile, n - k0));
+  load_tile<D, kBwdThreads>(sV, v + bb * sv.b + hh * sv.h + k0 * sv.n, sv.n, min(kTile, n - k0));
+  if (qt < nt) {
+    const int rows = min(kTile, n - qt * kTile);
+    load_tile<D, kBwdThreads>(sQD, qb + qt * kTile * sq.n, sq.n, rows);
+    load_tile<D, kBwdThreads>(sQD + kEl, db + qt * kTile * sd.n, sd.n, rows);
+    load_stats(sStat, m_in + stat, l_in + stat, delta_in + stat, qt * kTile, n);
+  }
+  tc::cp_async_commit();
 
-  FragC acc[D / 16];
+  float dk[D / 8][4], dv[D / 8][4];
+  tc::zero(dk);
+  tc::zero(dv);
+  // no q tile sees these keys: their gradients stay 0
+  for (int step = 0; qt < nt; ++step) {
+    const int stage = step & 1;
+    const int nqt = next_q(tiles, empty, nt, kt, qt + 1);
+    const bool more = nqt < nt;
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (more) {
+      const int r1 = nqt * kTile, rows = min(kTile, n - r1);
+      bf16* next = sQD + (stage ^ 1) * 2 * kEl;
+      load_tile<D, kBwdThreads>(next, qb + r1 * sq.n, sq.n, rows);
+      load_tile<D, kBwdThreads>(next + kEl, db + r1 * sd.n, sd.n, rows);
+      load_stats(sStat + (stage ^ 1) * 3 * kTile, m_in + stat, l_in + stat, delta_in + stat,
+                 r1, n);
+    }
+    tc::cp_async_commit();
+
+    const int q0 = qt * kTile;
+    const bf16* cQ = sQD + stage * 2 * kEl;
+    const bf16* cdO = cQ + kEl;
+    const float* cSt = sStat + stage * 3 * kTile;
+    float s[4][4], dp[4][4];
+    tc::zero(s);
+    tc::zero(dp);
+    tc::dot_nt<D, 4, true>(s, sK, wr, cQ, wc, lane, scale);   // s^T = k . qs^T
+    tc::dot_nt<D, 4>(dp, sV, wr, cdO, wc, lane);              // dp^T = v . dO^T
+    const bool all = all_visible(table, n, q0, k0);
 #pragma unroll
-  for (int f = 0; f < D / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-  for (int qt = table == nullptr ? kt : 0; qt < nt; ++qt) {
-    const int r0 = qt * kTile;
-    const int qrows = min(kTile, n - r0);
-    if (table != nullptr) {
-      // a query tile matters if one of its rows sees one of these columns,
-      // or sees nothing at all (then it sees every column at 1/n)
-      bool used = false;
-      for (int idx = threadIdx.x; idx < qrows * kTile && !used; idx += kThreads) {
-        const int r = idx / kTile, c = idx - r * kTile;
-        used = (c < krows && table[static_cast<size_t>(r0 + r) * n + c0 + c] != 0) ||
-               (c == 0 && stats[stat0 + r0 + r] == -INFINITY);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = wc + 8 * j + 2 * t4 + c;
+        const float mq = cSt[col], lq = cSt[kTile + col], dq = cSt[2 * kTile + col];
+        // a query that sees nothing (m = -inf, l = n): p = 1/n at every key below n
+        const bool blind = mq == -INFINITY;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int e = 2 * hr + c;
+          const bool vis = all || visible(table, n, q0 + col, key + 8 * hr);
+          const float p = vis ? expf(s[j][e] - mq) / lq
+                              : (blind && key + 8 * hr < n ? 1.f / lq : 0.f);
+          s[j][e] = p;                               // P^T
+          dp[j][e] = p * (dp[j][e] - dq);            // dS^T
+        }
       }
-      if (!__syncthreads_or(used)) continue;
-    }
-    __syncthreads();
-    const bf16* qsrc = qb + r0 * sq.n;
-    load_rows<D>(sQ, qsrc, sq.n, qrows, kTile, false, 0.f);
-    load_rows<D>(sQs, qsrc, sq.n, qrows, kTile, true, scale);
-    load_rows<D>(sdO, db + r0 * sd.n, sd.n, qrows, kTile, false, 0.f);
-    if (threadIdx.x < kTile) {
-      const int r = threadIdx.x;
-      const bool in = r < qrows;
-      sM[r] = in ? stats[stat0 + r0 + r] : 0.f;
-      sL[r] = in ? stats[plane + stat0 + r0 + r] : 1.f;
-      sD[r] = in ? stats[2 * plane + stat0 + r0 + r] : 0.f;
-    }
-    __syncthreads();
-    // s^T (keys x queries) and dp^T: each warp 16 key rows x 32 query columns
-    for (int cc = 0; cc < 2; ++cc) {
-      const int col = 32 * (warp >> 2) + 16 * cc;
-      warp_abt<D>(sSt, kLdT, sK, sQs, 16 * rb, col, col);
-      warp_abt<D>(sdPt, kLdT, sV, sdO, 16 * rb, col, col);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTile * kTile; idx += kThreads) {
-      const int r = idx >> 6, c = idx & (kTile - 1);
-      const int i = r0 + c, j = c0 + r;
-      float p = 0.f;
-      if (i < n && j < n) p = prob(sSt[r * kLdT + c], sM[c], sL[c], visible(table, n, i, j), j, n);
-      sPt[r * kLdP + c] = __float2bfloat16(p);
-      sdSt[r * kLdP + c] = __float2bfloat16(p * (sdPt[r * kLdT + c] - sD[c]));
-    }
-    __syncthreads();
-    // dk += ds^T . q, dv += p16^T . dO
-    const bf16* A = is_dk ? sdSt : sPt;
-    const bf16* B = is_dk ? sQ : sdO;
-#pragma unroll
-    for (int kk = 0; kk < kTile; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, A + 16 * rb * kLdP + kk, kLdP);
-#pragma unroll
-      for (int f = 0; f < D / 16; ++f) {
-        FragBRow b;
-        wmma::load_matrix_sync(b, B + kk * ld_op<D>() + 16 * f, ld_op<D>());
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
+    tc::dot_pv<D, 4>(dv, s, cdO, wc, lane);    // dv += bf16(P^T) . dO
+    tc::dot_pv<D, 4>(dk, dp, cQ, wc, lane);    // dk += bf16(dS^T) . q, unscaled
+    if (!more) break;
+    qt = nqt;
   }
-  __syncthreads();
-  float* dst = sOut + (is_dk ? kTile * ld_out<D>() : 0);
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) {
-    if (is_dk) {
-      for (int t = 0; t < acc[f].num_elements; ++t) acc[f].x[t] *= scale;
-    }
-    wmma::store_matrix_sync(dst + 16 * rb * ld_out<D>() + 16 * f, acc[f], ld_out<D>(),
-                            wmma::mem_row_major);
+  tc::cp_async_wait<0>();
+  __syncthreads();                  // the ring is free: it holds the sums of the halves
+  float* red = reinterpret_cast<float*>(sQD);
+  tc::reduce_halves<D>(dk, red, warp, lane);
+  tc::reduce_halves<D>(dv, red + kTile * D, warp, lane);
+  if (warp < 4) {
+    store_rows<OutT, D>(dk_out + stat * D, key, n, dk, scale, t4);
+    store_rows<OutT, D>(dv_out + stat * D, key, n, dv, 1.f, t4);
   }
-  __syncthreads();
-  const size_t row0 = stat0 + c0;
-  store_rows<OutT, D>(dv + row0 * D, sOut, krows);
-  store_rows<OutT, D>(dk + row0 * D, sOut + kTile * ld_out<D>(), krows);
 }
 
 template <typename Kern>
@@ -573,41 +598,45 @@ cudaError_t set_smem(Kern kernel, int bytes) {
 
 template <typename OutT, int D>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, const long long* st,
-               const int8_t* table, void* out, int b, int h, int n, float scale,
-               cudaStream_t stream) {
-  auto kernel = persist_fwd_kernel<OutT, D>;
-  const int smem = fwd_smem<D>(n);
-  cudaError_t err = set_smem(kernel, smem);
+               const int8_t* table, const int8_t* tiles, const int8_t* empty, void* out,
+               float* m, float* l, int b, int h, int n, float scale, cudaStream_t stream) {
+  auto kernel = fwd_kernel<OutT, D>;
+  constexpr int kSmem = fwd_smem<D>();
+  cudaError_t err = set_smem(kernel, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows, h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, Strides{st[0], st[1], st[2]},
-                                           Strides{st[3], st[4], st[5]},
-                                           Strides{st[6], st[7], st[8]}, table,
-                                           static_cast<OutT*>(out), h, n, scale);
+  // the tile index slowest, so that every (head, batch row) starts its
+  // heaviest tiles first
+  const dim3 grid(h, b, (n + kTile - 1) / kTile);
+  kernel<<<grid, kFwdThreads, kSmem, stream>>>(
+      q, k, v, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, table, tiles, empty, static_cast<OutT*>(out), m, l, n, h,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT, int D>
 int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-               const long long* st, const int8_t* table, float* stats, void* dq, void* dk,
-               void* dv, int b, int h, int n, float scale, cudaStream_t stream) {
-  auto dq_kernel = persist_dq_kernel<OutT, D>;
-  auto dkv_kernel = persist_dkv_kernel<OutT, D>;
-  const int smem_dq = dq_smem<D>(n);
+               const long long* st, const int8_t* table, const int8_t* tiles,
+               const int8_t* empty, const float* m, const float* l, float* delta, void* dq,
+               void* dk, void* dv, int b, int h, int n, float scale, cudaStream_t stream) {
+  auto dq_k = dq_kernel<OutT, D>;
+  auto dkv_k = dkv_kernel<OutT, D>;
+  constexpr int kSmemDq = dq_smem<D>();
   constexpr int kSmemDkv = dkv_smem<D>();
-  cudaError_t err = set_smem(dq_kernel, smem_dq);
+  cudaError_t err = set_smem(dq_k, kSmemDq);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = set_smem(dkv_kernel, kSmemDkv);
+  err = set_smem(dkv_k, kSmemDkv);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       sd{st[9], st[10], st[11]};
-  dq_kernel<<<dim3((n + kRows - 1) / kRows, h, b), kThreads, smem_dq, stream>>>(
-      q, k, v, dout, sq, sk, sv, sd, table, stats, static_cast<OutT*>(dq), b, h, n, scale);
+  const dim3 grid(h, b, (n + kTile - 1) / kTile);
+  dq_k<<<grid, kBwdThreads, kSmemDq, stream>>>(q, k, v, dout, sq, sk, sv, sd, table, tiles, empty,
+                                               m, l, delta, static_cast<OutT*>(dq), n, h, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_kernel<<<dim3((n + kTile - 1) / kTile, h, b), kThreads, kSmemDkv, stream>>>(
-      q, k, v, dout, sq, sk, sv, sd, table, stats, static_cast<OutT*>(dk),
-      static_cast<OutT*>(dv), b, h, n, scale);
+  dkv_k<<<grid, kBwdThreads, kSmemDkv, stream>>>(q, k, v, dout, sq, sk, sv, sd, table, tiles,
+                                                 empty, m, l, delta, static_cast<OutT*>(dk),
+                                                 static_cast<OutT*>(dv), n, h, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -624,65 +653,51 @@ int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
-template <int D> long long smem_of(int n) {
-  const long long a = fwd_smem<D>(n), b = dq_smem<D>(n), c = dkv_smem<D>();
-  return a > b ? (a > c ? a : c) : (b > c ? b : c);
-}
-
 }  // namespace
 
 // Forward. q, k, v bf16 (b, h, n, d) with `strides` = 3 (b, h, n) element
 // strides per operand, in that order; out (b, h, n, d) contiguous of
-// `out_dtype` (0 f32, 1 bf16). `table` (n, n) int8 may be null (plain
-// causal). Returns a CUDA error code, 0 when the launch was accepted.
+// `out_dtype` (0 f32, 1 bf16), or null for the row statistics alone; m, l
+// f32 (b, h, n). `table` (n, n) and `tiles` (nt, nt) int8 are both null
+// (plain causal) or both set; `empty` (nt,) int8 may be null (no row of the
+// table sees nothing). Returns a CUDA error code, 0 when the launch was
+// accepted.
 extern "C" int persist_fwd(const void* q, const void* k, const void* v, const long long* strides,
-                           const int8_t* table, void* out, int out_dtype, int b, int h, int n,
+                           const int8_t* table, const int8_t* tiles, const int8_t* empty,
+                           void* out, float* m, float* l, int out_dtype, int b, int h, int n,
                            int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k),
              *vv = static_cast<const bf16*>(v);
   if (out_dtype == kF32) {
-    PA_DISPATCH_D(launch_fwd, float, qq, kk, vv, strides, table, out, b, h, n, scale, s)
+    PA_DISPATCH_D(launch_fwd, float, qq, kk, vv, strides, table, tiles, empty, out, m, l, b, h,
+                  n, scale, s)
   }
   if (out_dtype == kBF16) {
-    PA_DISPATCH_D(launch_fwd, bf16, qq, kk, vv, strides, table, out, b, h, n, scale, s)
+    PA_DISPATCH_D(launch_fwd, bf16, qq, kk, vv, strides, table, tiles, empty, out, m, l, b, h,
+                  n, scale, s)
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Backward: two kernels on `stream`, dq (which writes each row's m, l and
-// delta into `stats`, f32 (3, b, h, n) scratch) then dk/dv. q, k, v, dO bf16
-// with 4 x 3 strides; dq, dk, dv (b, h, n, d) contiguous of `out_dtype`.
+// Backward: two kernels on `stream`, dq (which writes delta, f32 (b, h, n)
+// scratch) then dk/dv. q, k, v, dO bf16 with 4 x 3 strides; m, l from the
+// forward; dq, dk, dv (b, h, n, d) contiguous of `out_dtype`.
 extern "C" int persist_bwd(const void* q, const void* k, const void* v, const void* dout,
-                           const long long* strides, const int8_t* table, float* stats, void* dq,
-                           void* dk, void* dv, int out_dtype, int b, int h, int n, int d,
+                           const long long* strides, const int8_t* table, const int8_t* tiles,
+                           const int8_t* empty, const float* m, const float* l, float* delta,
+                           void* dq, void* dk, void* dv, int out_dtype, int b, int h, int n, int d,
                            float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k),
              *vv = static_cast<const bf16*>(v), *oo = static_cast<const bf16*>(dout);
   if (out_dtype == kF32) {
-    PA_DISPATCH_D(launch_bwd, float, qq, kk, vv, oo, strides, table, stats, dq, dk, dv, b, h, n,
-                  scale, s)
+    PA_DISPATCH_D(launch_bwd, float, qq, kk, vv, oo, strides, table, tiles, empty, m, l, delta,
+                  dq, dk, dv, b, h, n, scale, s)
   }
   if (out_dtype == kBF16) {
-    PA_DISPATCH_D(launch_bwd, bf16, qq, kk, vv, oo, strides, table, stats, dq, dk, dv, b, h, n,
-                  scale, s)
+    PA_DISPATCH_D(launch_bwd, bf16, qq, kk, vv, oo, strides, table, tiles, empty, m, l, delta,
+                  dq, dk, dv, b, h, n, scale, s)
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The most dynamic shared memory any of the three kernels takes at (n, d);
-// 0 for a d the kernels are not built for.
-extern "C" long long persist_smem_bytes(int n, int d) {
-  switch (d) {
-    case 16: return smem_of<16>(n);
-    case 32: return smem_of<32>(n);
-    case 48: return smem_of<48>(n);
-    case 64: return smem_of<64>(n);
-    case 80: return smem_of<80>(n);
-    case 96: return smem_of<96>(n);
-    case 112: return smem_of<112>(n);
-    case 128: return smem_of<128>(n);
-    default: return 0;
-  }
 }

@@ -162,7 +162,7 @@ class Attention(nn.Module):
                                  mask_spec=ring_spec if static_mask is not None else None)
             return self._merge(out.to(x.dtype))
         if persist and key_mask is None and self.causal and not self.stable:
-            out = persistent_attention(q, k, v, None if table is None else table.table)
+            out = persistent_attention(q, k, v, table)
             return self._merge(out.to(x.dtype))
         if flash is not None and key_mask is None:
             out = flash_attention(q, k, v, causal=self.causal, schedule=flash)

@@ -2,6 +2,8 @@
 CPU: no ``nvcc`` is needed to name a library. A source is rebuilt when it or
 a local header it includes changes, and only then."""
 
+import pytest
+
 from dalle_tpu_torch.ops import _build
 
 
@@ -33,38 +35,23 @@ def test_target_covers_the_local_headers_a_source_includes(tmp_path, monkeypatch
     assert targets() == third
 
 
-def test_fused_attention_is_rebuilt_when_the_tile_header_changes(tmp_path, monkeypatch):
-    """K1's source includes the tensor-core tile helpers: an edit of
-    ``tc_tile.cuh`` alone renames (so rebuilds) its library."""
+@pytest.mark.parametrize("source", ["fused_attention", "chunk_attention",
+                                    "persistent_attention"])
+def test_tensor_core_kernels_are_rebuilt_when_the_tile_header_changes(tmp_path, monkeypatch,
+                                                                       source):
+    """K1's, K6's and K8's sources include the tensor-core tile helpers: an
+    edit of ``tc_tile.cuh`` alone renames (so rebuilds) their library."""
     real = _build.CSRC
-    assert [p.name for p in _build._sources(real / "fused_attention.cu")] == [
-        "fused_attention.cu", "tc_tile.cuh"]
+    names = [f"{source}.cu", "tc_tile.cuh"]
+    assert [p.name for p in _build._sources(real / names[0])] == names
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in ("fused_attention.cu", "tc_tile.cuh"):
+    for name in names:
         (csrc / name).write_text((real / name).read_text())
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    first = _build._target(csrc / "fused_attention.cu")
-    assert _build._target(csrc / "fused_attention.cu") == first
+    first = _build._target(csrc / names[0])
+    assert _build._target(csrc / names[0]) == first
     header = csrc / "tc_tile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    assert _build._target(csrc / "fused_attention.cu") != first
-
-
-def test_chunk_attention_is_rebuilt_when_the_tile_header_changes(tmp_path, monkeypatch):
-    """K6's source includes the tensor-core tile helpers for its bf16 route:
-    an edit of ``tc_tile.cuh`` alone renames (so rebuilds) its library."""
-    real = _build.CSRC
-    assert [p.name for p in _build._sources(real / "chunk_attention.cu")] == [
-        "chunk_attention.cu", "tc_tile.cuh"]
-    csrc = tmp_path / "csrc"
-    csrc.mkdir()
-    for name in ("chunk_attention.cu", "tc_tile.cuh"):
-        (csrc / name).write_text((real / name).read_text())
-    monkeypatch.setattr(_build, "CSRC", csrc)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    first = _build._target(csrc / "chunk_attention.cu")
-    header = csrc / "tc_tile.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    assert _build._target(csrc / "chunk_attention.cu") != first
+    assert _build._target(csrc / names[0]) != first

@@ -28,7 +28,9 @@ dS, from ``rounding_bound``) and ``lse_tolerance``. The windowed kernels
 a peaked softmax included, and K5 must equal K3 on the gathered slab bit
 for bit. The whole-sequence kernels (K8: forward, and the backward's
 dq and dk/dv kernels) are held to their plain versions within
-``fused_attention.kernel_tolerance`` (the same arithmetic as K1), and the
+``fused_attention.kernel_tolerance`` (the same arithmetic as K1), a peaked
+softmax within ``fused_attention.flip_tolerance`` over K8's
+``rounding_bound``, and the
 chunked decode kernel (K7) to its plain version within
 ``decode_attention.chunked_tolerance``. The chunk kernels (K6: forward, dq,
 dk/dv of one ring pair) are held to their plain versions within
@@ -583,36 +585,69 @@ def _k8_case(b, h, n, d, dtype, seed):
     return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for _ in range(4)]
 
 
+# the training shape, ragged ones, the widest n persistent_fits admits at
+# d = 64, and n = 2,048 at d = 128 (beyond it: shared memory does not grow
+# with n)
 @pytest.mark.parametrize("shape", [(8, 14, 512, 128), (3, 6, 77, 64), (2, 4, 513, 64),
-                                   (2, 2, 20, 16), (1, 3, 130, 48), (1, 2, 800, 64)])
+                                   (2, 2, 20, 16), (1, 3, 130, 48), (1, 2, 800, 64),
+                                   (1, 4, 2048, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_persist_kernels_match_plain(dtype, shape):
+    """The backward from the forward's (m, l), as the training step runs it,
+    gives the bits of the backward that computes them itself."""
     b, h, n, d = shape
     q, k, v, do = _k8_case(b, h, n, d, dtype, seed=n + d)
     before = pa.fwd_launches, pa.bwd_launches
-    out = pa.persist_fwd(q, k, v)
+    out, stats = pa.persist_fwd(q, k, v, return_stats=True)
     grads = pa.persist_bwd(q, k, v, do)
-    assert (pa.fwd_launches, pa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    again = pa.persist_bwd(q, k, v, do, stats=stats)
+    assert (pa.fwd_launches, pa.bwd_launches) == (before[0] + 1, before[1] + 2)
     want = (pa.persist_fwd_plain(q, k, v),) + pa.persist_bwd_plain(q, k, v, do)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
     for got, ref in zip((out,) + grads, want):
         assert got.dtype == dtype and got.shape == q.shape
         _assert_k1_close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_persist_kernels_match_plain_on_a_peaked_softmax(dtype):
+    """q scaled ×8 at the training shape, as K1's peaked case: p near 1,
+    where one flipped bf16 rounding costs more than ``kernel_tolerance``
+    allows, so o, dq, dk, dv are held to ``fa.flip_tolerance`` over K8's
+    ``rounding_bound``."""
+    q, k, v, do = _k8_case(8, 14, 512, 128, dtype, seed=21)
+    q = q * 8
+    got = (pa.persist_fwd(q, k, v),) + pa.persist_bwd(q, k, v, do)
+    want = (pa.persist_fwd_plain(q, k, v),) + pa.persist_bwd_plain(q, k, v, do)
+    bounds = pa.rounding_bound(q, k, v, do)
+    torch.cuda.synchronize()
+    for g, w, bound in zip(got, want, bounds):
+        diff = (g.float() - w.float()).abs()
+        share = (diff / fa.flip_tolerance(w, bound)).max().item()
+        assert share <= 1.0, (share, diff.max().item())
 
 
 @pytest.mark.parametrize("kind", ["axial_row", "conv_like", "holes"])
 @pytest.mark.parametrize("n", [320, 77])
 def test_persist_kernels_with_tables_match_plain(n, kind):
     """K1's tables, and one whose row 5 sees nothing (softmax 1/n over all
-    keys, as the TPU kernel's -1e9 fill gives)."""
+    keys, as the TPU kernel's -1e9 fill gives). A layer's ``MaskTable``
+    (the transformer's, with its tile map) gives the bits of its raw table
+    (whose map and empty-row flags the wrapper builds)."""
     q, k, v, do = _k8_case(2, 4, n, 64, torch.bfloat16, seed=5)
     if kind == "holes":
         tbl = torch.ones(n, n, dtype=torch.int8, device="cuda").tril()
         tbl[5] = 0
     else:
-        tbl = fa.layer_table(kind, n, device="cuda").table
+        masked = fa.layer_table(kind, n, device="cuda")
+        tbl = masked.table
     got = (pa.persist_fwd(q, k, v, tbl),) + pa.persist_bwd(q, k, v, do, tbl)
     want = (pa.persist_fwd_plain(q, k, v, tbl),) + pa.persist_bwd_plain(q, k, v, do, tbl)
+    if kind != "holes":
+        out, stats = pa.persist_fwd(q, k, v, masked, return_stats=True)
+        same = (out,) + pa.persist_bwd(q, k, v, do, masked, stats=stats)
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         _assert_k1_close(g, w)
@@ -638,9 +673,10 @@ def test_persist_wrapper_raises_instead_of_falling_back():
         pa.persist_fwd(q, k, v[:, :, :32])                          # shape mismatch
     with pytest.raises(ValueError):
         pa.persist_fwd(q[..., :24], k[..., :24], v[..., :24])       # d not a multiple of 16
-    with pytest.raises(ValueError):
-        big = torch.zeros(1, 1, 2048, 128, device="cuda")
-        pa.persist_fwd(big, big, big)                               # beyond shared memory
+    with pytest.raises(ValueError):                                 # a table of the wrong shape
+        pa.persist_fwd(q, k, v, torch.ones(32, 32, dtype=torch.int8, device="cuda"))
+    with pytest.raises(ValueError):                                 # (m, l) of the wrong shape
+        pa.persist_bwd(q, k, v, q, stats=(q[..., 0].contiguous(), q[:, :1, :, 0].contiguous()))
 
 
 def test_persist_train_step_on_the_card_goes_through_k8_and_matches_the_plain_version():
