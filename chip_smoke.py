@@ -8,13 +8,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. env          card name and power limit (nvidia-smi), torch/CUDA versions,
                 TF32 off for every comparison, the kernels' build (one nvcc
                 per csrc/*.cu, all in parallel) and its time.
-2. kernel       K2 (decode attention) against its plain PyTorch version on
-                the card, per cache dtype, at the serving path's shape
-                (b=8, h=14, d=128, S=512, lengths 1/257/512) and a ragged one
-                (b=3, h=6, d=64, S=300), with and without static-mask rows
-                (axial, conv_like); then its time beside its byte bound, the
-                plain version's and one library call's (SDPA over the
-                dequantized cache, a yardstick the port never calls).
+2. kernel       K2 (decode attention: a cluster of nsplit CTAs per (b, h)
+                over a cp.async ring, decode_plan's split and stages)
+                against its plain PyTorch version on the card, per cache
+                dtype, at the serving path's shape (b=8, h=14, d=128, S=512,
+                lengths 0/1/257/512), a ragged one (b=3, h=6, d=64, S=300),
+                with and without static-mask rows (axial, conv_like), the
+                long-sequence model's cache (b=2, h=8, d=64, S=4352) and
+                S=65536 (b=h=1, d=64) with a holed mask row; length 0 gives
+                0, two runs the same bits, the kernel's shared memory equals
+                decode_plan's; nvcc's registers and spills of K2's and K7's
+                kernels beside K3/K5's. Then its time beside its byte bound,
+                the plain version's, K3's cluster split on the same cache
+                (starts = S - 1) and one library call's (SDPA over the
+                dequantized cache, a yardstick the port never calls, with
+                the kernels it ran).
 3. train_kernel K1 (fused attention, forward and backward; mma.sync tiles,
                 a cp.async ring, a two-pass softmax) against its plain
                 versions on the card: the training shape (b=8, n=512, h=14,
@@ -43,7 +51,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 run; images must be (8, 128, 128, 3) and finite, and K2's
                 launch count must rise by exactly 24·255 per pass (×2 with
                 CFG). Then a profiled window of decode steps gives the
-                device's busy share.
+                device's busy share and K2's device ms per step.
 7. train        the training path: DalleTrainer.train_step on DALL·E-1.4B,
                 batch 8, bf16 compute over f32 masters, Adam (lr 3e-4,
                 clip 0.5), loss_chunk 128, 6 steps on one fixed batch;
@@ -150,15 +158,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 their bounds, the plain versions', SDPA's (with the kernels
                 it ran) and K1's on the same data in its merged (b, n, 3·h·d)
                 layout.
-15. chunked_kernel K7 (chunked long-cache decode attention) against its plain
-                version within decode_attention.chunked_tolerance: the JAX
+15. chunked_kernel K7 (chunked long-cache decode attention, one kernel on K2's
+                cluster split) against its plain version within
+                decode_attention.chunked_tolerance: the JAX
                 package's bench shapes (b=64 h=8 S=1280 d=64, b=16 h=14 S=2560
                 d=128) and the long-sequence model's cache (b=2 h=8 S=4352
                 d=64), f32, bf16 and int8 caches, lengths at 25, 50 and 100 %
-                of S, a mask row, and length 0 (o = 0). Then its time over the
-                whole cache beside its byte bound, K2's on the same inputs, the
-                plain version's and SDPA's on the dequantized cache. No path
-                selects K7 (opt-in in both packages).
+                of S, a mask row, and length 0 (o = 0); two runs the same
+                bits, and one call runs exactly one kernel (profiled). Then
+                its time over the whole cache beside its byte bound, K2's on
+                the same inputs, the plain version's and SDPA's on the
+                dequantized cache (with its kernels). No path selects K7
+                (opt-in in both packages).
 16. persist_parity at full width and depth 2, f32 compute, use_pallas
                 "persist": the loss and every parameter's gradient of one step
                 through K8's kernels equal the same step through its plain
@@ -218,6 +229,7 @@ Then the card line (nvidia-smi), the kernels line, and last
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -270,6 +282,23 @@ def median_ms(fn, iters: int, flush=None) -> float:
     return statistics.median(times)
 
 
+def host_us_per_call(torch, fn, calls: int = 500) -> float:
+    """Median over three runs of the host's µs per call of ``fn`` issued back
+    to back without a synchronise (the launch queue does not fill at this
+    count, so this is the enqueue cost the host pays per call)."""
+    runs = []
+    for _ in range(3):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
 def device_time(torch, prof):
     """(busy µs, {kernel name's first 80 characters: µs}) of a profile. Device time comes from the
     kernel events only (a CPU op's event repeats the time of the kernels it
@@ -314,7 +343,8 @@ def phase_env(torch):
 
 
 def _kernel_cases(torch):
-    """(name, b, h, d, S, lengths, mask rows) for the comparison phase."""
+    """(name, b, h, d, S, lengths, masks) for the comparison phase: a mask is
+    a (rows, S) int32 table whose row min(length, rows) - 1 the query uses."""
     import numpy as np
     from dalle_tpu_torch.ops.attn_masks import build_mask
     text_len, fmap = 257, 16          # DALL·E-1.4B: 256 text + <bos>, 16x16 grid
@@ -322,8 +352,15 @@ def _kernel_cases(torch):
     for t in ("axial_row", "conv_like"):
         masks[t] = torch.from_numpy(
             build_mask(t, text_len, fmap).astype(np.int32)).cuda()
-    return [("main", 8, 14, 128, 512, (1, 257, 512), masks),
-            ("ragged", 3, 6, 64, 300, (1, 150, 300), masks)]
+
+    def holes(S):                      # one row with every fifth position masked
+        return {"none": None, "holes": (torch.arange(S, device="cuda") % 5 != 2).int()[None]}
+    return [("main", 8, 14, 128, 512, (0, 1, 257, 512), masks),
+            ("ragged", 3, 6, 64, 300, (1, 150, 300), masks),
+            # the long-sequence model's cache, and a cache far past one CTA's
+            # shared memory (the split's does not grow with S)
+            ("longseq", 2, 8, 64, 4352, (1, 1467, 4352), holes(4352)),
+            ("S65536", 1, 1, 64, 65536, (1, 21862, 65536), holes(65536))]
 
 
 # the kernel and the plain version compute in f32 from the same inputs; f32
@@ -341,35 +378,74 @@ def _cache(torch, b, h, d, S, dtype, gen):
     return cache.append(k, v, 0)
 
 
-def phase_kernel(torch):
+def k2_build():
+    """nvcc's report (registers, spills) of K2's and K7's kernels and, beside
+    them, of K3/K5's, whose source they must leave unmoved."""
+    return {"decode_split_kernel": ptxas_report("decode_attention", "decode_split_kernel"),
+            "chunked_split_kernel": ptxas_report("decode_chunked_attention",
+                                                 "chunked_split_kernel"),
+            "K3_K5": ptxas_report("decode_window_attention", "window_kernel")}
+
+
+def phase_kernel(torch, card):
     import torch.nn.functional as F
+    from dalle_tpu_torch.ops import _build
     from dalle_tpu_torch.ops import decode_attention as dec
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED)
-    errs = {}
+    smem_fn = _build.library("decode_attention").decode_attend_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 5
+    smem_fn.restype = ctypes.c_longlong
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, plans = {}, {}
+    saved = dec.launches
     for name, b, h, d, S, lengths, masks in _kernel_cases(torch):
         for dt in ("float32", "bfloat16", "int8"):
             dtype = getattr(torch, dt)
             qdt = torch.float32 if dt == "float32" else torch.bfloat16
+            plan = dec.decode_plan(b, h, S, d, dtype, sm_count)
+            lib_smem = smem_fn(dec._DTYPE_CODE[dtype], d, plan.rows, plan.stages, plan.nsplit)
+            check(lib_smem == plan.smem, f"decode_plan's shared memory {plan.smem} != the "
+                                         f"kernel's {lib_smem} ({name}/{dt})")
+            plans[f"{name}/{dt}"] = plan._asdict()
             cache = _cache(torch, b, h, d, S, dtype, gen)
             q = torch.randn(b, h, 1, d, device="cuda", generator=gen).to(qdt)
             for mname, mask in masks.items():
                 for length in lengths:
-                    row = None if mask is None else mask[length - 1]
+                    row = None if mask is None else mask[max(1, min(length, mask.shape[0])) - 1]
                     out = dec.decode_attend(q, cache, length, mask_row=row)
                     ref = dec.decode_attend_plain(q, cache.kv, cache.scale, length,
                                                   mask_row=row)
                     torch.cuda.synchronize()
-                    err = (out.float() - ref.float()).abs().max().item()
                     key = f"{name}/{dt}/{mname}/L{length}"
+                    if length == 0:
+                        check(not out.any(), f"decode_attend {key}: length 0 does not give 0")
+                    err = (out.float() - ref.float()).abs().max().item()
                     errs[key] = err
                     check(err <= TOL[dt], f"decode_attend {key}: max abs err "
                                           f"{err} > {TOL[dt]}")
+            if name == "main":         # two runs, the same bits
+                for length in (1, 300, 512):
+                    again = [dec.decode_attend(q, cache, length) for _ in range(2)]
+                    torch.cuda.synchronize()
+                    check(torch.equal(*again), f"decode_attend {name}/{dt}/L{length}: two "
+                                               "runs differ")
+            del cache
+    dec.launches = saved              # the comparison launches are not the main path's
     by_dtype = {dt: max(v for k, v in errs.items() if f"/{dt}/" in k) for dt in TOL}
+    # the host's side of a launch (length 1: the card's side is shorter)
+    b, h, d, S = 8, 14, 128, 512
+    cache = _cache(torch, b, h, d, S, torch.bfloat16, gen)
+    q = torch.randn(b, h, 1, d, device="cuda", generator=gen).to(torch.bfloat16)
+    host_us = host_us_per_call(torch, lambda: dec.decode_attend(q, cache, 1))
+    dec.launches = saved
+    del cache
     emit("kernel", kernel="decode_attend", cases=len(errs), tolerance=TOL,
-         max_abs_err=by_dtype)
+         max_abs_err=by_dtype, plans=plans, deterministic=True, build=k2_build(),
+         host_us_per_call=host_us)
 
     # timing at the main path's shape over the full cache (length 512, the
-    # longest step of the decode loop)
+    # longest step of the decode loop), beside K3's cluster split on the
+    # same cache (a decode step, starts = S - 1) and SDPA
     b, h, d, S = 8, 14, 128, 512
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     timing = {}
@@ -379,25 +455,37 @@ def phase_kernel(torch):
         cache = _cache(torch, b, h, d, S, dtype, gen)
         q = torch.randn(b, h, 1, d, device="cuda", generator=gen).to(qdt)
         kd, vd = (t.contiguous() for t in cache.read_kv(dtype=qdt))
-        saved = dec.launches
+        starts = torch.full((b,), S - 1, dtype=torch.int32, device="cuda")
+        saved, saved_w = dec.launches, window_counts(dec)
         ms = median_ms(lambda: dec.decode_attend(q, cache, S), 50, flush)
+        k3 = median_ms(lambda: dec.decode_attend_window(q, cache, starts), 50, flush)
         dec.launches = saved          # timing launches are not the main path's
+        window_set_counts(dec, saved_w)
         plain_ms = median_ms(lambda: dec.decode_attend_plain(
             q, cache.kv, cache.scale, S), 20, flush)
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, kd, vd), 50, flush)
+        sdpa = lambda: F.scaled_dot_product_attention(q, kd, vd)  # noqa: E731
+        lib_ms = median_ms(sdpa, 50, flush)
         itemsize = cache.kv.element_size()
         nbytes = (q.numel() * q.element_size() * 2            # q in, out
                   + b * S * 2 * h * d * itemsize                # K and V
                   + (b * 2 * h * S * 4 if cache.scale is not None else 0))
         ops = 4 * b * h * S * d + 5 * b * h * S
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
         timing[dt] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_ms": bound,
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "bytes": nbytes, "roofline_share": max(t_bytes, t_ops) / ms}
+                      "bytes": nbytes, "roofline_share": bound / ms,
+                      "k3_split_ms": k3, "k3_split_roofline_share": bound / k3,
+                      "library_roofline_share": bound / lib_ms,
+                      "plan": dec.decode_plan(b, h, S, d, dtype, sm_count)._asdict(),
+                      "library_kernels": sdpa_kernels(torch, sdpa)}
+        del cache, kd, vd
     emit("kernel_timing", kernel="decode_attend", shape=dict(b=b, h=h, d=d, S=S, length=S),
          library="torch.nn.functional.scaled_dot_product_attention on the "
-                 "dequantized (b,h,S,d) cache", by_cache_dtype=timing)
+                 "dequantized (b,h,S,d) cache",
+         k3_split="decode_attend_window (K3) with starts = S - 1: w = 1 on its cluster "
+                  "split, the same cache", card=card, by_cache_dtype=timing)
     return by_dtype, timing
 
 
@@ -513,10 +601,12 @@ def phase_generate(torch, card):
             wall = time.perf_counter() - t0
     dev_us, by_kernel = device_time(torch, prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    k2_us = sum(v for k, v in by_kernel.items() if "decode_split_kernel" in k)
     emit("profile", precision="bfloat16", batch=b, decode_steps=steps,
          wall_ms_per_step_unprofiled=bare * 1e3 / steps,
          wall_ms_per_step_profiled=wall * 1e3 / steps,
          device_ms_per_step=dev_us / 1e3 / steps if dev_us else "not measured",
+         k2_device_ms_per_step=k2_us / 1e3 / steps if dev_us else "not measured",
          # device time per step over the unprofiled wall time per step
          device_busy_share=(dev_us / 1e6) / bare if dev_us else "not measured",
          top_device_ms_per_step={k: v / 1e3 / steps for k, v in top}, card=card)
@@ -1783,6 +1873,28 @@ def _k8_table(torch, kind, n):
     return fa.layer_table(kind, n, device="cuda")
 
 
+def launched_kernels(torch, fn, calls: int = 4):
+    """The device kernels ``calls`` calls of ``fn`` ran, one name per launch,
+    from a profile. A profile that saw no kernel at all (the tracer can miss
+    a window) is taken again, up to three times."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and not re.fullmatch(r"[\w.]+#[\w.]+", e.name)]
+        if names:
+            break
+    return names
+
+
 def sdpa_kernels(torch, fn):
     """The device kernels one call of ``fn`` (an SDPA call) ran, by name:
     which backend SDPA took on these inputs."""
@@ -2102,6 +2214,7 @@ def phase_chunked_kernel(torch, card):
     shares, errs, n_cases = {}, {}, 0
     saved = dec.chunked_launches
     timing = {}
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     for name, b, h, S, d in shapes:
         blk = 256
@@ -2132,7 +2245,17 @@ def phase_chunked_kernel(torch, card):
                 check(math.isfinite(share) and share <= 1.0,
                       f"K7 {key}: an element is {share} of its bound (max abs err "
                       f"{diff.max().item()})")
-            # times over the whole cache: K7, K2 (one CTA per (b, h)) on the
+                again = dec.decode_attend_chunked(q, cache, length, blk=blk, mask_row=mask)
+                torch.cuda.synchronize()
+                check(torch.equal(out, again), f"K7 {key}: two runs differ")
+            # one kernel a call: no scratch fill, no combine kernel (four calls
+            # profiled: every kernel seen is K7's, and no more than four)
+            names = launched_kernels(
+                torch, lambda: dec.decode_attend_chunked(q, cache, S // 2 + 5, blk=blk,
+                                                         mask_row=row))
+            check(0 < len(names) <= 4 and all("chunked_split_kernel" in n for n in names),
+                  f"K7 {name}/{dt}: four calls ran {names}")
+            # times over the whole cache: K7, K2 (the same cluster split) on the
             # same inputs, the plain version, SDPA on the dequantized cache
             kd, vd = (t.contiguous() for t in cache.read_kv(dtype=qdt))
             saved_k2 = dec.launches
@@ -2141,14 +2264,18 @@ def phase_chunked_kernel(torch, card):
             dec.launches = saved_k2
             plain = median_ms(lambda: dec.decode_attend_chunked_plain(
                 q, cache.kv, cache.scale, S, blk=blk), 5, flush)
-            lib = median_ms(lambda: F.scaled_dot_product_attention(q, kd, vd), 30, flush)
+            sdpa = lambda: F.scaled_dot_product_attention(q, kd, vd)  # noqa: E731
+            lib = median_ms(sdpa, 30, flush)
             bound, by_what, ops, nbytes = chunked_bounds(b, h, d, S, cache.kv.element_size(),
                                                          q.element_size(),
                                                          cache.scale is not None)
             timing[f"{name}/{dt}"] = {"ms": k7, "k2_ms": k2, "plain_ms": plain,
                                       "library_ms": lib, "bound_ms": bound, "bound_by": by_what,
                                       "flops": ops, "bytes": nbytes,
-                                      "roofline_share": bound / k7, "blk": blk}
+                                      "roofline_share": bound / k7, "blk": blk,
+                                      "plan": dec.decode_plan(b, h, S, d, dtype, sm_count,
+                                                              blk=blk)._asdict(),
+                                      "library_kernels": sdpa_kernels(torch, sdpa)}
             del cache, kd, vd
     dec.chunked_launches = saved
     by = {dt: max(v for key, v in errs.items() if f"/{dt}/" in key)
@@ -2157,7 +2284,7 @@ def phase_chunked_kernel(torch, card):
              for dt in ("float32", "bfloat16", "int8")}
     emit("chunked_kernel", kernel="decode_attend_chunked", cases=n_cases,
          tolerance="decode_attention.chunked_tolerance, per element", max_abs_err=by,
-         worst_share_of_bound=worst)
+         worst_share_of_bound=worst, kernels_per_call=1, deterministic=True)
     emit("chunked_kernel_timing", length="S (the whole cache)",
          library="torch.nn.functional.scaled_dot_product_attention on the dequantized "
                  "(b,h,S,d) cache; k2_ms: decode_attend (K2) on the same inputs",
@@ -2619,7 +2746,7 @@ def main() -> int:
         return 2
 
     card = phase_env(torch)
-    errs, timing = phase_kernel(torch)
+    errs, timing = phase_kernel(torch, card)
     k1_errs, k1_timing = phase_train_kernel(torch, card)
     w_errs, w_timing = phase_serve_kernel(torch, card)
     k4_errs, k4_timing = phase_flash_kernel(torch, card)
@@ -2649,6 +2776,10 @@ def main() -> int:
         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
         "timed_at": "b=8 h=14 d=128 S=512 length=512, float32 cache",
+        "kernel_functions": "decode_split_kernel",
+        "design": "a cluster of nsplit CTAs per (b, h), a two-slot cp.async ring of "
+                  "stages of up to 64 positions (decode_plan), rank-order merge through "
+                  "distributed shared memory",
         "by_cache_dtype": timing, "tolerance": TOL,
     }]
     for which, name, line in (("fwd", "fused_attention_fwd", 218),
@@ -2766,6 +2897,9 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "timed_at": "b=16 h=14 S=2560 d=128 length=S blk=256, bfloat16 cache",
+        "kernel_functions": "chunked_split_kernel (one kernel a call)",
+        "design": "K2's cluster split; ranks of whole blocks, a slot pairs block i's K "
+                  "with block i-1's V",
         "by_case": {k: {"ms": v["ms"], "k2_ms": v["k2_ms"], "bound_ms": v["bound_ms"],
                         "plain_ms": v["plain_ms"], "library_ms": v["library_ms"]}
                     for k, v in k7_timing.items()},

@@ -7,306 +7,217 @@
 // (b, 2h, S), K scales in rows 0..h-1). A position j is valid when
 // j < length and, if a mask row is given, mask_row[j] != 0. The result is
 // softmax_j(q.k_j * scale) over the valid j applied to v_j; for int8 the K
-// scale multiplies the score and the V scale the probability. Softmax and
-// all sums run in f32. With no valid position the output is 0 (divided by 1).
+// scale multiplies the score and the V scale the probability. q * scale, the
+// scores, the probabilities and every sum stay in f32 for every cache dtype
+// (the port's arithmetic; the TPU kernel rounds q * scale and p * vscale to
+// bf16 before its MXU dots). With no valid position the output is 0.
 //
 // Bound: HBM bytes. Each call streams the valid part of the cache once,
 // b * length * 2*h*d * itemsize bytes (+ 2*b*h*length*4 scale bytes for int8),
 // against 4*b*h*length*d flops, far below the card's ops/byte balance.
 //
-// Design (first version, simple and exact):
-//   * one CTA per (b, h), 256 threads; q is scaled into shared memory;
-//   * pass 1: a group of lanes owns one position and splits d into 16-byte
-//     loads (4 f32, 8 bf16 or 16 int8 values per lane); each thread keeps
-//     kUnroll positions' loads in flight; a shuffle reduction forms each
-//     score into an S-float shared-memory row; positions at or past length
-//     and masked positions are never read;
-//   * block max, exp and sum; the probability row replaces the score row
-//     (times the V scale for int8);
-//   * pass 2: a thread owns 16 bytes of output dims, neighbouring threads
-//     read neighbouring bytes of a V row, row groups are summed in shared
-//     memory at the end.
-// Left for later: cp.async/TMA staging of K and V tiles, and splitting S
-// across CTAs (b*h CTAs is 112 at the main shape, fewer than the 132 SMs,
-// and a long cache serialises in one CTA).
+// Design (decode_split.cuh): grid (nsplit, h, b), a cluster of nsplit CTAs per
+// (b, h), launched with cudaLaunchKernelEx; ops/decode_attention.decode_plan
+// picks nsplit, the stage height and the ring's depth from (b, h, S, d,
+// dtype, SMs), never from length, so the grid and the shared memory do not
+// depend on it. Each rank
+// derives its slice on the device: the valid range [0, L = min(length, S)) in
+// runs of ceil(L / nsplit) positions, so every rank of a row holds about the
+// same bytes at every length. The rank's stages stream through the ring, K and V of
+// a stage in flight together; a stage is scored into shared memory, each warp
+// takes the stage's max m' = max(m, max s), rescales its (l, o) by exp(m - m')
+// and, with p = exp(s - m') written once per position into the warp's p row
+// (times the V scale), adds p times V. Nothing is rounded against a maximum,
+// so each rank keeps its own running max and the ranks' partials merge by
+// exp(m_r - M) exactly up to f32 rounding (flash-decoding): no barrier
+// between reading K and reading V. At DALL·E-1.4B's cache (b=8, h=14, S=512,
+// d=128) the plan is 4 ranks over two slots of 32 positions in bf16 (16 in
+// f32; 448 CTAs of 34 KB, one wave) and 8 ranks of one 64-position stage in
+// int8, so a rank has its first two stages in flight before it touches q.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;
+using namespace dsplit;
 
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-template <typename T> struct Vec;  // elements in one 16-byte load
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
-template <> struct Vec<int8_t> { static constexpr int N = 16; };
+struct Args {
+  const void* q;          // (b, h, 1, d), Q
+  const void* kv;         // (b, S, 2hd), T
+  const float* scale;     // int8: (b, 2h, S); else null
+  const int* mask;        // (S,) or null
+  void* out;              // like q
+  int heads, S, d, length, rows, nst;
+  float sm_scale;
+};
 
 template <typename T>
-__device__ __forceinline__ void unpack(const uint4& raw, float* f);
-
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& raw, float* f) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-template <>
-__device__ __forceinline__ void unpack<int8_t>(const uint4& raw, float* f) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      f[4 * i + k] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * k)) & 0xff));
-    }
-  }
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename Q> __device__ __forceinline__ Q from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// lanes that share one cache position in pass 1: the power of two >= d/VEC, at most 32
-__host__ __device__ inline int lanes_per_row(int chunks) {
-  int g = 1;
-  while (g < chunks && g < 32) g <<= 1;
-  return g;
+__host__ __device__ inline Layout k2_layout(int d, int rows, int nst, int nsplit) {
+  return layout<T>(d, rows, nst, rows, kWarps * rows, nsplit);
 }
 
 template <typename T, typename Q>
-__global__ void __launch_bounds__(kThreads)
-decode_attend_kernel(const Q* __restrict__ q, const T* __restrict__ kv,
-                     const float* __restrict__ kv_scale, const int* __restrict__ mask_row,
-                     Q* __restrict__ out, int heads, int S, int d, int length,
-                     float sm_scale) {
-  constexpr int VEC = Vec<T>::N;
-  extern __shared__ float smem[];
-  const int chunks = d / VEC;           // 16-byte chunks in one head row
-  const int vrows = kThreads / chunks;  // row groups of pass 2
-  float* q_s = smem;                    // d
-  float* p_s = q_s + d;                 // S: scores, then probabilities
-  float* red = p_s + S;                 // 2 * kWarps
-  float* acc_s = red + 2 * kWarps;      // vrows * d
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+decode_split_kernel(const Args a) {
+  constexpr int PV = pv<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = a.d, rows = a.rows, nst = a.nst, heads = a.heads, S = a.S;
+  const Layout lay = k2_layout<T>(d, rows, nst, gridDim.x);
+  unsigned char* ring = smem + lay.ring;
+  float* scl = reinterpret_cast<float*>(smem + lay.scales);
+  float* q_s = reinterpret_cast<float*>(smem + lay.q);
+  float* s_buf = reinterpret_cast<float*>(smem + lay.s);
+  uint64_t* bit_s = reinterpret_cast<uint64_t*>(smem + lay.bits);
 
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long row_stride = 2LL * heads * d;  // elements per cache position
-  const T* kbase = kv + (long long)b * S * row_stride + (long long)h * d;
-  const T* vbase = kbase + (long long)heads * d;
-  const float* ks = kv_scale ? kv_scale + ((long long)b * 2 * heads + h) * S : nullptr;
-  const float* vs = kv_scale ? kv_scale + ((long long)b * 2 * heads + heads + h) * S : nullptr;
-  const int L = min(length, S);
+  const int nsplit = gridDim.x, rank = blockIdx.x;
+  cluster_arrive_started();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* p_w = reinterpret_cast<float*>(smem + lay.p) + warp * rows;   // this warp's p row
+  const int L = max(0, min(a.length, S));
+  const int per = (L + nsplit - 1) / nsplit;
+  const int p0 = min(L, rank * per);
+  const int end = min(L, p0 + per);
+  const int nstage = (end - p0 + rows - 1) / rows;
+  const CopyLanes lanes(d / Vec<T>::N);
+  const int half = lay.slot / 2;
+  const long long stride = 2LL * heads * d;
+  const T* kb = static_cast<const T*>(a.kv) + (long long)b * S * stride + (long long)h * d;
+  const T* vb = kb + (long long)heads * d;
+  const float* ks = a.scale ? a.scale + ((long long)b * 2 * heads + h) * S : nullptr;
+  const float* vs = a.scale ? ks + (long long)heads * S : nullptr;
 
-  for (int i = tid; i < d; i += kThreads) q_s[i] = to_f32(q[(long long)bh * d + i]) * sm_scale;
-  __syncthreads();
-
-  // ---- pass 1: one score per valid position ----
-  const int G = lanes_per_row(chunks);
-  const int rows_per_warp = 32 / G;
-  const int gl = lane % G;
-  const int my_row = warp * rows_per_warp + lane / G;
-  const int rows_per_iter = kWarps * rows_per_warp;
-  for (int base = 0; base < L; base += rows_per_iter * kUnroll) {
-    int j[kUnroll];
-    bool ok[kUnroll];
-    float part[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      j[u] = base + u * rows_per_iter + my_row;
-      ok[u] = j[u] < L && (mask_row == nullptr || mask_row[j[u]] != 0);
-      part[u] = 0.f;
+  // stage t of the rank: positions [p0 + t*rows, min(p0 + (t+1)*rows, end)) into slot t % nst
+  auto issue = [&](int t) {
+    if (t < nstage) {
+      const int slot = t % nst;
+      const int p = p0 + t * rows;
+      const uint64_t bits = stage_bits(a.mask, p, min(end, p + rows));
+      unsigned char* dst = ring + slot * lay.slot;
+      copy_rows<T>(dst, kb, stride, p, bits, rows, lanes);
+      copy_rows<T>(dst + half, vb, stride, p, bits, rows, lanes);
+      if (ks) {
+        copy_scales(scl + slot * 2 * rows, ks, p, bits, rows, 0);
+        copy_scales(scl + slot * 2 * rows + rows, vs, p, bits, rows, rows);
+      }
+      if (tid == 0) bit_s[slot] = bits;
     }
-    for (int c0 = 0; c0 < chunks; c0 += G) {
-      const int c = c0 + gl;
-      uint4 raw[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        raw[u] = (ok[u] && c < chunks)
-                     ? __ldg(reinterpret_cast<const uint4*>(kbase + j[u] * row_stride) + c)
-                     : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (ok[u] && c < chunks) {
-          float f[VEC];
-          unpack<T>(raw[u], f);
-          float s = 0.f;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) s = fmaf(f[e], q_s[c * VEC + e], s);
-          part[u] += s;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      for (int off = G >> 1; off > 0; off >>= 1) {
-        part[u] += __shfl_xor_sync(0xffffffffu, part[u], off);
-      }
-      if (gl == 0 && j[u] < L) p_s[j[u]] = ok[u] ? part[u] * (ks ? ks[j[u]] : 1.f) : -INFINITY;
-    }
-  }
-  __syncthreads();
+    cp_async_commit();
+  };
+  for (int t = 0; t < nst - 1; ++t) issue(t);
 
-  // ---- softmax over the row: max, exp, sum ----
-  float m = -INFINITY;
-  for (int i = tid; i < L; i += kThreads) m = fmaxf(m, p_s[i]);
-  m = warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  m = red[0];
-  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-  float l = 0.f;
-  for (int i = tid; i < L; i += kThreads) {
-    const float s = p_s[i];
-    const float p = (s == -INFINITY) ? 0.f : expf(s - m);
-    l += p;
-    p_s[i] = vs ? p * vs[i] : p;
-  }
-  l = warp_sum(l);
-  if (lane == 0) red[kWarps + warp] = l;
-  __syncthreads();
-  l = 0.f;
-  for (int w = 0; w < kWarps; ++w) l += red[kWarps + w];
+  const long long bh = (long long)b * heads + h;
+  const Q* q = static_cast<const Q*>(a.q) + bh * d;
+  for (int x = tid; x < d; x += kThreads) q_s[x] = to_f32(q[x]) * a.sm_scale;
 
-  // ---- pass 2: probabilities times V ----
-  const int r = tid / chunks;
-  const int c = tid - r * chunks;
-  if (r < vrows) {
-    float acc[VEC];
+  const int vchunks = d / PV;
+  const int vrows = vrows_of<T>(d, rows);
+  const int vr = tid / vchunks, c = tid - vr * vchunks;
+  float m = -INFINITY, l = 0.f;
+  float acc[PV];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-    for (int base = r; base < L; base += vrows * kUnroll) {
-      float p[kUnroll];
-      uint4 raw[kUnroll];
+  for (int e = 0; e < PV; ++e) acc[e] = 0.f;
+
+  for (int t = 0; t < nstage; ++t) {
+    issue(t + nst - 1);
+    cp_async_wait(nst - 1);
+    __syncthreads();   // stage t has landed in every thread's view; q_s is written
+    const int slot = t % nst;
+    const uint64_t bits = bit_s[slot];
+    const int n = min(rows, end - (p0 + t * rows));
+    const unsigned char* krows = ring + slot * lay.slot;
+    const float* kscl = ks ? scl + slot * 2 * rows : nullptr;
+    score_rows<T>(krows, kscl, q_s, bits, n, d, s_buf);
+    __syncthreads();
+    // the stage's max, sum and p (times the V scale) into this warp's p row,
+    // each warp alike
+    const float s0 = lane < n ? s_buf[lane] : -INFINITY;
+    const float s1 = lane + 32 < n ? s_buf[lane + 32] : -INFINITY;
+    const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
+    if (m_new != -INFINITY) {
+      const float corr = expf(m - m_new);
+      const float e0 = s0 == -INFINITY ? 0.f : expf(s0 - m_new);
+      const float e1 = s1 == -INFINITY ? 0.f : expf(s1 - m_new);
+      l = l * corr + warp_sum(e0 + e1);
+      const float* vscl = kscl ? kscl + rows : nullptr;
+      if (lane < n) p_w[lane] = vscl ? e0 * vscl[lane] : e0;
+      if (lane + 32 < n) p_w[lane + 32] = vscl ? e1 * vscl[lane + 32] : e1;
+      __syncwarp();
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int jj = base + u * vrows;
-        p[u] = jj < L ? p_s[jj] : 0.f;
-        raw[u] = p[u] != 0.f
-                     ? __ldg(reinterpret_cast<const uint4*>(vbase + jj * row_stride) + c)
-                     : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (p[u] != 0.f) {
-          float f[VEC];
-          unpack<T>(raw[u], f);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[e] = fmaf(p[u], f[e], acc[e]);
-        }
-      }
+      for (int e = 0; e < PV; ++e) acc[e] *= corr;
+      pv_rows<T>(krows + half, bits, n, d, vr, c, vrows, [&](int j) { return p_w[j]; }, acc);
+      m = m_new;
     }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc_s[r * d + c * VEC + e] = acc[e];
+    __syncthreads();   // slot t % nst is free for stage t + nst
   }
-  __syncthreads();
-  const float denom = l > 0.f ? l : 1.f;
-  for (int i = tid; i < d; i += kThreads) {
-    float o = 0.f;
-    for (int rr = 0; rr < vrows; ++rr) o += acc_s[rr * d + i];
-    out[(long long)bh * d + i] = from_f32<Q>(o / denom);
-  }
+  cp_async_wait(0);
+
+  finish_rank<T, Q>(reinterpret_cast<float*>(ring), reinterpret_cast<float*>(smem + lay.parts),
+                    acc, m, l, d, vr, c, vrows, static_cast<Q*>(a.out) + bh * d);
 }
 
 template <typename T, typename Q>
-int launch(const void* q, const void* kv, const void* kv_scale, const void* mask_row,
-           void* out, int b, int h, int S, int d, int length, float sm_scale,
-           cudaStream_t stream) {
-  constexpr int VEC = Vec<T>::N;
-  if (d <= 0 || d > 256 || d % VEC != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = d / VEC;
-  const int vrows = kThreads / chunks;
-  const size_t smem = sizeof(float) * (size_t)(d + S + 2 * kWarps + vrows * d);
-  auto kern = decode_attend_kernel<T, Q>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kern<<<b * h, kThreads, smem, stream>>>(
-      static_cast<const Q*>(q), static_cast<const T*>(kv), static_cast<const float*>(kv_scale),
-      static_cast<const int*>(mask_row), static_cast<Q*>(out), h, S, d, length, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+int launch(const Args& a, int b, int nsplit, cudaStream_t stream) {
+  static std::atomic<unsigned> smem_done{0};
+  return launch_split(decode_split_kernel<T, Q>, a, nsplit, a.heads, b,
+                      k2_layout<T>(a.d, a.rows, a.nst, nsplit).total, smem_done, stream);
 }
 
 template <typename Q>
-int launch_q(int kv_dtype, const void* q, const void* kv, const void* kv_scale,
-             const void* mask_row, void* out, int b, int h, int S, int d, int length,
-             float sm_scale, cudaStream_t stream) {
+int launch_q(const Args& a, int kv_dtype, int b, int nsplit, cudaStream_t stream) {
   switch (kv_dtype) {
-    case kF32:
-      return launch<float, Q>(q, kv, kv_scale, mask_row, out, b, h, S, d, length, sm_scale,
-                              stream);
-    case kBF16:
-      return launch<__nv_bfloat16, Q>(q, kv, kv_scale, mask_row, out, b, h, S, d, length,
-                                      sm_scale, stream);
-    case kI8:
-      return launch<int8_t, Q>(q, kv, kv_scale, mask_row, out, b, h, S, d, length, sm_scale,
-                               stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: return launch<float, Q>(a, b, nsplit, stream);
+    case kBF16: return launch<bf16, Q>(a, b, nsplit, stream);
+    default: return launch<int8_t, Q>(a, b, nsplit, stream);
+  }
+}
+
+template <typename T>
+int smem_bytes(int d, int rows, int nst, int nsplit) {
+  if (d <= 0 || d > 256 || d % Vec<T>::N || nst < 1 || nst > kMaxStages) return 0;
+  if (rows < 1 || rows > kStage || nsplit < 1 || nsplit > kMaxSplit) return 0;
+  return k2_layout<T>(d, rows, nst, nsplit).total;
+}
+
+int smem_for(int kv_dtype, int d, int rows, int nst, int nsplit) {
+  switch (kv_dtype) {
+    case kF32: return smem_bytes<float>(d, rows, nst, nsplit);
+    case kBF16: return smem_bytes<bf16>(d, rows, nst, nsplit);
+    case kI8: return smem_bytes<int8_t>(d, rows, nst, nsplit);
+    default: return 0;
   }
 }
 
 }  // namespace
 
+// Shared memory (bytes) of one CTA for a cache dtype (0 = f32, 1 = bf16,
+// 2 = int8), head dim d, stage rows, ring depth and ranks; 0 for what the
+// kernel does not take.
+extern "C" long long decode_attend_smem_bytes(int kv_dtype, int d, int rows, int stages,
+                                              int nsplit) {
+  return smem_for(kv_dtype, d, rows, stages, nsplit);
+}
+
 // q_dtype (also the output's) is 0 = f32 or 1 = bf16; kv_dtype is 0 = f32,
 // 1 = bf16 or 2 = int8 (then kv_scale is required). kv_scale and mask_row may
-// be null. Returns cudaGetLastError() after the launch: 0 when it launched.
+// be null. nsplit (1..8), rows (1..64) and stages (1..8) come from the
+// wrapper's decode_plan. Returns the CUDA error of the launch: 0 when it
+// launched.
 extern "C" int decode_attend(const void* q, int q_dtype, const void* kv, int kv_dtype,
                              const void* kv_scale, const void* mask_row, void* out, int b,
-                             int h, int S, int d, int length, float sm_scale, void* stream) {
+                             int h, int S, int d, int length, float sm_scale, int nsplit,
+                             int rows, int stages, void* stream) {
   if ((kv_dtype == kI8) != (kv_scale != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
-    case kF32:
-      return launch_q<float>(kv_dtype, q, kv, kv_scale, mask_row, out, b, h, S, d, length,
-                             sm_scale, st);
-    case kBF16:
-      return launch_q<__nv_bfloat16>(kv_dtype, q, kv, kv_scale, mask_row, out, b, h, S, d,
-                                     length, sm_scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (q_dtype != kF32 && q_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0 || h <= 0 || S <= 0 || b > 65535 || h > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (smem_for(kv_dtype, d, rows, stages, nsplit) == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{q, kv, static_cast<const float*>(kv_scale), static_cast<const int*>(mask_row), out,
+         h, S, d, length, rows, stages, sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return q_dtype == kF32 ? launch_q<float>(a, kv_dtype, b, nsplit, st)
+                         : launch_q<bf16>(a, kv_dtype, b, nsplit, st);
 }

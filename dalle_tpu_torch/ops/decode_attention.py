@@ -5,6 +5,11 @@
 it launches ``csrc/decode_attention.cu`` (built at first use, see
 ``_build.py``) or raises; on a CPU tensor it runs ``decode_attend_plain``,
 the same function in plain tensor code. ``launches`` counts kernel launches.
+The kernel splits each (b, h) row over a thread-block cluster of ``nsplit``
+CTAs that stream their slices of the cache through a two-slot ring of
+stages of up to 64 positions (``csrc/decode_split.cuh``); ``decode_plan``
+picks the split, the stage height and the ring's depth from the shapes
+alone, never from ``length``.
 
 ``decode_attend_window`` (K3) and ``decode_attend_window_paged`` (K5) port
 ``decode_attend_window_kernel`` and ``decode_attend_window_paged``: w
@@ -20,7 +25,8 @@ are ``decode_attend_window_plain`` and ``decode_attend_window_paged_plain``;
 ``decode_attend_chunked`` (K7) ports ``decode_attend_kernel_chunked``: K2's
 contract over ``blk``-sized cache blocks with an online softmax, blocks past
 ``length`` never read. It is launched from
-``csrc/decode_chunked_attention.cu``; its plain version is
+``csrc/decode_chunked_attention.cu``, one kernel on K2's cluster skeleton
+whose ranks take runs of whole blocks; its plain version is
 ``decode_attend_chunked_plain`` and ``chunked_launches`` counts its launches.
 No path of either package selects it (it is kept for explicit use, as the
 JAX package keeps it).
@@ -37,7 +43,7 @@ kernel. The softmax and every sum run in f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,10 +56,112 @@ launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ELEMS_PER_16B = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 16}
-# the kernel keeps the (S,) score row and a few small buffers in shared
-# memory; 227 KB per block on Hopper
+# shared memory a block may take on Hopper
 _MAX_SMEM = 227 * 1024
 _fn = None
+_sm_counts = {}
+_plans = {}
+
+# K2's and K7's launch plan (csrc/decode_split.cuh)
+STAGE = 64                  # cache positions per ring stage at most
+SPLIT_THREADS = 128         # threads per CTA
+DECODE_CTAS_PER_SM = 8      # their residency by registers (the launch bounds)
+SLOT_BYTES = 16 * 1024      # a slot's K and V rows at most, where d allows
+_SM_SMEM = 228 * 1024       # shared memory of an SM, 1 KB of it reserved per CTA
+
+
+class DecodePlan(NamedTuple):
+    nsplit: int     # CTAs (a thread-block cluster) per (b, h) row
+    rows: int       # cache positions per ring stage
+    stages: int     # ring slots, K and V rows of one stage each
+    smem: int       # bytes of shared memory per CTA
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def _r16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def decode_smem_bytes(kv_dtype, d: int, rows: int, stages: int,
+                      blk: Optional[int] = None, nsplit: int = 1) -> int:
+    """Shared memory of one CTA of K2 (``blk`` None) or K7, as
+    ``decode_split.cuh``'s ``layout`` lays it out: the ring (``stages`` slots
+    of ``rows`` K rows and ``rows`` V rows; it also holds the row groups'
+    sums at the end), int8 scales, q, the score buffer (a stage's for K2,
+    two blocks' for K7), the probabilities (a row per warp for K2, a
+    block's exp(s - m_b) for K7), the slots' validity bits, the warps' sums
+    and, in a cluster, every rank's (m, l, o[d]) for rank 0's merge."""
+    item = kv_dtype.itemsize
+    pv = min(16 // item, 8)                       # V elements a thread takes
+    vrows = min(SPLIT_THREADS // (d // pv), rows)
+    at = _r16(max(stages * 2 * rows * d * item, vrows * d * 4))
+    if kv_dtype == torch.int8:
+        at += stages * 2 * rows * 4
+    sbuf, pbuf = (rows, SPLIT_THREADS // 32 * rows) if blk is None else (2 * blk, blk)
+    parts = _r16(4 * nsplit * (d + 2)) if nsplit > 1 else 0
+    return at + _r16(4 * d) + _r16(4 * sbuf) + _r16(4 * pbuf) + 16 * stages + 16 + parts
+
+
+def decode_plan(b: int, h: int, S: int, d: int, kv_dtype, sm_count: int,
+                blk: Optional[int] = None) -> DecodePlan:
+    """K2's (``blk`` None) or K7's launch plan for q (b, h, 1, d) over a
+    cache of S positions. It reads the shapes only, never ``length``: each
+    rank derives its slice from ``length`` on the card.
+
+    * ``rows``: a stage's positions, 64 or fewer so that a slot's K and V
+      rows stay within 16 KB (32 at d = 128 in bf16, 16 in f32), at least 16.
+    * ``nsplit``: the largest of 1, 2, 4 and 8 (the portable cluster size)
+      whose grid runs in one wave at the CTAs an SM that its shared memory
+      and registers allow, with each rank of a full cache keeping at least
+      one granule (a stage for K2, a ``blk`` block for K7).
+    * ``stages``: the ring's depth, two slots (one stage in flight while
+      the other is computed) or one where a rank never needs a second.
+      Deeper rings and larger stages cost CTAs an SM; on the card this plan
+      was the fastest of every (nsplit, rows, stages) at the 1.4B cache or
+      within a few percent of it (``PERF.md`` §6, PR 12).
+    * ``smem``: ``decode_smem_bytes`` of that ring."""
+    slot = 2 * d * kv_dtype.itemsize            # bytes of one position's K and V rows
+    rows = max(16, min(STAGE, SLOT_BYTES // slot))
+
+    def ring(nsplit):
+        """(stages, smem, fits in one wave) of a split."""
+        if blk is None:
+            need = -(-(-(-S // nsplit)) // rows)
+        else:
+            need = (-(-(-(-S // blk)) // nsplit) + 1) * -(-blk // rows)
+        stages = min(need, 2)
+        smem = decode_smem_bytes(kv_dtype, d, rows, stages, blk, nsplit)
+        per_sm = min(DECODE_CTAS_PER_SM, _SM_SMEM // (smem + 1024))
+        return stages, smem, nsplit * b * h <= per_sm * sm_count
+
+    gran = rows if blk is None else blk
+    nsplit = 1
+    for cand in (2, 4, 8):
+        if S >= cand * gran and ring(cand)[2]:
+            nsplit = cand
+    stages, smem, _ = ring(nsplit)
+    return DecodePlan(nsplit, rows, stages, smem)
+
+
+def _plan(q, kv, blk=None) -> DecodePlan:
+    """``decode_plan`` for a launch, cached per (device, shapes, dtype, blk)."""
+    b, h, _, d = q.shape
+    key = (q.device.index, b, h, kv.shape[1], d, kv.dtype, blk)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = decode_plan(b, h, kv.shape[1], d, kv.dtype, _sm_count(q.device), blk=blk)
+        if plan.smem > _MAX_SMEM:
+            raise ValueError(f"the decode plan {plan} (block {blk}) exceeds a block's "
+                             "shared memory")
+        _plans[key] = plan
+    return plan
 
 
 def decode_attend_plain(q, kv, kv_scale, length, *,
@@ -88,11 +196,14 @@ def _kernel():
     if _fn is None:
         from ._build import library
         fn = library("decode_attention").decode_attend
+        # q, q dtype, kv, kv dtype, scales, mask row, out, b h S d length,
+        # scale, nsplit rows stages, stream
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -146,8 +257,6 @@ def decode_attend(q: torch.Tensor, cache, length: int, *,
     _check_cuda(q, kv, kv_scale, mask_row)
     b, h, _, d = q.shape
     S = kv.shape[1]
-    if 4 * (S + 2 * d + 16) + 4 * 256 * _ELEMS_PER_16B[kv.dtype] > _MAX_SMEM:
-        raise ValueError(f"cache length {S} exceeds the kernel's shared memory")
     if scale is None:
         scale = d ** -0.5
     if mask_row is not None:
@@ -155,12 +264,13 @@ def decode_attend(q: torch.Tensor, cache, length: int, *,
     out = torch.empty_like(q)
     if b * h == 0:
         return out
+    plan = _plan(q, kv)
     rc = _kernel()(
         q.data_ptr(), _DTYPE_CODE[q.dtype], kv.data_ptr(), _DTYPE_CODE[kv.dtype],
         None if kv_scale is None else kv_scale.data_ptr(),
         None if mask_row is None else mask_row.data_ptr(),
-        out.data_ptr(), b, h, S, d, int(length), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), b, h, S, d, int(length), float(scale), plan.nsplit, plan.rows,
+        plan.stages, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attend kernel failed to launch: CUDA error {rc}")
     launches += 1
@@ -180,7 +290,6 @@ window_split_launches = 0
 window_fma_launches = 0
 _window_fn = None
 _window_smem_fn = None
-_sm_counts = {}
 
 # the routes of csrc/decode_window_attention.cu, by the code its entry point takes
 WINDOW_ROUTES = {"fma": 0, "tc": 1, "split": 2}
@@ -308,14 +417,6 @@ def _window_kernel():
     return _window_fn
 
 
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    n = _sm_counts.get(idx)
-    if n is None:
-        n = _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return n
-
-
 def _check_window(q, kv, kv_scale, starts, scale_shape, S, plan):
     """What the windowed kernel takes; raises on anything else. ``kv`` is the
     dense slab or the pool, ``S`` the logical cache length, ``plan`` the
@@ -433,10 +534,9 @@ def decode_attend_window_paged(q: torch.Tensor, cache, starts, *,
 # K7: chunked long-cache decode attention
 # ---------------------------------------------------------------------------
 
-# launches of the chunked kernel since the last reset (a launch is one call
-# that runs the two CUDA kernels, blocks then combine)
+# launches of the chunked kernel since the last reset (one kernel a call)
 chunked_launches = 0
-_chunked_fns = {}
+_chunked_fn = None
 # the TPU's per-program VMEM budget for the cache blocks (for the copied gate)
 _VMEM_BUDGET = 6 * 1024 * 1024
 
@@ -530,22 +630,18 @@ def decode_kernel_chunk_supported(q, cache, *, stable: bool, blk: int = 256) -> 
             and vmem <= _VMEM_BUDGET)
 
 
-def _chunked_kernel(name: str):
-    fn = _chunked_fns.get(name)
-    if fn is None:
+def _chunked_kernel():
+    global _chunked_fn
+    if _chunked_fn is None:
         from ._build import library
-        fn = getattr(library("decode_chunked_attention"), name)
+        fn = library("decode_chunked_attention").decode_attend_chunked
         p, i = ctypes.c_void_p, ctypes.c_int
-        if name == "decode_attend_chunked":
-            # q, q dtype, kv, kv dtype, scales, mask row, partials, out,
-            # b h S d length blk, scale, stream
-            fn.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
-            fn.restype = ctypes.c_int
-        else:                          # decode_chunked_smem_bytes(kv dtype, blk, d)
-            fn.argtypes = [i, i, i]
-            fn.restype = ctypes.c_longlong
-        _chunked_fns[name] = fn
-    return fn
+        # q, q dtype, kv, kv dtype, scales, mask row, out, b h S d length blk,
+        # scale, nsplit rows stages, stream
+        fn.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _chunked_fn = fn
+    return _chunked_fn
 
 
 def decode_attend_chunked(q: torch.Tensor, cache, length: int, *, blk: int = 256,
@@ -565,25 +661,21 @@ def decode_attend_chunked(q: torch.Tensor, cache, length: int, *, blk: int = 256
     if q.device.type != "cuda":
         raise ValueError(f"decode_attend_chunked runs on cuda or cpu, not {q.device}")
     _check_cuda(q, kv, kv_scale, mask_row)
-    smem = _chunked_kernel("decode_chunked_smem_bytes")(_DTYPE_CODE[kv.dtype], blk,
-                                                         q.shape[-1])
-    if not 0 < smem <= _MAX_SMEM:
-        raise ValueError(f"block {blk} exceeds the chunked kernel's shared memory "
-                         f"({smem} bytes)")
     b, h, _, d = q.shape
     if scale is None:
         scale = d ** -0.5
+    if mask_row is not None:
+        mask_row = mask_row[:S]
     out = torch.empty_like(q)
     if b * h == 0:
         return out
-    used = -(-min(max(int(length), 0), S) // blk)
-    part = torch.empty(b, h, max(used, 1), d + 2, dtype=torch.float32, device=q.device)
-    rc = _chunked_kernel("decode_attend_chunked")(
+    plan = _plan(q, kv, blk)
+    rc = _chunked_kernel()(
         q.data_ptr(), _DTYPE_CODE[q.dtype], kv.data_ptr(), _DTYPE_CODE[kv.dtype],
         None if kv_scale is None else kv_scale.data_ptr(),
-        None if mask_row is None else mask_row.data_ptr(), part.data_ptr(),
-        out.data_ptr(), b, h, S, d, int(length), blk, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None if mask_row is None else mask_row.data_ptr(),
+        out.data_ptr(), b, h, S, d, int(length), blk, float(scale), plan.nsplit,
+        plan.rows, plan.stages, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attend_chunked kernel failed to launch: CUDA error {rc}")
     chunked_launches += 1

@@ -35,14 +35,20 @@ def test_target_covers_the_local_headers_a_source_includes(tmp_path, monkeypatch
     assert targets() == third
 
 
-@pytest.mark.parametrize("source", ["fused_attention", "chunk_attention",
-                                    "persistent_attention"])
+@pytest.mark.parametrize("source, header", [
+    ("fused_attention", "tc_tile.cuh"), ("chunk_attention", "tc_tile.cuh"),
+    ("persistent_attention", "tc_tile.cuh"), ("decode_attention", "decode_split.cuh"),
+    ("decode_chunked_attention", "decode_split.cuh")],
+    ids=["fused_attention", "chunk_attention", "persistent_attention", "decode_attention",
+         "decode_chunked_attention"])
 def test_tensor_core_kernels_are_rebuilt_when_the_tile_header_changes(tmp_path, monkeypatch,
-                                                                       source):
-    """K1's, K6's and K8's sources include the tensor-core tile helpers: an
-    edit of ``tc_tile.cuh`` alone renames (so rebuilds) their library."""
+                                                                       source, header):
+    """K1's, K6's and K8's sources include the tensor-core tile helpers
+    (``tc_tile.cuh``), K2's and K7's the cluster-split skeleton
+    (``decode_split.cuh``): an edit of the header alone renames (so
+    rebuilds) their library."""
     real = _build.CSRC
-    names = [f"{source}.cu", "tc_tile.cuh"]
+    names = [f"{source}.cu", header]
     assert [p.name for p in _build._sources(real / names[0])] == names
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -52,6 +58,6 @@ def test_tensor_core_kernels_are_rebuilt_when_the_tile_header_changes(tmp_path, 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     first = _build._target(csrc / names[0])
     assert _build._target(csrc / names[0]) == first
-    header = csrc / "tc_tile.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
     assert _build._target(csrc / names[0]) != first

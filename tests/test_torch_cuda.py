@@ -122,6 +122,38 @@ def test_kernel_with_no_valid_position_writes_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", [(1, 1, 64, 65536), (2, 8, 64, 4352)],
+                         ids=["S65536", "longseq"])
+def test_kernel_matches_plain_on_long_caches(shape, dtype):
+    """A cache far past what one CTA's shared memory could score (the split
+    kernel's shared memory does not grow with S) and the long-sequence
+    model's cache, full, ragged and with a mask row."""
+    b, h, d, S = shape
+    q, cache = _cache(b, h, S, d, dtype, seed=S + 1)
+    row = (torch.arange(S, device="cuda") % 5 != 2).int()
+    for length, mask in ((S, None), (S // 3 + 17, None), (S - 100, row)):
+        before = dec.launches
+        out = dec.decode_attend(q, cache, length, mask_row=mask)
+        assert dec.launches == before + 1
+        ref = dec.decode_attend_plain(q, cache.kv, cache.scale, length, mask_row=mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= TOL[dtype], (length, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_kernel_is_deterministic(dtype):
+    """Two runs give the same bits: the ranks merge in rank order, no atomics."""
+    q, cache = _cache(8, 14, 512, 128, dtype, seed=7)
+    row = (torch.arange(512, device="cuda") % 7 != 3).int()
+    for length, mask in ((512, None), (300, row), (1, None)):
+        first = dec.decode_attend(q, cache, length, mask_row=mask)
+        second = dec.decode_attend(q, cache, length, mask_row=mask)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), length
+
+
 def test_wrapper_raises_instead_of_falling_back():
     q, cache = _cache(1, 2, 16, 32, torch.float32, seed=3)
     with pytest.raises(ValueError):
@@ -728,6 +760,17 @@ def test_chunked_kernel_matches_plain(dtype, shape):
         tol = dec.chunked_tolerance(q, cache.kv, cache.scale, length, ref, mask_row=mask)
         diff = (out.float() - ref.float()).abs()
         assert bool((diff <= tol).all()), (length, (diff / tol).max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_chunked_kernel_is_deterministic(dtype):
+    q, cache = _cache(16, 14, 2560, 128, dtype, seed=11)
+    row = (torch.arange(2560, device="cuda") % 3 != 1).int()
+    for length, mask in ((2560, None), (1111, row)):
+        first = dec.decode_attend_chunked(q, cache, length, mask_row=mask)
+        second = dec.decode_attend_chunked(q, cache, length, mask_row=mask)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), length
 
 
 def test_chunked_wrapper_raises_instead_of_falling_back():
