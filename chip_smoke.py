@@ -218,10 +218,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 tokens/s, peak memory, one profiled step's busy share and
                 top kernels.
 
+21. cli       the command-line flow at DALL·E-1.4B's widths (dim 1792, 14
+                heads of 128, 256 text tokens over the 49,408-token CLIP BPE,
+                256 image tokens over an 8,192-entry dVAE codebook at 128 px),
+                depth cut to 2: the native BPE core's build and the
+                tokenizer's µs per prompt; ``cli.train_dalle --synthetic`` for
+                3 steps at batch 8 into build/cli_smoke/ (one finalized step
+                left, no tmp directory), a fresh trainer's restore of it
+                equal bit for bit to the checkpoint's tensors, timed with a
+                save beside the reckoned bytes; a ``--resume`` run for one
+                step more; ``cli.generate --bf16`` of two prompts × 8 images,
+                16 PNGs of 128 × 128 equal bit for bit to an in-process
+                DalleWithVae.generate_images with the same seed and weights.
+                K1 and K2 counted from zero around each entry point and
+                checked launched. Each entry point's wall seconds, generate's
+                ms per image token.
+
 Phases 11-20 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
 persist_parity and ring_parity after serve_parity; train_persist after
-train; train_long and then train_ring last. Each prints its seconds.
+train; train_long and then train_ring, then cli last. Each prints its
+seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -2728,6 +2745,188 @@ def phase_train_ring(torch, card, k4_row):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# The command-line flow: tokenizer, dVAE encoder, checkpoints, entry points
+# ---------------------------------------------------------------------------
+
+CLI_DEPTH = 2      # a whole-train-state checkpoint at depth 24 is ~17 GB a save
+
+
+def phase_cli(torch, card):
+    import os
+    import shutil
+
+    from dalle_tpu_torch.cli import generate, train_dalle
+    from dalle_tpu_torch.cli._common import load_vae_sidecar, read_png, to_uint8
+    from dalle_tpu_torch.config import DalleConfig, TrainConfig
+    from dalle_tpu_torch.data.synthetic import ShapesDataset
+    from dalle_tpu_torch.models.dalle import DALLE
+    from dalle_tpu_torch.models.wrapper import DalleWithVae
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.text.tokenizer import SimpleTokenizer
+    from dalle_tpu_torch.train.checkpoints import STATE_FILE, CheckpointManager
+    from dalle_tpu_torch.train.trainer_dalle import DalleTrainer
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tok = SimpleTokenizer()                  # builds the native core (g++) if needed
+    tok_load_s = time.perf_counter() - t0
+    check(tok.core == "native", f"the tokenizer runs the {tok.core} core")
+    check(tok.vocab_size == 49408, f"vocab {tok.vocab_size} != 49408")
+    shapes = ShapesDataset(32)
+    captions = [shapes[i].caption for i in range(len(shapes))]
+    t0 = time.perf_counter()
+    tok.tokenize(captions, 256)              # cold: every word through the merge core
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok.tokenize(captions, 256)              # warm: the word cache
+    warm = time.perf_counter() - t0
+    emit("cli_tokenizer", core=tok.core, vocab=tok.vocab_size, load_s=tok_load_s,
+         prompts=len(captions), us_per_prompt_cold=cold * 1e6 / len(captions),
+         us_per_prompt_warm=warm * 1e6 / len(captions), card=card)
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt, outs = os.path.join(work, "ckpt"), os.path.join(work, "outputs")
+    argv = ["--synthetic", "--image_size", "128", "--untrained_vae",
+            "--untrained_vae_tokens", "8192", "--untrained_vae_layers", "3",
+            "--dim", "1792", "--depth", str(CLI_DEPTH), "--heads", "14",
+            "--dim_head", "128", "--text_seq_len", "256", "--batch_size", "8",
+            "--keep_n_checkpoints", "1", "--output_dir", ckpt, "--seed", str(SMOKE_SEED)]
+    try:
+        # -- train 3 steps ----------------------------------------------------
+        fa.fwd_launches = fa.bwd_launches = 0        # the CLI's training path
+        t0 = time.perf_counter()
+        rc = train_dalle.main(argv + ["--steps", "3"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = {"fused_attention_fwd": fa.fwd_launches,
+                          "fused_attention_bwd": fa.bwd_launches}
+        check(rc == 0, f"train_dalle returned {rc}")
+        for name, n in train_launches.items():
+            check(n >= 3 * CLI_DEPTH, f"train_dalle: {name} launched {n} times in 3 steps")
+        mgr = CheckpointManager(ckpt)
+        names = sorted(os.listdir(ckpt))
+        check(mgr.all_steps() == [3], f"checkpoint steps {mgr.all_steps()} != [3]")
+        check(not any(".tmp-" in n for n in names), f"tmp directories left: {names}")
+        meta = mgr.load_metadata()
+        check(meta["model_class"] == "DALLE" and meta["hparams"]["dim"] == 1792
+              and meta["vae_class_name"] == "DiscreteVAEAdapter",
+              f"checkpoint metadata: {sorted(meta)}")
+
+        # -- the checkpoint: restore into a fresh trainer, bit for bit ---------
+        saved = torch.load(os.path.join(mgr.step_dir(3), STATE_FILE),
+                           map_location="cuda", weights_only=True)
+        file_bytes = os.path.getsize(os.path.join(mgr.step_dir(3), STATE_FILE))
+        tr = DalleTrainer(DalleConfig.from_dict(meta["hparams"]),
+                          TrainConfig.from_dict({**meta["train"], "checkpoint_dir": ckpt}),
+                          device="cuda")
+        n_params = tr.num_params
+        with torch.device("meta"):
+            full = DALLE(DalleConfig.from_dict({**meta["hparams"], "depth": 24}))
+        n_params24 = sum(p.numel() for p in full.parameters())
+        reckoned = n_params * (4 + 4 + 4)           # f32 masters + Adam's two moments
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(tr.step == 3, f"restored step {tr.step} != 3")
+        for name, p in tr.model.state_dict().items():
+            check(torch.equal(p, saved["model"][name]), f"restored {name} differs")
+        opt = tr.optimizer.core.state_dict()["state"]
+        for i, st in saved["optimizer"]["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                check(torch.equal(opt[i][k], st[k]), f"restored Adam {k}[{i}] differs")
+        probe = CheckpointManager(os.path.join(work, "save_probe"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.save(tr.step, tr.state_dict(), tr._meta())
+        save_s = time.perf_counter() - t0
+        shutil.rmtree(probe.directory)
+        del tr, saved, opt
+        torch.cuda.empty_cache()
+        emit("cli_checkpoint", params=n_params, depth=CLI_DEPTH,
+             bytes_reckoned=reckoned, bytes_file=file_bytes,
+             params_depth24=n_params24, bytes_reckoned_depth24=n_params24 * 12,
+             save_s=save_s,
+             save_gb_per_s=file_bytes / save_s / 1e9, restore_s=restore_s,
+             restore_gb_per_s=file_bytes / restore_s / 1e9, card=card)
+
+        # -- resume for one step more ------------------------------------------
+        fa.fwd_launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        rc = train_dalle.main(argv + ["--steps", "4", "--resume"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resume_launches = {"fused_attention_fwd": fa.fwd_launches,
+                           "fused_attention_bwd": fa.bwd_launches}
+        check(rc == 0, f"train_dalle --resume returned {rc}")
+        check(mgr.all_steps() == [4], f"after --resume: steps {mgr.all_steps()} != [4]")
+        for name, n in resume_launches.items():
+            check(n >= CLI_DEPTH, f"train_dalle --resume: {name} launched {n} times")
+        torch.cuda.empty_cache()
+
+        # -- generate -----------------------------------------------------------
+        prompts = ["a red circle", "a blue square"]
+        gen_argv = ["--dalle_path", ckpt, "--text", "|".join(prompts), "--num_images", "8",
+                    "--batch_size", "8", "--bf16", "--outputs_dir", outs,
+                    "--seed", str(SMOKE_SEED)]
+        dec.launches = 0                             # the CLI's generation path
+        t0 = time.perf_counter()
+        rc = generate.main(gen_argv)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        gen_launches = dec.launches
+        check(rc == 0, f"generate returned {rc}")
+        per_batch = CLI_DEPTH * 255
+        check(gen_launches == 2 * per_batch,
+              f"generate: K2 launched {gen_launches} times, expected {2 * per_batch}")
+        pngs = sorted(os.path.join(r, f) for r, _, fs in os.walk(outs)
+                      for f in fs if f.endswith(".png"))
+        check(len(pngs) == 16, f"{len(pngs)} PNGs, expected 16")
+
+        # the same images in process, with the same seed and weights
+        t0 = time.perf_counter()
+        model, _ = generate.load_dalle(ckpt, "cuda")   # what generate.main loads
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        wrapper = DalleWithVae(model, load_vae_sidecar(ckpt, "cuda"))
+        gen = torch.Generator("cuda").manual_seed(SMOKE_SEED)
+        walls = []
+        for prompt in prompts:
+            text = tok.tokenize([prompt], 256, truncate_text=True)
+            t0 = time.perf_counter()
+            images = wrapper.generate_images(text.repeat(8, 1), generator=gen,
+                                             filter_thres=0.9, precision="bfloat16")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            want = to_uint8(images)
+            outdir = os.path.join(outs, prompt.replace(" ", "_"))
+            for i in range(8):
+                got = read_png(os.path.join(outdir, f"img_0_{i}.png"))
+                check(got.shape == (128, 128, 3), f"PNG shape {got.shape}")
+                check(bool((got == want[i]).all()),
+                      f"{prompt!r} image {i}: the CLI's PNG differs from the "
+                      "in-process generate_images")
+        del model, wrapper
+        torch.cuda.empty_cache()
+        emit("cli", depth=CLI_DEPTH, train_wall_s=train_s, resume_wall_s=resume_s,
+             generate_wall_s=generate_s, generate_load_s=load_s,
+             generate_ms_per_image_token=[
+                 w * 1e3 / 256 for w in walls], batch=8, precision="bfloat16",
+             launches={"train": train_launches, "resume": resume_launches,
+                       "generate": {"decode_attend": gen_launches}},
+             seconds=time.perf_counter() - t_phase, card=card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"fused_attention_fwd": train_launches["fused_attention_fwd"],
+            "fused_attention_bwd": train_launches["fused_attention_bwd"],
+            "decode_attend": gen_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -2765,13 +2964,14 @@ def main() -> int:
     k8_launches, _ = phase_train_persist(torch, card, k1_row)
     k4_launches, k4_row = phase_train_long(torch, card)
     k6_launches, k6_row = phase_train_ring(torch, card, k4_row)
+    cli_launches = phase_cli(torch, card)
 
     f32 = timing["float32"]
     kernels = [{
         "name": "decode_attend", "route": "cuda",
         "source": "dalle_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dalle_tpu/ops/decode_attention.py:94",
-        "launches": launches,
+        "launches": launches, "launches_cli": cli_launches["decode_attend"],
         "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
@@ -2790,7 +2990,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "dalle_tpu_torch/csrc/fused_attention.cu",
             "replaces": f"dalle_tpu/ops/fused_attention.py:{line}",
-            "launches": k1_launches[name],
+            "launches": k1_launches[name], "launches_cli": cli_launches[name],
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

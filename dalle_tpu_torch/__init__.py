@@ -16,6 +16,12 @@ Sequence-parallel training (``TrainConfig(mesh=MeshConfig(sp=P))``) runs
 every attention layer as ring attention over P ranks
 (``parallel/ring_attention.py``), each chunk pair through the chunk kernels
 (``ops/chunk_attention.py``, ``csrc/chunk_attention.cu``).
+From the command line, ``python -m dalle_tpu_torch.cli.train_dalle`` trains
+on (caption, image) pairs: captions through the CLIP BPE tokenizer
+(``text/``, a native merge core built with g++ at first use), images through
+the dVAE's encoder, checkpoints with the model's identity inside
+(``train/checkpoints.py``); ``python -m dalle_tpu_torch.cli.generate``
+rebuilds the model from such a checkpoint and writes PNGs.
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """

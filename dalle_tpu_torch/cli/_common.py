@@ -1,0 +1,181 @@
+"""What the two entry points share: rebuilding a model from a checkpoint,
+the VAE sidecar, the VAE flags, and writing PNGs.
+
+Port of ``scripts/_common.py``. The VAE precedence chain is the
+reference's: the VAE embedded in a checkpoint directory (``vae/``), then
+``--vae_path`` (a port dVAE checkpoint), then ``--untrained_vae`` (random
+weights from seed 0). The pretrained VAEs (``--taming``, the OpenAI
+default) wait for ``ROADMAP.md`` Queue 1 item 10 and raise.
+
+PNGs are written by a small stdlib writer (``zlib`` + ``struct``): the
+card's machine has no PIL.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import DVAEConfig
+from ..models.dvae import init_dvae
+from ..models.wrapper import DiscreteVAEAdapter
+from ..train.checkpoints import CheckpointManager
+
+
+def unported(flag: str, item: str) -> NotImplementedError:
+    """The error for a flag whose code is not ported yet."""
+    return NotImplementedError(f"{flag} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def load_model_checkpoint(ckpt_dir: str, expect_class: str, config_cls, init_fn,
+                          device) -> Tuple[torch.nn.Module, dict]:
+    """Rebuild a model from a checkpoint's embedded metadata: check
+    ``model_class``, build ``init_fn(config_cls.from_dict(hparams))`` on
+    ``device`` and load the newest step's weights. → (model, metadata).
+
+    The file is mapped on the host, not read onto ``device``: a training
+    checkpoint also holds the f32 masters and the optimizer's moments, and
+    only the ``model`` tensors are copied to the card."""
+    mgr = CheckpointManager(ckpt_dir)
+    meta = mgr.load_metadata()
+    if meta is None or meta.get("model_class") != expect_class:
+        raise ValueError(f"{ckpt_dir} is not a {expect_class} checkpoint "
+                         f"(model_class={meta and meta.get('model_class')})")
+    model = init_fn(config_cls.from_dict(meta["hparams"]), seed=0, device=device)
+    state, meta = mgr.restore(map_location="cpu", mmap=True)
+    with torch.no_grad():
+        model.load_state_dict(state["model"])
+    return model.eval(), meta
+
+
+def save_vae_sidecar(output_dir: str, vae) -> bool:
+    """Embed the frozen dVAE (weights and hparams) in ``<output_dir>/vae``,
+    so generation needs only ``--dalle_path``. Only a ``DiscreteVAEAdapter``
+    is embedded, and only once: a resumed run keeps the VAE its model was
+    trained with. Returns True when written."""
+    if type(vae) is not DiscreteVAEAdapter:
+        return False
+    mgr = CheckpointManager(os.path.join(output_dir, "vae"))
+    if mgr.latest_step() is not None:
+        return False
+    mgr.save(0, {"model": vae.model.state_dict()},
+             {"vae_class_name": type(vae).__name__,
+              "hparams": vae.model.cfg.to_dict()})
+    return True
+
+
+def load_vae_sidecar(ckpt_dir: str, device) -> Optional[DiscreteVAEAdapter]:
+    """The VAE ``save_vae_sidecar`` embedded in ``ckpt_dir``; None if absent."""
+    mgr = CheckpointManager(os.path.join(ckpt_dir, "vae"))
+    meta = mgr.load_metadata()
+    if meta is None or meta.get("vae_class_name") != "DiscreteVAEAdapter":
+        return None
+    model = init_dvae(DVAEConfig.from_dict(meta["hparams"]), seed=0, device=device)
+    state, _ = mgr.restore(map_location="cpu", mmap=True)
+    with torch.no_grad():
+        model.load_state_dict(state["model"])
+    return DiscreteVAEAdapter(model.eval())
+
+
+def load_dvae_adapter(ckpt_dir: str, device) -> DiscreteVAEAdapter:
+    """A port dVAE checkpoint (``model_class`` "DiscreteVAE") as an adapter."""
+    model, _ = load_model_checkpoint(ckpt_dir, "DiscreteVAE", DVAEConfig, init_dvae,
+                                     device)
+    return DiscreteVAEAdapter(model)
+
+
+def build_vae_from_args(args, device) -> DiscreteVAEAdapter:
+    """The VAE the flags name (after the checkpoint's own, which the entry
+    points try first)."""
+    if getattr(args, "vae_path", None):
+        return load_dvae_adapter(args.vae_path, device)
+    if getattr(args, "taming", False) or getattr(args, "vqgan_model_path", None):
+        raise unported("--taming / --vqgan_model_path (the pretrained VQGAN)", "10")
+    if getattr(args, "untrained_vae", False):
+        cfg = DVAEConfig(image_size=args.image_size, num_tokens=args.untrained_vae_tokens,
+                         codebook_dim=64, num_layers=args.untrained_vae_layers,
+                         hidden_dim=32)
+        return DiscreteVAEAdapter(init_dvae(cfg, seed=0, device=device))
+    raise unported("the pretrained OpenAI dVAE (pass --untrained_vae or --vae_path)",
+                   "10")
+
+
+def add_vae_args(parser):
+    grp = parser.add_argument_group("vae")
+    grp.add_argument("--vae_path", type=str, default=None,
+                     help="checkpoint dir of a port dVAE")
+    grp.add_argument("--taming", action="store_true",
+                     help="the pretrained taming VQGAN (not ported yet)")
+    grp.add_argument("--vqgan_model_path", type=str, default=None)
+    grp.add_argument("--untrained_vae", action="store_true",
+                     help="random dVAE (smoke tests; no download needed)")
+    grp.add_argument("--untrained_vae_tokens", type=int, default=512)
+    grp.add_argument("--untrained_vae_layers", type=int, default=2)
+    return parser
+
+
+def add_device_arg(parser):
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: the CUDA card; 'cpu' runs "
+                             "the kernels' plain versions)")
+    return parser
+
+
+def to_uint8(images) -> np.ndarray:
+    """(b, H, W, C) floats in [0, 1] → uint8, as the JAX package saves them
+    (scale by 255, clip, truncate)."""
+    if isinstance(images, torch.Tensor):
+        images = images.detach().float().cpu().numpy()
+    return (np.asarray(images) * 255).clip(0, 255).astype(np.uint8)
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, image: np.ndarray):
+    """One (H, W, 3) uint8 image as an 8-bit RGB PNG (no filtering)."""
+    h, w, c = image.shape
+    if c != 3 or image.dtype != np.uint8:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, got {image.shape} {image.dtype}")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """An image ``write_png`` wrote → (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG")
+    pos, idat, (w, h) = 8, b"", (0, 0)
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise ValueError(f"{path}: only 8-bit RGB is read")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered rows are not read")
+    return rows[:, 1:].reshape(h, w, 3).copy()
+
+
+def save_image_grid(images, path: str):
+    """(b, H, W, C) images in [0, 1] → one PNG each at ``path.format(i)``."""
+    for i, im in enumerate(to_uint8(images)):
+        write_png(path.format(i), im)

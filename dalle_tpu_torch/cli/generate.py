@@ -1,0 +1,129 @@
+"""Generate images from a DALL·E checkpoint on the card.
+
+Port of ``scripts/generate.py``: rebuild the model from the checkpoint's
+embedded hparams and the VAE from its sidecar, tokenize the prompts (split
+on ``|``), sample with top-k filtering, and write PNGs, one directory per
+prompt. Sampling draws from a ``torch.Generator`` seeded by ``--seed``.
+Runs on the CUDA card unless ``--device cpu``.
+
+    python -m dalle_tpu_torch.cli.generate --dalle_path ./dalle_ckpt \\
+        --text "red circle|blue square" --num_images 8 --batch_size 8 --bf16
+
+Not ported yet, and raising ``NotImplementedError`` with their
+``ROADMAP.md`` item: ``--int8w``, ``--speculative``, ``--clip_path``,
+``--gentxt``, ``--fast_topk`` and ``--trace``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from ._common import (add_device_arg, add_vae_args, build_vae_from_args,
+                      load_model_checkpoint, load_vae_sidecar, save_image_grid, unported)
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--dalle_path", type=str, required=True,
+                    help="checkpoint dir from dalle_tpu_torch.cli.train_dalle")
+    ap.add_argument("--text", type=str, required=True, help="prompt(s), split on |")
+    ap.add_argument("--num_images", type=int, default=4)
+    ap.add_argument("--batch_size", type=int, default=4)
+    ap.add_argument("--top_k_thres", type=float, default=0.9,
+                    help="top-k filter threshold: keeps max(int((1 - thres)·vocab), 1)")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--cond_scale", type=float, default=1.0,
+                    help="classifier-free guidance scale")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 weights and KV cache in the decode loop")
+    ap.add_argument("--kv_int8", action="store_true",
+                    help="bf16 weights and an int8 KV cache")
+    ap.add_argument("--outputs_dir", type=str, default="./outputs")
+    ap.add_argument("--tokenizer", type=str, default="simple")
+    ap.add_argument("--bpe_path", type=str, default=None)
+    ap.add_argument("--image_size", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    unp = ap.add_argument_group("not ported yet")
+    unp.add_argument("--int8w", action="store_true")
+    unp.add_argument("--speculative", type=int, default=0, metavar="GAMMA")
+    unp.add_argument("--clip_path", type=str, default=None)
+    unp.add_argument("--gentxt", action="store_true")
+    unp.add_argument("--fast_topk", action="store_true")
+    unp.add_argument("--trace", type=str, default=None, metavar="DIR")
+    add_vae_args(ap)
+    add_device_arg(ap)
+    return ap
+
+
+def _check_ported(args):
+    for flag, item, on in (("--int8w", "5", args.int8w),
+                           ("--speculative", "7", args.speculative > 0),
+                           ("--clip_path", "8", args.clip_path),
+                           ("--gentxt", "7", args.gentxt),
+                           ("--fast_topk", "6", args.fast_topk),
+                           ("--trace", "12", args.trace)):
+        if on:
+            raise unported(flag, item)
+
+
+def load_dalle(ckpt_dir: str, device):
+    """The DALLE of a checkpoint, rebuilt from its hparams → (model, meta)."""
+    from ..config import DalleConfig
+    from ..models.dalle import init_dalle
+    return load_model_checkpoint(ckpt_dir, "DALLE", DalleConfig, init_dalle, device)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _check_ported(args)
+
+    import torch
+
+    from ..device import resolve_device
+    from ..models.wrapper import DalleWithVae
+    from ..text.tokenizer import get_tokenizer
+
+    device = resolve_device(args.device)
+    tok_kw = {"bpe_path": args.bpe_path} if args.bpe_path else {}
+    tokenizer = get_tokenizer(args.tokenizer, **tok_kw)
+    model, meta = load_dalle(args.dalle_path, device)
+    if tokenizer.vocab_size > model.cfg.num_text_tokens:
+        print(f"error: tokenizer vocab {tokenizer.vocab_size} > checkpoint "
+              f"num_text_tokens {model.cfg.num_text_tokens}: pass the "
+              f"--tokenizer/--bpe_path the model was trained with", file=sys.stderr)
+        return 2
+    explicit_vae = args.vae_path or args.taming or args.vqgan_model_path or args.untrained_vae
+    vae = None if explicit_vae else load_vae_sidecar(args.dalle_path, device)
+    if vae is None:
+        vae = build_vae_from_args(args, device)
+    want = meta.get("vae_class_name")
+    if want and want != type(vae).__name__:
+        raise ValueError(f"checkpoint was trained with {want}, got "
+                         f"{type(vae).__name__}: pass the matching vae flags")
+    dv = DalleWithVae(model, vae)
+    precision = "bf16_int8kv" if args.kv_int8 else "bfloat16" if args.bf16 else "float32"
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    prompts = [t.strip() for t in args.text.split("|") if t.strip()]
+    for prompt in prompts:
+        text = tokenizer.tokenize([prompt], model.cfg.text_seq_len, truncate_text=True)
+        outdir = os.path.join(args.outputs_dir, prompt.replace(" ", "_")[:64])
+        os.makedirs(outdir, exist_ok=True)
+        made = 0
+        while made < args.num_images:
+            n = min(args.batch_size, args.num_images - made)
+            images = dv.generate_images(
+                text.repeat(n, 1), generator=generator, filter_thres=args.top_k_thres,
+                temperature=args.temperature, cond_scale=args.cond_scale,
+                precision=precision)
+            save_image_grid(images, os.path.join(outdir, f"img_{made}_{{}}.png"))
+            made += n
+        print(f"wrote {made} images for {prompt!r} → {outdir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,17 +5,67 @@ A copy of ``DVAEConfig``, ``TransformerConfig``, ``DalleConfig``, ``MeshConfig``
 (``dalle_tpu/config.py``): same fields, same defaults, same derived
 properties, so a config built for one package builds the same model and
 optimizer in the other. ``TrainConfig`` carries only the fields the port's
-trainer reads. The JAX package's CLI/JSON machinery is not carried over.
+trainer reads. ``to_dict``/``from_dict`` are the JAX ``ConfigBase``'s: a
+checkpoint's metadata carries the dicts, equal to the JAX package's for the
+same fields, so model identity travels inside the checkpoint. The JAX
+package's argparse wiring is not carried over.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import typing
+from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Optional, Tuple
 
 
+def _coerce(tp, value):
+    """A JSON value into the annotated field type (lists into tuples,
+    nested dicts into their dataclass)."""
+    if value is None:
+        return None
+    origin = getattr(tp, "__origin__", None)
+    if origin is tuple:
+        args = tp.__args__
+        if len(args) == 2 and args[1] is Ellipsis:
+            return tuple(_coerce(args[0], v) for v in value)
+        return tuple(_coerce(a, v) for a, v in zip(args, value))
+    if origin is not None:  # Optional[...] and friends
+        args = [a for a in tp.__args__ if a is not type(None)]
+        if len(args) == 1:
+            return _coerce(args[0], value)
+        return value
+    if is_dataclass(tp) and isinstance(value, dict):
+        return tp.from_dict(value)
+    if tp in (int, float, str, bool) and not isinstance(value, tp):
+        return tp(value)
+    return value
+
+
+class ConfigBase:
+    """dict round trip of a config dataclass (tuples as lists, nested
+    configs as dicts); ``from_dict`` ignores keys the class lacks."""
+
+    def to_dict(self) -> dict:
+        out = {}
+        for f in fields(self):
+            v = getattr(self, f.name)
+            if is_dataclass(v):
+                out[f.name] = v.to_dict()
+            elif isinstance(v, tuple):
+                out[f.name] = list(v)
+            else:
+                out[f.name] = v
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        hints = typing.get_type_hints(cls)
+        return cls(**{f.name: _coerce(hints[f.name], d[f.name])
+                      for f in fields(cls) if f.name in d})
+
+
 @dataclass(frozen=True)
-class DVAEConfig:
+class DVAEConfig(ConfigBase):
     """Discrete VAE (reference: dalle_pytorch/dalle_pytorch.py:101-252)."""
     image_size: int = 128
     num_tokens: int = 8192       # codebook vocabulary
@@ -42,7 +92,7 @@ class DVAEConfig:
 
 
 @dataclass(frozen=True)
-class TransformerConfig:
+class TransformerConfig(ConfigBase):
     """Transformer stack (reference: dalle_pytorch/transformer.py:204-328)."""
     seq_len: int = 512           # total text+image sequence length (no bos slot)
     causal: bool = True
@@ -80,7 +130,7 @@ class TransformerConfig:
 
 
 @dataclass(frozen=True)
-class DalleConfig:
+class DalleConfig(ConfigBase):
     """DALL·E AR model (reference: dalle_pytorch/dalle_pytorch.py:336-440)."""
     num_text_tokens: int = 10000
     text_seq_len: int = 256
@@ -161,7 +211,7 @@ def dalle_1p4b(**overrides) -> DalleConfig:
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
-class MeshConfig:
+class MeshConfig(ConfigBase):
     """Logical device mesh. Axes: dp (data), fsdp (param/opt-state sharding),
     tp (tensor), sp (sequence, for ring attention). The port's trainer takes
     ``sp`` only: its ranks run in one process on one card
@@ -187,7 +237,7 @@ class MeshConfig:
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
-class PrecisionConfig:
+class PrecisionConfig(ConfigBase):
     """Mixed-precision policy: f32 master weights, the forward and backward
     on copies cast to ``compute`` (see ``train/train_state.cast_floating``)."""
     params: str = "float32"
@@ -196,7 +246,7 @@ class PrecisionConfig:
 
 
 @dataclass(frozen=True)
-class OptimConfig:
+class OptimConfig(ConfigBase):
     optimizer: str = "adam"
     learning_rate: float = 3e-4
     beta1: float = 0.9
@@ -220,14 +270,22 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
-class TrainConfig:
+class TrainConfig(ConfigBase):
     """The fields of the JAX package's ``TrainConfig`` that the port's
-    trainer reads. Checkpointing, observability, host overlap (prefetch,
-    deferred metrics, scanned steps) and NaN rollback come with their own
-    slices, and their fields with them."""
+    trainer reads. Observability, host overlap (prefetch, deferred metrics,
+    scanned steps, async checkpoints) and NaN rollback come with their own
+    slices, and their fields with them.
+
+    One default differs: ``checkpoint_dir`` is None, and then the trainer
+    keeps no checkpoints (the JAX package writes to ``./checkpoints``).
+    Nothing is written unless the caller names a directory."""
     batch_size: int = 64                 # global batch
     seed: int = 42
     log_every: int = 10
+    save_every_steps: int = 1000
+    keep_n_checkpoints: Optional[int] = None
+    checkpoint_dir: Optional[str] = None
+    preflight_checkpoint: bool = True    # save before the first step
     # runtime learning-rate multiplier (JAX: a TrainState data leaf); not
     # ported, True raises
     runtime_lr_scale: bool = False

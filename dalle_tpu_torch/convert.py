@@ -52,17 +52,14 @@ def _convert_leaf(path: Tuple[str, ...], x: np.ndarray):
     return name, x
 
 
-def flax_to_state_dict(params: Mapping[str, Any], *,
-                       skip: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a flax variables tree ({"params": ...} or the bare params) to a
-    ``state_dict``; top-level subtrees named in ``skip`` are left out."""
+    ``state_dict``."""
     if "quant" in params:
         raise NotImplementedError("int8-quantized weights are not ported yet")
     tree = params.get("params", params)
     out = {}
     for path, x in _leaves(tree):
-        if path[0] in skip:
-            continue
         leaf, y = _convert_leaf(path, x)
         out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.array(y))
     return out
@@ -75,8 +72,8 @@ def dalle_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def dvae_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``models/dvae.DiscreteVAE`` state_dict from ``dalle_tpu``'s dVAE
-    params (the encoder is not ported yet and is left out)."""
-    return flax_to_state_dict(params, skip=("encoder",))
+    params, encoder and decoder."""
+    return flax_to_state_dict(params)
 
 
 def _find_adam_state(state):

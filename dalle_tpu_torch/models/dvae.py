@@ -1,8 +1,10 @@
-"""Discrete VAE, decode side: codebook → decoder → pixels.
+"""Discrete VAE: pixels → token ids (encode) and token ids → pixels (decode).
 
-Port of the decode path of ``dalle_tpu/models/dvae.py``. The public layout
+Port of ``dalle_tpu/models/dvae.py`` without its training forward (the
+gumbel quantizer and the loss wait for dVAE training). The public layout
 stays NHWC, (b, H, W, C), as in the JAX package; inside, the convolutions
-run NCHW. The encoder (pixels → tokens) is not ported yet.
+run NCHW. The encoder's flax ``Conv(4x4, stride 2, padding=1)`` pads one
+pixel on each side, as ``nn.Conv2d(4, stride=2, padding=1)`` does.
 
 The JAX decoder upsamples with flax ``ConvTranspose(4x4, stride 2,
 padding="SAME")``, which does not flip its kernel and pads the dilated input
@@ -37,6 +39,32 @@ class ResBlock(nn.Module):
         return self.conv3(h) + x
 
 
+class Encoder(nn.Module):
+    """num_layers × (conv4x4/s2 + relu), then ResBlocks, then 1×1 to
+    num_tokens logits. NCHW."""
+
+    def __init__(self, cfg: DVAEConfig):
+        super().__init__()
+        c = cfg
+        self.num_resnet_blocks = c.num_resnet_blocks
+        self.num_layers = c.num_layers
+        chan = c.channels
+        for i in range(c.num_layers):
+            self.add_module(f"down_{i}", nn.Conv2d(chan, c.hidden_dim, 4, stride=2,
+                                                   padding=1))
+            chan = c.hidden_dim
+        for i in range(c.num_resnet_blocks):
+            self.add_module(f"res_{i}", ResBlock(c.hidden_dim))
+        self.to_logits = nn.Conv2d(chan, c.num_tokens, 1)
+
+    def forward(self, x):
+        for i in range(self.num_layers):
+            x = torch.relu(getattr(self, f"down_{i}")(x))
+        for i in range(self.num_resnet_blocks):
+            x = getattr(self, f"res_{i}")(x)
+        return self.to_logits(x)
+
+
 class Decoder(nn.Module):
     """1×1 from codebook_dim (when resblocks exist), ResBlocks, then
     num_layers × (convT4x4/s2 + relu), final 1×1 to channels. NCHW."""
@@ -69,16 +97,22 @@ class Decoder(nn.Module):
 
 
 class DiscreteVAE(nn.Module):
-    """The dVAE's decode side. ``decode`` maps (b, n) token ids to NHWC
-    images."""
+    """The dVAE. Images are NHWC floats in [0, 1]: ``get_codebook_indices``
+    maps them to (b, n) token ids in raster order, ``decode`` maps (b, n)
+    token ids back to images."""
 
     def __init__(self, cfg: DVAEConfig):
         super().__init__()
         if cfg.image_size & (cfg.image_size - 1):
             raise ValueError("image size must be a power of 2")
+        if cfg.num_layers < 1:
+            raise ValueError("the dVAE needs num_layers >= 1")
         self.cfg = cfg
         self.decoder = Decoder(cfg)
         self.codebook = nn.Embedding(cfg.num_tokens, cfg.codebook_dim)
+        # registered last, so reset_parameters draws the decoder and the
+        # codebook from a seed as it did before the encoder was ported
+        self.encoder = Encoder(cfg)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -95,6 +129,30 @@ class DiscreteVAE(nn.Module):
         self.codebook.weight.normal_(0.0, self.cfg.codebook_dim ** -0.5,
                                      generator=generator)
         return self
+
+    def norm(self, images):
+        """Per-channel (x - mean) / std with the config's normalization."""
+        if self.cfg.normalization is None:
+            return images
+        means, stds = (torch.tensor(v, dtype=images.dtype, device=images.device)
+                       for v in self.cfg.normalization)
+        return (images - means) / stds
+
+    def encode_logits(self, img):
+        """(b, H, W, C) images → (b, h, w, num_tokens) logits."""
+        img = img.to(self.codebook.weight.device)
+        size = self.cfg.image_size
+        if img.shape[1] != size or img.shape[2] != size:
+            raise ValueError(f"input must be {size}px, got {tuple(img.shape)}")
+        x = self.norm(img).permute(0, 3, 1, 2)
+        return self.encoder(x).permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def get_codebook_indices(self, img):
+        """argmax over the token logits (the first of equal maxima, as
+        ``jnp.argmax``), flattened in raster order → (b, n) int64."""
+        logits = self.encode_logits(img)
+        return torch.argmax(logits, dim=-1).reshape(logits.shape[0], -1)
 
     def decode(self, img_seq):
         """(b, n) token ids → (b, H, W, C) image."""

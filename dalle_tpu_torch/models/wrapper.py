@@ -4,8 +4,9 @@ Port of ``DiscreteVAEAdapter`` and ``DalleWithVae.generate_images`` from
 ``dalle_tpu/models/wrapper.py`` for the precision modes float32, bfloat16
 (bf16 weights and KV cache) and bf16_int8kv (bf16 weights, int8 KV cache),
 and ``DalleWithVae.serve_engine``, the continuous-batching engine over the
-same derived weights. Image priming from pixels, CLIP reranking, int8
-weights and speculative decoding are not ported yet and raise
+same derived weights, and ``dalle_config_for_vae``. ``generate_images``
+primes from pixels through the dVAE's encoder (``img=``). CLIP reranking,
+int8 weights and speculative decoding are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -14,8 +15,10 @@ from __future__ import annotations
 import copy
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..config import DalleConfig
 from .dalle import DALLE
 from .dvae import DiscreteVAE
 
@@ -26,7 +29,8 @@ _CACHE_DTYPE = {"float32": torch.float32, "f32": torch.float32,
 
 class DiscreteVAEAdapter:
     """The VAE contract the wrapper consumes: image_size, num_layers,
-    num_tokens, decode(ids) -> NHWC images."""
+    num_tokens, get_codebook_indices(NHWC images in [0, 1]) -> (b, n) ids,
+    decode(ids) -> NHWC images."""
 
     def __init__(self, model: DiscreteVAE):
         self.model = model
@@ -35,9 +39,28 @@ class DiscreteVAEAdapter:
         self.num_layers = cfg.num_layers
         self.num_tokens = cfg.num_tokens
 
+    @property
+    def image_fmap_size(self) -> int:
+        return self.image_size // (2 ** self.num_layers)
+
+    @torch.no_grad()
+    def get_codebook_indices(self, images):
+        """Images (a tensor, or a host array uploaded as f32) → token ids on
+        the dVAE's device."""
+        if not isinstance(images, torch.Tensor):
+            images = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
+        return self.model.get_codebook_indices(images)
+
     @torch.no_grad()
     def decode(self, ids):
         return self.model.decode(ids)
+
+
+def dalle_config_for_vae(vae: DiscreteVAEAdapter, **dalle_kwargs) -> DalleConfig:
+    """The image-side fields of a ``DalleConfig`` taken from the vae, the
+    rest from ``dalle_kwargs``."""
+    return DalleConfig(image_size=vae.image_size, image_vocab_size=vae.num_tokens,
+                       image_fmap_size=vae.image_fmap_size, **dalle_kwargs)
 
 
 class DalleWithVae:
@@ -75,10 +98,18 @@ class DalleWithVae:
         """text (b, text_seq_len) ids → images (b, H, W, C). Sampling draws
         from ``generator`` (or takes ``noise``, see
         ``DALLE.generate_images_tokens``); logits are sampled in f32 in every
-        precision mode."""
-        if img is not None or num_init_img_tokens is not None:
-            raise NotImplementedError("priming from pixels needs the dVAE "
-                                      "encoder, not ported yet")
+        precision mode. ``img`` (b, H, W, C) primes the first
+        ``num_init_img_tokens`` image tokens (default 43.75 % of them, 14 of
+        32 rows) with its dVAE tokens."""
+        prime = None
+        if img is not None:
+            n_prime = num_init_img_tokens
+            if n_prime is None:
+                n_prime = int(0.4375 * self.model.cfg.image_seq_len)
+            if not 0 <= n_prime < self.model.cfg.image_seq_len:
+                raise ValueError(f"num_init_img_tokens {n_prime} must be in "
+                                 f"[0, {self.model.cfg.image_seq_len})")
+            prime = self.vae.get_codebook_indices(img)[:, :n_prime]
         if clip is not None:
             raise NotImplementedError("CLIP reranking is not ported yet")
         if speculative > 0:
@@ -86,7 +117,7 @@ class DalleWithVae:
         model, cache_dtype = self._resolve_precision(precision)
         ids = model.generate_images_tokens(
             text, generator=generator, noise=noise, filter_thres=filter_thres,
-            temperature=temperature, cond_scale=cond_scale,
+            temperature=temperature, cond_scale=cond_scale, image_prime=prime,
             cache_dtype=cache_dtype)
         return self.vae.decode(ids)
 

@@ -13,8 +13,15 @@ runs as ring attention over sp ranks in this process
 full, axial and conv_like layers only. dp, fsdp and tp > 1 need more than
 one card and raise ``NotImplementedError``.
 
-Later slices bring checkpoints (``train/checkpoints.py``), NaN rollback,
-device prefetch, scanned multi-steps and the observability taps.
+With ``train_cfg.checkpoint_dir`` set, the trainer checkpoints as
+``base_trainer.BaseTrainer`` does (``train/checkpoints.py``): ``fit`` saves
+before its first step (``preflight_checkpoint``), whenever the step crosses
+a multiple of ``save_every_steps``, and at its end; ``restore`` brings back
+the master weights, the optimizer's state, the step and the CFG dropout
+generator. The metadata carries the model's identity (``_meta``).
+
+Later slices bring NaN rollback, device prefetch, scanned multi-steps and
+the observability taps.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..config import DalleConfig, TrainConfig
 from ..convert import adam_state_from_optax, dalle_state_dict
 from ..device import resolve_device
 from ..models.dalle import init_dalle
+from .checkpoints import CheckpointManager
 from .metrics import count_params, transformer_train_flops
 from .train_state import cast_floating, compute_dtype, make_optimizer
 
@@ -59,7 +67,11 @@ class _LossBackward(torch.nn.Module):
 class DalleTrainer:
     """Consumes batches of (text ids, image codebook ids). The model is built
     by ``init_dalle`` (random weights from ``train_cfg.seed``) in train mode;
-    its parameters are the f32 masters the optimizer updates."""
+    its parameters are the f32 masters the optimizer updates. ``extra_meta``
+    is merged into every checkpoint's metadata (the CLI puts the VAE's
+    identity there)."""
+
+    model_class = "DALLE"
 
     def __init__(self, model_cfg: DalleConfig, train_cfg: TrainConfig, device=None,
                  null_cond_prob: float = 0.0):
@@ -91,6 +103,10 @@ class DalleTrainer:
         self.num_params = count_params(self.model)
         self.flops_per_step = transformer_train_flops(
             self.num_params, train_cfg.batch_size * model_cfg.total_seq_len)
+        self.ckpt = (CheckpointManager(train_cfg.checkpoint_dir,
+                                       keep_n=train_cfg.keep_n_checkpoints)
+                     if train_cfg.checkpoint_dir else None)
+        self.extra_meta: Dict[str, Any] = {}
 
     @property
     def step(self) -> int:
@@ -123,17 +139,57 @@ class DalleTrainer:
         return {"loss": vals[0], "loss_text": vals[1], "loss_img": vals[2],
                 "grad_norm": vals[3], "step": self.step}
 
+    # -- checkpoints -------------------------------------------------------
+    def _meta(self) -> Dict[str, Any]:
+        return {"hparams": self.model_cfg.to_dict(), "train": self.train_cfg.to_dict(),
+                "model_class": self.model_class, **self.extra_meta}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the masters, the optimizer's state, its
+        step count and the CFG dropout generator's state."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.core.state_dict(),
+                "count": self.optimizer.count,
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Mapping[str, Any]):
+        with torch.no_grad():
+            self.model.load_state_dict(state["model"])
+        self.optimizer.core.load_state_dict(state["optimizer"])
+        self.optimizer.count = int(state["count"])
+        self.generator.set_state(state["generator"].cpu())
+
+    def save(self):
+        """Checkpoint the current step (needs ``checkpoint_dir``)."""
+        self.ckpt.save(self.step, self.state_dict(), self._meta())
+
+    def restore(self, step: Optional[int] = None):
+        """Resume from the checkpoint directory: ``step``, or the newest that
+        loads. Returns its metadata."""
+        if self.ckpt is None:
+            raise ValueError("restore needs train_cfg.checkpoint_dir")
+        state, meta = self.ckpt.restore(step, map_location=self.device)
+        self.load_state_dict(state)
+        return meta
+
     def fit(self, batches: Iterable, *, steps: Optional[int] = None, log=print):
-        """Step through ``batches`` ((text, image_ids) pairs), at most
-        ``steps`` of them, logging every ``train_cfg.log_every`` steps with
-        the samples and tokens per second since the last log. Returns the
+        """Step through ``batches`` ((text, image_ids) pairs) until the step
+        count reaches ``steps`` (a resumed run continues from its step),
+        logging every ``train_cfg.log_every`` steps with the samples and
+        tokens per second since the last log. With a checkpoint directory:
+        a pre-flight save first, a save whenever the step crosses a
+        multiple of ``save_every_steps``, and one at the end. Returns the
         last step's metrics."""
-        every = max(self.train_cfg.log_every, 1)
+        tc = self.train_cfg
+        every = max(tc.log_every, 1)
         metrics: Dict[str, Any] = {}
+        if self.ckpt is not None and tc.preflight_checkpoint:
+            self.ckpt.preflight(self.step, self.state_dict(), self._meta())
         t0, last = time.perf_counter(), self.step
-        for i, (text, image_ids) in enumerate(batches):
-            if steps is not None and i >= steps:
+        for text, image_ids in batches:
+            if steps is not None and self.step >= steps:
                 break
+            prev = self.step
             metrics = self.train_step(text, image_ids)
             if metrics["step"] % every == 0:
                 now = time.perf_counter()
@@ -143,6 +199,12 @@ class DalleTrainer:
                 t0, last = now, metrics["step"]
                 log(f"[step {metrics['step']}] " + " ".join(
                     f"{k}={v:.5g}" for k, v in metrics.items() if k != "step"))
+            save_every = tc.save_every_steps
+            if (self.ckpt is not None and save_every > 0
+                    and prev // save_every != self.step // save_every):
+                self.save()
+        if self.ckpt is not None and self.ckpt.latest_step() != self.step:
+            self.save()
         return metrics
 
     def load_jax_state(self, params: Mapping[str, Any], opt_state=None):

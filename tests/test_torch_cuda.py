@@ -995,3 +995,40 @@ def test_sp_train_step_on_the_card_goes_through_k6_and_matches_the_cpu(monkeypat
     for name, p in host.model.named_parameters():
         tol = 1e-4 * p.grad.abs().max().item()
         assert (card_grads[name] - p.grad).abs().max().item() <= tol, name
+
+
+def test_cli_flow_on_the_card(tmp_path, monkeypatch):
+    """The command-line flow at a tiny size on the card: train_dalle (K1
+    launched) for 2 steps, a --resume run for one more, then generate in
+    bf16 (K2 launched); the dVAE encoder's logits on the card within 1e-5 of
+    the CPU's (TF32 off) and its tokens equal wherever the top two differ by
+    more than 2e-5."""
+    from dalle_tpu_torch.cli import generate, train_dalle
+    from dalle_tpu_torch.cli._common import load_vae_sidecar, read_png
+    from dalle_tpu_torch.train.checkpoints import CheckpointManager
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ckpt, out = str(tmp_path / "ck"), str(tmp_path / "out")
+    argv = ["--synthetic", "--untrained_vae", "--image_size", "32", "--untrained_vae_tokens",
+            "64", "--dim", "64", "--depth", "2", "--heads", "2", "--dim_head", "32",
+            "--text_seq_len", "16", "--batch_size", "4", "--keep_n_checkpoints", "1",
+            "--output_dir", ckpt]
+    before = fa.fwd_launches
+    assert train_dalle.main(argv + ["--steps", "2"]) == 0
+    assert fa.fwd_launches > before
+    assert train_dalle.main(argv + ["--steps", "3", "--resume"]) == 0
+    assert CheckpointManager(ckpt).all_steps() == [3]
+    before = dec.launches
+    assert generate.main(["--dalle_path", ckpt, "--text", "red circle", "--num_images", "2",
+                          "--batch_size", "2", "--bf16", "--outputs_dir", out]) == 0
+    assert dec.launches > before
+    assert read_png(str(tmp_path / "out" / "red_circle" / "img_0_1.png")).shape == (32, 32, 3)
+    vae = load_vae_sidecar(ckpt, "cuda")
+    img = torch.rand(3, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    got = vae.model.encode_logits(img.cuda()).cpu()
+    host = vae.model.to("cpu")
+    want = host.encode_logits(img)
+    assert (got - want).abs().max().item() <= 1e-5
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > 2e-5).reshape(3, -1)
+    assert torch.equal(got.argmax(-1).reshape(3, -1)[clear],
+                       host.get_codebook_indices(img)[clear])
