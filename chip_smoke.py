@@ -233,12 +233,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 K1 and K2 counted from zero around each entry point and
                 checked launched. Each entry point's wall seconds, generate's
                 ms per image token.
+22. paper     the paper's three models through their entry points, in
+                build/paper_smoke/: ``cli.train_vae`` at the full-width dVAE
+                (8,192 codes, codebook 512, 3 layers, hidden 64) for 30
+                steps at batch 8 with a reconstruction grid every 15;
+                ``cli.train_dalle --vae_path`` on its checkpoint at the 1.4B
+                widths, depth 2, 2 steps (K1 launched; the VAE sidecar equal
+                bit for bit to train_vae's last step); ``cli.train_clip`` at
+                the full-width CLIP (dim 512, depth 6, 8 heads, 256 text
+                tokens) on 128 px with 16 px patches, 5 steps; ``cli.generate
+                --clip_path --bf16`` of 8 images (K2 launched 2 · 255 times):
+                the 8 PNGs best first and their scores equal bit for bit to
+                an in-process generate_images(clip=…). CLIP launches none of
+                K1, K2 and K4. Then CLIP's ms to score 8 images, 10 timed
+                steps each of the dVAE and CLIP trainers, the codes the
+                trained dVAE uses; and NaN rollback: VAETrainer.fit over three
+                batches, the second poisoned, saving every step: right after
+                the NaN step the masters and the optimizer state (its count
+                included) equal step 1's checkpoint bit for bit, the run ends
+                at step 3 with no step 2 written, and step 3 replayed from
+                step 1's checkpoint gives the same bits; the snapshot's mode,
+                bytes and ms.
 
 Phases 11-20 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
 persist_parity and ring_parity after serve_parity; train_persist after
-train; train_long and then train_ring, then cli last. Each prints its
-seconds.
+train; train_long and then train_ring, then cli and paper last. Each prints
+its seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -2927,6 +2948,299 @@ def phase_cli(torch, card):
             "decode_attend": gen_launches}
 
 
+# ---------------------------------------------------------------------------
+# The paper's flow: dVAE → DALL·E → CLIP → reranked generation
+# ---------------------------------------------------------------------------
+
+PAPER_PROMPT = "a red circle"
+
+
+def _attention_counts(fa, fl, dec):
+    return {"fused_attention_fwd": fa.fwd_launches, "fused_attention_bwd": fa.bwd_launches,
+            "flash_attention_fwd": fl.fwd_launches, "decode_attend": dec.launches}
+
+
+def _zero_attention_counts(fa, fl, dec):
+    fa.fwd_launches = fa.bwd_launches = fl.fwd_launches = dec.launches = 0
+
+
+def _train_steps(torch, trainer, batches):
+    """Step ``trainer`` through ``batches`` → (ms of each step, losses)."""
+    ms, losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    return ms, losses
+
+
+def _same_train_state(torch, trainer, saved, what):
+    for k, v in trainer.model.state_dict().items():
+        check(torch.equal(v, saved["model"][k]), f"{what}: {k} differs")
+    live = trainer.optimizer.core.state_dict()["state"]
+    check(live.keys() == saved["optimizer"]["state"].keys(), f"{what}: optimizer keys")
+    for i, st in saved["optimizer"]["state"].items():
+        for k, v in st.items():
+            check(torch.equal(live[i][k], v.to(live[i][k].device)),
+                  f"{what}: optimizer {k}[{i}] differs")
+    check(trainer.optimizer.count == saved["count"],
+          f"{what}: count {trainer.optimizer.count} != {saved['count']}")
+
+
+def _nan_rollback(torch, card, work):
+    """VAETrainer.fit over three batches, the second poisoned with a NaN,
+    checkpointing every step: right after the NaN step the masters and the
+    optimizer state equal step 1's checkpoint bit for bit, the run ends at
+    step 3, no step 2 is written, and step 3 replayed from step 1's
+    checkpoint (the step counter at 2) gives the same bits. cuDNN's
+    deterministic algorithms hold the replay to the same sums."""
+    import os
+
+    import numpy as np
+
+    from dalle_tpu_torch.config import DVAEConfig, OptimConfig, TrainConfig
+    from dalle_tpu_torch.data.synthetic import ShapesDataset
+    from dalle_tpu_torch.ops.sampling import gumbel_noise
+    from dalle_tpu_torch.train.checkpoints import STATE_FILE, CheckpointManager
+    from dalle_tpu_torch.train.trainer_vae import VAETrainer
+
+    cfg = DVAEConfig()
+    ckpt = os.path.join(work, "nan")
+    tc = TrainConfig(batch_size=8, seed=SMOKE_SEED, checkpoint_dir=ckpt, save_every_steps=1,
+                     log_every=1, optim=OptimConfig(learning_rate=1e-3,
+                                                    lr_scheduler="exponential"))
+    imgs = ShapesDataset(128).as_arrays(limit=24)[0].reshape(3, 8, 128, 128, 3)
+    imgs[1, 0, 5, 7, 1] = np.nan
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED)
+    noise = [gumbel_noise((8, 16, 16, cfg.num_tokens), generator=gen, device="cuda")
+             for _ in range(3)]
+    seen, lines = {}, []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr = VAETrainer(cfg, tc, device="cuda")
+
+        def batches():
+            yield imgs[0], noise[0]
+            yield imgs[1], noise[1]
+            saved = torch.load(os.path.join(CheckpointManager(ckpt).step_dir(1), STATE_FILE),
+                               map_location="cuda", weights_only=True)
+            _same_train_state(torch, tr, saved, "after the NaN step")
+            seen.update(step=tr.step, count=tr.optimizer.count)
+            yield imgs[2], noise[2]
+        tr.fit(batches(), log=lines.append)
+        check(seen == {"step": 2, "count": 1}, f"after the NaN step: {seen}")
+        check(tr.step == 3 and tr.optimizer.count == 2,
+              f"ended at step {tr.step}, count {tr.optimizer.count}")
+        steps = CheckpointManager(ckpt).all_steps()
+        check(steps == [0, 1, 3], f"checkpoint steps {steps} != [0, 1, 3]")
+        check(any(ln.startswith("[step 2] non-finite loss") for ln in lines)
+              and not any(ln.startswith("[step 2] loss=") for ln in lines),
+              f"the NaN step's log: {lines}")
+        replay = VAETrainer(cfg, tc, device="cuda")
+        replay.restore(step=1)
+        replay.step = 2
+        replay.train_step(imgs[2], noise[2])
+        _same_train_state(torch, replay, tr.state_dict(), "step 3 replayed from step 1")
+        snap = dict(tr.last_snapshot)
+        del tr, replay
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    emit("paper_nan_rollback", snapshot_mode=snap["mode"], snapshot_bytes=snap["bytes"],
+         snapshot_ms=snap["ms"], steps_saved=steps, card=card)
+    return snap
+
+
+def phase_paper(torch, card):
+    """The paper's three models through their entry points, in one directory
+    under build/: train_vae at the full-width dVAE (8,192 codes, codebook
+    512, 3 layers, hidden 64, one ResBlock: the 16 × 16 grid of the 1.4B
+    model), train_dalle --vae_path on its checkpoint at the 1.4B widths,
+    depth 2, learning rate 1e-5, train_clip at the full-width CLIP (dim 512,
+    depth 6, 8 heads, 256 text tokens) on 128 px with 16 px patches, and
+    generate --clip_path --bf16 of 8 images, reranked. Then in process: the
+    reranked images and scores against generate_images(clip=…), eight
+    distinct images whose scores do not all tie, CLIP's time to score 8 images,
+    10 timed steps each of the dVAE and CLIP trainers, the codes the
+    trained dVAE uses, and NaN rollback."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from dalle_tpu_torch.cli import generate, train_clip, train_dalle, train_vae
+    from dalle_tpu_torch.cli._common import load_vae_sidecar, read_png, to_uint8
+    from dalle_tpu_torch.config import ClipConfig, DVAEConfig, OptimConfig, TrainConfig
+    from dalle_tpu_torch.data.synthetic import ShapesDataset, batch_iterator
+    from dalle_tpu_torch.models.wrapper import DalleWithVae, rerank_scores
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.ops import flash_attention as fl
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.text.tokenizer import SimpleTokenizer
+    from dalle_tpu_torch.train.checkpoints import STATE_FILE, CheckpointManager, load_clip
+    from dalle_tpu_torch.train.trainer_clip import CLIPTrainer
+    from dalle_tpu_torch.train.trainer_vae import VAETrainer
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "paper_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    vae_dir, dalle_dir, clip_dir, outs, samples = (
+        os.path.join(work, n) for n in ("vae", "dalle", "clip", "outputs", "samples"))
+    seed = ["--seed", str(SMOKE_SEED)]
+    walls, counts = {}, {}
+
+    def run(name, main, argv):
+        _zero_attention_counts(fa, fl, dec)
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = _attention_counts(fa, fl, dec)
+        check(rc == 0, f"{name} returned {rc}")
+
+    try:
+        run("train_vae", train_vae.main,
+            ["--synthetic", "--batch_size", "8", "--steps", "30", "--sample_every_steps", "15",
+             "--sample_dir", samples, "--output_dir", vae_dir] + seed)
+        vae_mgr = CheckpointManager(vae_dir)
+        check(vae_mgr.all_steps() == [0, 30], f"train_vae steps {vae_mgr.all_steps()}")
+        check(sorted(os.listdir(samples)) == ["step15_recon.png", "step30_recon.png"],
+              f"train_vae samples {sorted(os.listdir(samples))}")
+        check(read_png(os.path.join(samples, "step30_recon.png")).shape == (256, 1024, 3),
+              "the reconstruction grid is not 2 × 8 images of 128 px")
+
+        # at the default learning rate (3e-4) two Adam steps on the dVAE's codes
+        # (13 of 8,192 used after 30 steps) lift one code's logit so far that
+        # every sampled token is that code: one image eight times, eight tied
+        # scores, nothing for the rerank to order. At 1e-5 the samples differ.
+        run("train_dalle", train_dalle.main,
+            ["--synthetic", "--vae_path", vae_dir, "--dim", "1792", "--depth", str(CLI_DEPTH),
+             "--heads", "14", "--dim_head", "128", "--text_seq_len", "256", "--batch_size",
+             "8", "--steps", "2", "--learning_rate", "1e-5", "--no_preflight",
+             "--output_dir", dalle_dir] + seed)
+        for name in ("fused_attention_fwd", "fused_attention_bwd"):
+            n = counts["train_dalle"][name]
+            check(n >= 2 * CLI_DEPTH, f"train_dalle --vae_path: {name} launched {n} times")
+        trained = vae_mgr.restore(map_location="cpu")[0]["model"]
+        sidecar = torch.load(os.path.join(dalle_dir, "vae", "0", STATE_FILE),
+                             map_location="cpu", weights_only=True)["model"]
+        check(sidecar.keys() == trained.keys()
+              and all(torch.equal(sidecar[k], v) for k, v in trained.items()),
+              "the VAE sidecar differs from train_vae's last step")
+        del trained, sidecar
+
+        run("train_clip", train_clip.main,
+            ["--synthetic", "--image_size", "128", "--patch_size", "16", "--batch_size", "8",
+             "--steps", "5", "--output_dir", clip_dir] + seed)
+        check(CheckpointManager(clip_dir).all_steps() == [0, 5], "train_clip steps")
+
+        # the dVAE decoder's transposed convolutions may take a cuDNN algorithm
+        # whose sums run in another order on each call: the CLI's scores are
+        # held bit for bit to the in-process run's under deterministic ones
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        run("generate", generate.main,
+            ["--dalle_path", dalle_dir, "--clip_path", clip_dir, "--bf16", "--text",
+             PAPER_PROMPT, "--num_images", "8", "--batch_size", "8", "--outputs_dir", outs]
+            + seed)
+        check(counts["generate"]["decode_attend"] == CLI_DEPTH * 255,
+              f"generate: K2 launched {counts['generate']['decode_attend']} times, "
+              f"expected {CLI_DEPTH * 255}")
+        for name in ("train_vae", "train_clip"):
+            check(not any(counts[name].values()), f"{name} launched {counts[name]}")
+        check(counts["generate"]["fused_attention_fwd"] == 0
+              and counts["generate"]["flash_attention_fwd"] == 0,
+              f"generate's CLIP launched {counts['generate']}")
+        torch.cuda.empty_cache()
+
+        # -- the rerank in process, with the same seed and weights ---------------
+        model, _ = generate.load_dalle(dalle_dir, "cuda")
+        clip, clip_meta = load_clip(clip_dir, "cuda")
+        wrapper = DalleWithVae(model, load_vae_sidecar(dalle_dir, "cuda"), clip)
+        text = SimpleTokenizer().tokenize([PAPER_PROMPT], 256, truncate_text=True).repeat(8, 1)
+        images, scores = wrapper.generate_images(
+            text, generator=torch.Generator("cuda").manual_seed(SMOKE_SEED), filter_thres=0.9,
+            precision="bfloat16", clip=wrapper.clip)
+        torch.backends.cudnn.deterministic = deterministic
+        scores = scores.float().cpu().numpy()
+        order = np.argsort(-scores, kind="stable")
+        outdir = os.path.join(outs, PAPER_PROMPT.replace(" ", "_"))
+        with open(os.path.join(outdir, "clip_scores.json")) as f:
+            written = json.load(f)
+        check(written == [float(scores[i]) for i in order],
+              f"generate's scores {written} != in-process {scores[order].tolist()}")
+        want = to_uint8(images.float().cpu()[torch.from_numpy(order)])
+        for i in range(8):
+            check(bool((read_png(os.path.join(outdir, f"img_{i}.png")) == want[i]).all()),
+                  f"img_{i}.png is not the in-process image of rank {i}")
+        check(np.all(np.isfinite(scores)), f"scores {scores}")
+        flat = images.float().reshape(len(images), -1)
+        distinct_images = int(torch.unique(flat, dim=0).shape[0])
+        image_spread = float((flat - flat[:1]).abs().max())
+        distinct_scores = len(set(scores.tolist()))
+        check(distinct_images == 8 and distinct_scores > 1,
+              f"the rerank has nothing to order: {distinct_images} distinct images, "
+              f"{distinct_scores} distinct scores")
+
+        _zero_attention_counts(fa, fl, dec)
+        score_ms = median_ms(lambda: rerank_scores(clip, text, images), 20)
+        check(not any(_attention_counts(fa, fl, dec).values()),
+              f"CLIP's scoring launched {_attention_counts(fa, fl, dec)}")
+        del model, wrapper, images
+        torch.cuda.empty_cache()
+
+        # -- the dVAE's and CLIP's steps, and the codes the trained dVAE uses -----
+        probe = ShapesDataset(128).as_arrays(limit=8)[0]
+        raw = batch_iterator(ShapesDataset(128), 8, seed=SMOKE_SEED)
+        vae_tc = TrainConfig(batch_size=8, seed=SMOKE_SEED, checkpoint_dir=vae_dir,
+                             optim=OptimConfig(learning_rate=1e-3, grad_clip_norm=0.0,
+                                               lr_scheduler="exponential"))
+        vtr = VAETrainer(DVAEConfig(), vae_tc, device="cuda")
+        vtr.restore()
+        codes_used = int((vtr.codebook_histogram(probe) > 0).sum())
+        vtr = VAETrainer(DVAEConfig(), vae_tc, device="cuda")
+        vae_ms, vae_losses = _train_steps(torch, vtr, [(next(raw)[0],) for _ in range(10)])
+        del vtr
+        tok = SimpleTokenizer()
+        clip_cfg = ClipConfig(**clip_meta["hparams"])
+        ctr = CLIPTrainer(clip_cfg, TrainConfig(batch_size=8, seed=SMOKE_SEED), device="cuda")
+        _zero_attention_counts(fa, fl, dec)
+        clip_ms, clip_losses = _train_steps(torch, ctr, [
+            (tok.tokenize(caps, 256, truncate_text=True), imgs)
+            for imgs, caps in (next(raw) for _ in range(10))])
+        check(not any(_attention_counts(fa, fl, dec).values()),
+              f"CLIP's steps launched {_attention_counts(fa, fl, dec)}")
+        clip_params = ctr.num_params
+        del ctr
+        torch.cuda.empty_cache()
+        for name, losses in (("dVAE", vae_losses), ("CLIP", clip_losses)):
+            check(all(math.isfinite(x) for x in losses), f"{name} losses {losses}")
+
+        snap = _nan_rollback(torch, card, work)
+        emit("paper", depth=CLI_DEPTH, batch=8, prompt=PAPER_PROMPT,
+             wall_s=walls, launches=counts,
+             dvae_ms_per_step=statistics.median(vae_ms[1:]), dvae_first_ms=vae_ms[0],
+             dvae_loss_first=vae_losses[0], dvae_loss_last=vae_losses[-1],
+             dvae_codes_used=codes_used, dvae_codes=DVAEConfig().num_tokens,
+             clip_ms_per_step=statistics.median(clip_ms[1:]), clip_first_ms=clip_ms[0],
+             clip_loss_first=clip_losses[0], clip_loss_last=clip_losses[-1],
+             clip_params=clip_params, clip_score_8_ms=score_ms,
+             scores_best_first=[float(scores[i]) for i in order],
+             distinct_images=distinct_images, image_spread=image_spread,
+             distinct_scores=distinct_scores,
+             snapshot=snap, seconds=time.perf_counter() - t_phase, card=card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"fused_attention_fwd": counts["train_dalle"]["fused_attention_fwd"],
+            "fused_attention_bwd": counts["train_dalle"]["fused_attention_bwd"],
+            "decode_attend": counts["generate"]["decode_attend"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2965,6 +3279,7 @@ def main() -> int:
     k4_launches, k4_row = phase_train_long(torch, card)
     k6_launches, k6_row = phase_train_ring(torch, card, k4_row)
     cli_launches = phase_cli(torch, card)
+    paper_launches = phase_paper(torch, card)
 
     f32 = timing["float32"]
     kernels = [{
@@ -2972,6 +3287,7 @@ def main() -> int:
         "source": "dalle_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dalle_tpu/ops/decode_attention.py:94",
         "launches": launches, "launches_cli": cli_launches["decode_attend"],
+        "launches_paper": paper_launches["decode_attend"],
         "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
@@ -2991,6 +3307,7 @@ def main() -> int:
             "source": "dalle_tpu_torch/csrc/fused_attention.cu",
             "replaces": f"dalle_tpu/ops/fused_attention.py:{line}",
             "launches": k1_launches[name], "launches_cli": cli_launches[name],
+            "launches_paper": paper_launches[name],
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

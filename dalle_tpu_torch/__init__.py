@@ -21,22 +21,32 @@ on (caption, image) pairs: captions through the CLIP BPE tokenizer
 (``text/``, a native merge core built with g++ at first use), images through
 the dVAE's encoder, checkpoints with the model's identity inside
 (``train/checkpoints.py``); ``python -m dalle_tpu_torch.cli.generate``
-rebuilds the model from such a checkpoint and writes PNGs.
+rebuilds the model from such a checkpoint and writes PNGs, reranked by a
+CLIP with ``--clip_path``. ``python -m dalle_tpu_torch.cli.train_vae``
+trains the dVAE (``VAETrainer``) and ``python -m
+dalle_tpu_torch.cli.train_clip`` the CLIP (``CLIPTrainer``); the three
+trainers share one shell with NaN rollback (``train/base_trainer.py``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """
 
-from .config import (DalleConfig, DVAEConfig, MeshConfig, OptimConfig, PrecisionConfig,
-                     TrainConfig, TransformerConfig, dalle_1p4b)
-from .convert import adam_state_from_optax, dalle_state_dict, dvae_state_dict
+from .config import (AnnealConfig, ClipConfig, DalleConfig, DVAEConfig, MeshConfig,
+                     OptimConfig, PrecisionConfig, TrainConfig, TransformerConfig,
+                     dalle_1p4b)
+from .convert import adam_state_from_optax, clip_state_dict, dalle_state_dict, dvae_state_dict
 from .device import resolve_device
+from .models.clip import CLIP, init_clip
 from .models.dalle import DALLE, init_dalle
 from .models.dvae import DiscreteVAE, init_dvae
 from .models.wrapper import DalleWithVae, DiscreteVAEAdapter
+from .train.checkpoints import load_clip
+from .train.trainer_clip import CLIPTrainer
 from .train.trainer_dalle import DalleTrainer
+from .train.trainer_vae import VAETrainer
 
-__all__ = ["DalleConfig", "DVAEConfig", "MeshConfig", "OptimConfig", "PrecisionConfig",
-           "TrainConfig", "TransformerConfig", "dalle_1p4b",
-           "adam_state_from_optax", "dalle_state_dict", "dvae_state_dict",
-           "resolve_device", "DALLE", "init_dalle", "DiscreteVAE", "init_dvae",
-           "DalleWithVae", "DiscreteVAEAdapter", "DalleTrainer"]
+__all__ = ["AnnealConfig", "ClipConfig", "DalleConfig", "DVAEConfig", "MeshConfig",
+           "OptimConfig", "PrecisionConfig", "TrainConfig", "TransformerConfig", "dalle_1p4b",
+           "adam_state_from_optax", "clip_state_dict", "dalle_state_dict", "dvae_state_dict",
+           "resolve_device", "CLIP", "init_clip", "load_clip", "DALLE", "init_dalle",
+           "DiscreteVAE", "init_dvae", "DalleWithVae", "DiscreteVAEAdapter",
+           "CLIPTrainer", "DalleTrainer", "VAETrainer"]

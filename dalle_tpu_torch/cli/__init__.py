@@ -1,2 +1,2 @@
-"""Command-line entry points: ``python -m dalle_tpu_torch.cli.train_dalle``
-and ``python -m dalle_tpu_torch.cli.generate``."""
+"""Command-line entry points: ``python -m dalle_tpu_torch.cli.train_vae``,
+``.train_dalle``, ``.train_clip`` and ``.generate``."""

@@ -1,5 +1,5 @@
-"""What the two entry points share: rebuilding a model from a checkpoint,
-the VAE sidecar, the VAE flags, and writing PNGs.
+"""What the entry points share: the VAE sidecar, the VAE flags, the
+training flags that every trainer takes, and writing PNGs.
 
 Port of ``scripts/_common.py``. The VAE precedence chain is the
 reference's: the VAE embedded in a checkpoint directory (``vae/``), then
@@ -16,41 +16,20 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..config import DVAEConfig
+from ..config import SNAPSHOT_MODES, DVAEConfig
 from ..models.dvae import init_dvae
 from ..models.wrapper import DiscreteVAEAdapter
-from ..train.checkpoints import CheckpointManager
+from ..train.checkpoints import CheckpointManager, load_model_checkpoint
 
 
 def unported(flag: str, item: str) -> NotImplementedError:
     """The error for a flag whose code is not ported yet."""
     return NotImplementedError(f"{flag} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
-def load_model_checkpoint(ckpt_dir: str, expect_class: str, config_cls, init_fn,
-                          device) -> Tuple[torch.nn.Module, dict]:
-    """Rebuild a model from a checkpoint's embedded metadata: check
-    ``model_class``, build ``init_fn(config_cls.from_dict(hparams))`` on
-    ``device`` and load the newest step's weights. → (model, metadata).
-
-    The file is mapped on the host, not read onto ``device``: a training
-    checkpoint also holds the f32 masters and the optimizer's moments, and
-    only the ``model`` tensors are copied to the card."""
-    mgr = CheckpointManager(ckpt_dir)
-    meta = mgr.load_metadata()
-    if meta is None or meta.get("model_class") != expect_class:
-        raise ValueError(f"{ckpt_dir} is not a {expect_class} checkpoint "
-                         f"(model_class={meta and meta.get('model_class')})")
-    model = init_fn(config_cls.from_dict(meta["hparams"]), seed=0, device=device)
-    state, meta = mgr.restore(map_location="cpu", mmap=True)
-    with torch.no_grad():
-        model.load_state_dict(state["model"])
-    return model.eval(), meta
 
 
 def save_vae_sidecar(output_dir: str, vae) -> bool:
@@ -117,6 +96,38 @@ def add_vae_args(parser):
     grp.add_argument("--untrained_vae_tokens", type=int, default=512)
     grp.add_argument("--untrained_vae_layers", type=int, default=2)
     return parser
+
+
+def add_rollback_arg(group):
+    """``--rollback_snapshot`` (``TrainConfig.rollback_snapshot``), on every
+    trainer's entry point as in the JAX package."""
+    group.add_argument("--rollback_snapshot", type=str, default="auto",
+                       choices=SNAPSHOT_MODES,
+                       help="where the NaN-rollback snapshot lives (auto: on the card "
+                            "when its free memory holds 1.15x the snapshot, else host)")
+    return group
+
+
+def add_unported_train_args(parser):
+    """The JAX trainers' wandb, health, resilience and telemetry flags,
+    which raise (``check_unported_train_args``)."""
+    grp = parser.add_argument_group("wandb, health, resilience and telemetry (not ported yet)")
+    grp.add_argument("--wandb", action="store_true")
+    grp.add_argument("--health", action="store_true")
+    grp.add_argument("--breach_actions", action="store_true")
+    grp.add_argument("--trace", action="store_true")
+    grp.add_argument("--watchdog_deadline_s", type=float, default=0.0)
+    grp.add_argument("--prometheus_path", type=str, default="")
+    return parser
+
+
+def check_unported_train_args(args):
+    if args.scan_steps > 1:
+        raise unported("--scan_steps > 1", "3")
+    for flag in ("wandb", "health", "breach_actions", "trace", "watchdog_deadline_s",
+                 "prometheus_path"):
+        if getattr(args, flag):
+            raise unported(f"--{flag}", "12")
 
 
 def add_device_arg(parser):

@@ -4,24 +4,30 @@ Port of ``scripts/generate.py``: rebuild the model from the checkpoint's
 embedded hparams and the VAE from its sidecar, tokenize the prompts (split
 on ``|``), sample with top-k filtering, and write PNGs, one directory per
 prompt. Sampling draws from a ``torch.Generator`` seeded by ``--seed``.
-Runs on the CUDA card unless ``--device cpu``.
+With ``--clip_path`` (a ``train_clip`` checkpoint) every batch of a prompt
+is kept and scored by the CLIP; the scores are printed best first and the
+images written as ``img_{i}.png`` in that order, the scores beside them in
+``clip_scores.json``. Runs on the CUDA card unless ``--device cpu``.
 
     python -m dalle_tpu_torch.cli.generate --dalle_path ./dalle_ckpt \\
-        --text "red circle|blue square" --num_images 8 --batch_size 8 --bf16
+        --text "red circle|blue square" --num_images 8 --batch_size 8 --bf16 \\
+        --clip_path ./clip_ckpt
 
 Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``--int8w``, ``--speculative``, ``--clip_path``,
-``--gentxt``, ``--fast_topk`` and ``--trace``.
+``ROADMAP.md`` item: ``--int8w``, ``--speculative``, ``--gentxt``,
+``--fast_topk`` and ``--trace``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
+from ..train.checkpoints import load_clip, load_model_checkpoint
 from ._common import (add_device_arg, add_vae_args, build_vae_from_args,
-                      load_model_checkpoint, load_vae_sidecar, save_image_grid, unported)
+                      load_vae_sidecar, save_image_grid, unported)
 
 
 def build_parser():
@@ -46,10 +52,12 @@ def build_parser():
     ap.add_argument("--bpe_path", type=str, default=None)
     ap.add_argument("--image_size", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--clip_path", type=str, default=None,
+                    help="checkpoint dir from dalle_tpu_torch.cli.train_clip: rerank "
+                         "the images, best first")
     unp = ap.add_argument_group("not ported yet")
     unp.add_argument("--int8w", action="store_true")
     unp.add_argument("--speculative", type=int, default=0, metavar="GAMMA")
-    unp.add_argument("--clip_path", type=str, default=None)
     unp.add_argument("--gentxt", action="store_true")
     unp.add_argument("--fast_topk", action="store_true")
     unp.add_argument("--trace", type=str, default=None, metavar="DIR")
@@ -61,7 +69,6 @@ def build_parser():
 def _check_ported(args):
     for flag, item, on in (("--int8w", "5", args.int8w),
                            ("--speculative", "7", args.speculative > 0),
-                           ("--clip_path", "8", args.clip_path),
                            ("--gentxt", "7", args.gentxt),
                            ("--fast_topk", "6", args.fast_topk),
                            ("--trace", "12", args.trace)):
@@ -80,6 +87,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _check_ported(args)
 
+    import numpy as np
     import torch
 
     from ..device import resolve_device
@@ -103,7 +111,10 @@ def main(argv=None) -> int:
     if want and want != type(vae).__name__:
         raise ValueError(f"checkpoint was trained with {want}, got "
                          f"{type(vae).__name__}: pass the matching vae flags")
-    dv = DalleWithVae(model, vae)
+    clip = None
+    if args.clip_path:
+        clip, _ = load_clip(args.clip_path, device)
+    dv = DalleWithVae(model, vae, clip)
     precision = "bf16_int8kv" if args.kv_int8 else "bfloat16" if args.bf16 else "float32"
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -112,15 +123,29 @@ def main(argv=None) -> int:
         text = tokenizer.tokenize([prompt], model.cfg.text_seq_len, truncate_text=True)
         outdir = os.path.join(args.outputs_dir, prompt.replace(" ", "_")[:64])
         os.makedirs(outdir, exist_ok=True)
-        made = 0
+        made, kept, scores = 0, [], []
         while made < args.num_images:
             n = min(args.batch_size, args.num_images - made)
-            images = dv.generate_images(
+            out = dv.generate_images(
                 text.repeat(n, 1), generator=generator, filter_thres=args.top_k_thres,
                 temperature=args.temperature, cond_scale=args.cond_scale,
-                precision=precision)
-            save_image_grid(images, os.path.join(outdir, f"img_{made}_{{}}.png"))
+                precision=precision, clip=clip)
+            if clip is None:
+                save_image_grid(out, os.path.join(outdir, f"img_{made}_{{}}.png"))
+            else:
+                # the rerank needs the whole set of the prompt
+                kept.append(out[0].float().cpu())
+                scores.append(out[1].float().cpu())
             made += n
+        if clip is not None:
+            scores = torch.cat(scores).numpy()
+            order = np.argsort(-scores, kind="stable")
+            print("clip scores (best first): "
+                  + " ".join(f"{scores[i]:.4f}" for i in order))
+            save_image_grid(torch.cat(kept)[torch.from_numpy(order)],
+                            os.path.join(outdir, "img_{}.png"))
+            with open(os.path.join(outdir, "clip_scores.json"), "w", encoding="utf-8") as f:
+                json.dump([float(scores[i]) for i in order], f)
         print(f"wrote {made} images for {prompt!r} → {outdir}")
     return 0
 

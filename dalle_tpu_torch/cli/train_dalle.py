@@ -20,7 +20,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ._common import (add_device_arg, add_vae_args, build_vae_from_args,
+from ._common import (add_device_arg, add_rollback_arg, add_vae_args, build_vae_from_args,
                       load_vae_sidecar, save_vae_sidecar, unported)
 
 
@@ -78,6 +78,7 @@ def build_parser():
                        help="stop when the step count reaches this")
     train.add_argument("--scan_steps", type=int, default=1)
     train.add_argument("--no_preflight", action="store_true")
+    add_rollback_arg(train)
 
     tel = ap.add_argument_group("telemetry (not ported yet)")
     tel.add_argument("--trace", action="store_true")
@@ -144,7 +145,7 @@ def main(argv=None) -> int:
         batch_size=args.batch_size, seed=args.seed,
         checkpoint_dir=args.output_dir, save_every_steps=args.save_every_n_steps,
         keep_n_checkpoints=args.keep_n_checkpoints,
-        preflight_checkpoint=not args.no_preflight,
+        preflight_checkpoint=not args.no_preflight, rollback_snapshot=args.rollback_snapshot,
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm,
                           lr_scheduler=args.lr_scheduler))

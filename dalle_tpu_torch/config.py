@@ -1,14 +1,15 @@
 """Model and training configuration for the PyTorch port.
 
-A copy of ``DVAEConfig``, ``TransformerConfig``, ``DalleConfig``, ``MeshConfig``,
-``PrecisionConfig`` and ``OptimConfig`` from the JAX package
-(``dalle_tpu/config.py``): same fields, same defaults, same derived
-properties, so a config built for one package builds the same model and
-optimizer in the other. ``TrainConfig`` carries only the fields the port's
-trainer reads. ``to_dict``/``from_dict`` are the JAX ``ConfigBase``'s: a
-checkpoint's metadata carries the dicts, equal to the JAX package's for the
-same fields, so model identity travels inside the checkpoint. The JAX
-package's argparse wiring is not carried over.
+A copy of ``DVAEConfig``, ``TransformerConfig``, ``DalleConfig``,
+``ClipConfig``, ``MeshConfig``, ``PrecisionConfig``, ``OptimConfig`` and
+``AnnealConfig`` from the JAX package (``dalle_tpu/config.py``): same
+fields, same defaults, same derived properties, so a config built for one
+package builds the same model and optimizer in the other. ``TrainConfig``
+carries only the fields the port's trainers read. ``to_dict``/``from_dict``
+are the JAX ``ConfigBase``'s: a checkpoint's metadata carries the dicts,
+equal to the JAX package's for the same fields, so model identity travels
+inside the checkpoint. The JAX package's argparse wiring is not carried
+over.
 """
 
 from __future__ import annotations
@@ -192,6 +193,24 @@ class DalleConfig(ConfigBase):
         )
 
 
+@dataclass(frozen=True)
+class ClipConfig(ConfigBase):
+    """CLIP reranker (reference: dalle_pytorch/dalle_pytorch.py:256-332)."""
+    dim_text: int = 512
+    dim_image: int = 512
+    dim_latent: int = 512
+    num_text_tokens: int = 10000
+    text_enc_depth: int = 6
+    text_seq_len: int = 256
+    text_heads: int = 8
+    num_visual_tokens: int = 512
+    visual_enc_depth: int = 6
+    visual_heads: int = 8
+    visual_image_size: int = 256
+    visual_patch_size: int = 32
+    channels: int = 3
+
+
 def dalle_1p4b(**overrides) -> DalleConfig:
     """DALL·E-1.4B, the largest configuration the repository supports
     (``bench.py``): 24 layers, 14 heads of 128, dim 1792, the CLIP text
@@ -269,12 +288,16 @@ class OptimConfig(ConfigBase):
     plateau_min_scale: float = 1e-3
 
 
+SNAPSHOT_MODES = ("auto", "device", "host")
+
+
 @dataclass(frozen=True)
 class TrainConfig(ConfigBase):
     """The fields of the JAX package's ``TrainConfig`` that the port's
-    trainer reads. Observability, host overlap (prefetch, deferred metrics,
-    scanned steps, async checkpoints) and NaN rollback come with their own
-    slices, and their fields with them.
+    trainers read (``train/base_trainer.py``), NaN rollback's among them.
+    Observability and host overlap (prefetch, deferred metrics, scanned
+    steps, async checkpoints) come with their own slices, and their fields
+    with them.
 
     One default differs: ``checkpoint_dir`` is None, and then the trainer
     keeps no checkpoints (the JAX package writes to ``./checkpoints``).
@@ -286,9 +309,30 @@ class TrainConfig(ConfigBase):
     keep_n_checkpoints: Optional[int] = None
     checkpoint_dir: Optional[str] = None
     preflight_checkpoint: bool = True    # save before the first step
+    # on a non-finite loss, put back the masters and the optimizer state of
+    # the last save (or of fit's start)
+    nan_rollback: bool = True
+    # where that snapshot lives: "device" (a copy on the card), "host", or
+    # "auto" (the card when its free memory holds 1.15× the snapshot); the
+    # entry points' --rollback_snapshot
+    rollback_snapshot: str = "auto"
+    sample_every_steps: int = 0          # fit's sample_fn every N steps
     # runtime learning-rate multiplier (JAX: a TrainState data leaf); not
     # ported, True raises
     runtime_lr_scale: bool = False
     optim: OptimConfig = field(default_factory=OptimConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def __post_init__(self):
+        if self.rollback_snapshot not in SNAPSHOT_MODES:
+            raise ValueError(f"rollback_snapshot must be one of {SNAPSHOT_MODES}, "
+                             f"got {self.rollback_snapshot!r}")
+
+
+# temperature annealing for dVAE training (ref: legacy/train_vae.py:269-271)
+@dataclass(frozen=True)
+class AnnealConfig(ConfigBase):
+    starting_temp: float = 1.0
+    temp_min: float = 0.5
+    anneal_rate: float = 1e-6

@@ -76,6 +76,13 @@ def dvae_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return flax_to_state_dict(params)
 
 
+def clip_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``models/clip.CLIP`` state_dict from ``dalle_tpu``'s CLIP params: the
+    embeddings, the biased ``to_visual_embedding``, the two towers, the
+    latent projections and the root scalar ``temperature``."""
+    return flax_to_state_dict(params)
+
+
 def _find_adam_state(state):
     """The first node of an optax state tree with ``count``, ``mu`` and
     ``nu`` (``ScaleByAdamState``); None when there is none."""

@@ -1,1 +1,1 @@
-"""The DALL·E transformer, the dVAE decoder and their composition."""
+"""The DALL·E transformer, the dVAE, CLIP and their composition."""

@@ -1,10 +1,10 @@
-"""Discrete VAE: pixels → token ids (encode) and token ids → pixels (decode).
+"""Discrete VAE: pixels → token ids (encode), token ids → pixels (decode),
+and the training forward (``forward``: the gumbel quantizer and the loss).
 
-Port of ``dalle_tpu/models/dvae.py`` without its training forward (the
-gumbel quantizer and the loss wait for dVAE training). The public layout
-stays NHWC, (b, H, W, C), as in the JAX package; inside, the convolutions
-run NCHW. The encoder's flax ``Conv(4x4, stride 2, padding=1)`` pads one
-pixel on each side, as ``nn.Conv2d(4, stride=2, padding=1)`` does.
+Port of ``dalle_tpu/models/dvae.py``. The public layout stays NHWC,
+(b, H, W, C), as in the JAX package; inside, the convolutions run NCHW.
+The encoder's flax ``Conv(4x4, stride 2, padding=1)`` pads one pixel on
+each side, as ``nn.Conv2d(4, stride=2, padding=1)`` does.
 
 The JAX decoder upsamples with flax ``ConvTranspose(4x4, stride 2,
 padding="SAME")``, which does not flip its kernel and pads the dilated input
@@ -18,10 +18,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import DVAEConfig
 from ..device import resolve_device
+from ..ops.quantize import gumbel_softmax, kl_to_uniform
 
 
 class ResBlock(nn.Module):
@@ -99,7 +101,7 @@ class Decoder(nn.Module):
 class DiscreteVAE(nn.Module):
     """The dVAE. Images are NHWC floats in [0, 1]: ``get_codebook_indices``
     maps them to (b, n) token ids in raster order, ``decode`` maps (b, n)
-    token ids back to images."""
+    token ids back to images, and ``forward`` is the training path."""
 
     def __init__(self, cfg: DVAEConfig):
         super().__init__()
@@ -138,14 +140,20 @@ class DiscreteVAE(nn.Module):
                        for v in self.cfg.normalization)
         return (images - means) / stds
 
-    def encode_logits(self, img):
-        """(b, H, W, C) images → (b, h, w, num_tokens) logits."""
+    def _normed(self, img):
+        """(b, H, W, C) images on the model's device, checked and normalized."""
         img = img.to(self.codebook.weight.device)
         size = self.cfg.image_size
         if img.shape[1] != size or img.shape[2] != size:
             raise ValueError(f"input must be {size}px, got {tuple(img.shape)}")
-        x = self.norm(img).permute(0, 3, 1, 2)
-        return self.encoder(x).permute(0, 2, 3, 1)
+        return self.norm(img)
+
+    def _logits(self, img_n):
+        return self.encoder(img_n.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def encode_logits(self, img):
+        """(b, H, W, C) images → (b, h, w, num_tokens) logits."""
+        return self._logits(self._normed(img))
 
     @torch.no_grad()
     def get_codebook_indices(self, img):
@@ -161,6 +169,49 @@ class DiscreteVAE(nn.Module):
         hw = int(n ** 0.5)
         z = emb.reshape(b, hw, hw, d).permute(0, 3, 1, 2)
         return self.decoder(z).permute(0, 2, 3, 1).contiguous()
+
+    def forward(self, img, temp: Optional[float] = None, return_loss: bool = False,
+                return_recons: bool = False, hard_recons: bool = False, *,
+                return_health: bool = False, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """The training and reconstruction path. (b, H, W, C) images → the
+        reconstruction (b, H, W, C); with ``return_loss`` the loss instead,
+        with ``return_recons`` too (loss, recons).
+
+        The encoder's logits go through the gumbel-softmax at temperature
+        ``temp`` (default ``cfg.temperature``; straight-through when
+        ``cfg.straight_through``), its draw ``noise`` or else from
+        ``generator``; ``hard_recons`` takes the argmax's one-hot instead and
+        draws nothing. The codebook mix is the product of that (b, h, w, n)
+        sample with the codebook. The loss, in f32, is the reconstruction
+        error against the *normalized* image (MSE, or smooth-L1 at β = 1)
+        plus ``kl_div_loss_weight`` × the batchmean KL to uniform."""
+        if return_health:
+            raise NotImplementedError("return_health (the health taps) is not ported "
+                                      "yet (ROADMAP.md Queue 1 item 12)")
+        c = self.cfg
+        img_n = self._normed(img)
+        logits = self._logits(img_n)
+        temp = c.temperature if temp is None else temp
+        if hard_recons:
+            one_hot = F.one_hot(torch.argmax(logits, dim=-1), c.num_tokens).to(logits.dtype)
+        else:
+            one_hot = gumbel_softmax(logits, temp, hard=c.straight_through, noise=noise,
+                                     generator=generator)
+        sampled = torch.einsum("bhwn,nd->bhwd", one_hot, self.codebook.weight)
+        out = self.decoder(sampled.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+        if not return_loss:
+            return out
+        diff = img_n.float() - out.float()
+        if c.smooth_l1_loss:
+            a = diff.abs()
+            recon = torch.mean(torch.where(a < 1.0, 0.5 * diff ** 2, a - 0.5))
+        else:
+            recon = torch.mean(diff ** 2)
+        b, h, w, n = logits.shape
+        kl = kl_to_uniform(logits.reshape(b, h * w, n).float())
+        loss = recon + kl * c.kl_div_loss_weight
+        return (loss, out) if return_recons else loss
 
 
 def init_dvae(cfg: DVAEConfig, *, seed: int = 0, device=None) -> DiscreteVAE:

@@ -5,9 +5,11 @@ Port of ``DiscreteVAEAdapter`` and ``DalleWithVae.generate_images`` from
 (bf16 weights and KV cache) and bf16_int8kv (bf16 weights, int8 KV cache),
 and ``DalleWithVae.serve_engine``, the continuous-batching engine over the
 same derived weights, and ``dalle_config_for_vae``. ``generate_images``
-primes from pixels through the dVAE's encoder (``img=``). CLIP reranking,
-int8 weights and speculative decoding are not ported yet and raise
-``NotImplementedError``.
+primes from pixels through the dVAE's encoder (``img=``) and scores its
+images with a CLIP (``clip=``, the rerank); ``attach_rerank`` keeps a CLIP
+with the wrapper. int8 weights and speculative decoding are not ported yet
+and raise ``NotImplementedError``; ``image_pipeline`` (the serving rerank
+stage) waits for ``ROADMAP.md`` Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import DalleConfig
+from .clip import CLIP
 from .dalle import DALLE
 from .dvae import DiscreteVAE
 
@@ -56,6 +59,20 @@ class DiscreteVAEAdapter:
         return self.model.decode(ids)
 
 
+@torch.no_grad()
+def rerank_scores(clip: CLIP, text, images) -> torch.Tensor:
+    """CLIP's per-pair scores of (b, n) DALL·E text ids and (b, H, W, C)
+    images: ids at or above CLIP's vocabulary become 0, the text is cropped
+    or 0-padded to CLIP's ``text_seq_len``."""
+    c = clip.cfg
+    text = torch.as_tensor(text).to(images.device, torch.long)
+    text = torch.where(text >= c.num_text_tokens, torch.zeros_like(text), text)
+    n = c.text_seq_len
+    text = text[:, :n] if text.shape[1] >= n else torch.nn.functional.pad(
+        text, (0, n - text.shape[1]))
+    return clip(text, images)
+
+
 def dalle_config_for_vae(vae: DiscreteVAEAdapter, **dalle_kwargs) -> DalleConfig:
     """The image-side fields of a ``DalleConfig`` taken from the vae, the
     rest from ``dalle_kwargs``."""
@@ -65,12 +82,20 @@ def dalle_config_for_vae(vae: DiscreteVAEAdapter, **dalle_kwargs) -> DalleConfig
 
 class DalleWithVae:
     """Raw-pixel interface around DALLE: decodes generated tokens to pixels
-    through the frozen VAE."""
+    through the frozen VAE. ``clip`` is an optional frozen CLIP reranker,
+    kept for callers to pass as ``generate_images(clip=…)``."""
 
-    def __init__(self, model: DALLE, vae: DiscreteVAEAdapter):
+    def __init__(self, model: DALLE, vae: DiscreteVAEAdapter, clip: Optional[CLIP] = None):
         self.model = model
         self.vae = vae
+        self.clip = clip
         self._fast = None   # (source model, bf16 copy)
+
+    def attach_rerank(self, clip: CLIP) -> "DalleWithVae":
+        """Keep ``clip`` (e.g. from ``train.checkpoints.load_clip``) as the
+        reranker. Returns self."""
+        self.clip = clip
+        return self
 
     def _resolve_precision(self, precision: str):
         """(model, cache_dtype) for a decode precision mode. The bf16 copy of
@@ -100,7 +125,12 @@ class DalleWithVae:
         ``DALLE.generate_images_tokens``); logits are sampled in f32 in every
         precision mode. ``img`` (b, H, W, C) primes the first
         ``num_init_img_tokens`` image tokens (default 43.75 % of them, 14 of
-        32 rows) with its dVAE tokens."""
+        32 rows) with its dVAE tokens.
+
+        With a ``clip`` (a ``models.clip.CLIP``) → (images, scores): each
+        image's similarity to its own text × exp(temperature). Text ids at or
+        above CLIP's vocabulary become 0 (the pad), and the text is cropped
+        or 0-padded to CLIP's ``text_seq_len``."""
         prime = None
         if img is not None:
             n_prime = num_init_img_tokens
@@ -110,8 +140,8 @@ class DalleWithVae:
                 raise ValueError(f"num_init_img_tokens {n_prime} must be in "
                                  f"[0, {self.model.cfg.image_seq_len})")
             prime = self.vae.get_codebook_indices(img)[:, :n_prime]
-        if clip is not None:
-            raise NotImplementedError("CLIP reranking is not ported yet")
+        if clip is not None and not isinstance(clip, CLIP):
+            raise TypeError(f"clip must be a models.clip.CLIP, got {type(clip).__name__}")
         if speculative > 0:
             raise NotImplementedError("speculative decoding is not ported yet")
         model, cache_dtype = self._resolve_precision(precision)
@@ -119,7 +149,10 @@ class DalleWithVae:
             text, generator=generator, noise=noise, filter_thres=filter_thres,
             temperature=temperature, cond_scale=cond_scale, image_prime=prime,
             cache_dtype=cache_dtype)
-        return self.vae.decode(ids)
+        images = self.vae.decode(ids)
+        if clip is None:
+            return images
+        return images, rerank_scores(clip, text, images)
 
     def serve_engine(self, *, slots: int, precision: str = "bf16_int8kv",
                      filter_thres: float = 0.5, temperature: float = 1.0,

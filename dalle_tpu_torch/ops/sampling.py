@@ -1,7 +1,7 @@
 """Sampling primitives: top-k filtering and the gumbel-max draw.
 
 Port of ``dalle_tpu/ops/sampling.py`` (``top_k_filter``, ``gumbel_sample``,
-``gumbel_sample_rows``). Draws come from an explicit ``torch.Generator``;
+``gumbel_sample_rows``, and CLIP's pooling ``masked_mean``). Draws come from an explicit ``torch.Generator``;
 ``gumbel_sample`` also takes injected noise, so a test can feed it the JAX
 package's own draws. ``row_noise`` gives each row of a batch its own draw
 source, which is how the serve engine keeps every request's tokens those of
@@ -70,3 +70,11 @@ def gumbel_sample_rows(logits: torch.Tensor, noise: torch.Tensor, *,
     row sampled here equals that row sampled alone under the same draw."""
     return gumbel_sample(top_k_filter(logits, thres=thres),
                          temperature=temperature, noise=noise)
+
+
+def masked_mean(t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of (b, n, d) ``t`` over axis 1, counting only the positions where
+    the (b, n) ``mask`` is True (at least one in the divisor)."""
+    t = torch.where(mask[..., None], t, torch.zeros((), dtype=t.dtype, device=t.device))
+    denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
+    return t.sum(dim=1) / denom

@@ -1,2 +1,4 @@
 """Training: the optimizer and mixed precision (``train_state``), the
-DALL·E trainer (``trainer_dalle``) and its counters (``metrics``)."""
+trainers' shell with checkpoints and NaN rollback (``base_trainer``), the
+DALL·E, dVAE and CLIP trainers (``trainer_dalle``, ``trainer_vae``,
+``trainer_clip``) and their counters (``metrics``)."""

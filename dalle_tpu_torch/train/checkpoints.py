@@ -7,6 +7,9 @@ rebuild the exact model from the directory alone; rotation keeps the
 newest ``keep_n``; a pre-flight save fails fast on a directory that cannot
 be written.
 
+``load_model_checkpoint`` rebuilds a model from a checkpoint directory
+alone, for the entry points; ``load_clip`` is its CLIP reranker's case.
+
 Layout: ``<directory>/<step>/state.pt`` (``torch.save`` of a dict of
 tensors) and ``<directory>/<step>/metadata.json``.
 
@@ -41,6 +44,10 @@ import time
 from typing import Any, List, Optional, Tuple
 
 import torch
+
+from ..config import ClipConfig
+from ..device import resolve_device
+from ..models.clip import CLIP, init_clip
 
 STATE_FILE = "state.pt"
 META_FILE = "metadata.json"
@@ -243,3 +250,32 @@ class CheckpointManager:
 
     def close(self):
         """Saves are synchronous, so there is nothing to drain."""
+
+
+def load_model_checkpoint(ckpt_dir: str, expect_class: str, config_cls, init_fn,
+                          device) -> Tuple[torch.nn.Module, dict]:
+    """Rebuild a model from a checkpoint's embedded metadata: check
+    ``model_class``, build ``init_fn(config_cls.from_dict(hparams))`` on
+    ``device`` and load the newest step's weights. → (model, metadata).
+
+    The file is mapped on the host, not read onto ``device``: a training
+    checkpoint also holds the f32 masters and the optimizer's moments, and
+    only the ``model`` tensors are copied to the card."""
+    mgr = CheckpointManager(ckpt_dir)
+    meta = mgr.load_metadata()
+    if meta is None or meta.get("model_class") != expect_class:
+        raise ValueError(f"{ckpt_dir} is not a {expect_class} checkpoint "
+                         f"(model_class={meta and meta.get('model_class')})")
+    model = init_fn(config_cls.from_dict(meta["hparams"]), seed=0, device=device)
+    state, meta = mgr.restore(map_location="cpu", mmap=True)
+    with torch.no_grad():
+        model.load_state_dict(state["model"])
+    return model.eval(), meta
+
+
+def load_clip(ckpt_dir: str, device=None) -> Tuple[CLIP, dict]:
+    """A port CLIP checkpoint (``model_class`` "CLIP", as ``train_clip``
+    writes it) → (model in eval mode, metadata). The file is mapped on the
+    host and only the ``model`` tensors are copied to ``device``."""
+    return load_model_checkpoint(ckpt_dir, "CLIP", ClipConfig, init_clip,
+                                 resolve_device(device))

@@ -1,0 +1,106 @@
+"""dVAE trainer: the gumbel-softmax training step on the trainers' shell.
+
+Port of ``dalle_tpu/train/trainer_vae.py``: the temperature anneal
+``max(starting_temp · exp(−anneal_rate · step), temp_min)``, read at each
+step (and rebased by ``reanneal_gumbel``, which the checkpoint metadata
+carries), the loss of ``DiscreteVAE.forward`` on the compute-dtype copies
+of the f32 masters, clipping and the optimizer's update, and the codebook
+histogram that shows a collapse. The gumbel draws come from a
+``torch.Generator`` seeded by ``train_cfg.seed`` whose state travels in the
+checkpoint (the JAX package folds the step into its key). A checkpoint's
+``model`` is the ``DiscreteVAE`` state dict and its ``hparams`` the
+``DVAEConfig``: what ``train_dalle --vae_path`` reads.
+
+Not ported yet: ``train_steps`` (scanned multi-steps) and the health taps
+(``ROADMAP.md`` Queue 1 items 3 and 12).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import AnnealConfig, DVAEConfig, TrainConfig
+from ..models.dvae import init_dvae
+from .base_trainer import BaseTrainer
+
+
+def anneal_temperature(cfg: AnnealConfig, global_step: int) -> float:
+    return max(cfg.starting_temp * math.exp(-cfg.anneal_rate * global_step), cfg.temp_min)
+
+
+def _vae_loss(model, images, temp, noise, generator):
+    return model(images, temp=temp, return_loss=True, noise=noise, generator=generator), {}
+
+
+class VAETrainer(BaseTrainer):
+    """Consumes batches of (b, H, W, C) images in [0, 1], optionally with
+    their gumbel draws (``train_step``'s ``noise``). The model is built by
+    ``init_dvae`` (random weights from ``train_cfg.seed``)."""
+
+    model_class = "DiscreteVAE"
+
+    def __init__(self, model_cfg: DVAEConfig, train_cfg: TrainConfig,
+                 anneal_cfg: Optional[AnnealConfig] = None, device=None):
+        if train_cfg.runtime_lr_scale:
+            raise NotImplementedError("runtime_lr_scale is not ported yet")
+        super().__init__(train_cfg, device)
+        self.model_cfg = model_cfg
+        self.anneal_cfg = anneal_cfg or AnnealConfig()
+        self._anneal_step0 = 0   # the anneal's rebase point (reanneal_gumbel)
+        self.model = init_dvae(model_cfg, seed=train_cfg.seed, device=self.device).train()
+        self._setup_training(_vae_loss)
+        self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
+        self.tokens_per_sample = model_cfg.image_seq_len
+
+    def _temp_at(self, step: int) -> float:
+        """The anneal at ``step - _anneal_step0``."""
+        return anneal_temperature(self.anneal_cfg, max(step - self._anneal_step0, 0))
+
+    def reanneal_gumbel(self, step: int) -> float:
+        """Restart the temperature's anneal from ``step`` (re-warming a
+        collapsed codebook). The rebase point goes into every later
+        checkpoint's metadata, so a resumed run keeps it. Returns the
+        temperature at ``step``."""
+        self._anneal_step0 = int(step)
+        self.extra_meta["anneal_step0"] = self._anneal_step0
+        return self._temp_at(step)
+
+    def restore(self, step: Optional[int] = None):
+        meta = super().restore(step)
+        if meta and meta.get("anneal_step0"):
+            self._anneal_step0 = int(meta["anneal_step0"])
+            self.extra_meta["anneal_step0"] = self._anneal_step0
+        return meta
+
+    def train_step(self, images, noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        """One optimizer step → {"loss", "grad_norm" (before clipping),
+        "temperature", "step" (after the update)}. ``noise`` ((b, h, w,
+        num_tokens), standard Gumbel) replaces the generator's draw."""
+        temp = self._temp_at(self.step)
+        images = self._to_images(images)
+        if self.dtype is not None:
+            images = images.to(self.dtype)
+        loss, _, grad_norm = self._optimize(images, temp, noise, self.generator)
+        vals = torch.stack([loss.float(), grad_norm]).tolist()
+        return {"loss": vals[0], "grad_norm": vals[1], "temperature": temp,
+                "step": self.step}
+
+    # -- evaluation ----------------------------------------------------------
+    @torch.no_grad()
+    def reconstruct(self, images, hard: bool = True) -> torch.Tensor:
+        """(b, H, W, C) reconstructions on the f32 masters: the argmax's
+        codes with ``hard``, else a gumbel sample from a generator seeded by
+        ``train_cfg.seed`` (the training draws are not disturbed)."""
+        gen = None
+        if not hard:
+            gen = torch.Generator(device=self.device).manual_seed(self.train_cfg.seed)
+        return self.model(self._to_images(images), hard_recons=hard, generator=gen)
+
+    def codebook_histogram(self, images) -> np.ndarray:
+        """(num_tokens,) counts of each code among the images' argmax codes."""
+        idx = self.model.get_codebook_indices(self._to_images(images))
+        return torch.bincount(idx.reshape(-1), minlength=self.model_cfg.num_tokens).cpu().numpy()

@@ -398,7 +398,9 @@ TRAIN_UNPORTED = [["--image_text_folder", "x"], ["--wds", "x"], ["--reversible"]
                   ["--shift_tokens"], ["--ga_steps", "2"], ["--lr_scheduler", "plateau"],
                   ["--scan_steps", "2"], ["--trace"], ["--watchdog_deadline_s", "5"],
                   ["--prometheus_path", "p"], ["--taming"], []]
-GENERATE_UNPORTED = [["--int8w"], ["--speculative", "2"], ["--clip_path", "x"], ["--gentxt"],
+# --clip_path is ported: its case now gives it a path with a DALL·E checkpoint
+# and no CLIP one, which is refused
+GENERATE_UNPORTED = [["--int8w"], ["--speculative", "2"], ["--clip_path", "DALLE"], ["--gentxt"],
                      ["--fast_topk"], ["--trace", "d"]]
 
 
@@ -411,10 +413,22 @@ def test_train_unported_flags_raise(tmp_path, flags):
         train_dalle.main(argv + flags)
 
 
+@pytest.fixture(scope="module")
+def dalle_ckpt(tmp_path_factory, port_vae):
+    ckpt = str(tmp_path_factory.mktemp("dalle_ckpt"))
+    cfg = DalleConfig(**TINY)
+    _write_checkpoint(ckpt, DALLE(cfg).state_dict(), cfg, port_vae)
+    return ckpt
+
+
 @pytest.mark.parametrize("flags", GENERATE_UNPORTED, ids=lambda f: f[0])
-def test_generate_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        generate.main(["--dalle_path", str(tmp_path), "--text", "x", "--device", "cpu"] + flags)
+def test_generate_unported_flags_raise(dalle_ckpt, tmp_path, flags):
+    flags = [dalle_ckpt if f == "DALLE" else f for f in flags]
+    err, match = ((ValueError, "not a CLIP checkpoint") if flags[0] == "--clip_path"
+                  else (NotImplementedError, "ROADMAP.md Queue 1 item"))
+    with pytest.raises(err, match=match):
+        generate.main(["--dalle_path", dalle_ckpt, "--text", "x", "--device", "cpu",
+                       "--outputs_dir", str(tmp_path)] + flags)
 
 
 def test_png_writer_reads_back_in_pil(tmp_path):

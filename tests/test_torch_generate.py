@@ -140,7 +140,8 @@ def test_same_generator_seed_same_tokens(models):
     (dict(speculative=2), NotImplementedError),
     # priming itself is ported; priming under speculative decoding is not
     (dict(img=np.zeros((2, 16, 16, 3)), speculative=2), NotImplementedError),
-    (dict(clip=object()), NotImplementedError),
+    # CLIP reranking is ported: a clip that is not a models.clip.CLIP is refused
+    (dict(clip=object()), TypeError),
     (dict(precision="fp8"), ValueError)])
 def test_unported_generate_options_raise(models, kw, err):
     _, (tm, tv) = models
