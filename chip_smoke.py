@@ -255,11 +255,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 step 1's checkpoint gives the same bits; the snapshot's mode,
                 bytes and ms.
 
-Phases 11-20 run beside their kin: flash_kernel, persist_kernel,
+23. recipe    bench.py's training recipe: DalleTrainer.train_steps on
+                DALL·E-1.4B, batch 8, bf16 compute over f32 masters,
+                Adafactor with clipping at 0.5, k = 5 steps a call,
+                metrics_every 1000 (no step reads the host), the same
+                batch stacked five times as bench.py does; two warm-up calls
+                and two timed ones, each ending in a read of one master
+                element; loss_mean finite and falling between the timed
+                calls, K1's forward and backward each launched 24 times a
+                step. Then ms/step, tokens/s, bench.py's model TFLOP/s
+                (6·N + 12·L·h·d·n a token), peak memory beside phase train's
+                Adam peak, Adafactor's state bytes beside Adam's moments, the
+                optimizer's step alone (CUDA events) for Adafactor and Adam on
+                the same gradients, a profiled call's device ms and busy
+                share, and the synchronising calls of one call under
+                set_sync_debug_mode("warn") (none may be in the training
+                loop's own files). At depth 2 and full width: train_steps
+                (k = 3) ≡ three train_step calls ≡ fit (scan_steps 3, host
+                batches through the prefetcher's side stream) bit for bit,
+                masters and the whole optimizer state, for Adafactor with
+                dropout 0.1 and CFG nulls, and for accumulation over 2 with
+                the plateau schedule (the first mini-step moves no master);
+                Optimizer.step for both under set_sync_debug_mode("error").
+                Then ``cli.train_dalle`` at phase cli's shapes with
+                --scan_steps 2 --ga_steps 2 --lr_scheduler plateau
+                --device_prefetch 2 --defer_metrics --attn_dropout 0.1 for 4
+                steps and --resume for 2 more, in build/recipe_cli/.
+
+Phases 11-20 and 23 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
-persist_parity and ring_parity after serve_parity; train_persist after
-train; train_long and then train_ring, then cli and paper last. Each prints
-its seconds.
+persist_parity and ring_parity after serve_parity; recipe and then
+train_persist after train; train_long and then train_ring, then cli and
+paper last. Each prints its seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -290,6 +317,24 @@ def emit(phase: str, **kw):
 def check(cond, msg: str):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def check_same_tree(torch, live, saved, what):
+    """Nested dicts and lists of tensors (an optimizer's ``state_dict``)
+    equal bit for bit, structure and plain values included."""
+    if isinstance(live, torch.Tensor):
+        check(isinstance(saved, torch.Tensor)
+              and torch.equal(live, saved.to(live.device)), f"{what} differs")
+    elif isinstance(live, dict):
+        check(isinstance(saved, dict) and live.keys() == saved.keys(), f"{what}: keys")
+        for k in live:
+            check_same_tree(torch, live[k], saved[k], f"{what}.{k}")
+    elif isinstance(live, (list, tuple)):
+        check(len(live) == len(saved), f"{what}: length")
+        for i, (a, b) in enumerate(zip(live, saved)):
+            check_same_tree(torch, a, b, f"{what}[{i}]")
+    else:
+        check(live == saved, f"{what}: {live!r} != {saved!r}")
 
 
 def card_line() -> str:
@@ -976,6 +1021,273 @@ def phase_train(torch, card):
          ms_per_step_fused=ms, card=card)
     del tr
     torch.cuda.empty_cache()
+    return launches, row
+
+
+# ---------------------------------------------------------------------------
+# bench.py's recipe: Adafactor, k steps a call, the metrics cadence
+# ---------------------------------------------------------------------------
+
+RECIPE_K = 5                     # bench.py: train_steps with k = 5 per dispatch
+RECIPE_METRICS_EVERY = 1000      # bench.py: no step waits on the host
+# this package's own files: a synchronising call in one of them is a fault
+RECIPE_OWN = ("train_state.py", "base_trainer.py", "trainer_dalle.py", "device_prefetch.py")
+
+
+def _stacked(torch, cfg, k, b, seed):
+    """k copies of one ``_train_batch`` on the card, as bench.py stacks them."""
+    text, img = _train_batch(cfg, b, seed)
+    return (torch.from_numpy(text).cuda()[None].repeat(k, 1, 1),
+            torch.from_numpy(img).cuda()[None].repeat(k, 1, 1))
+
+
+def _sync_calls(torch, fn):
+    """Run ``fn`` under ``set_sync_debug_mode("warn")`` → (the synchronising
+    calls made inside the port: one (innermost frame in ``dalle_tpu_torch/``,
+    innermost frame) pair of "path:line" places each, from the Python stack
+    at the warning; and the places of any made outside it, such as by the
+    mode's own switch)."""
+    import os
+    import traceback
+    import warnings
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dalle_tpu_torch") + os.sep
+    places, outside = [], []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()
+                 if not f.filename.endswith(os.sep + "warnings.py")]
+        ours = [f for f in stack if f.filename.startswith(root)]
+        inner = f"{stack[-1].filename}:{stack[-1].lineno}"
+        if ours:
+            places.append((f"{ours[-1].filename[len(root):]}:{ours[-1].lineno}", inner))
+        else:
+            outside.append(inner)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return places, outside
+
+
+def _recipe_parity(torch, card):
+    """At depth 2 and full width, f32 masters and bf16 compute:
+    train_steps(k=3) ≡ three train_step calls ≡ fit with scan_steps=3 over
+    host batches through the prefetcher (its side stream), bit for bit, for
+    Adafactor with attention and feed-forward dropout 0.1 and CFG nulls; and
+    for Adafactor with grad_accum_steps=2 and the plateau schedule, whose
+    first mini-step moves no master. Then Optimizer.step under
+    set_sync_debug_mode("error") for Adafactor, accumulation and plateau."""
+    import numpy as np
+
+    from dalle_tpu_torch import DalleTrainer, OptimConfig, TrainConfig, dalle_1p4b
+
+    cases = {"adafactor_dropout": (dalle_1p4b(depth=2, attn_dropout=0.1, ff_dropout=0.1),
+                                   OptimConfig(optimizer="adafactor", grad_clip_norm=0.5)),
+             "accumulate_plateau": (dalle_1p4b(depth=2),
+                                    OptimConfig(optimizer="adafactor", grad_clip_norm=0.5,
+                                                grad_accum_steps=2, lr_scheduler="plateau",
+                                                plateau_patience=0))}
+    k, b = 3, 8
+    out = {}
+    for name, (cfg, optim) in cases.items():
+        tc = TrainConfig(batch_size=b, seed=SMOKE_SEED + 5, optim=optim, scan_steps=k,
+                         metrics_every=k, device_prefetch=2, nan_rollback=False)
+        host = [_train_batch(cfg, b, SMOKE_SEED + 10 + i) for i in range(k)]
+        texts = torch.from_numpy(np.stack([t for t, _ in host])).cuda()
+        imgs = torch.from_numpy(np.stack([i for _, i in host])).cuda()
+        scanned = DalleTrainer(cfg, tc, null_cond_prob=0.2)
+        m_scan = scanned.train_steps(texts, imgs)
+        single = DalleTrainer(cfg, tc, null_cond_prob=0.2)
+        start = {n: p.detach().clone() for n, p in single.model.named_parameters()}
+        singles = []
+        for i in range(k):
+            singles.append(single.train_step(texts[i], imgs[i]))
+            if i == 0 and optim.grad_accum_steps > 1:
+                for n, p in single.model.named_parameters():
+                    check(torch.equal(p, start[n]),
+                          f"{name}: the first mini-step moved {n}")
+        del start
+        _same_train_state(torch, single, scanned.state_dict(), f"{name}: train_step × {k}")
+        check(m_scan["loss"] == singles[-1]["loss"] and math.isfinite(m_scan["loss"]),
+              f"{name}: loss {m_scan['loss']} != {singles[-1]['loss']}")
+        del single
+        looped = DalleTrainer(cfg, tc, null_cond_prob=0.2)
+        looped.fit(iter(host), log=lambda *a: None)
+        _same_train_state(torch, looped, scanned.state_dict(), f"{name}: fit")
+        del looped
+        # the optimizer alone reads nothing back to the host
+        opt = scanned.optimizer
+        scanned.loss_and_backward(texts[0], imgs[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(optim.grad_accum_steps):
+                opt.step(torch.ones((), device="cuda"))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out[name] = {"loss_last": singles[-1]["loss"],
+                     "loss_mean": m_scan["loss_mean"], "count": opt.count,
+                     "plateau_scale": (None if opt.plateau is None
+                                       else float(opt.plateau.scale))}
+        del scanned, opt
+        torch.cuda.empty_cache()
+    emit("recipe_parity", depth=2, k=k, batch=b, cases=out, bit_for_bit=True,
+         sync_free_optimizer=sorted(cases), card=card)
+
+
+def _cli_recipe(torch, card):
+    """``train_dalle`` at phase cli's shapes with the loop's flags, then
+    ``--resume`` for one more group."""
+    import os
+    import shutil
+
+    from dalle_tpu_torch.cli import train_dalle
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.train.checkpoints import CheckpointManager
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "recipe_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--synthetic", "--image_size", "128", "--untrained_vae",
+            "--untrained_vae_tokens", "8192", "--untrained_vae_layers", "3",
+            "--dim", "1792", "--depth", str(CLI_DEPTH), "--heads", "14",
+            "--dim_head", "128", "--text_seq_len", "256", "--batch_size", "8",
+            "--keep_n_checkpoints", "1", "--output_dir", work, "--seed", str(SMOKE_SEED),
+            "--no_preflight", "--scan_steps", "2", "--ga_steps", "2",
+            "--lr_scheduler", "plateau", "--device_prefetch", "2", "--defer_metrics",
+            "--attn_dropout", "0.1"]
+    try:
+        walls, launches = [], []
+        for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+            fa.fwd_launches = fa.bwd_launches = 0
+            t0 = time.perf_counter()
+            rc = train_dalle.main(argv + extra)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append((fa.fwd_launches, fa.bwd_launches))
+            check(rc == 0, f"train_dalle {' '.join(extra)} returned {rc}")
+        state, meta = CheckpointManager(work).restore(map_location="cuda")
+        opt = state["optimizer"]
+        check(state["step"] == 6 and opt["count"] == 3 and opt["mini_step"] == 0
+              and opt["plateau"] is not None and opt["acc"] is not None,
+              f"after --resume: step {state['step']}, count {opt['count']}")
+        check(meta["train"]["scan_steps"] == 2 and meta["train"]["defer_metrics"]
+              and meta["hparams"]["attn_dropout"] == 0.1, "the flags reached the config")
+        check(min(launches[0]) >= 4 * CLI_DEPTH and min(launches[1]) >= 2 * CLI_DEPTH,
+              f"K1 launches {launches}")
+        del state
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("recipe_cli", depth=CLI_DEPTH, wall_s=walls, k1_launches=launches,
+         plateau_scale=float(opt["plateau"]["scale"]), card=card)
+
+
+def phase_recipe(torch, card, adam_row):
+    """bench.py's recipe on DALL·E-1.4B: Adafactor with clipping at 0.5,
+    batch 8, k = 5 steps a train_steps call, metrics_every 1000, no
+    checkpoints; two warm-up calls and two timed ones, each ending in a read
+    of one master element (bench.py's sync); then the optimizer alone, a
+    profiled call, the synchronising calls, the depth-2 parity and the
+    command line."""
+
+    from dalle_tpu_torch import DalleTrainer, OptimConfig, TrainConfig, dalle_1p4b
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.train import train_state as tts
+
+    import os
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = dalle_1p4b()
+    b, k = 8, RECIPE_K
+    tc = TrainConfig(batch_size=b, seed=SMOKE_SEED, metrics_every=RECIPE_METRICS_EVERY,
+                     optim=OptimConfig(optimizer="adafactor", grad_clip_norm=0.5))
+    tr = DalleTrainer(cfg, tc)
+    texts, imgs = _stacked(torch, cfg, k, b, SMOKE_SEED)
+    master = next(tr.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.fwd_launches = fa.bwd_launches = 0          # the recipe's path starts here
+    walls, loss_means = [], []
+    for _ in range(4):                             # 2 warm-up calls, 2 timed
+        t0 = time.perf_counter()
+        tr.train_steps(texts, imgs)
+        master.view(-1)[0].item()                   # bench.py's sync: one master element
+        walls.append(time.perf_counter() - t0)
+        loss_means.append(tr.fetch_metrics()["loss_mean"])
+    launches = {"fused_attention_fwd": fa.fwd_launches, "fused_attention_bwd": fa.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 4 * k
+    check(all(math.isfinite(x) for x in loss_means), f"non-finite loss_mean {loss_means}")
+    check(loss_means[3] < loss_means[2],
+          f"loss_mean did not fall between the timed calls: {loss_means}")
+    for name, n in launches.items():
+        check(n == steps * cfg.depth, f"{name} launched {n} times in {steps} steps, "
+                                      f"expected {steps * cfg.depth}")
+    ms = statistics.median(walls[2:]) * 1e3 / k
+    n_tok = cfg.total_seq_len
+    flops_per_token = (6.0 * tr.num_params + 12.0 * cfg.depth * cfg.heads * cfg.dim_head
+                       * n_tok)
+    core = tr.optimizer.core
+    state_bytes = sum(t.numel() * t.element_size() for k_ in core.STATE
+                      for t in getattr(core, k_) if t is not None)
+    adam_bytes = 2 * 4 * tr.num_params
+    row = dict(batch=b, k=k, metrics_every=RECIPE_METRICS_EVERY, optimizer="adafactor",
+               calls_ms=[w * 1e3 for w in walls], ms_per_step=ms,
+               tokens_per_s=b * n_tok / ms * 1e3,
+               model_tflops_per_s_bench=flops_per_token * b * n_tok / ms / 1e9,
+               peak_gib=peak, peak_gib_adam_phase_train=adam_row["peak_gib"],
+               ms_per_step_adam_phase_train=adam_row["ms_per_step"],
+               loss_mean=loss_means, launches=launches,
+               adafactor_state_bytes=state_bytes, adam_moment_bytes=adam_bytes, card=card)
+    emit("recipe", **row)
+
+    # -- the optimizer alone, on one step's gradients (CUDA events; each
+    # call clips the same .grad again, which changes no cost) ---------------
+    loss, _ = tr.loss_and_backward(texts[0], imgs[0])
+
+    ada_ms = median_ms(lambda: tr.optimizer.step(loss), 5)
+    adam = tts.Optimizer(OptimConfig(optimizer="adam", learning_rate=3e-4, grad_clip_norm=0.5),
+                         tr.optimizer.params)
+    adam_ms = median_ms(lambda: adam.step(loss), 5)
+    del adam
+    torch.cuda.empty_cache()
+
+    # -- one profiled call, and the synchronising calls of one call ----------
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train_steps(texts, imgs)
+        master.view(-1)[0].item()
+        wall = time.perf_counter() - t0
+    dev_us, by_kernel = device_time(torch, prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    syncs, outside = _sync_calls(torch, lambda: tr.train_steps(texts, imgs))
+    torch.cuda.synchronize()
+    own = [s for s in syncs if os.path.basename(s[0].split(":")[0]) in RECIPE_OWN]
+    check(not own, f"synchronising calls in the training loop's own code: {own}")
+    emit("recipe_profile", optimizer_ms_adafactor=ada_ms, optimizer_ms_adam=adam_ms,
+         optimizer_ms_adam_phase_train_pr8=43.5, wall_ms_profiled=wall * 1e3,
+         device_ms=dev_us / 1e3 if dev_us else "not measured",
+         device_ms_per_step=dev_us / 1e3 / k if dev_us else "not measured",
+         # against an unprofiled call's wall: the profiler slows the host
+         device_busy_share=(dev_us / 1e3) / (ms * k) if dev_us else "not measured",
+         top_device_ms={kk: v / 1e3 for kk, v in top},
+         sync_calls_in_a_call=len(syncs), sync_places=sorted(set(syncs)),
+         sync_places_outside_the_port=sorted(set(outside)), card=card)
+    del tr, texts, imgs, master, loss
+    torch.cuda.empty_cache()
+
+    _recipe_parity(torch, card)
+    _cli_recipe(torch, card)
+    emit("recipe_done", seconds=time.perf_counter() - t_phase, card=card)
     return launches, row
 
 
@@ -2857,10 +3169,8 @@ def phase_cli(torch, card):
         check(tr.step == 3, f"restored step {tr.step} != 3")
         for name, p in tr.model.state_dict().items():
             check(torch.equal(p, saved["model"][name]), f"restored {name} differs")
-        opt = tr.optimizer.core.state_dict()["state"]
-        for i, st in saved["optimizer"]["state"].items():
-            for k in ("exp_avg", "exp_avg_sq"):
-                check(torch.equal(opt[i][k], st[k]), f"restored Adam {k}[{i}] differs")
+        opt = tr.optimizer.state_dict()
+        check_same_tree(torch, opt, saved["optimizer"], "restored optimizer")
         probe = CheckpointManager(os.path.join(work, "save_probe"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2978,16 +3288,12 @@ def _train_steps(torch, trainer, batches):
 
 
 def _same_train_state(torch, trainer, saved, what):
+    """The masters and the optimizer's whole state (moments, counts,
+    accumulator, plateau, lr scale) equal ``saved``'s bit for bit."""
     for k, v in trainer.model.state_dict().items():
         check(torch.equal(v, saved["model"][k]), f"{what}: {k} differs")
-    live = trainer.optimizer.core.state_dict()["state"]
-    check(live.keys() == saved["optimizer"]["state"].keys(), f"{what}: optimizer keys")
-    for i, st in saved["optimizer"]["state"].items():
-        for k, v in st.items():
-            check(torch.equal(live[i][k], v.to(live[i][k].device)),
-                  f"{what}: optimizer {k}[{i}] differs")
-    check(trainer.optimizer.count == saved["count"],
-          f"{what}: count {trainer.optimizer.count} != {saved['count']}")
+    check_same_tree(torch, trainer.optimizer.state_dict(), saved["optimizer"],
+                    f"{what}: optimizer")
 
 
 def _nan_rollback(torch, card, work):
@@ -3009,9 +3315,10 @@ def _nan_rollback(torch, card, work):
 
     cfg = DVAEConfig()
     ckpt = os.path.join(work, "nan")
+    # device_prefetch=0: the stream checks the state between its batches
     tc = TrainConfig(batch_size=8, seed=SMOKE_SEED, checkpoint_dir=ckpt, save_every_steps=1,
-                     log_every=1, optim=OptimConfig(learning_rate=1e-3,
-                                                    lr_scheduler="exponential"))
+                     log_every=1, device_prefetch=0,
+                     optim=OptimConfig(learning_rate=1e-3, lr_scheduler="exponential"))
     imgs = ShapesDataset(128).as_arrays(limit=24)[0].reshape(3, 8, 128, 128, 3)
     imgs[1, 0, 5, 7, 1] = np.nan
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED)
@@ -3275,6 +3582,7 @@ def main() -> int:
     launches, _ = phase_generate(torch, card)
     serve_launches, _ = phase_serve(torch, card)
     k1_launches, k1_row = phase_train(torch, card)
+    recipe_launches, _ = phase_recipe(torch, card, k1_row)
     k8_launches, _ = phase_train_persist(torch, card, k1_row)
     k4_launches, k4_row = phase_train_long(torch, card)
     k6_launches, k6_row = phase_train_ring(torch, card, k4_row)
@@ -3306,7 +3614,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "dalle_tpu_torch/csrc/fused_attention.cu",
             "replaces": f"dalle_tpu/ops/fused_attention.py:{line}",
-            "launches": k1_launches[name], "launches_cli": cli_launches[name],
+            "launches": k1_launches[name], "launches_recipe": recipe_launches[name],
+            "launches_cli": cli_launches[name],
             "launches_paper": paper_launches[name],
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

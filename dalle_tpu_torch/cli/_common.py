@@ -1,5 +1,6 @@
 """What the entry points share: the VAE sidecar, the VAE flags, the
-training flags that every trainer takes, and writing PNGs.
+training flags that every trainer takes (``add_overlap_args``), and writing
+PNGs.
 
 Port of ``scripts/_common.py``. The VAE precedence chain is the
 reference's: the VAE embedded in a checkpoint directory (``vae/``), then
@@ -98,14 +99,29 @@ def add_vae_args(parser):
     return parser
 
 
-def add_rollback_arg(group):
-    """``--rollback_snapshot`` (``TrainConfig.rollback_snapshot``), on every
-    trainer's entry point as in the JAX package."""
-    group.add_argument("--rollback_snapshot", type=str, default="auto",
-                       choices=SNAPSHOT_MODES,
-                       help="where the NaN-rollback snapshot lives (auto: on the card "
-                            "when its free memory holds 1.15x the snapshot, else host)")
-    return group
+def add_overlap_args(parser):
+    """The host-overlap flags every trainer's entry point takes, as the JAX
+    scripts' ``add_overlap_args`` (``--sync_checkpointing`` aside: the
+    port's saves are synchronous)."""
+    grp = parser.add_argument_group("host overlap")
+    grp.add_argument("--device_prefetch", type=int, default=2,
+                     help="batches kept on the card ahead of the step loop (0 disables)")
+    grp.add_argument("--defer_metrics", action="store_true",
+                     help="read the step metrics one boundary late, from a step that "
+                          "has finished (a NaN on a step without a save rolls back one "
+                          "boundary late)")
+    grp.add_argument("--rollback_snapshot", type=str, default="auto",
+                     choices=SNAPSHOT_MODES,
+                     help="where the NaN-rollback snapshot lives (auto: on the card "
+                          "when its free memory holds 1.15x the snapshot, else host)")
+    return parser
+
+
+def overlap_train_kwargs(args) -> dict:
+    """``TrainConfig`` keywords from ``add_overlap_args``'s flags and
+    ``--scan_steps``."""
+    return {"device_prefetch": args.device_prefetch, "defer_metrics": args.defer_metrics,
+            "rollback_snapshot": args.rollback_snapshot, "scan_steps": args.scan_steps}
 
 
 def add_unported_train_args(parser):
@@ -122,8 +138,6 @@ def add_unported_train_args(parser):
 
 
 def check_unported_train_args(args):
-    if args.scan_steps > 1:
-        raise unported("--scan_steps > 1", "3")
     for flag in ("wandb", "health", "breach_actions", "trace", "watchdog_deadline_s",
                  "prometheus_path"):
         if getattr(args, flag):

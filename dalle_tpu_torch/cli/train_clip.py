@@ -12,8 +12,8 @@ cpu``.
 
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_text_folder`` (the card's machine has no
-image decoder), ``--scan_steps`` > 1, and the wandb, health, resilience and
-telemetry flags.
+image decoder) and the wandb, health, resilience and telemetry flags.
+``--scan_steps k`` runs k steps a ``train_steps`` call.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ._common import (add_device_arg, add_rollback_arg, add_unported_train_args,
-                      check_unported_train_args, unported)
+from ._common import (add_device_arg, add_overlap_args, add_unported_train_args,
+                      check_unported_train_args, overlap_train_kwargs, unported)
 
 
 def build_parser():
@@ -62,7 +62,7 @@ def build_parser():
                        help="stop when the step count reaches this")
     train.add_argument("--scan_steps", type=int, default=1)
     train.add_argument("--no_preflight", action="store_true")
-    add_rollback_arg(train)
+    add_overlap_args(ap)
     add_unported_train_args(ap)
     add_device_arg(ap)
     return ap
@@ -98,7 +98,7 @@ def main(argv=None) -> int:
     train_cfg = TrainConfig(
         batch_size=args.batch_size, seed=args.seed, checkpoint_dir=args.output_dir,
         save_every_steps=args.save_every_n_steps,
-        preflight_checkpoint=not args.no_preflight, rollback_snapshot=args.rollback_snapshot,
+        preflight_checkpoint=not args.no_preflight, **overlap_train_kwargs(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm))
     trainer = CLIPTrainer(model_cfg, train_cfg, device=args.device)

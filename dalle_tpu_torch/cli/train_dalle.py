@@ -8,10 +8,15 @@ rotation. Runs on the CUDA card unless ``--device cpu``.
         --image_size 64 --dim 128 --depth 2 --batch_size 8 --steps 20 \\
         --text_seq_len 32 --output_dir ./dalle_ckpt
 
+``--scan_steps k`` runs k steps a ``DalleTrainer.train_steps`` call,
+``--ga_steps k`` averages k batches' gradients into each update,
+``--lr_scheduler plateau`` scales the rate down on a plateau of the loss,
+``--attn_dropout`` and ``--ff_dropout`` train with dropout, and
+``--device_prefetch`` / ``--defer_metrics`` set the loop's host overlap.
+
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_text_folder`` and ``--wds`` (the card's
-machine has no image decoder), ``--reversible``, ``--shift_tokens``,
-``--ga_steps`` > 1, ``--lr_scheduler plateau``, ``--scan_steps`` > 1 and
+machine has no image decoder), ``--reversible``, ``--shift_tokens`` and
 the telemetry flags.
 """
 
@@ -20,8 +25,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ._common import (add_device_arg, add_rollback_arg, add_vae_args, build_vae_from_args,
-                      load_vae_sidecar, save_vae_sidecar, unported)
+from ._common import (add_device_arg, add_overlap_args, add_vae_args, build_vae_from_args,
+                      load_vae_sidecar, overlap_train_kwargs, save_vae_sidecar, unported)
 
 
 def build_parser():
@@ -78,7 +83,7 @@ def build_parser():
                        help="stop when the step count reaches this")
     train.add_argument("--scan_steps", type=int, default=1)
     train.add_argument("--no_preflight", action="store_true")
-    add_rollback_arg(train)
+    add_overlap_args(ap)
 
     tel = ap.add_argument_group("telemetry (not ported yet)")
     tel.add_argument("--trace", action="store_true")
@@ -96,12 +101,6 @@ def _check_ported(args):
         raise unported("--reversible", "9")
     if args.shift_tokens:
         raise unported("--shift_tokens", "7")
-    if args.ga_steps > 1:
-        raise unported("--ga_steps > 1", "3")
-    if args.lr_scheduler == "plateau":
-        raise unported("--lr_scheduler plateau", "3")
-    if args.scan_steps > 1:
-        raise unported("--scan_steps > 1", "3")
     if args.trace or args.watchdog_deadline_s or args.prometheus_path:
         raise unported("the telemetry flags (--trace, --watchdog_deadline_s, "
                        "--prometheus_path)", "12")
@@ -145,9 +144,10 @@ def main(argv=None) -> int:
         batch_size=args.batch_size, seed=args.seed,
         checkpoint_dir=args.output_dir, save_every_steps=args.save_every_n_steps,
         keep_n_checkpoints=args.keep_n_checkpoints,
-        preflight_checkpoint=not args.no_preflight, rollback_snapshot=args.rollback_snapshot,
+        preflight_checkpoint=not args.no_preflight, **overlap_train_kwargs(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm,
+                          grad_accum_steps=args.ga_steps,
                           lr_scheduler=args.lr_scheduler))
     trainer = DalleTrainer(model_cfg, train_cfg, device=device,
                            null_cond_prob=args.null_cond_prob)

@@ -14,8 +14,8 @@ Runs on the CUDA card unless ``--device cpu``.
 
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_folder`` (the card's machine has no image
-decoder), ``--scan_steps`` > 1, and the wandb, health, resilience and
-telemetry flags.
+decoder) and the wandb, health, resilience and telemetry flags.
+``--scan_steps k`` runs k steps a ``train_steps`` call.
 """
 
 from __future__ import annotations
@@ -24,8 +24,9 @@ import argparse
 import os
 import sys
 
-from ._common import (add_device_arg, add_rollback_arg, add_unported_train_args,
-                      check_unported_train_args, to_uint8, unported, write_png)
+from ._common import (add_device_arg, add_overlap_args, add_unported_train_args,
+                      check_unported_train_args, overlap_train_kwargs, to_uint8, unported,
+                      write_png)
 
 
 def build_parser():
@@ -69,7 +70,7 @@ def build_parser():
                        help="write a reconstruction grid and count the codes used "
                             "every N steps")
     train.add_argument("--sample_dir", type=str, default="./vae_samples")
-    add_rollback_arg(train)
+    add_overlap_args(ap)
     add_unported_train_args(ap)
     add_device_arg(ap)
     return ap
@@ -101,7 +102,7 @@ def main(argv=None) -> int:
         save_every_steps=args.save_every_steps,
         keep_n_checkpoints=args.keep_n_checkpoints,
         preflight_checkpoint=not args.no_preflight,
-        sample_every_steps=args.sample_every_steps, rollback_snapshot=args.rollback_snapshot,
+        sample_every_steps=args.sample_every_steps, **overlap_train_kwargs(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm,
                           lr_scheduler="exponential", lr_decay_rate=args.lr_decay_rate))

@@ -294,10 +294,11 @@ SNAPSHOT_MODES = ("auto", "device", "host")
 @dataclass(frozen=True)
 class TrainConfig(ConfigBase):
     """The fields of the JAX package's ``TrainConfig`` that the port's
-    trainers read (``train/base_trainer.py``), NaN rollback's among them.
-    Observability and host overlap (prefetch, deferred metrics, scanned
-    steps, async checkpoints) come with their own slices, and their fields
-    with them.
+    trainers read (``train/base_trainer.py``): checkpoints, NaN rollback, the
+    runtime lr scale, and the host overlap of the training loop (scanned
+    steps, the metrics cadence, deferred metrics, device prefetch), with the
+    JAX defaults. Observability and asynchronous checkpoint writes come with
+    their own slices, and their fields with them.
 
     One default differs: ``checkpoint_dir`` is None, and then the trainer
     keeps no checkpoints (the JAX package writes to ``./checkpoints``).
@@ -317,9 +318,18 @@ class TrainConfig(ConfigBase):
     # entry points' --rollback_snapshot
     rollback_snapshot: str = "auto"
     sample_every_steps: int = 0          # fit's sample_fn every N steps
-    # runtime learning-rate multiplier (JAX: a TrainState data leaf); not
-    # ported, True raises
+    # read the step's metrics on the host (one sync) every N steps; the
+    # other steps return {} and fit skips their NaN check and log
+    metrics_every: int = 1
+    # runtime learning-rate multiplier (JAX: a TrainState data leaf), a
+    # device scalar at 1.0 that set_lr_scale moves
     runtime_lr_scale: bool = False
+    # batches kept on the card ahead of the step loop (0: none)
+    device_prefetch: int = 2
+    # read the metrics one boundary late (the record carries metrics_step)
+    defer_metrics: bool = False
+    # k optimizer steps per train_steps call from k stacked batches
+    scan_steps: int = 1
     optim: OptimConfig = field(default_factory=OptimConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)

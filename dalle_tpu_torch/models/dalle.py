@@ -187,14 +187,19 @@ class DALLE(nn.Module):
     def forward(self, text, image_ids, return_loss: bool = False, *,
                 null_cond_prob: float = 0.0,
                 null_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout: bool = False, dropout_masks=None):
         """``text``: (b, text_seq_len) int (0 = pad); ``image_ids``:
         (b, image_seq_len) codebook indices → (b, n, total_tokens) logits,
         or with ``return_loss`` (loss, {"loss_text", "loss_img"}).
 
         Classifier-free-guidance dropout nulls the text of the rows in
         ``null_mask`` ((b,) bool), or of rows drawn with probability
-        ``null_cond_prob`` from ``generator``."""
+        ``null_cond_prob`` from ``generator``. ``dropout`` switches the
+        transformer's attention and feed-forward dropout on, its masks drawn
+        from ``generator`` after the rows (the JAX ``deterministic=False``);
+        ``dropout_masks`` (``Transformer.dropout_masks``'s form) injects
+        them instead."""
         c = self.cfg
         if text.shape[1] != c.text_seq_len:
             raise ValueError(f"text must be {c.text_seq_len} tokens, got {text.shape[1]}")
@@ -206,8 +211,11 @@ class DALLE(nn.Module):
         text_b = self.remap_and_bos(text)
         tokens = torch.cat([self.embed_text(text_b), self.embed_image(image_ids)], dim=1)
         tokens = self._stabilize(tokens[:, :c.total_seq_len])
-        out = self.transformer(tokens)
         n = tokens.shape[1]
+        if dropout and dropout_masks is None:
+            dropout_masks = self.transformer.dropout_masks(tokens.shape[0], n, generator,
+                                                           tokens.device)
+        out = self.transformer(tokens, dropout_masks=dropout_masks)
         if not return_loss:
             return self._finish(out, 0, n)
 

@@ -36,15 +36,23 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
 * ``use_remat`` recomputes each attn+ff block pair in the backward
   (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package;
   the recompute runs K1's, K4's or K8's forward again.
-* Dropout is not ported: training with ``attn_dropout``/``ff_dropout`` > 0
-  raises ``NotImplementedError`` (its mask bits could never match JAX's).
-  Token shift and reversible blocks raise too.
+* Dropout (``attn_dropout``, ``ff_dropout``), as the JAX package places it:
+  on the attention block's output after ``to_out`` and on the feed-forward
+  hidden after GEGLU, before ``w2``, each ``where(keep, x / (1 - p), 0)``.
+  It acts only where the caller passes keep masks to ``forward``
+  (``dropout_masks`` draws them from a generator, each layer's attention
+  mask then its feed-forward mask): the training loss does, prefill, decode
+  and the engine never do, whatever the module's ``training`` flag says.
+  The masks are drawn outside the blocks and passed in, so ``use_remat``'s
+  recompute sees the same ones (``torch.utils.checkpoint`` restores only
+  the default generators, not an explicit one).
+* Token shift and reversible blocks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from itertools import cycle, islice
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,18 +94,28 @@ class DivideMax(nn.Module):
         return x / x.amax(dim=self.dim, keepdim=True).detach()
 
 
-class GEGLUFeedForward(nn.Module):
-    """Linear(dim→dim·mult·2) → GEGLU (tanh GELU, as jax.nn.gelu) →
-    Linear(dim·mult→dim)."""
+def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout`` with its keep mask given: ``x / (1 - rate)``
+    where ``keep``, else 0."""
+    return torch.where(keep, x / (1.0 - rate), 0)
 
-    def __init__(self, dim: int, mult: int = 4):
+
+class GEGLUFeedForward(nn.Module):
+    """Linear(dim→dim·mult·2) → GEGLU (tanh GELU, as jax.nn.gelu) → dropout
+    (with a keep mask ``drop``) → Linear(dim·mult→dim)."""
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.w1 = nn.Linear(dim, dim * mult * 2)
         self.w2 = nn.Linear(dim * mult, dim)
 
-    def forward(self, x):
+    def forward(self, x, drop: Optional[torch.Tensor] = None):
         x, gates = self.w1(x).chunk(2, dim=-1)
-        return self.w2(x * F.gelu(gates, approximate="tanh"))
+        x = x * F.gelu(gates, approximate="tanh")
+        if drop is not None:
+            x = dropout(x, drop, self.dropout)
+        return self.w2(x)
 
 
 class Attention(nn.Module):
@@ -106,8 +124,9 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, *,
                  causal: bool = True, stable: bool = False,
-                 softmax_f32: bool = True):
+                 softmax_f32: bool = True, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.heads, self.dim_head = heads, dim_head
         self.causal, self.stable, self.softmax_f32 = causal, stable, softmax_f32
         inner = heads * dim_head
@@ -124,7 +143,13 @@ class Attention(nn.Module):
         b, _, n, _ = out.shape
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
-    def forward(self, x, *, key_mask=None, rotary=None, static_mask=None,
+    def forward(self, x, *, drop: Optional[torch.Tensor] = None, **kw):
+        """The full-sequence attention (``_attend``'s keywords), then dropout
+        with the keep mask ``drop`` on the output."""
+        out = self._attend(x, **kw)
+        return out if drop is None else dropout(out, drop, self.dropout)
+
+    def _attend(self, x, *, key_mask=None, rotary=None, static_mask=None,
                 fused: bool = False, persist: bool = False,
                 table: Optional[MaskTable] = None,
                 flash: Optional[FlashSchedule] = None,
@@ -304,9 +329,11 @@ class Transformer(nn.Module):
                 attn_type_of[aid] = t
                 self.add_module(f"attn_{aid}", Attention(
                     c.dim, c.heads, c.dim_head, causal=c.causal,
-                    stable=c.stable, softmax_f32=c.attn_softmax_f32))
+                    stable=c.stable, softmax_f32=c.attn_softmax_f32,
+                    dropout=c.attn_dropout))
             if not hasattr(self, f"ff_{fid}"):
-                self.add_module(f"ff_{fid}", GEGLUFeedForward(c.dim, c.ff_mult))
+                self.add_module(f"ff_{fid}", GEGLUFeedForward(c.dim, c.ff_mult,
+                                                              c.ff_dropout))
             self.attn_names.append(f"attn_{aid}")
             self.ff_names.append(f"ff_{fid}")
             self.add_module(f"layer_attn_{ind}",
@@ -354,8 +381,9 @@ class Transformer(nn.Module):
                 self.cfg.causal, device)
         return self._schedules[key]
 
-    def _block(self, x, ind: int, key_mask, mode):
-        """One attn + ff residual pair (the unit ``use_remat`` recomputes)."""
+    def _block(self, x, ind: int, key_mask, mode, drop=(None, None)):
+        """One attn + ff residual pair (the unit ``use_remat`` recomputes);
+        ``drop`` holds its two keep masks, or None."""
         la, attn, lf, ff, mask = self._layer(ind)
         n = x.shape[1]
         table = (self.fused_table(ind, n, x.device) if mode in ("fused", "persist")
@@ -364,8 +392,9 @@ class Transformer(nn.Module):
         ring = self.sp if mode == "ring" else 1
         x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary, static_mask=mask,
                    fused=mode == "fused", persist=mode == "persist", table=table,
-                   flash=sched, ring=ring, ring_spec=self._mask_specs[self.mask_keys[ind]])
-        return x + lf(x, ff)
+                   flash=sched, ring=ring, ring_spec=self._mask_specs[self.mask_keys[ind]],
+                   drop=drop[0])
+        return x + lf(x, ff, drop=drop[1])
 
     def attention_mode(self, device, key_mask=None):
         """The resolved full-sequence mode on ``device``: "ring" whenever
@@ -382,20 +411,38 @@ class Transformer(nn.Module):
             return False
         return mode
 
-    def forward(self, x, key_mask=None):
+    def dropout_masks(self, batch: int, n: int, generator: Optional[torch.Generator],
+                      device) -> Optional[List[Tuple[Optional[torch.Tensor],
+                                                     Optional[torch.Tensor]]]]:
+        """Every layer's (attention, feed-forward) keep masks for a (batch,
+        n) forward, drawn from ``generator`` layer by layer, attention
+        first: True with probability 1 - p (flax's ``bernoulli(keep)``),
+        None where p = 0. None when the model has no dropout."""
         c = self.cfg
-        if self.training and (c.attn_dropout > 0 or c.ff_dropout > 0):
-            raise NotImplementedError(
-                "dropout is not ported yet: train with attn_dropout = "
-                "ff_dropout = 0")
+        if c.attn_dropout <= 0 and c.ff_dropout <= 0:
+            return None
+
+        def keep(rate, width):
+            if rate <= 0:
+                return None
+            return torch.rand((batch, n, width), generator=generator,
+                              device=device) < 1.0 - rate
+        return [(keep(c.attn_dropout, c.dim), keep(c.ff_dropout, c.dim * c.ff_mult))
+                for _ in range(c.depth)]
+
+    def forward(self, x, key_mask=None, dropout_masks=None):
+        """The full-sequence forward; ``dropout_masks`` (``dropout_masks``'s
+        form) switches dropout on."""
+        c = self.cfg
         mode = self.attention_mode(x.device, key_mask)
         remat = c.use_remat and torch.is_grad_enabled()
         for ind in range(c.depth):
+            drop = (None, None) if dropout_masks is None else dropout_masks[ind]
             if remat:
-                x = checkpoint(self._block, x, ind, key_mask, mode,
+                x = checkpoint(self._block, x, ind, key_mask, mode, drop,
                                use_reentrant=False)
             else:
-                x = self._block(x, ind, key_mask, mode)
+                x = self._block(x, ind, key_mask, mode, drop)
         return x
 
     # -- cached decode -----------------------------------------------------

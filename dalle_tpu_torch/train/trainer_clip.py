@@ -4,17 +4,16 @@ Port of ``dalle_tpu/train/trainer_clip.py``: the symmetric cross-entropy of
 ``CLIP.forward(return_loss=True)`` on the compute-dtype copies of the f32
 masters, clipping and the optimizer's update. The step draws nothing. A
 checkpoint's ``model`` is the ``CLIP`` state dict and its ``hparams`` the
-``ClipConfig``: what ``generate --clip_path`` reads.
+``ClipConfig``: what ``generate --clip_path`` reads. ``train_steps`` runs
+k stacked batches with no host read between them.
 
-Not ported yet: ``train_steps`` (scanned multi-steps) and the health taps
-(``ROADMAP.md`` Queue 1 items 3 and 12).
+Not ported yet: the health taps (``ROADMAP.md`` Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 
 from ..config import ClipConfig, TrainConfig
@@ -27,12 +26,6 @@ def _clip_loss(model, text, images):
     return model(text, images, return_loss=True), {}
 
 
-def _text_ids(text, device) -> torch.Tensor:
-    if not isinstance(text, torch.Tensor):
-        text = torch.from_numpy(np.asarray(text, dtype=np.int64))
-    return text.to(device, torch.long)
-
-
 class CLIPTrainer(BaseTrainer):
     """Consumes batches of (text ids (b, text_seq_len), images (b, H, W, C)
     in [0, 1]). The model is built by ``init_clip`` (random weights from
@@ -41,8 +34,6 @@ class CLIPTrainer(BaseTrainer):
     model_class = "CLIP"
 
     def __init__(self, model_cfg: ClipConfig, train_cfg: TrainConfig, device=None):
-        if train_cfg.runtime_lr_scale:
-            raise NotImplementedError("runtime_lr_scale is not ported yet")
         super().__init__(train_cfg, device)
         self.model_cfg = model_cfg
         self.model = init_clip(model_cfg, seed=train_cfg.seed, device=self.device).train()
@@ -52,17 +43,36 @@ class CLIPTrainer(BaseTrainer):
         self.flops_per_step = transformer_train_flops(
             self.num_params, train_cfg.batch_size * self.tokens_per_sample)
 
+    def _put_batch(self, batch, stacked: bool = False):
+        """(text, images) → int64 ids and images in the compute dtype on the
+        device."""
+        text, images = batch
+        return (self._to_device(text, torch.long),
+                self._to_compute(self._to_images(images)))
+
     def train_step(self, text, images) -> Dict[str, float]:
         """One optimizer step → {"loss", "grad_norm" (before clipping),
-        "step" (after the update)}."""
-        images = self._to_images(images)
-        if self.dtype is not None:
-            images = images.to(self.dtype)
-        loss, _, grad_norm = self._optimize(_text_ids(text, self.device), images)
-        vals = torch.stack([loss.float(), grad_norm]).tolist()
-        return {"loss": vals[0], "grad_norm": vals[1], "step": self.step}
+        "step" (after the update)}, or {} between ``metrics_every``
+        boundaries."""
+        loss, _, grad_norm = self._optimize(*self._put_batch((text, images)))
+        return self._finish_step({"loss": loss, "grad_norm": grad_norm})
+
+    def train_steps(self, texts, images) -> Dict[str, float]:
+        """k steps on stacked (k, b, seq) texts and (k, b, H, W, C) images,
+        with no host read between them → the last step's metrics plus
+        ``loss_mean``."""
+        texts, images = self._put_batch((texts, images), stacked=True)
+        if texts.dim() != 3 or images.dim() != 5:
+            raise ValueError("train_steps takes stacked (k, b, seq) texts and "
+                             "(k, b, H, W, C) images")
+        losses = []
+        for i in range(texts.shape[0]):
+            loss, _, grad_norm = self._optimize(texts[i], images[i])
+            losses.append(loss)
+        return self._finish_step({"loss": loss, "grad_norm": grad_norm,
+                                  "loss_mean": torch.stack(losses).float().mean()})
 
     @torch.no_grad()
     def similarity(self, text, images) -> torch.Tensor:
         """Per-pair rerank scores (b,) on the f32 masters."""
-        return self.model(_text_ids(text, self.device), self._to_images(images))
+        return self.model(self._to_device(text, torch.long), self._to_images(images))

@@ -1,11 +1,17 @@
-"""DALL·E trainer: one training step on the card, on the trainers' shell.
+"""DALL·E trainer: training steps on the card, on the trainers' shell.
 
 Port of ``dalle_tpu/train/trainer_dalle.py`` (``_make_dalle_loss_fn``,
-``_dalle_step_body``, ``DalleTrainer``). A step: CFG text dropout, the loss
-on copies of the f32 master weights cast to the compute dtype, the backward
-into the masters, global-norm clipping and the optimizer update. PyTorch
-runs it eagerly; the JAX package jits it into one program. The loop,
-checkpoints and NaN rollback are the shell's (``train/base_trainer.py``).
+``_dalle_step_body``, ``make_dalle_train_multi_step``, ``DalleTrainer``). A
+step: CFG text dropout, the loss on copies of the f32 master weights cast to
+the compute dtype (with attention and feed-forward dropout when the model
+has it), the backward into the masters, and the optimizer's chain
+(``train/train_state.py``: accumulation, clipping, the core, the plateau
+and runtime scales). ``train_steps`` takes k stacked batches to k steps
+with no host read between them; every draw (CFG nulls, dropout masks) comes
+from the trainer's generator in ``train_step``'s order, so k ``train_step``
+calls give the same bits. PyTorch runs a step eagerly; the JAX package jits
+it (``lax.scan`` for the k steps). The loop, checkpoints, the metrics
+cadence and NaN rollback are the shell's (``train/base_trainer.py``).
 
 ``train_cfg.mesh.sp`` > 1 trains sequence parallel: the model's attention
 runs as ring attention over sp ranks in this process
@@ -18,20 +24,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
 
-import numpy as np
 import torch
 
 from ..config import DalleConfig, TrainConfig
-from ..convert import adam_state_from_optax, dalle_state_dict
+from ..convert import dalle_state_dict, optimizer_state_from_optax
 from ..models.dalle import init_dalle
 from .base_trainer import BaseTrainer
 from .metrics import transformer_train_flops
-
-
-def _ids(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.long)
-    return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(device)
 
 
 def _dalle_loss(model, text, image_ids, **kw):
@@ -47,8 +46,6 @@ class DalleTrainer(BaseTrainer):
 
     def __init__(self, model_cfg: DalleConfig, train_cfg: TrainConfig, device=None,
                  null_cond_prob: float = 0.0):
-        if train_cfg.runtime_lr_scale:
-            raise NotImplementedError("runtime_lr_scale is not ported yet")
         mesh = train_cfg.mesh
         if max(mesh.dp, mesh.fsdp, mesh.tp) > 1:
             raise NotImplementedError("dp, fsdp and tp > 1 are not ported: the port "
@@ -67,8 +64,9 @@ class DalleTrainer(BaseTrainer):
         self.model = init_dalle(model_cfg, seed=train_cfg.seed, device=self.device,
                                 sp=mesh.sp).train()
         self._setup_training(_dalle_loss)
-        # CFG dropout draws (the JAX package folds the step into its key)
+        # CFG and dropout draws (the JAX package folds the step into its key)
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
+        self.use_dropout = model_cfg.attn_dropout > 0 or model_cfg.ff_dropout > 0
         self.tokens_per_sample = model_cfg.total_seq_len
         self.flops_per_step = transformer_train_flops(
             self.num_params, train_cfg.batch_size * model_cfg.total_seq_len)
@@ -80,34 +78,63 @@ class DalleTrainer(BaseTrainer):
 
     def _loss_kw(self, null_mask):
         return dict(null_cond_prob=self.null_cond_prob, null_mask=null_mask,
-                    generator=self.generator)
+                    generator=self.generator, dropout=self.use_dropout)
+
+    def _put_batch(self, batch, stacked: bool = False):
+        """(text, image ids[, null_mask]) → int64 ids (and a bool mask) on
+        the device."""
+        text, image_ids, *rest = batch
+        null_mask = rest[0] if rest else None
+        return (self._to_device(text, torch.long), self._to_device(image_ids, torch.long),
+                None if null_mask is None else self._to_device(null_mask, torch.bool))
+
+    def _metrics(self, loss, aux, grad_norm) -> Dict[str, torch.Tensor]:
+        return {"loss": loss, "loss_text": aux["loss_text"], "loss_img": aux["loss_img"],
+                "grad_norm": grad_norm}
 
     def train_step(self, text, image_ids, null_mask=None) -> Dict[str, float]:
         """One optimizer step on a batch → {"loss", "loss_text", "loss_img",
-        "grad_norm" (global, before clipping), "step" (after the update)}.
-        ``null_mask`` ((b,) bool) fixes which rows get null text, in place of
-        drawing them with ``null_cond_prob``."""
-        text, image_ids = _ids(text, self.device), _ids(image_ids, self.device)
-        if null_mask is not None:
-            null_mask = torch.as_tensor(np.asarray(null_mask, bool)).to(self.device)
+        "grad_norm" (global, before clipping), "step" (after the update)},
+        or {} between ``metrics_every`` boundaries. ``null_mask`` ((b,)
+        bool) fixes which rows get null text, in place of drawing them with
+        ``null_cond_prob``."""
+        text, image_ids, null_mask = self._put_batch((text, image_ids, null_mask))
         loss, aux, grad_norm = self._optimize(text, image_ids, **self._loss_kw(null_mask))
-        vals = torch.stack([loss.float(), aux["loss_text"].float(),
-                            aux["loss_img"].float(), grad_norm]).tolist()
-        return {"loss": vals[0], "loss_text": vals[1], "loss_img": vals[2],
-                "grad_norm": vals[3], "step": self.step}
+        return self._finish_step(self._metrics(loss, aux, grad_norm))
 
-    def load_jax_state(self, params: Mapping[str, Any], opt_state=None):
+    def train_steps(self, texts, image_ids, null_masks=None) -> Dict[str, float]:
+        """k = ``texts.shape[0]`` optimizer steps on stacked (k, b, …)
+        batches, with no host read between them → the last step's metrics
+        plus ``loss_mean`` over the k, at the cadence of ``train_step``; the
+        step advances by k."""
+        texts, image_ids, null_masks = self._put_batch((texts, image_ids, null_masks),
+                                                       stacked=True)
+        if texts.dim() != 3:
+            raise ValueError(f"train_steps takes stacked (k, b, seq) batches, got "
+                             f"{tuple(texts.shape)}")
+        losses = []
+        for i in range(texts.shape[0]):
+            loss, aux, grad_norm = self._optimize(
+                texts[i], image_ids[i],
+                **self._loss_kw(None if null_masks is None else null_masks[i]))
+            losses.append(loss)
+        m = self._metrics(loss, aux, grad_norm)
+        m["loss_mean"] = torch.stack(losses).float().mean()
+        return self._finish_step(m)
+
+    def load_jax_state(self, params: Mapping[str, Any], opt_state=None,
+                       lr_scale: Optional[float] = None):
         """Continue a JAX run: its flax params (numpy) into the masters and,
-        when given, its optax Adam/AdamW state (``count``, ``mu``, ``nu``,
-        found anywhere in ``opt_state``) into the optimizer, with the
-        schedule's step count."""
+        when given, its optax state (Adam/AdamW or Adafactor, with the
+        ``MultiSteps`` accumulator and the plateau state where present;
+        ``convert.optimizer_state_from_optax``) into the optimizer, with the
+        step its counts give; ``lr_scale`` is ``TrainState.lr_scale``."""
         with torch.no_grad():
             self.model.load_state_dict(dalle_state_dict(params))
         if opt_state is not None:
-            count, state = adam_state_from_optax(opt_state, self.names)
-            core = self.optimizer.core
-            sd = core.state_dict()
-            sd["state"] = {i: {k: v.to(self.device) if k != "step" else v
-                               for k, v in s.items()} for i, s in state.items()}
-            core.load_state_dict(sd)
-            self.optimizer.count = self.step = count
+            self.optimizer.load_state_dict(optimizer_state_from_optax(
+                opt_state, params, self.names, self.train_cfg.optim.optimizer))
+            opt = self.optimizer
+            self.step = opt.count * opt.accum + opt.mini_step
+        if lr_scale is not None:
+            self.set_lr_scale(lr_scale)

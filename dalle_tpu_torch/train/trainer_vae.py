@@ -9,10 +9,11 @@ histogram that shows a collapse. The gumbel draws come from a
 ``torch.Generator`` seeded by ``train_cfg.seed`` whose state travels in the
 checkpoint (the JAX package folds the step into its key). A checkpoint's
 ``model`` is the ``DiscreteVAE`` state dict and its ``hparams`` the
-``DVAEConfig``: what ``train_dalle --vae_path`` reads.
+``DVAEConfig``: what ``train_dalle --vae_path`` reads. ``train_steps`` runs
+k stacked batches with each step's temperature and gumbel draws as k
+``train_step`` calls would take them.
 
-Not ported yet: ``train_steps`` (scanned multi-steps) and the health taps
-(``ROADMAP.md`` Queue 1 items 3 and 12).
+Not ported yet: the health taps (``ROADMAP.md`` Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -45,8 +46,6 @@ class VAETrainer(BaseTrainer):
 
     def __init__(self, model_cfg: DVAEConfig, train_cfg: TrainConfig,
                  anneal_cfg: Optional[AnnealConfig] = None, device=None):
-        if train_cfg.runtime_lr_scale:
-            raise NotImplementedError("runtime_lr_scale is not ported yet")
         super().__init__(train_cfg, device)
         self.model_cfg = model_cfg
         self.anneal_cfg = anneal_cfg or AnnealConfig()
@@ -76,18 +75,40 @@ class VAETrainer(BaseTrainer):
             self.extra_meta["anneal_step0"] = self._anneal_step0
         return meta
 
+    def _put_batch(self, batch, stacked: bool = False):
+        """(images[, noise]) → images in the compute dtype and f32 gumbel
+        noise on the device."""
+        images, *rest = batch
+        noise = rest[0] if rest else None
+        return (self._to_compute(self._to_images(images)),
+                None if noise is None else self._to_device(noise, torch.float32))
+
+    def _step(self, images, noise):
+        temp = self._temp_at(self.step)
+        loss, _, grad_norm = self._optimize(images, temp, noise, self.generator)
+        return {"loss": loss, "grad_norm": grad_norm}, {"temperature": temp}
+
     def train_step(self, images, noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """One optimizer step → {"loss", "grad_norm" (before clipping),
-        "temperature", "step" (after the update)}. ``noise`` ((b, h, w,
-        num_tokens), standard Gumbel) replaces the generator's draw."""
-        temp = self._temp_at(self.step)
-        images = self._to_images(images)
-        if self.dtype is not None:
-            images = images.to(self.dtype)
-        loss, _, grad_norm = self._optimize(images, temp, noise, self.generator)
-        vals = torch.stack([loss.float(), grad_norm]).tolist()
-        return {"loss": vals[0], "grad_norm": vals[1], "temperature": temp,
-                "step": self.step}
+        "temperature", "step" (after the update)}, or {} between
+        ``metrics_every`` boundaries. ``noise`` ((b, h, w, num_tokens),
+        standard Gumbel) replaces the generator's draw."""
+        return self._finish_step(*self._step(*self._put_batch((images, noise))))
+
+    def train_steps(self, images, noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        """k steps on stacked (k, b, H, W, C) images (and optional stacked
+        noise), with no host read between them → the last step's metrics
+        plus ``loss_mean``; each step reads the temperature at its own step."""
+        images, noise = self._put_batch((images, noise), stacked=True)
+        if images.dim() != 5:
+            raise ValueError(f"train_steps takes stacked (k, b, H, W, C) images, got "
+                             f"{tuple(images.shape)}")
+        losses = []
+        for i in range(images.shape[0]):
+            m, host = self._step(images[i], None if noise is None else noise[i])
+            losses.append(m["loss"])
+        m["loss_mean"] = torch.stack(losses).float().mean()
+        return self._finish_step(m, host)
 
     # -- evaluation ----------------------------------------------------------
     @torch.no_grad()

@@ -357,7 +357,7 @@ def test_train_clip_cli_writes_what_load_clip_reads(tmp_path):
     mgr = CheckpointManager(ck)
     assert mgr.all_steps() == [0, 2]
     state = mgr.restore()[0]
-    assert state["step"] == state["count"] == 2 and "generator" not in state
+    assert state["step"] == state["optimizer"]["count"] == 2 and "generator" not in state
     model, meta = load_clip(ck, "cpu")
     assert meta["model_class"] == "CLIP" and model.cfg.num_text_tokens == 49408
     assert meta["train"]["rollback_snapshot"] == "host"
@@ -367,7 +367,7 @@ def test_train_clip_cli_writes_what_load_clip_reads(tmp_path):
     assert train_clip.main(argv + ["--num_text_tokens", "300"]) == 2
 
 
-CLIP_UNPORTED = [["--image_text_folder", "x"], ["--scan_steps", "2"], ["--trace"],
+CLIP_UNPORTED = [["--image_text_folder", "x"], ["--trace"],
                  ["--watchdog_deadline_s", "5"], ["--prometheus_path", "p"]]
 
 

@@ -317,19 +317,32 @@ def _batch(i, nan=False):
         size=(2, *GRID, 64)).astype(np.float32))
 
 
+def _tree_equal(live, saved, path):
+    if isinstance(live, torch.Tensor):
+        assert torch.equal(live, saved), path
+    elif isinstance(live, dict):
+        assert live.keys() == saved.keys(), path
+        for k in live:
+            _tree_equal(live[k], saved[k], f"{path}.{k}")
+    elif isinstance(live, list):
+        assert len(live) == len(saved), path
+        for i, (a, b) in enumerate(zip(live, saved)):
+            _tree_equal(a, b, f"{path}[{i}]")
+    else:
+        assert live == saved, path
+
+
 def _state_equal(tr, saved):
     for k, v in tr.model.state_dict().items():
         assert torch.equal(v, saved["model"][k]), k
-    live = tr.optimizer.core.state_dict()["state"]
-    assert live.keys() == saved["optimizer"]["state"].keys()
-    for i, st in saved["optimizer"]["state"].items():
-        for k, v in st.items():
-            assert torch.equal(live[i][k], v), (i, k)
-    assert tr.optimizer.count == saved["count"]
+    # the optimizer's whole state: Adam's moments and the count
+    _tree_equal(tr.optimizer.state_dict(), saved["optimizer"], "optimizer")
 
 
 def test_nan_step_rolls_back_bit_for_bit_and_the_step_advances(tmp_path):
-    tr = _trainer(tmp_path)
+    # device_prefetch=0: the stream checks the state between its batches,
+    # which a prefetcher would pull ahead of the steps
+    tr = _trainer(tmp_path, device_prefetch=0)
     lines, seen = [], {}
 
     def batches():
@@ -374,11 +387,18 @@ def test_without_rollback_the_nans_stay():
 
 
 def test_checkpoint_without_a_step_restores_its_count(tmp_path):
-    """The format before the shell: no ``step``, the step is the count."""
+    """The format before the shell: no ``step``, the step is the count; and
+    the optimizer a ``torch.optim.Adam`` state dict with the count beside it
+    (the format before the port's own optimizer)."""
     tr = _trainer()
     tr.fit([_batch(0), _batch(1)], log=lambda *a: None)
-    state = tr.state_dict()
-    del state["step"]
+    params = list(tr.model.parameters())
+    legacy = torch.optim.Adam(params)
+    for p, mu, nu in zip(params, tr.optimizer.core.mu, tr.optimizer.core.nu):
+        legacy.state[p] = {"step": torch.tensor(2.0), "exp_avg": mu.clone(),
+                           "exp_avg_sq": nu.clone()}
+    state = {"model": tr.model.state_dict(), "optimizer": legacy.state_dict(), "count": 2,
+             "generator": tr.generator.get_state()}
     CheckpointManager(str(tmp_path)).save(2, state, tr._meta())
     again = _trainer(tmp_path)
     again.restore()
@@ -429,7 +449,7 @@ def test_train_vae_then_train_dalle_on_its_checkpoint(tmp_path):
         assert torch.equal(sidecar["model"][k], v), k
 
 
-VAE_UNPORTED = [["--image_folder", "x"], ["--scan_steps", "2"], ["--wandb"], ["--health"],
+VAE_UNPORTED = [["--image_folder", "x"], ["--wandb"], ["--health"],
                 ["--breach_actions"], ["--trace"], ["--prometheus_path", "p"]]
 
 

@@ -347,7 +347,7 @@ def test_adam_state_converter_refuses_a_state_without_moments():
 
 
 # ---------------------------------------------------------------------------
-# the trainer's loop and the options left out
+# the trainer's loop
 # ---------------------------------------------------------------------------
 
 def test_fit_steps_and_logs():
@@ -359,17 +359,3 @@ def test_fit_steps_and_logs():
     assert tr.step == 4 and m["step"] == 4
     assert len(lines) == 2 and lines[-1].startswith("[step 4]")
     assert math.isfinite(m["tokens_per_sec"]) and m["tokens_per_sec"] > 0
-
-
-@pytest.mark.parametrize("what", ["adafactor", "plateau", "grad_accum", "lr_scale",
-                                  "attn_dropout", "ff_dropout"])
-def test_unported_training_options_raise(what):
-    optim = {"adafactor": dict(optimizer="adafactor"), "plateau": dict(lr_scheduler="plateau"),
-             "grad_accum": dict(grad_accum_steps=2)}.get(what, {})
-    model = {"attn_dropout": dict(attn_dropout=0.1),
-             "ff_dropout": dict(ff_dropout=0.1)}.get(what, {})
-    with pytest.raises(NotImplementedError):
-        tc = TrainConfig(batch_size=2, optim=OptimConfig(**optim),
-                         runtime_lr_scale=what == "lr_scale")
-        tr = DalleTrainer(DalleConfig(**TINY, **model), tc, device="cpu")
-        tr.train_step(*_batch(40))
