@@ -282,11 +282,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 --device_prefetch 2 --defer_metrics --attn_dropout 0.1 for 4
                 steps and --resume for 2 more, in build/recipe_cli/.
 
-Phases 11-20 and 23 run beside their kin: flash_kernel, persist_kernel,
+24. decode_surface the JAX package's decode surface at DALL·E-1.4B, batch 8:
+                W8 (int8-weight product, csrc/int8w_linear.cu: mma.sync
+                with the weights converted in registers for bf16 x, f32 FMA
+                for f32 x) against its plain version at every QLinear shape
+                and 1, 8, 16, 40, 64 rows within int8w_tolerance, a row alone
+                equal to the row inside 64, its times beside its bound, the
+                plain version and torch.matmul on the bf16 weight, nvcc's
+                report; K3 on the speculative verify's caches (S = 514-516,
+                w = 2, 3, 5, distinct starts; tc and fma routes) within
+                window_tolerance; generate_images in int8w with and without
+                CFG beside bf16_int8kv (finite images, K2 24·255 per pass,
+                W8 launches per route: the prefills' projections on the
+                matmul route, every decode step's QLinears on the kernel),
+                the first decode step's logits within 0.1 of the bf16
+                model's largest; the speculative sampler at gamma 0, 1, 2, 4
+                (bf16) and 0, 2 (f32) on one draw table: rounds, ms per
+                image, K3 per round on its route, and each against gamma=0
+                "equal" or its first divergence, whose score gap must lie
+                within 2^-5 of the row's largest logit; generate_texts from
+                4 tokens to 256 (K2 24·251); the int8w engine (the new
+                default) dense and paged with 8 requests, K3/K5 and W8
+                counted, and one request against sequential int8w
+                generation (agreement reported); a depth-2 model overfit to
+                a constant image, gamma=3 "repeat" equal to gamma=0 in at
+                most 128 rounds; token shift: cached decode ≡ forward at
+                depth 2 in f32, a DalleTrainer step through K1, full-depth
+                bf16 generation (K2 24·255).
+
+Phases 11-20, 23 and 24 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
-persist_parity and ring_parity after serve_parity; recipe and then
-train_persist after train; train_long and then train_ring, then cli and
-paper last. Each prints its seconds.
+persist_parity and ring_parity after serve_parity; decode_surface after
+serve; recipe and then train_persist after train; train_long and then
+train_ring, then cli and paper last. Each prints its seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -1686,6 +1714,446 @@ def phase_serve(torch, card):
     del model, wrapper, eng
     torch.cuda.empty_cache()
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# the decode surface: W8 (int8 weights), speculative decoding, text
+# generation and token shift
+# ---------------------------------------------------------------------------
+
+W8_COUNTERS = ("launches", "tc_launches", "fma_launches", "matmul_calls")
+W8_ROWS = (1, 8, 16, 40, 64)
+# the logits of the first decode step of the int8w model against the bf16
+# model's on the same inputs: int8 per-channel quantization moves each weight
+# by up to half its channel's scale (amax/254), through 24 layers and the
+# head; 0.1 of the largest |logit|
+INT8W_LOGIT_TOL = 0.1
+# a speculative run's first token that differs from gamma=0's: the two
+# scores (logits/T + the shared draw) at that step, from a teacher-forced
+# f32-cache replay, must lie within 2^-5 of the row's largest |logit| (a few
+# bf16 roundings), else the divergence is a fault
+SPEC_GAP_TOL = 2.0 ** -5
+
+
+class _ReadFlush:
+    """An L2 flush for ``median_ms`` that reads 512 MiB instead of writing
+    them: a written flush leaves L2 full of dirty lines whose write-back
+    lands inside the timed launch, which a decode step's weight reads never
+    pay for."""
+
+    def __init__(self, torch):
+        self.buf = torch.ones(512 * 2 ** 20, dtype=torch.int8, device="cuda")
+
+    def zero_(self):
+        self.buf.max()
+
+
+def w8_counts(w8):
+    return {c: getattr(w8, c) for c in W8_COUNTERS}
+
+
+def w8_set_counts(w8, counts):
+    for c, x in counts.items():
+        setattr(w8, c, x)
+
+
+def w8_shapes(cfg):
+    """{layer: (N, K, bias)} of every QLinear of the 1.4B model."""
+    inner = cfg.heads * cfg.dim_head
+    total = cfg.num_text_tokens + cfg.text_seq_len + cfg.image_vocab_size
+    return {"to_qkv": (3 * inner, cfg.dim, False), "to_out": (cfg.dim, inner, True),
+            "w1": (2 * cfg.ff_mult * cfg.dim, cfg.dim, True),
+            "w2": (cfg.dim, cfg.ff_mult * cfg.dim, True), "to_logits": (total, cfg.dim, True)}
+
+
+def w8_bounds(M, N, K, xsize):
+    """Least card time of W8 for x (M, K) of ``xsize`` bytes: x, the int8
+    weights, the f32 scales and y once (bytes), or 2·M·N·K operations at the
+    bf16 tensor rate (bf16 x) or the f32 rate (f32 x)."""
+    nbytes = M * K * xsize + N * K + N * 4 + M * N * xsize
+    ops = 2 * M * N * K
+    rate = BF16_FLOPS if xsize == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _w8_kernel(torch, card, cfg):
+    """W8 against its plain version at every QLinear shape of the 1.4B model
+    and every row count of the slice, bf16 and f32 x, within
+    int8w_tolerance; a row alone equals the same row inside 64; then the
+    times at each shape (M = 8, the decode step; 16, 40, 64 beside)."""
+    from dalle_tpu_torch.ops import int8w_linear as w8
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 20)
+    shares, invariant, max_abs = {}, {}, 0.0
+    flush = _ReadFlush(torch)
+    timing = {}
+    for name, (N, K, bias) in w8_shapes(cfg).items():
+        q = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand(N, generator=gen, device="cuda") * 0.02 + 1e-3
+        for dt in (torch.bfloat16, torch.float32):
+            b = (torch.randn(N, generator=gen, device="cuda") * 0.5).to(dt) if bias else None
+            for M in W8_ROWS:
+                x = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+                got = w8.int8w_linear(x, q, s, b)
+                want = w8.int8w_linear_plain(x, q, s, b)
+                torch.cuda.synchronize()
+                share = ((got.float() - want.float()).abs()
+                         / w8.int8w_tolerance(x, q, s, b, want)).max().item()
+                key = f"{name}/{str(dt)[6:]}/M{M}"
+                shares[key] = share
+                max_abs = max(max_abs, (got.float() - want.float()).abs().max().item())
+                check(share <= 1.0, f"W8 {key}: {share} of int8w_tolerance")
+                if M == 64:
+                    alone = torch.cat([w8.int8w_linear(x[r:r + 1], q, s, b)
+                                       for r in (0, 31, 63)])
+                    invariant[key] = torch.equal(alone, got[[0, 31, 63]])
+                    check(invariant[key], f"W8 {key}: a row alone differs from the row in 64")
+        wbf = w8.dequantize(q, s, torch.bfloat16)
+        b = (torch.randn(N, generator=gen, device="cuda") * 0.5).bfloat16() if bias else None
+        for M in (8, 16, 40, 64):
+            x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+            bound, by = w8_bounds(M, N, K, 2)
+            row = dict(
+                ms=median_ms(lambda: w8.int8w_linear(x, q, s, b), 30, flush),
+                plain_ms=median_ms(lambda: w8.int8w_linear_plain(x, q, s, b), 10, flush),
+                library_ms=median_ms(lambda: torch.matmul(x, wbf.t()), 30, flush),
+                bound_ms=bound, bound_by=by)
+            row["share_of_bound"] = bound / row["ms"]
+            timing[f"{name}/M{M}"] = row
+    del flush
+    emit("w8_kernel", shapes={k: list(v) for k, v in w8_shapes(cfg).items()},
+         rows=list(W8_ROWS), max_abs_err=max_abs, worst_share=max(shares.values()),
+         shares=shares,
+         row_invariant=invariant, tolerance="int8w_linear.int8w_tolerance, per element",
+         ptxas=ptxas_report("int8w_linear", "kernel"), card=card)
+    emit("w8_kernel_timing", timing=timing, flush="a 512 MiB read before each launch",
+         library="torch.matmul on the dequantized bf16 weight", card=card)
+    return max_abs, max(shares.values()), timing
+
+
+def _first_divergence(torch, model, text, base, out, noise, temperature, filter_thres):
+    """The first (row, step) where ``out`` differs from ``base`` and the gap
+    between the two tokens' scores there, replayed teacher-forced over an
+    f32 cache from ``base``'s prefix; None when they are equal."""
+    from dalle_tpu_torch.ops.sampling import top_k_filter
+    diff = (out != base).nonzero()
+    if diff.shape[0] == 0:
+        return None
+    r, t = (int(v) for v in diff[0])
+    with torch.no_grad():
+        logits, cache, plen = model._prefill(text[r:r + 1], None, 1)
+        for i in range(t):
+            logits, cache = model._decode_one(base[r:r + 1, i], i, plen + i, cache)
+    band = logits[0, model.num_text_tokens:].float()
+    score = band / temperature + noise[t, r]
+    a, z = int(base[r, t]), int(out[r, t])
+    # a near-tie of the two scores, or of either token with the top-k cut
+    kth = top_k_filter(band, thres=filter_thres)
+    kth = kth[torch.isfinite(kth)].min()
+    gap = min(abs(score[a] - score[z]).item(), abs(band[a] - kth).item(),
+              abs(band[z] - kth).item())
+    scale = band.abs().max().item()
+    return dict(row=r, step=t, tokens=[a, z], gap=gap, max_abs_logit=scale,
+                gap_share=gap / (SPEC_GAP_TOL * scale))
+
+
+def _k3_ragged(torch):
+    """K3 on the speculative verify's caches: total_seq_len + gamma positions
+    (not a multiple of the 64-key tile), w = gamma + 1 queries at distinct
+    per-row starts (a finished row idling at its last step, one past the
+    end), on the tensor-core route (bf16, int8) and the fma route (f32);
+    each within window_tolerance of the plain version."""
+    import numpy as np
+    from dalle_tpu_torch.ops import decode_attention as dec
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 21)
+    b, h, d = 8, 14, 128
+    shares = {}
+    for S, w in ((514, 3), (515, 2), (516, 5), (514, 5)):
+        for dt in (torch.int8, torch.bfloat16, torch.float32):
+            cache = _cache(torch, b, h, d, S, dt, gen)
+            starts = np.array([S - w, S - w - 1, 300, 257, 0, S - 1, S - w - 63, S], np.int64)
+            qdt = torch.float32 if dt == torch.float32 else torch.bfloat16
+            q = torch.randn(b, h, w, d, device="cuda", generator=gen).to(qdt)
+            got = dec.decode_attend_window(q, cache, starts)
+            want = dec.decode_attend_window_plain(q, cache.kv, cache.scale,
+                                                  torch.from_numpy(starts).cuda())
+            torch.cuda.synchronize()
+            key = f"S{S}/w{w}/{str(dt)[6:]}"
+            # the parked row (start S) sees the whole cache, as the plain version
+            shares[key] = dec.window_share(got, want, dt)
+            check(shares[key] <= 1.0, f"K3 ragged {key}: {shares[key]} of window_tolerance")
+    return shares
+
+
+def phase_decode_surface(torch, card):
+    """The JAX package's decode surface on the card (see the module
+    docstring, phase 24)."""
+    import numpy as np
+    from dalle_tpu_torch import (DalleTrainer, DalleWithVae, DiscreteVAEAdapter, DVAEConfig,
+                                 OptimConfig, TrainConfig, dalle_1p4b, init_dalle, init_dvae)
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.ops import int8w_linear as w8
+    from dalle_tpu_torch.ops.sampling import gumbel_noise
+    from dalle_tpu_torch.serve import RequestQueue
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dalle_1p4b()
+    w8_err, w8_share, w8_timing = _w8_kernel(torch, card, cfg)
+    k3_shares = _k3_ragged(torch)
+    emit("k3_ragged", shares=k3_shares, worst_share=max(k3_shares.values()),
+         tolerance="decode_attention.window_tolerance, per element")
+
+    model = init_dalle(cfg, seed=SMOKE_SEED)
+    vae = init_dvae(DVAEConfig(), seed=SMOKE_SEED)
+    wrapper = DalleWithVae(model, DiscreteVAEAdapter(vae))
+    m8, _ = wrapper._resolve_precision("int8w")        # the one-time derivations
+    mb, _ = wrapper._resolve_precision("bf16_int8kv")
+    b = 8
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED)
+    text = torch.randint(1, cfg.num_text_tokens, (b, cfg.text_seq_len), device="cuda",
+                         generator=gen)
+    text[:, 200:] = 0
+    per_pass = cfg.depth * (cfg.image_seq_len - 1)
+    linears = 4 * cfg.depth + 1                   # QLinears a forward runs
+    launches = {"decode_attend": 0, "w8": dict.fromkeys(W8_COUNTERS, 0)}
+
+    # int8w generation beside bf16_int8kv
+    rows = []
+    for precision, cond_scale in (("int8w", 1.0), ("int8w", 3.0), ("bf16_int8kv", 1.0)):
+        torch.cuda.reset_peak_memory_stats()
+        dec.launches = 0
+        w8_set_counts(w8, dict.fromkeys(W8_COUNTERS, 0))     # this path starts here
+        t0 = time.perf_counter()
+        images = wrapper.generate_images(
+            text, generator=torch.Generator("cuda").manual_seed(SMOKE_SEED),
+            precision=precision, cond_scale=cond_scale)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        caches = 2 if cond_scale != 1.0 else 1
+        got = w8_counts(w8)
+        check(tuple(images.shape) == (b, 128, 128, 3) and bool(torch.isfinite(images).all()),
+              f"{precision}: images {tuple(images.shape)} not finite or of the wrong shape")
+        check(dec.launches == per_pass * caches,
+              f"{precision} cfg={cond_scale}: K2 launched {dec.launches}, "
+              f"expected {per_pass * caches}")
+        if precision == "int8w":
+            # a prefill's projections take the matmul route (b·257 rows) but its
+            # head the kernel (the last position's b rows); every decode step
+            # runs every QLinear through the kernel
+            want = {"launches": (1 + (cfg.image_seq_len - 1) * linears) * caches,
+                    "matmul_calls": (linears - 1) * caches}
+            check(got["launches"] == want["launches"] == got["tc_launches"]
+                  and got["matmul_calls"] == want["matmul_calls"] and got["fma_launches"] == 0,
+                  f"int8w cfg={cond_scale}: W8 counts {got}, expected {want}")
+            launches["w8"] = {k: launches["w8"][k] + got[k] for k in W8_COUNTERS}
+        else:
+            check(got["launches"] == 0, f"bf16_int8kv launched W8 {got}")
+        launches["decode_attend"] += dec.launches
+        row = dict(precision=precision, cond_scale=cond_scale, batch=b, wall_s=wall,
+                   ms_per_token=wall * 1e3 / cfg.image_seq_len,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   k2_launches=dec.launches, w8_launches=got, card=card)
+        rows.append(row)
+        emit("int8w_generate", **row)
+    with torch.no_grad():
+        tok = torch.randint(0, cfg.image_vocab_size, (b,), device="cuda", generator=gen)
+        first = []
+        for m in (m8, mb):
+            _, cache, plen = m._prefill(text, None, b, torch.int8)
+            first.append(m._decode_one(tok, 0, plen, cache)[0][:, m.num_text_tokens:].float())
+    scale = first[1].abs().max().item()
+    logit_err = (first[0] - first[1]).abs().max().item()
+    check(logit_err <= INT8W_LOGIT_TOL * scale,
+          f"int8w first-step logits {logit_err} from bf16's (largest {scale})")
+    emit("int8w_logits", max_abs_err=logit_err, max_abs_logit=scale,
+         tolerance=f"{INT8W_LOGIT_TOL} of the largest |logit|")
+
+    # speculative: gamma > 0 against gamma = 0 on one draw table
+    spec = {}
+    for precision, gammas in (("bfloat16", (0, 1, 2, 4)), ("float32", (0, 2))):
+        mp, cdt = wrapper._resolve_precision(precision)
+        noise = gumbel_noise((cfg.image_seq_len, b, cfg.image_vocab_size),
+                             generator=torch.Generator("cuda").manual_seed(SMOKE_SEED + 2),
+                             device="cuda")
+        base = None
+        for gamma in gammas:
+            window_set_counts(dec, dict.fromkeys(WINDOW_COUNTERS, 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, rounds, committed = mp.generate_images_tokens_speculative(
+                text, gamma=gamma, noise=noise, cache_dtype=cdt, return_stats=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            routes = window_counts(dec)
+            check(committed == b * cfg.image_seq_len and routes["window_launches"]
+                  == cfg.depth * rounds, f"speculative {precision} gamma={gamma}: "
+                                         f"{committed} committed, K3 {routes}, {rounds} rounds")
+            route = "split" if gamma == 0 else ("fma" if cdt == torch.float32 else "tc")
+            check(routes[f"window_{route}_launches"] == routes["window_launches"],
+                  f"speculative {precision} gamma={gamma}: routes {routes}")
+            if base is None:
+                base, verdict = out, "equal"
+            else:
+                div = _first_divergence(torch, mp, text, base, out, noise, 1.0, 0.5)
+                verdict = "equal" if div is None else div
+                check(div is None or div["gap_share"] <= 1.0,
+                      f"speculative {precision} gamma={gamma}: divergence {div}")
+            spec[f"{precision}/g{gamma}"] = dict(
+                rounds=rounds, committed=committed, wall_s=wall,
+                ms_per_image=wall * 1e3 / b, against_gamma0=verdict,
+                k3_launches=routes["window_launches"], route=route)
+            emit("speculative", precision=precision, gamma=gamma, draft="row",
+                 **spec[f"{precision}/g{gamma}"], card=card)
+    # text generation from a 4-token prefix
+    prefix = text[:, :4]
+    dec.launches = 0
+    t0 = time.perf_counter()
+    texts = wrapper.generate_texts(prefix, generator=torch.Generator("cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    text_wall = time.perf_counter() - t0
+    n_new = cfg.text_seq_len - 4
+    check(tuple(texts.shape) == (b, cfg.text_seq_len) and torch.equal(texts[:, :4], prefix)
+          and int(texts.max()) < model.num_text_tokens and int(texts.min()) >= 0,
+          f"generate_texts: {tuple(texts.shape)}, ids {int(texts.min())}..{int(texts.max())}")
+    check(dec.launches == cfg.depth * (n_new - 1),
+          f"generate_texts launched K2 {dec.launches}, expected {cfg.depth * (n_new - 1)}")
+    launches["decode_attend"] += dec.launches
+    emit("generate_texts", batch=b, prefix=4, new_tokens=n_new, wall_s=text_wall,
+         ms_per_token=text_wall * 1e3 / n_new, k2_launches=dec.launches, card=card)
+
+    # the int8w engine at its new default, dense and paged
+    engine_rows, eng_launches = {}, {}
+    subs = _serve_traffic(cfg, False)[:8]
+    for mode in ("dense", "paged"):
+        kw = dict(kv_block_tokens=16) if mode == "paged" else {}
+        eng = wrapper.serve_engine(slots=8, **kw)
+        check(eng.model is m8 and eng.cache_dtype == torch.int8, "serve_engine's default")
+        q = RequestQueue()
+        for i, s in enumerate(subs):
+            q.submit(request_id=i, **s)
+        q.close()
+        window_set_counts(dec, dict.fromkeys(WINDOW_COUNTERS, 0))
+        w8_set_counts(w8, dict.fromkeys(W8_COUNTERS, 0))     # this path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        k3, k5, got = dec.window_launches, dec.paged_launches, w8_counts(w8)
+        mine, other = (k3, k5) if mode == "dense" else (k5, k3)
+        check(len(done) == len(subs) and mine == cfg.depth * st.window_dispatches
+              and other == 0, f"int8w engine {mode}: {len(done)} done, K3 {k3}, K5 {k5}")
+        check(got["tc_launches"] > 0 and got["fma_launches"] == 0
+              and got["launches"] == got["tc_launches"],
+              f"int8w engine {mode}: W8 {got}")
+        eng_launches[mode] = {"decode_attend_window": k3, "decode_attend_window_paged": k5,
+                              "w8": got}
+        launches["w8"] = {k: launches["w8"][k] + got[k] for k in W8_COUNTERS}
+        engine_rows[mode] = dict(
+            mode=mode, slots=8, precision="int8w", requests=len(done), wall_s=wall,
+            requests_per_s=len(done) / wall,
+            ms_per_step=st.step_seconds * 1e3 / max(st.steps, 1), steps=st.steps,
+            launches=eng_launches[mode], card=card)
+        emit("int8w_serve", **engine_rows[mode])
+        if mode == "dense":
+            served = {c.request_id: c.tokens for c in done}
+    # engine against sequential int8w generation: reported, not assumed
+    s = subs[6]
+    seq = m8.generate_images_tokens(
+        torch.from_numpy(s["text"][None]).cuda(),
+        generator=torch.Generator("cuda").manual_seed(s["seed"]),
+        cache_dtype=torch.int8)[0].cpu().numpy()
+    n = min(len(seq), len(served[6]))
+    agree = float((seq[:n] == served[6][:n]).mean())
+    first_diff = int(np.argmax(seq[:n] != served[6][:n])) if agree < 1 else None
+    emit("int8w_engine_vs_sequential", request=6, tokens=n, agreement=agree,
+         first_differing_token=first_diff)
+    del model, vae, wrapper, m8, mb, eng
+    torch.cuda.empty_cache()
+
+    # an overfit model accepts drafts: depth 2, full width, a constant image
+    cfg2 = dalle_1p4b(depth=2)
+    m2 = init_dalle(cfg2, seed=SMOKE_SEED + 7).train()
+    opt = torch.optim.Adam(m2.parameters(), lr=1e-3)
+    t2 = text[:2, :].clone()
+    t2[1] = t2[0]
+    img = torch.full((2, cfg2.image_seq_len), 5, device="cuda")
+    fit_steps, loss_img = 0, float("inf")
+    while loss_img > 0.05 and fit_steps < 300:
+        opt.zero_grad()
+        loss, parts = m2(t2, img, return_loss=True)
+        loss.backward()
+        opt.step()
+        loss_img = parts["loss_img"].item()
+        fit_steps += 1
+    m2.eval()
+    noise2 = gumbel_noise((cfg2.image_seq_len, 2, cfg2.image_vocab_size),
+                          generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    seq2 = m2.generate_images_tokens_speculative(t2, gamma=0, draft="repeat", noise=noise2,
+                                                 temperature=0.2)
+    out2, rounds2, _ = m2.generate_images_tokens_speculative(
+        t2, gamma=3, draft="repeat", noise=noise2, temperature=0.2, return_stats=True)
+    fives = float((out2 == 5).float().mean())
+    check(torch.equal(out2, seq2), "overfit gamma=3 'repeat' differs from gamma=0")
+    check(fives > 0.9 and rounds2 <= cfg2.image_seq_len // 2,
+          f"overfit model: {fives} of its tokens are the image's, {rounds2} rounds")
+    emit("speculative_overfit", depth=2, fit_steps=fit_steps, loss_img=loss_img, gamma=3,
+         draft="repeat", temperature=0.2, rounds=rounds2, tokens=cfg2.image_seq_len,
+         share_of_image_token=fives, equal_to_gamma0=True)
+    del m2, opt
+
+    # token shift: cached decode ≡ forward (depth 2, f32), a training step
+    # through K1, and full-depth bf16 generation
+    cfg_s = dalle_1p4b(depth=2, shift_tokens=True, use_pallas="off")
+    ms_ = init_dalle(cfg_s, seed=SMOKE_SEED + 8)
+    img_s = torch.randint(0, cfg_s.image_vocab_size, (2, cfg_s.image_seq_len), device="cuda",
+                          generator=gen)
+    with torch.no_grad():
+        full = ms_(text[:2], img_s)[:, cfg_s.text_seq_len:]
+        logits, cache, plen = ms_._prefill(text[:2], None, 2)
+        steps = [logits]
+        for i in range(cfg_s.image_seq_len - 1):
+            logits, cache = ms_._decode_one(img_s[:, i], i, plen + i, cache)
+            steps.append(logits)
+        shift_err = (torch.stack(steps, 1) - full).abs().max().item()
+    check(shift_err <= 1e-3, f"shifted cached decode vs forward: {shift_err}")
+    del ms_, cache
+    tr = DalleTrainer(dalle_1p4b(depth=2, shift_tokens=True),
+                      TrainConfig(batch_size=8, seed=SMOKE_SEED,
+                                  optim=OptimConfig(learning_rate=3e-4, grad_clip_norm=0.5)))
+    tt, ti = _train_batch(tr.model.cfg, 8, SMOKE_SEED)
+    fa.fwd_launches = fa.bwd_launches = 0                    # this path starts here
+    m = tr.train_step(torch.from_numpy(tt).cuda(), torch.from_numpy(ti).cuda())
+    k1 = {"fused_attention_fwd": fa.fwd_launches, "fused_attention_bwd": fa.bwd_launches}
+    check(math.isfinite(m["loss"]) and all(v == 2 for v in k1.values()),
+          f"shifted train step: loss {m['loss']}, K1 {k1}")
+    del tr
+    torch.cuda.empty_cache()
+    cfg_f = dalle_1p4b(shift_tokens=True)
+    wf = DalleWithVae(init_dalle(cfg_f, seed=SMOKE_SEED + 9),
+                      DiscreteVAEAdapter(init_dvae(DVAEConfig(), seed=SMOKE_SEED)))
+    wf._resolve_precision("bfloat16")
+    dec.launches = 0
+    t0 = time.perf_counter()
+    images = wf.generate_images(text, generator=torch.Generator("cuda").manual_seed(4),
+                                precision="bfloat16")
+    torch.cuda.synchronize()
+    shift_wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(images).all()) and dec.launches == per_pass,
+          f"shifted generation: K2 {dec.launches}, expected {per_pass}")
+    launches["decode_attend"] += dec.launches
+    emit("token_shift", decode_vs_forward_max_abs_err=shift_err, tolerance=1e-3,
+         train_step_loss=m["loss"], train_step_k1=k1, generate_wall_s=shift_wall,
+         generate_ms_per_token=shift_wall * 1e3 / cfg_f.image_seq_len,
+         generate_k2_launches=dec.launches, card=card)
+    del wf
+    torch.cuda.empty_cache()
+    emit("decode_surface_done", seconds=time.perf_counter() - t_phase, card=card)
+    return dict(launches=launches, engine=eng_launches, k1=k1, spec=spec,
+                w8_err=w8_err, w8_share=w8_share, w8_timing=w8_timing,
+                k3_ragged=k3_shares)
 
 
 # ---------------------------------------------------------------------------
@@ -3581,6 +4049,7 @@ def main() -> int:
     phase_ring_parity(torch)
     launches, _ = phase_generate(torch, card)
     serve_launches, _ = phase_serve(torch, card)
+    surface = phase_decode_surface(torch, card)
     k1_launches, k1_row = phase_train(torch, card)
     recipe_launches, _ = phase_recipe(torch, card, k1_row)
     k8_launches, _ = phase_train_persist(torch, card, k1_row)
@@ -3595,6 +4064,7 @@ def main() -> int:
         "source": "dalle_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dalle_tpu/ops/decode_attention.py:94",
         "launches": launches, "launches_cli": cli_launches["decode_attend"],
+        "launches_decode_surface": surface["launches"]["decode_attend"],
         "launches_paper": paper_launches["decode_attend"],
         "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -3615,6 +4085,7 @@ def main() -> int:
             "source": "dalle_tpu_torch/csrc/fused_attention.cu",
             "replaces": f"dalle_tpu/ops/fused_attention.py:{line}",
             "launches": k1_launches[name], "launches_recipe": recipe_launches[name],
+            "launches_shift_step": surface["k1"][name],
             "launches_cli": cli_launches[name],
             "launches_paper": paper_launches[name],
             "max_abs_err": max(mine.values()),
@@ -3638,7 +4109,12 @@ def main() -> int:
             "source": "dalle_tpu_torch/csrc/decode_window_attention.cu",
             "replaces": f"dalle_tpu/ops/decode_attention.py:{line}",
             "launches": serve_launches[mode][name],
+            "launches_int8w_engine": surface["engine"][mode][name],
+            "launches_speculative": (sum(v["k3_launches"] for v in surface["spec"].values())
+                                     if kname == "K3" else 0),
             "max_abs_err": max(mine.values()),
+            "speculative_ragged_cache_worst_share": (max(surface["k3_ragged"].values())
+                                                     if kname == "K3" else None),
             "ms": t[f"{kname}_ms"],
             "plain_ms": t["plain_ms"] if kname == "K3" else t["K5_plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3760,6 +4236,26 @@ def main() -> int:
                         for k, v in k6_timing.items()},
             "tolerance": K6_TOL,
         })
+    # W8: port-only (QDense's int8 branch is an XLA fusion); the headline
+    # is the decode step's w1 (M = 8), every QLinear shape beside it
+    t = surface["w8_timing"]["w1/M8"]
+    kernels.append({
+        "name": "int8w_linear", "route": "cuda",
+        "source": "dalle_tpu_torch/csrc/int8w_linear.cu",
+        "replaces": "dalle_tpu/ops/quantize_weights.py:32 (QDense's int8 branch; an XLA "
+                    "fusion, no pallas_call)",
+        "launches": surface["launches"]["w8"]["launches"],
+        "launches_by_route": surface["launches"]["w8"],
+        "max_abs_err": surface["w8_err"], "worst_share_of_tolerance": surface["w8_share"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": "torch.matmul on the dequantized bf16 weight",
+        "timed_at": "1.4B w1: x (8, 1792) bf16, q (14336, 1792) int8, bias",
+        "kernel_functions": {"bfloat16": "tc_kernel<MT> (mma.sync, weights converted in "
+                                         "registers)", "float32": "fma_kernel"},
+        "by_case": surface["w8_timing"],
+        "tolerance": "int8w_linear.int8w_tolerance, per element",
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,12 @@ with ``use_pallas="persist"`` the whole-sequence kernels
 (``ops/persistent_attention.py``, ``csrc/persistent_attention.cu``).
 Serving: ``DalleWithVae.serve_engine`` builds the continuous-batching
 ``serve.DecodeEngine``, whose windowed attention over a dense or paged cache
-runs in hand-written CUDA kernels (``csrc/decode_window_attention.cu``).
+runs in hand-written CUDA kernels (``csrc/decode_window_attention.cu``); by
+default over int8 weights (``ops/quantize_weights.py``), whose products at
+decode sizes run in a hand-written kernel (``csrc/int8w_linear.cu``).
+``DALLE.generate_images_tokens_speculative`` is the draft-and-verify
+sampler, ``DALLE.generate_texts_tokens`` completes captions, and
+``shift_tokens`` models run token shift in training and cached decode.
 Sequence-parallel training (``TrainConfig(mesh=MeshConfig(sp=P))``) runs
 every attention layer as ring attention over P ranks
 (``parallel/ring_attention.py``), each chunk pair through the chunk kernels

@@ -8,14 +8,18 @@ With ``--clip_path`` (a ``train_clip`` checkpoint) every batch of a prompt
 is kept and scored by the CLIP; the scores are printed best first and the
 images written as ``img_{i}.png`` in that order, the scores beside them in
 ``clip_scores.json``. Runs on the CUDA card unless ``--device cpu``.
+``--int8w`` decodes with int8 weights and an int8 KV cache,
+``--speculative GAMMA`` (with ``--draft row|repeat``) through the
+draft-and-verify sampler, and ``--gentxt`` first completes each prompt
+with ``generate_texts`` from its tokens and prints
+``gentxt: 'prompt' → 'completion'``.
 
     python -m dalle_tpu_torch.cli.generate --dalle_path ./dalle_ckpt \\
-        --text "red circle|blue square" --num_images 8 --batch_size 8 --bf16 \\
-        --clip_path ./clip_ckpt
+        --text "red circle|blue square" --num_images 8 --batch_size 8 --int8w \\
+        --speculative 2 --clip_path ./clip_ckpt
 
 Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``--int8w``, ``--speculative``, ``--gentxt``,
-``--fast_topk`` and ``--trace``.
+``ROADMAP.md`` item: ``--fast_topk`` and ``--trace``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,16 @@ def build_parser():
                     help="bf16 weights and KV cache in the decode loop")
     ap.add_argument("--kv_int8", action="store_true",
                     help="bf16 weights and an int8 KV cache")
+    ap.add_argument("--int8w", action="store_true",
+                    help="int8 weights (per-channel scales) and an int8 KV cache")
+    ap.add_argument("--speculative", type=int, default=0, metavar="GAMMA",
+                    help="draft-and-verify decode with GAMMA drafts a round "
+                         "(sampling-exact; needs cond_scale=1.0)")
+    ap.add_argument("--draft", type=str, default="row", choices=("row", "repeat"),
+                    help="speculative draft prior: the token one grid row above | "
+                         "the last token")
+    ap.add_argument("--gentxt", action="store_true",
+                    help="complete the caption with generate_texts first")
     ap.add_argument("--outputs_dir", type=str, default="./outputs")
     ap.add_argument("--tokenizer", type=str, default="simple")
     ap.add_argument("--bpe_path", type=str, default=None)
@@ -56,9 +70,6 @@ def build_parser():
                     help="checkpoint dir from dalle_tpu_torch.cli.train_clip: rerank "
                          "the images, best first")
     unp = ap.add_argument_group("not ported yet")
-    unp.add_argument("--int8w", action="store_true")
-    unp.add_argument("--speculative", type=int, default=0, metavar="GAMMA")
-    unp.add_argument("--gentxt", action="store_true")
     unp.add_argument("--fast_topk", action="store_true")
     unp.add_argument("--trace", type=str, default=None, metavar="DIR")
     add_vae_args(ap)
@@ -67,10 +78,7 @@ def build_parser():
 
 
 def _check_ported(args):
-    for flag, item, on in (("--int8w", "5", args.int8w),
-                           ("--speculative", "7", args.speculative > 0),
-                           ("--gentxt", "7", args.gentxt),
-                           ("--fast_topk", "6", args.fast_topk),
+    for flag, item, on in (("--fast_topk", "6", args.fast_topk),
                            ("--trace", "12", args.trace)):
         if on:
             raise unported(flag, item)
@@ -115,13 +123,21 @@ def main(argv=None) -> int:
     if args.clip_path:
         clip, _ = load_clip(args.clip_path, device)
     dv = DalleWithVae(model, vae, clip)
-    precision = "bf16_int8kv" if args.kv_int8 else "bfloat16" if args.bf16 else "float32"
+    precision = ("int8w" if args.int8w else "bf16_int8kv" if args.kv_int8
+                 else "bfloat16" if args.bf16 else "float32")
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     prompts = [t.strip() for t in args.text.split("|") if t.strip()]
     for prompt in prompts:
-        text = tokenizer.tokenize([prompt], model.cfg.text_seq_len, truncate_text=True)
-        outdir = os.path.join(args.outputs_dir, prompt.replace(" ", "_")[:64])
+        text_str = prompt
+        if args.gentxt:
+            prime = tokenizer.tokenize([prompt], model.cfg.text_seq_len, truncate_text=True)
+            prime = prime[:, :max(1, int((prime != 0).sum()))]
+            out_ids = dv.generate_texts(prime, generator=generator)
+            text_str = tokenizer.decode(out_ids[0].tolist())
+            print(f"gentxt: {prompt!r} → {text_str!r}")
+        text = tokenizer.tokenize([text_str], model.cfg.text_seq_len, truncate_text=True)
+        outdir = os.path.join(args.outputs_dir, text_str.replace(" ", "_")[:64])
         os.makedirs(outdir, exist_ok=True)
         made, kept, scores = 0, [], []
         while made < args.num_images:
@@ -129,7 +145,8 @@ def main(argv=None) -> int:
             out = dv.generate_images(
                 text.repeat(n, 1), generator=generator, filter_thres=args.top_k_thres,
                 temperature=args.temperature, cond_scale=args.cond_scale,
-                precision=precision, clip=clip)
+                precision=precision, clip=clip, speculative=args.speculative,
+                draft=args.draft)
             if clip is None:
                 save_image_grid(out, os.path.join(outdir, f"img_{made}_{{}}.png"))
             else:
@@ -146,7 +163,7 @@ def main(argv=None) -> int:
                             os.path.join(outdir, "img_{}.png"))
             with open(os.path.join(outdir, "clip_scores.json"), "w", encoding="utf-8") as f:
                 json.dump([float(scores[i]) for i in order], f)
-        print(f"wrote {made} images for {prompt!r} → {outdir}")
+        print(f"wrote {made} images for {text_str!r} → {outdir}")
     return 0
 
 

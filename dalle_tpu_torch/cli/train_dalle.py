@@ -12,12 +12,12 @@ rotation. Runs on the CUDA card unless ``--device cpu``.
 ``--ga_steps k`` averages k batches' gradients into each update,
 ``--lr_scheduler plateau`` scales the rate down on a plateau of the loss,
 ``--attn_dropout`` and ``--ff_dropout`` train with dropout, and
-``--device_prefetch`` / ``--defer_metrics`` set the loop's host overlap.
+``--device_prefetch`` / ``--defer_metrics`` set the loop's host overlap,
+and ``--shift_tokens`` trains with token shift.
 
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_text_folder`` and ``--wds`` (the card's
-machine has no image decoder), ``--reversible``, ``--shift_tokens`` and
-the telemetry flags.
+machine has no image decoder), ``--reversible`` and the telemetry flags.
 """
 
 from __future__ import annotations
@@ -99,8 +99,6 @@ def _check_ported(args):
                        "machine)", "3")
     if args.reversible:
         raise unported("--reversible", "9")
-    if args.shift_tokens:
-        raise unported("--shift_tokens", "7")
     if args.trace or args.watchdog_deadline_s or args.prometheus_path:
         raise unported("the telemetry flags (--trace, --watchdog_deadline_s, "
                        "--prometheus_path)", "12")
@@ -138,7 +136,8 @@ def main(argv=None) -> int:
         vae, num_text_tokens=num_text_tokens, text_seq_len=args.text_seq_len,
         dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
         attn_types=tuple(args.attn_types.split(",")), stable=args.stable,
-        rotary_emb=not args.no_rotary, loss_img_weight=args.loss_img_weight,
+        rotary_emb=not args.no_rotary, shift_tokens=args.shift_tokens,
+        loss_img_weight=args.loss_img_weight,
         attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout)
     train_cfg = TrainConfig(
         batch_size=args.batch_size, seed=args.seed,

@@ -10,6 +10,13 @@ across one to one; only leaves change:
 * ``Embed.embedding`` → ``Embedding.weight``; ``shared_emb``,
   ``logits_bias`` and the axial ``row``/``col`` tables map across as they are.
 * Conv kernel HWIO → OIHW.
+* An int8-weight tree (``dalle_tpu``'s ``quantize_params_int8``: int8
+  ``kernel`` leaves beside a ``quant`` collection of scales) maps to the
+  port's int8 state: an int8 kernel (in, out) → weight (out, in) as any
+  kernel, its ``quant/…/kernel_scale`` (1, out) → ``….weight_scale``
+  (out,), and ``shared_emb_scale`` (rows, 1) stays as it is. Loading it
+  makes the ``QLinear``s and the tied table int8
+  (``ops/quantize_weights.py``).
 * ConvTranspose kernel (the dVAE decoder's ``up_*``): flax does not flip its
   kernel, torch's transposed convolution does, so the kernel is flipped
   spatially and laid out (in, out, kh, kw); see ``models/dvae.py``.
@@ -61,16 +68,30 @@ def _convert_leaf(path: Tuple[str, ...], x: np.ndarray):
     return name, x
 
 
+def _tensor(x: np.ndarray) -> torch.Tensor:
+    """A host tensor of ``x``; numpy's bfloat16 (``ml_dtypes``, which torch
+    does not take) goes across through f32, exactly."""
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a flax variables tree ({"params": ...} or the bare params) to a
     ``state_dict``."""
-    if "quant" in params:
-        raise NotImplementedError("int8-quantized weights are not ported yet")
     tree = params.get("params", params)
     out = {}
     for path, x in _leaves(tree):
         leaf, y = _convert_leaf(path, x)
-        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.array(y))
+        out[".".join(path[:-1] + (leaf,))] = _tensor(y)
+    for path, x in _leaves(params.get("quant", {})):
+        if path[-1] == "kernel_scale":
+            key, x = path[:-1] + ("weight_scale",), x.reshape(-1)
+        elif path[-1] == "shared_emb_scale":
+            key = path
+        else:
+            raise ValueError(f"unexpected quant leaf {'/'.join(path)}")
+        out[".".join(key)] = torch.from_numpy(np.array(x, dtype=np.float32))
     return out
 
 

@@ -13,8 +13,9 @@ causal and leaves ``use_pallas`` at "auto", which gives a non-causal layer
 and a layer with a key mask the dense core, never K1 (causal only); below
 2,048 tokens nothing else is taken (``Transformer.attention_mode``).
 
-Not ported yet: ``assert_float_params`` (int8 weights, ``ROADMAP.md``
-Queue 1 item 5).
+CLIP's own projections are plain ``nn.Linear``s, which cannot apply int8
+scales: ``embed_text`` and ``embed_image`` refuse int8 parameters
+(``assert_float_params``), as the JAX package's CLIP does.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from torch import nn
 
 from ..config import ClipConfig, TransformerConfig
 from ..device import resolve_device
+from ..ops.quantize_weights import assert_float_params
 from ..ops.sampling import masked_mean
 from .transformer import Transformer
 
@@ -80,6 +82,7 @@ class CLIP(nn.Module):
 
     def embed_text(self, text) -> torch.Tensor:
         """(b, n ≤ text_seq_len) ids, 0 the pad → (b, dim_latent) of norm 1."""
+        assert_float_params(self)
         text = torch.as_tensor(text).to(self._device(), torch.long)
         mask = text != 0
         pos = torch.arange(text.shape[1], device=text.device)
@@ -89,6 +92,7 @@ class CLIP(nn.Module):
 
     def embed_image(self, image) -> torch.Tensor:
         """(b, H, W, C) NHWC floats → (b, dim_latent) of norm 1."""
+        assert_float_params(self)
         c = self.cfg
         image = torch.as_tensor(image).to(self._device())
         p = c.visual_patch_size

@@ -4,7 +4,13 @@ Port of ``dalle_tpu/models/dalle.py``: per-position pad tokens and <bos>,
 tied or untied embeddings, axial positional embeddings when rotary is off,
 the static logits allow-mask, the stable-training tricks, and cached
 generation with top-k + gumbel sampling, classifier-free guidance (two
-caches: conditioned and null-text) and image priming. The VAE is not a
+caches: conditioned and null-text) and image priming, the draft-and-verify
+speculative sampler (``generate_images_tokens_speculative``) and text
+completion (``generate_texts_tokens``). The output projection
+``to_logits`` is a ``QLinear``, and a tied ``shared_emb`` table may be int8
+with per-row scales (``shared_emb_scale``, ``set_shared_emb_int8``): both
+the embedding gather and the tied logits product then dequantize (the
+latter through the W8 kernel). The VAE is not a
 submodule; ``models/wrapper.py`` composes the two. ``forward`` returns the
 logits, or with ``return_loss=True`` the training loss
 ``(loss_text + w·loss_img) / (w + 1)``: f32 cross-entropy over the masked
@@ -32,7 +38,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import DalleConfig
 from ..device import resolve_device, to_device
-from ..ops.sampling import gumbel_sample, top_k_filter
+from ..ops.int8w_linear import int8w_linear
+from ..ops.quantize_weights import QLinear
+from ..ops.sampling import gumbel_noise, gumbel_sample, gumbel_sample_rows, top_k_filter
 from .transformer import LN_EPS, DivideMax, Transformer
 
 MASK_VALUE = -1e9  # fill for the logits mask
@@ -69,10 +77,11 @@ class DALLE(nn.Module):
             # output projection
             self.shared_emb = nn.Parameter(torch.empty(self.total_tokens, c.dim))
             self.logits_bias = nn.Parameter(torch.zeros(self.total_tokens))
+            self.register_buffer("shared_emb_scale", None)
         else:
             self.text_emb = nn.Embedding(self.num_text_tokens, c.dim)
             self.image_emb = nn.Embedding(c.image_vocab_size, c.dim)
-            self.to_logits = nn.Linear(c.dim, self.total_tokens)
+            self.to_logits = QLinear(c.dim, self.total_tokens)
         if not c.rotary_emb:
             self.text_pos_emb = nn.Embedding(c.text_seq_len + 1, c.dim)
             self.image_pos_emb = AxialPositionalEmbedding(
@@ -110,20 +119,68 @@ class DALLE(nn.Module):
             self.logits_bias.zero_()
         return self
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the model computes in (its norms'; int8 weights aside)."""
+        return self.final_norm.weight.dtype
+
+    def set_shared_emb_int8(self, q: torch.Tensor, scale: torch.Tensor) -> "DALLE":
+        """Make the tied table int8: ``q`` (total_tokens, dim) with per-row
+        f32 scales ``scale`` (total_tokens, 1)."""
+        if q.dtype != torch.int8 or q.shape != self.shared_emb.shape:
+            raise ValueError(f"shared_emb must be int8 {tuple(self.shared_emb.shape)}")
+        if tuple(scale.shape) != (q.shape[0], 1):
+            raise ValueError(f"shared_emb_scale must be ({q.shape[0]}, 1)")
+        dev = self.shared_emb.device
+        self.shared_emb = nn.Parameter(q.to(dev).contiguous(), requires_grad=False)
+        self.shared_emb_scale = scale.to(dev, torch.float32).contiguous()
+        return self
+
+    def _apply(self, fn, recurse=True):
+        scale = getattr(self, "shared_emb_scale", None)
+        super()._apply(fn, recurse)
+        if scale is not None:
+            # a cast of the model keeps the table's scales f32
+            self.shared_emb_scale = scale.to(self.shared_emb.device)
+        return self
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        q = state_dict.get(prefix + "shared_emb")
+        if (q is not None and q.dtype == torch.int8
+                and self.shared_emb.dtype != torch.int8):
+            scale = state_dict.get(prefix + "shared_emb_scale")
+            if scale is not None:
+                self.set_shared_emb_int8(torch.empty_like(q),
+                                         torch.empty_like(scale, dtype=torch.float32))
+        super()._load_from_state_dict(state_dict, prefix, *args)
+
     # -- embedding helpers -------------------------------------------------
+    def _shared_rows(self, ids):
+        """Rows of the tied table; an int8 table dequantizes the gathered
+        rows in the bias's dtype."""
+        rows = self.shared_emb[ids]
+        if rows.dtype == torch.int8:
+            dt = self.logits_bias.dtype
+            rows = rows.to(dt) * self.shared_emb_scale[ids].to(dt)
+        return rows
+
     def _embed_text_ids(self, ids):
         if self.cfg.share_input_output_emb:
-            return self.shared_emb[ids]
+            return self._shared_rows(ids)
         return self.text_emb(ids)
 
     def _embed_image_ids(self, ids):
         if self.cfg.share_input_output_emb:
-            return self.shared_emb[ids + self.num_text_tokens]
+            return self._shared_rows(ids + self.num_text_tokens)
         return self.image_emb(ids)
 
     def _logits(self, x):
         x = self.final_norm(x)
         if self.cfg.share_input_output_emb:
+            if self.shared_emb.dtype == torch.int8:
+                # rows are the tied product's output channels: the W8 kernel
+                return int8w_linear(x, self.shared_emb, self.shared_emb_scale[:, 0],
+                                    self.logits_bias)
             return x @ self.shared_emb.t() + self.logits_bias
         return self.to_logits(x)
 
@@ -244,9 +301,10 @@ class DALLE(nn.Module):
         return loss, {"loss_text": loss_text, "loss_img": loss_img}
 
     # -- generation --------------------------------------------------------
-    def _prefill(self, text, image_prime, batch: int, dtype=torch.float32):
+    def _prefill(self, text, image_prime, batch: int, dtype=torch.float32,
+                 extra_slots: int = 0):
         c = self.cfg
-        cache = self.transformer.init_cache(batch, c.total_seq_len, dtype)
+        cache = self.transformer.init_cache(batch, c.total_seq_len + extra_slots, dtype)
         tokens = self.embed_text(self.remap_and_bos(text))
         if image_prime is not None and image_prime.shape[1] > 0:
             tokens = torch.cat([tokens, self.embed_image(image_prime)], dim=1)
@@ -319,6 +377,165 @@ class DALLE(nn.Module):
         if n_prime > 0:
             out = torch.cat([image_prime.to(out.dtype), out], dim=1)
         return out
+
+    @torch.no_grad()
+    def generate_images_tokens_speculative(
+            self, text, *, gamma: int = 4, draft: str = "row",
+            generator: Optional[torch.Generator] = None,
+            noise: Optional[torch.Tensor] = None, filter_thres: float = 0.5,
+            temperature: float = 1.0, cache_dtype=torch.float32,
+            return_stats: bool = False):
+        """Draft-free speculative sampling → (b, image_seq_len) int64. Each
+        round drafts ``gamma`` tokens per row with a zero-cost image prior,
+        verifies them in one windowed forward of w = gamma+1 tokens
+        (``Transformer.decode_window``: K3 on the card) and commits the
+        accepted prefix plus one token; rows accept independently, at
+        per-row cache offsets. The cache holds total_seq_len + gamma
+        positions; a finished row idles at its last step, its writes dropped.
+
+        Exact for any draft quality: token t of row r is always
+        argmax(top_k(logits_t)/T + g[t, r]) with logits_t from the committed
+        prefix, so rejected drafts cost work, never bias, and gamma=0 is the
+        sequential loop under the same draws. ``noise`` (n_steps, b,
+        image_vocab_size) holds g: the draw for (step t, row r) is
+        ``noise[t, r]`` whatever gamma and whichever round row r reaches t in
+        (the JAX package's per-(step, row) fold-in keys map onto it); without
+        it the whole table is drawn up front from ``generator``. Candidates
+        past the last step only feed windows whose commits are dropped; they
+        take the last step's draw.
+
+        ``draft``: "row" = the committed token one grid row above (needs
+        gamma < image_fmap_size), "repeat" = the last sampled token. Each
+        round reads the rows' accepted counts on the host once (the loop's
+        condition), and that read builds the next round's window plan.
+        ``return_stats``: also return (rounds, committed tokens)."""
+        c = self.cfg
+        dev = self._device()
+        text = text.to(dev)
+        b = text.shape[0]
+        n_steps, fmap, vocab = c.image_seq_len, c.image_fmap_size, c.image_vocab_size
+        if gamma < 0 or draft not in ("row", "repeat"):
+            raise ValueError(f"gamma must be >= 0 and draft 'row' or 'repeat', got "
+                             f"{gamma}, {draft!r}")
+        if draft == "row" and gamma >= fmap:
+            raise ValueError(
+                f"'row' draft needs gamma < image_fmap_size ({fmap}); the "
+                f"row-above token of a draft slot must already be committed")
+        if noise is None:
+            noise = gumbel_noise((n_steps, b, vocab), generator=generator, device=dev)
+        elif tuple(noise.shape) != (n_steps, b, vocab):
+            raise ValueError(f"noise must be {(n_steps, b, vocab)}, got {tuple(noise.shape)}")
+        noise = noise.to(dev, torch.float32)
+        w = gamma + 1
+        rows = torch.arange(b, device=dev)
+        allow = self.logits_allow[c.text_seq_len]     # every image row's
+        logits, cache, prefix_len = self._prefill(text, None, b, cache_dtype,
+                                                  extra_slots=gamma)
+
+        def sample_rows(lg, t):
+            g = noise[t.clamp(max=n_steps - 1), rows]
+            return gumbel_sample_rows(lg[:, self.num_text_tokens:], g, thres=filter_thres,
+                                      temperature=temperature)
+
+        # column n_steps takes the dropped commits
+        out = torch.zeros((b, n_steps + 1), dtype=torch.long, device=dev)
+        t_idx = np.zeros(b, np.int64)
+        rounds = committed = 0
+        while (t_idx < n_steps).any():
+            t_eff = np.minimum(t_idx, n_steps - 1)            # finished rows idle
+            # (w + 2, b): steps t_eff + j for j = 0..w, then whether the row runs
+            host = np.concatenate([t_eff[None] + np.arange(w + 1)[:, None],
+                                   (t_idx < n_steps)[None].astype(np.int64)])
+            steps = to_device(host, dev)
+            tok0 = sample_rows(logits, steps[0])
+            if gamma:
+                p = steps[1:w].t()                              # (b, gamma)
+                if draft == "row":
+                    above = out.gather(1, (p - fmap).clamp(0, n_steps - 1))
+                    drafts = torch.where(p - fmap >= 0, above, tok0[:, None])
+                else:
+                    drafts = tok0[:, None].expand(b, gamma)
+                window = torch.cat([tok0[:, None], drafts], dim=1)
+            else:
+                window = tok0[:, None]
+            emb = self._embed_image_ids(window)
+            if not c.rotary_emb:
+                emb = emb + self.image_pos_emb()[steps[:w].t().clamp(0, n_steps - 1)]
+            y, cache = self.transformer.decode_window(self._stabilize(emb), cache,
+                                                      prefix_len + t_eff)
+            if c.stable:
+                y = self.norm_by_max(y)
+            logits_w = torch.where(allow, self._logits(y), MASK_VALUE)     # (b, w, V)
+            cands = torch.stack([sample_rows(logits_w[:, j], steps[1 + j])
+                                 for j in range(w)], dim=1)
+            if gamma:
+                acc = torch.cumprod((drafts == cands[:, :gamma]).long(), dim=1).sum(dim=1)
+            else:
+                acc = torch.zeros(b, dtype=torch.long, device=dev)
+            # commit window[:, j] at step t+j for j <= acc, in range, on a running row
+            idx = steps[:w].t()
+            keep = ((torch.arange(w, device=dev)[None] <= acc[:, None]) & (idx < n_steps)
+                    & (steps[w + 1][:, None] > 0))
+            out.scatter_(1, torch.where(keep, idx, n_steps), window)
+            # the logits after the last committed token: cache slots <= t+acc
+            # hold exactly the committed tokens
+            logits = logits_w[rows, acc]
+            acc_host = acc.cpu().numpy()
+            step = np.where(t_idx < n_steps, np.minimum(acc_host + 1, n_steps - t_idx), 0)
+            t_idx = t_idx + step
+            rounds += 1
+            committed += int(step.sum())
+        out = out[:, :n_steps]
+        if return_stats:
+            return out, rounds, committed
+        return out
+
+    @torch.no_grad()
+    def generate_texts_tokens(self, text=None, *, batch: int = 1,
+                              generator: Optional[torch.Generator] = None,
+                              noise: Optional[torch.Tensor] = None,
+                              filter_thres: float = 0.5, temperature: float = 1.0):
+        """Complete a (b, start) text prefix to text_seq_len tokens by
+        sampling over the text band (pad ids included) → (b, text_seq_len)
+        int64; ``text`` None starts ``batch`` rows from <bos> alone. The
+        prefix is <bos> and the given tokens (no pad remap); the cache is
+        f32, each step a ``decode_step`` (K2 on the card) at a text
+        position. Draws from ``generator``, or ``noise`` (n_new, b,
+        num_text_tokens + text_seq_len): row i for the i-th new token."""
+        c = self.cfg
+        dev = self._device()
+        text = (torch.zeros((batch, 0), dtype=torch.long) if text is None
+                else torch.as_tensor(text)).to(dev, torch.long)
+        b, start = text.shape
+        if start >= c.text_seq_len:
+            raise ValueError(f"text prefix must be shorter than text_seq_len="
+                             f"{c.text_seq_len}, got {start}")
+        n_new = c.text_seq_len - start
+        vocab = self.num_text_tokens
+        if noise is not None and tuple(noise.shape) != (n_new, b, vocab):
+            raise ValueError(f"noise must be {(n_new, b, vocab)}, got {tuple(noise.shape)}")
+        cache = self.transformer.init_cache(b, c.total_seq_len)
+        tokens = self._stabilize(self.embed_text(F.pad(text, (1, 0))))
+        y, cache = self.transformer.prefill(tokens, cache)
+        logits = self._finish(y[:, -1:], start, 1)[:, 0]
+
+        def sample(lg, i):
+            return gumbel_sample(top_k_filter(lg[:, :vocab], thres=filter_thres),
+                                 temperature=temperature, generator=generator,
+                                 noise=None if noise is None else noise[i])
+
+        toks = []
+        for i in range(n_new - 1):
+            tok = sample(logits, i)
+            toks.append(tok)
+            pos = start + 1 + i            # this token's position (after <bos>)
+            emb = self._embed_text_ids(tok[:, None])
+            if not c.rotary_emb:
+                emb = emb + self.text_pos_emb.weight[pos:pos + 1][None]
+            y, cache = self.transformer.decode_step(self._stabilize(emb), cache, pos)
+            logits = self._finish(y, pos, 1)[:, 0]
+        toks.append(sample(logits, n_new - 1))
+        return torch.cat([text, torch.stack(toks, dim=1)], dim=1)
 
 
     # -- serving: per-row primitives of the continuous-batching engine ------

@@ -46,13 +46,25 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
   The masks are drawn outside the blocks and passed in, so ``use_remat``'s
   recompute sees the same ones (``torch.utils.checkpoint`` restores only
   the default generators, not an explicit one).
-* Token shift and reversible blocks raise ``NotImplementedError``.
+* Every projection is a ``QLinear`` (``ops/quantize_weights.py``): an
+  ``nn.Linear`` until its weight is made int8, then the W8 product.
+* Token shift (``shift_tokens``), as the JAX package does it: between each
+  layer's norm and its function, text positions take the first half of
+  their channels from the previous position and image positions the first
+  quarter from the grid neighbour above and the second from the one to the
+  left (``shift_tokens_full``). Cached decode keeps per-depth ring buffers
+  of the last ``image_fmap_size`` *pre-shift* chunks (``ShiftState``,
+  ``shift_prefill_state``, ``shift_decode_step``), bf16 beside an int8
+  cache; text-position steps do not write the image rings. Layer sharing
+  shares functions, not shift state. ``decode_window`` refuses shift, as
+  the JAX package does: the rings are one token at a time.
+* Reversible blocks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from itertools import cycle, islice
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +80,7 @@ from ..ops.flash_attention import (FlashSchedule, flash_attention, flash_schedul
 from ..ops.fused_attention import MaskTable, fused_qkv_attention, mask_table
 from ..ops.paged_kv import PagedKVCache
 from ..ops.persistent_attention import persistent_attention
+from ..ops.quantize_weights import QLinear
 from ..ops.rotary import apply_rotary, dalle_pos_emb
 from ..parallel.ring_attention import ring_attention
 
@@ -107,8 +120,8 @@ class GEGLUFeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.w1 = nn.Linear(dim, dim * mult * 2)
-        self.w2 = nn.Linear(dim * mult, dim)
+        self.w1 = QLinear(dim, dim * mult * 2)
+        self.w2 = QLinear(dim * mult, dim)
 
     def forward(self, x, drop: Optional[torch.Tensor] = None):
         x, gates = self.w1(x).chunk(2, dim=-1)
@@ -130,8 +143,8 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.causal, self.stable, self.softmax_f32 = causal, stable, softmax_f32
         inner = heads * dim_head
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_qkv = QLinear(dim, inner * 3, bias=False)
+        self.to_out = QLinear(inner, dim)
 
     def _split(self, x):
         """(b, n, dim) → q, k, v as (b, h, n, d), head-major [q|k|v] split."""
@@ -240,25 +253,142 @@ class Attention(nn.Module):
         return self._merge(out), cache
 
 
-class TransformerLayer(nn.Module):
-    """PreNorm(+sandwich norm) around a function the caller passes, scaled by
-    LayerScale; the caller adds the residual. One instance per (depth, role);
-    the function itself may be shared between depths."""
+class ShiftState(NamedTuple):
+    """Ring buffers for cached token-shift decode: the (top, left)
+    quarter-chunks of the last ``image_size`` *pre-shift* inputs, and the
+    latest token's pre-shift first half (the text shift's source)."""
+    top: torch.Tensor    # (b, image_size, d4)
+    left: torch.Tensor   # (b, image_size, d4)
+    prev: torch.Tensor   # (b, 2·d4)
 
-    def __init__(self, dim: int, index: int, sandwich: bool = False):
+    @classmethod
+    def init(cls, batch: int, image_size: int, d4: int, dtype=torch.float32,
+             device=None) -> "ShiftState":
+        z = torch.zeros((batch, image_size, d4), dtype=dtype, device=device)
+        return cls(z, z.clone(), torch.zeros((batch, 2 * d4), dtype=dtype, device=device))
+
+
+def shift_tokens_full(x: torch.Tensor, text_len: int, image_size: int) -> torch.Tensor:
+    """Token shift over a full (b, n, d) sequence: text positions take their
+    first half of channels from position t−1; image positions their first
+    quarter from the grid neighbour above and the second from the one to the
+    left (zeros off the grid)."""
+    b, n, d = x.shape
+    if n < text_len:   # no image tokens yet: shift text only
+        half, rest = x.chunk(2, dim=-1)
+        half = F.pad(half, (0, 0, 1, 0))[:, :n]
+        return torch.cat((half, rest), dim=-1)
+    img_len = n - text_len
+    x_text, x_img = x[:, :text_len], x[:, text_len:]
+    t_shift, t_pass = x_text.chunk(2, dim=-1)
+    t_shift = F.pad(t_shift, (0, 0, 1, 0))[:, :text_len]
+    x_text = torch.cat((t_shift, t_pass), dim=-1)
+    pad_to = image_size * image_size - img_len
+    xi = F.pad(x_img, (0, 0, 0, pad_to)).reshape(b, image_size, image_size, d)
+    d4 = d // 4
+    top, left, rest = xi[..., :d4], xi[..., d4:2 * d4], xi[..., 2 * d4:]
+    top = F.pad(top, (0, 0, 0, 0, 1, 0))[:, :image_size]
+    left = F.pad(left, (0, 0, 1, 0))[:, :, :image_size]
+    xi = torch.cat((top, left, rest), dim=-1)
+    x_img = xi.reshape(b, image_size * image_size, d)[:, :img_len]
+    return torch.cat((x_text, x_img), dim=1)
+
+
+def shift_prefill_state(x: torch.Tensor, text_len: int, image_size: int,
+                        state: ShiftState) -> ShiftState:
+    """The ring buffers after a full-prefix forward of pre-shift ``x``: the
+    slots of the last image positions get their (top, left) chunks, text
+    slots stay zero, ``prev`` is the last position's first half. Writes
+    take the buffers' dtype."""
+    b, n, d = x.shape
+    d4 = d // 4
+    prev = x[:, -1, :2 * d4].to(state.prev.dtype)
+    img_len = max(n - text_len, 0)
+    if img_len == 0:
+        return ShiftState(state.top, state.left, prev)
+    take = min(img_len, image_size)
+    chunk = x[:, n - take:n]
+    slots = torch.arange(n - take - text_len, n - text_len, device=x.device) % image_size
+    top, left = state.top.clone(), state.left.clone()
+    top[:, slots] = chunk[..., :d4].to(top.dtype)
+    left[:, slots] = chunk[..., d4:2 * d4].to(left.dtype)
+    return ShiftState(top, left, prev)
+
+
+def shift_decode_step(x_t: torch.Tensor, state: ShiftState, offset: int, text_len: int,
+                      image_size: int):
+    """Cached one-token shift of (b, 1, d) pre-shift ``x_t`` at position
+    ``offset``: a text position takes the previous token's first half, an
+    image position the (top, left) neighbours' chunks from the rings (zero
+    top on the first grid row, zero left at column 0). Returns (shifted x_t,
+    new state); a text step leaves the image rings as they were."""
+    d = x_t.shape[-1]
+    d4 = d // 4
+    d2 = 2 * d4
+    cur = x_t[:, 0]
+    prev = cur[..., :d2].to(state.prev.dtype)
+    if offset < text_len:
+        # cat promotes a bf16 state beside f32 activations, as jnp.concatenate
+        shifted = torch.cat([state.prev, cur[..., d2:]], dim=-1)
+        return shifted[:, None], ShiftState(state.top, state.left, prev)
+    img_pos = offset - text_len
+    ptr = img_pos % image_size
+    # the top neighbour was written image_size steps ago: the current slot
+    top_n = state.top[:, ptr]
+    left_n = state.left[:, (ptr - 1) % image_size]
+    if img_pos < image_size:
+        top_n = torch.zeros_like(top_n)
+    if img_pos % image_size == 0:
+        left_n = torch.zeros_like(left_n)
+    shifted = torch.cat([top_n, left_n, cur[..., d2:]], dim=-1)
+    top, left = state.top.clone(), state.left.clone()
+    top[:, ptr] = cur[..., :d4].to(top.dtype)
+    left[:, ptr] = cur[..., d4:d2].to(left.dtype)
+    return shifted[:, None], ShiftState(top, left, prev)
+
+
+class TransformerLayer(nn.Module):
+    """PreNorm(+sandwich norm) → optional token shift → a function the caller
+    passes, scaled by LayerScale; the caller adds the residual. One instance
+    per (depth, role); the function itself may be shared between depths."""
+
+    def __init__(self, dim: int, index: int, sandwich: bool = False, *,
+                 shift: bool = False, text_len: int = 0, image_size: int = 0):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm_out = nn.LayerNorm(dim, eps=LN_EPS) if sandwich else None
         self.scale = nn.Parameter(
             torch.full((1, 1, dim), layerscale_init_eps(index)))
+        self.shift, self.text_len, self.image_size = shift, text_len, image_size
 
     def post(self, y):
         if self.norm_out is not None:
             y = self.norm_out(y)
         return y * self.scale
 
+    def pre(self, x):
+        """The norm, then the full-sequence token shift."""
+        y = self.norm(x)
+        return shift_tokens_full(y, self.text_len, self.image_size) if self.shift else y
+
+    def pre_prefill(self, x, state: Optional[ShiftState]):
+        """``pre`` for a prefill: also the ring buffers from the pre-shift
+        chunks. Returns (y, state)."""
+        y = self.norm(x)
+        if not self.shift:
+            return y, state
+        state = shift_prefill_state(y, self.text_len, self.image_size, state)
+        return shift_tokens_full(y, self.text_len, self.image_size), state
+
+    def pre_decode(self, x_t, state: Optional[ShiftState], offset: int):
+        """``pre`` for one decode token at ``offset``. Returns (y, state)."""
+        y = self.norm(x_t)
+        if not self.shift:
+            return y, state
+        return shift_decode_step(y, state, offset, self.text_len, self.image_size)
+
     def forward(self, x, fn, **kw):
-        return self.post(fn(self.norm(x), **kw))
+        return self.post(fn(self.pre(x), **kw))
 
 
 class Transformer(nn.Module):
@@ -269,8 +399,6 @@ class Transformer(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         self.sp = sp
-        if c.shift_tokens:
-            raise NotImplementedError("shift_tokens is not ported yet")
         if c.reversible:
             raise NotImplementedError("reversible blocks are not ported yet")
         fmap = c.image_fmap_size
@@ -336,10 +464,11 @@ class Transformer(nn.Module):
                                                               c.ff_dropout))
             self.attn_names.append(f"attn_{aid}")
             self.ff_names.append(f"ff_{fid}")
+            shift = dict(shift=c.shift_tokens, text_len=self.text_len, image_size=fmap)
             self.add_module(f"layer_attn_{ind}",
-                            TransformerLayer(c.dim, ind + 1, c.sandwich_norm))
+                            TransformerLayer(c.dim, ind + 1, c.sandwich_norm, **shift))
             self.add_module(f"layer_ff_{ind}",
-                            TransformerLayer(c.dim, ind + 1, c.sandwich_norm))
+                            TransformerLayer(c.dim, ind + 1, c.sandwich_norm, **shift))
 
         rotary = None
         if c.rotary_emb and c.causal:
@@ -447,12 +576,23 @@ class Transformer(nn.Module):
 
     # -- cached decode -----------------------------------------------------
     def init_cache(self, batch: int, max_seq: Optional[int] = None,
-                   dtype=torch.float32) -> Dict[str, KVCache]:
+                   dtype=torch.float32) -> Dict[str, Any]:
+        """Every layer's ``KVCache`` (``kv_{i}``) and, with token shift, its
+        two ``ShiftState``s (``shift_attn_{i}``, ``shift_ff_{i}``). An int8
+        cache quantizes the KV storage only: the rings hold raw hidden
+        slices and are bf16 beside it."""
         c = self.cfg
         device = self.layer_attn_0.scale.device
-        return {f"kv_{ind}": KVCache.init(batch, c.heads, max_seq or c.seq_len + 1,
-                                          c.dim_head, dtype, device=device)
-                for ind in range(c.depth)}
+        cache: Dict[str, Any] = {}
+        shift_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
+        for ind in range(c.depth):
+            cache[f"kv_{ind}"] = KVCache.init(batch, c.heads, max_seq or c.seq_len + 1,
+                                              c.dim_head, dtype, device=device)
+            if c.shift_tokens:
+                for role in ("attn", "ff"):
+                    cache[f"shift_{role}_{ind}"] = ShiftState.init(
+                        batch, c.image_fmap_size, c.dim // 4, shift_dtype, device=device)
+        return cache
 
     def init_cache_paged(self, num_blocks: int, block_tokens: int, max_seq: int,
                          dtype=torch.float32) -> Dict[str, PagedKVCache]:
@@ -464,35 +604,50 @@ class Transformer(nn.Module):
                                                max_seq, c.dim_head, dtype, device=device)
                 for ind in range(c.depth)}
 
-    def prefill(self, x, cache: Dict[str, KVCache]):
-        """Run the full prefix, filling every layer's cache. Returns (y, cache)."""
+    def prefill(self, x, cache: Dict[str, Any]):
+        """Run the full prefix, filling every layer's caches. Returns (y, cache)."""
         for ind in range(self.cfg.depth):
             la, attn, lf, ff, mask = self._layer(ind)
-            y, _ = attn.prefill(la.norm(x), cache[f"kv_{ind}"],
-                                rotary=self.rotary, static_mask=mask)
+            y = self._shifted(cache, f"shift_attn_{ind}", la.pre_prefill, x)
+            y, _ = attn.prefill(y, cache[f"kv_{ind}"], rotary=self.rotary, static_mask=mask)
             x = x + la.post(y)
-            x = x + lf(x, ff)
+            x = x + lf.post(ff(self._shifted(cache, f"shift_ff_{ind}", lf.pre_prefill, x)))
         return x, cache
 
-    def decode_step(self, x_t, cache: Dict[str, KVCache], offset: int):
+    def decode_step(self, x_t, cache: Dict[str, Any], offset: int):
         """One token at position ``offset``. Returns (y_t, cache)."""
         for ind in range(self.cfg.depth):
             la, attn, lf, ff, mask = self._layer(ind)
-            y, _ = attn.decode(la.norm(x_t), cache[f"kv_{ind}"], offset,
-                               rotary=self.rotary, static_mask=mask)
+            y = self._shifted(cache, f"shift_attn_{ind}", la.pre_decode, x_t, offset)
+            y, _ = attn.decode(y, cache[f"kv_{ind}"], offset, rotary=self.rotary,
+                               static_mask=mask)
             x_t = x_t + la.post(y)
-            x_t = x_t + lf(x_t, ff)
+            y = self._shifted(cache, f"shift_ff_{ind}", lf.pre_decode, x_t, offset)
+            x_t = x_t + lf.post(ff(y))
         return x_t, cache
+
+    @staticmethod
+    def _shifted(cache: Dict[str, Any], key: str, pre, x, *args):
+        """``pre(x, cache[key], *args)``: the normed (and shifted) input, the
+        layer's new shift state stored back under ``key`` when it has one."""
+        y, state = pre(x, cache.get(key), *args)
+        if state is not None:
+            cache[key] = state
+        return y
 
     def decode_window(self, x_w, cache: Dict[str, Any], offsets):
         """w tokens per row at per-row positions ``offsets`` ((b,) on the
-        host): the serve engine's refill windows, prefill chunks and decode
-        steps. One ``WindowPlan`` serves every layer. Full attention only.
-        Returns (y_w, cache)."""
+        host, or a ``WindowPlan``): the serve engine's refill windows, prefill
+        chunks and decode steps, and the speculative verify. One
+        ``WindowPlan`` serves every layer. Full attention and no token shift
+        (the JAX package's errors). Returns (y_w, cache)."""
+        if self.cfg.shift_tokens:
+            raise ValueError("speculative decode does not support shift_tokens")
         if any(m != "full" for m in self.mask_keys):
-            raise ValueError("decode_window supports full attention only, got "
+            raise ValueError("speculative decode supports full attention only, got "
                              f"{sorted(set(self.mask_keys))}")
-        plan = cache["kv_0"].window_plan(offsets, x_w.shape[1])
+        plan = (offsets if isinstance(offsets, WindowPlan)
+                else cache["kv_0"].window_plan(offsets, x_w.shape[1]))
         for ind in range(self.cfg.depth):
             la, attn, lf, ff, _ = self._layer(ind)
             y, _ = attn.decode_window(la.norm(x_w), cache[f"kv_{ind}"], plan,

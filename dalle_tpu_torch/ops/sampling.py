@@ -1,11 +1,15 @@
 """Sampling primitives: top-k filtering and the gumbel-max draw.
 
-Port of ``dalle_tpu/ops/sampling.py`` (``top_k_filter``, ``gumbel_sample``,
-``gumbel_sample_rows``, and CLIP's pooling ``masked_mean``). Draws come from an explicit ``torch.Generator``;
+Port of ``dalle_tpu/ops/sampling.py`` (``top_k_filter``, ``top_p_filter``,
+``gumbel_sample``, ``gumbel_sample_rows``, and CLIP's pooling
+``masked_mean``). Draws come from an explicit ``torch.Generator``;
 ``gumbel_sample`` also takes injected noise, so a test can feed it the JAX
 package's own draws. ``row_noise`` gives each row of a batch its own draw
 source, which is how the serve engine keeps every request's tokens those of
-a sequential run under the request's own generator.
+a sequential run under the request's own generator. The speculative
+sampler (``DALLE.generate_images_tokens_speculative``) takes a whole
+(step, row) table of ``gumbel_noise`` so that a token's draw does not depend
+on the round in which its row reaches it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,19 @@ def top_k_filter(logits: torch.Tensor, thres: float = 0.5) -> torch.Tensor:
     k-th largest), set the rest to -inf."""
     k = max(int((1.0 - thres) * logits.shape[-1]), 1)
     kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def top_p_filter(logits: torch.Tensor, top_p: float = 0.9) -> torch.Tensor:
+    """Nucleus filtering: keep the largest logits while the softmax mass
+    before each (in descending order) is below ``top_p`` (the first always
+    kept), set the rest to -inf. Ties at the cut are kept, as the JAX
+    package's threshold comparison keeps them."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    keep = torch.cat([torch.ones_like(cum[..., :1], dtype=torch.bool),
+                      cum[..., :-1] < top_p], dim=-1)
+    kth = torch.where(keep, sorted_logits, float("inf")).amin(dim=-1, keepdim=True)
     return logits.masked_fill(logits < kth, float("-inf"))
 
 

@@ -110,7 +110,8 @@ class DecodeEngine:
     """Continuous-batching image-token decode over a DALLE model.
 
     ``slots``: the batch B. ``cache_dtype``: KV storage (float32, bfloat16
-    or int8); the model's own dtype is the compute dtype. Sampling knobs
+    or int8); the model's own compute dtype (``DALLE.compute_dtype``) is
+    the engine's, int8 weights (``quantize_params_int8``) included. Sampling knobs
     mirror ``generate_images_tokens``. ``device``: where the engine runs, the
     CUDA card unless the caller passes "cpu"; the model must be there."""
 
@@ -206,8 +207,9 @@ class DecodeEngine:
             self._bind_pages()
         else:
             self.cache = self.model.serve_init_cache(B, self.cache_dtype)
-        # the logits keep the dtype the model emits (bf16 weights emit bf16)
-        dtype = next(self.model.parameters()).dtype
+        # the logits keep the dtype the model emits (bf16 and int8 weights
+        # emit bf16)
+        dtype = self.model.compute_dtype
         self.logits = torch.zeros((B, self.model.total_tokens), dtype=dtype,
                                   device=self.device)
         # parked until admitted

@@ -396,10 +396,16 @@ def test_train_rejects_a_small_vocab_and_a_vae_of_another_size(tmp_path, port_va
 TRAIN_UNPORTED = [["--image_text_folder", "x"], ["--wds", "x"], ["--reversible"],
                   ["--shift_tokens"], ["--trace"], ["--watchdog_deadline_s", "5"],
                   ["--prometheus_path", "p"], ["--taming"], []]
+# ported since these cases were written: each case now runs its flag end to end
+TRAIN_PORTED = {"--shift_tokens"}
 # --clip_path is ported: its case now gives it a path with a DALL·E checkpoint
 # and no CLIP one, which is refused
 GENERATE_UNPORTED = [["--int8w"], ["--speculative", "2"], ["--clip_path", "DALLE"], ["--gentxt"],
                      ["--fast_topk"], ["--trace", "d"]]
+GENERATE_PORTED = {"--int8w", "--speculative", "--gentxt"}
+TINY_TRAIN = ["--image_size", "16", "--untrained_vae_tokens", "48", "--dim", "32", "--depth",
+              "1", "--heads", "2", "--dim_head", "16", "--text_seq_len", "8", "--batch_size",
+              "2", "--steps", "1"]
 
 
 @pytest.mark.parametrize("flags", TRAIN_UNPORTED, ids=lambda f: " ".join(f) or "openai_vae")
@@ -407,6 +413,11 @@ def test_train_unported_flags_raise(tmp_path, flags):
     argv = ["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
     if flags[:1] not in (["--taming"], []):
         argv.append("--untrained_vae")
+    if flags[0:1] and flags[0] in TRAIN_PORTED:
+        assert train_dalle.main(argv + TINY_TRAIN + flags) == 0
+        meta = CheckpointManager(str(tmp_path)).load_metadata()
+        assert meta["hparams"]["shift_tokens"] is True
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         train_dalle.main(argv + flags)
 
@@ -420,13 +431,24 @@ def dalle_ckpt(tmp_path_factory, port_vae):
 
 
 @pytest.mark.parametrize("flags", GENERATE_UNPORTED, ids=lambda f: f[0])
-def test_generate_unported_flags_raise(dalle_ckpt, tmp_path, flags):
+def test_generate_unported_flags_raise(dalle_ckpt, tmp_path, flags, capsys):
     flags = [dalle_ckpt if f == "DALLE" else f for f in flags]
+    argv = ["--dalle_path", dalle_ckpt, "--text", "a red circle", "--device", "cpu",
+            "--outputs_dir", str(tmp_path)] + flags
+    if flags[0] in GENERATE_PORTED:
+        # the flag runs end to end: two images written per prompt
+        assert generate.main(argv + ["--num_images", "2", "--batch_size", "2"]) == 0
+        out = capsys.readouterr().out
+        if flags[0] == "--gentxt":
+            assert "gentxt: 'a red circle' → " in out
+        written = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path) for f in fs]
+        assert len(written) == 2 and all(f.endswith(".png") for f in written)
+        assert all(np.asarray(Image.open(f)).shape == (16, 16, 3) for f in written)
+        return
     err, match = ((ValueError, "not a CLIP checkpoint") if flags[0] == "--clip_path"
                   else (NotImplementedError, "ROADMAP.md Queue 1 item"))
     with pytest.raises(err, match=match):
-        generate.main(["--dalle_path", dalle_ckpt, "--text", "x", "--device", "cpu",
-                       "--outputs_dir", str(tmp_path)] + flags)
+        generate.main(argv)
 
 
 def test_png_writer_reads_back_in_pil(tmp_path):

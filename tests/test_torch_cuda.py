@@ -35,7 +35,9 @@ chunked decode kernel (K7) to its plain version within
 ``decode_attention.chunked_tolerance``. The chunk kernels (K6: forward, dq,
 dk/dv of one ring pair) are held to their plain versions within
 ``chunk_attention.kernel_tolerance`` and ``lse_tolerance``, and the ring
-through them to K4 on the whole sequence.
+through them to K4 on the whole sequence. The int8-weight product (W8) is
+held to its plain version within ``int8w_linear.int8w_tolerance`` on both
+routes, and a row alone to its bits inside M rows.
 """
 
 import dataclasses
@@ -1032,3 +1034,48 @@ def test_cli_flow_on_the_card(tmp_path, monkeypatch):
     clear = (top2[..., 0] - top2[..., 1] > 2e-5).reshape(3, -1)
     assert torch.equal(got.argmax(-1).reshape(3, -1)[clear],
                        host.get_codebook_indices(img)[clear])
+
+
+# ---------------------------------------------------------------------------
+# W8: the int8-weight product
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 48, 64), (8, 200, 1792), (40, 33, 448), (64, 16, 7168)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tc", "fma"])
+def test_int8w_linear_matches_plain_and_is_row_invariant(dtype, shape):
+    """W8 within ``int8w_tolerance`` of its plain version on its route, a
+    ragged N included; row 0 alone gives the bits it has inside M rows."""
+    from dalle_tpu_torch.ops import int8w_linear as w8
+    M, N, K = shape
+    gen = torch.Generator("cuda").manual_seed(M + N)
+    x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+    q = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
+    s = torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3
+    b = torch.randn(N, device="cuda", generator=gen).to(dtype)
+    route = "tc_launches" if dtype == torch.bfloat16 else "fma_launches"
+    before = getattr(w8, route)
+    got = w8.int8w_linear(x, q, s, b)
+    assert getattr(w8, route) == before + 1
+    want = w8.int8w_linear_plain(x, q, s, b)
+    torch.cuda.synchronize()
+    assert ((got.float() - want.float()).abs() <= w8.int8w_tolerance(x, q, s, b, want)).all()
+    assert torch.equal(w8.int8w_linear(x[:1], q, s, b)[0], got[0])
+
+
+def test_int8w_generation_and_speculative_on_the_card():
+    """An int8w model generates in-range tokens through W8 and K2; its
+    speculative sampler at gamma 2 gives gamma 0's tokens on one draw table
+    in f32 compute (the fma routes of W8 and K3)."""
+    from dalle_tpu_torch.ops import int8w_linear as w8
+    from dalle_tpu_torch.ops.quantize_weights import quantize_params_int8
+    model = init_dalle(DalleConfig(**TINY), seed=0, device="cuda")
+    m8 = quantize_params_int8(model, compute_dtype=None)
+    text = torch.randint(1, 60, (2, 6), device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    before = w8.launches
+    toks = m8.generate_images_tokens(text, generator=torch.Generator("cuda").manual_seed(1))
+    assert w8.launches > before and toks.shape == (2, 16) and int(toks.max()) < 48
+    noise = -torch.log(-torch.log(torch.rand(16, 2, 48, device="cuda",
+                                             generator=torch.Generator("cuda").manual_seed(2))))
+    seq = m8.generate_images_tokens_speculative(text, gamma=0, noise=noise)
+    spec = m8.generate_images_tokens_speculative(text, gamma=2, noise=noise)
+    assert torch.equal(seq, spec)

@@ -90,8 +90,17 @@ def test_state_dict_maps_every_parameter_once():
     assert "transformer.attn_2.to_qkv.weight" not in sd        # shared with attn_0
     assert sd["transformer.layer_attn_0.scale"].shape == (1, 1, 64)
     assert sd["transformer.attn_0.to_qkv.weight"].shape == (3 * 64, 64)
-    with pytest.raises(NotImplementedError):
-        flax_to_state_dict({"params": jp["params"], "quant": {}})
+    # an int8-weight tree (ported): every kernel's scales become its
+    # weight_scale; an unknown quant leaf is refused
+    from dalle_tpu.ops.quantize_weights import quantize_params_int8
+    qsd = flax_to_state_dict(quantize_params_int8(jp))
+    scales = {k for k in qsd if k.endswith(".weight_scale")}
+    assert set(qsd) == set(sd) | scales and scales
+    for k in scales:
+        w = qsd[k[:-len("_scale")]]
+        assert w.dtype == torch.int8 and qsd[k].shape == (w.shape[0],)
+    with pytest.raises(ValueError, match="unexpected quant leaf"):
+        flax_to_state_dict({"params": jp["params"], "quant": {"x": {"bogus": np.zeros(1)}}})
 
 
 def test_layer_norm_epsilon_and_tanh_gelu_match_flax():
@@ -117,9 +126,12 @@ def test_layer_norm_epsilon_and_tanh_gelu_match_flax():
 
 
 def test_unported_transformer_options_raise():
-    for kw in (dict(shift_tokens=True), dict(reversible=True)):
-        with pytest.raises(NotImplementedError):
-            DALLE(DalleConfig(**TINY, **kw))
+    with pytest.raises(NotImplementedError):
+        DALLE(DalleConfig(**TINY, reversible=True))
+    # token shift is ported: its model builds with a shift in every layer
+    shifted = DALLE(DalleConfig(**TINY, shift_tokens=True))
+    layers = [m for m in shifted.modules() if isinstance(m, ttr.TransformerLayer)]
+    assert len(layers) == 2 * TINY["depth"] and all(m.shift for m in layers)
 
 
 def _jax_steps(jm, jp, text, img, dtype):

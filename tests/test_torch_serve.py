@@ -360,10 +360,14 @@ def test_wrapper_serve_engine_defaults_and_int8w(models):
     wrapper = DalleWithVae(tm, None)
     eng = wrapper.serve_engine(slots=2)
     assert eng.cache_dtype == torch.int8
-    assert next(eng.model.parameters()).dtype == torch.bfloat16
     assert not hasattr(eng, "install_executables")
-    with pytest.raises(NotImplementedError):
-        wrapper.serve_engine(slots=2, precision="int8w")
+    # the default is int8w, as in the JAX package: int8 weights, bf16 compute
+    assert eng.model.transformer.attn_0.to_qkv.weight.dtype == torch.int8
+    assert eng.model.compute_dtype == torch.bfloat16
+    assert wrapper.serve_engine(slots=2, precision="int8w").model is eng.model
+    kv = wrapper.serve_engine(slots=2, precision="bf16_int8kv")
+    assert next(kv.model.parameters()).dtype == torch.bfloat16 and kv.cache_dtype == torch.int8
+    assert kv.model is not eng.model
 
 
 def test_engine_runs_on_the_card_unless_told(models, monkeypatch):
