@@ -205,9 +205,13 @@ class DalleWithVae:
         request's tokens equal sequential ``generate_images_tokens`` under
         the request's generator bit for bit (with int8 weights too: the W8
         product gives a row the same bits at any row count). In the bf16
-        modes the engine's windowed attention (K3/K5) rounds q·scale and p
-        to bf16 where the sequential prefill and K2 keep f32, so a near-tie
-        can flip a token. Pass ``precision="float32"`` for the full-width
+        modes, the default included, they are not: the engine's windowed
+        attention (K3/K5) rounds q·scale and p to bf16, while the
+        sequential path's dense prefill rounds at other points and K2 keeps
+        f32, so a near-tie can flip a token and the request's later tokens
+        with it. The JAX package runs one attention for both and is bit
+        exact; here this is an open fault (``ROADMAP.md``, Queue 3).
+        Pass ``precision="float32"`` for the full-width
         engine. The engine runs where the model is, and emits
         image token ids per request."""
         from ..serve.engine import DecodeEngine

@@ -21,14 +21,22 @@ The function is routed by shape, on the card:
   counterpart of XLA's dot outside any Pallas kernel. This is a route by
   shape, not a fallback: a kernel that fails to build or launch raises.
 
+``MAX_ROWS`` is the kernel's own limit: on an H100 80GB HBM3 at 700 W the
+kernel took less time than the matmul route at every QLinear shape of the
+1.4B model and every row count from 8 to 64 (``chip_smoke.py``, its
+``w8_routes`` line; ``PERF.md``), so the crossover lies above what the
+kernel takes.
+
 On a CPU tensor the wrapper runs ``int8w_linear_plain``, the JAX formula in
 tensor code. ``launches`` counts kernel launches, ``tc_launches`` and
 ``fma_launches`` those of each route, and ``matmul_calls`` the calls that
 took the ``torch.matmul`` route (no kernel of this module).
 
 A row's output does not depend on M or on the row's place in a launch of
-the kernel (``csrc/int8w_linear.cu``): the serve engine's tokens equal
-sequential generation's only because of it.
+the kernel (``csrc/int8w_linear.cu``): without that the serve engine's
+tokens could not equal sequential generation's. (They do at f32 compute;
+in the bf16 modes the two paths' attention rounds at other points, an open
+fault in ``ROADMAP.md``.)
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-MAX_ROWS = 64         # rows the kernel serves; more go to torch.matmul
+MAX_ROWS = 64         # rows the kernel takes (four tiles of 16); more go to torch.matmul
 STEP = 64             # weight bytes of a row per step of the kernel
 WARPS = 8             # the contraction is split across a CTA's warps in runs of steps
 
@@ -126,13 +134,21 @@ def _check(x2, q, s, b):
             raise ValueError("int8w_linear operands must be 16-byte aligned")
 
 
+def int8w_linear_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The route above ``MAX_ROWS`` rows: x2 (M, K) times the weight
+    dequantized into a scratch of x's dtype, by ``torch.matmul``."""
+    y = torch.matmul(x2, dequantize(q, s, x2.dtype).t())
+    return y if b is None else y + b.to(y.dtype)
+
+
 def int8w_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., K) × int8 q (N, K) with f32 per-channel scales s (N,), plus an
     optional bias (N,) → (..., N) in x's dtype. CPU tensors run the plain
     version; CUDA tensors run the kernel (at most ``MAX_ROWS`` rows) or
     ``torch.matmul`` on the dequantized weight (more rows)."""
-    global launches, tc_launches, fma_launches, matmul_calls
+    global matmul_calls
     if x.device.type == "cpu":
         return int8w_linear_plain(x, q, s, b)
     if x.device.type != "cuda":
@@ -140,28 +156,36 @@ def int8w_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     M, N = x2.shape[0], q.shape[0]
-    if b is not None:
-        b = b.to(x.dtype)
     if M > MAX_ROWS:
-        w = dequantize(q, s, x.dtype)
-        y = torch.matmul(x2, w.t())
-        if b is not None:
-            y = y + b
         matmul_calls += 1
-        return y.reshape(*lead, N)
+        return int8w_linear_matmul(x2, q, s, b).reshape(*lead, N)
+    return int8w_linear_kernel(x2, q, s, b).reshape(*lead, N)
+
+
+def int8w_linear_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel alone on CUDA x2 (M, K), M up to ``MAX_ROWS``; counted in
+    ``launches`` and its route's count."""
+    global launches, tc_launches, fma_launches
+    M, K = x2.shape
+    N = q.shape[0]
+    if M > MAX_ROWS:
+        raise ValueError(f"the kernel takes at most {MAX_ROWS} rows, got {M}")
+    if b is not None:
+        b = b.to(x2.dtype)
     x2 = x2.contiguous()
     _check(x2, q, s, b)
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0:
-        return out.reshape(*lead, N)
-    rc = _kernel()(x2.data_ptr(), _DTYPE_CODE[x.dtype], q.data_ptr(), s.data_ptr(),
+        return out
+    rc = _kernel()(x2.data_ptr(), _DTYPE_CODE[x2.dtype], q.data_ptr(), s.data_ptr(),
                    None if b is None else b.data_ptr(), out.data_ptr(), M, N, K,
-                   torch.cuda.current_stream(x.device).cuda_stream)
+                   torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8w_linear kernel failed to launch: CUDA error {rc}")
     launches += 1
-    if x.dtype == torch.bfloat16:
+    if x2.dtype == torch.bfloat16:
         tc_launches += 1
     else:
         fma_launches += 1
-    return out.reshape(*lead, N)
+    return out

@@ -21,8 +21,6 @@ weights.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
-
 import torch
 from torch import nn
 
@@ -116,25 +114,23 @@ def quantize_kernel_int8(w: torch.Tensor, axis: int = 1):
     return q, scale
 
 
-def quantize_params_int8(model: nn.Module, select: Optional[Callable[[str], bool]] = None,
-                         compute_dtype=torch.bfloat16) -> nn.Module:
+def quantize_params_int8(model: nn.Module, compute_dtype=torch.bfloat16) -> nn.Module:
     """A NEW model from ``model`` (which is not touched): every ``QLinear``
     weight int8 with per-output-channel scales, and a DALLE's tied
     ``shared_emb`` table int8 with per-row scales (rows are the output
     channels of the tied logits product and the gathered embeddings);
     every other float parameter and buffer cast to ``compute_dtype`` (None
-    keeps them). ``select(name)`` filters by module name ("" for the model's
-    own ``shared_emb``). Quantized from the source's own f32 values."""
+    keeps them). Quantized from the source's own f32 values."""
     new = copy.deepcopy(model)
     if compute_dtype is not None:
         new.to(compute_dtype)
     src = dict(model.named_modules())
     for name, m in new.named_modules():
-        if isinstance(m, QLinear) and (select is None or select(name)):
+        if isinstance(m, QLinear):
             q, scale = quantize_kernel_int8(src[name].weight, axis=1)
             m.set_int8(q, scale[:, 0])
     shared = getattr(model, "shared_emb", None)
-    if isinstance(shared, nn.Parameter) and (select is None or select("")):
+    if isinstance(shared, nn.Parameter):
         q, scale = quantize_kernel_int8(shared, axis=1)
         new.set_shared_emb_int8(q, scale)
     return new

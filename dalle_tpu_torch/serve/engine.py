@@ -23,9 +23,10 @@ step's tokens come back in one read per ``steps_per_sync`` steps.
 Randomness: every occupied slot owns a ``torch.Generator`` on the engine's
 device seeded with its request's seed, and draws (1, V) once per token the
 row emits (a CFG pair's null row is seeded alike, so both rows draw the
-same). So a request's tokens are those of the port's sequential
-``generate_images_tokens(text[None], generator=torch.Generator(dev)
-.manual_seed(seed))``, in any admission order. ``noise_fn(seed, t) -> (V,)``
+same). So at f32 compute a request's tokens are those of the port's
+sequential ``generate_images_tokens(text[None], generator=torch.Generator(dev)
+.manual_seed(seed))``, in any admission order; in the bf16 modes a near-tie
+may flip one (``DalleWithVae.serve_engine``). ``noise_fn(seed, t) -> (V,)``
 replaces the generators with an injected draw for token t (the tests feed
 the JAX engine's draws through it).
 

@@ -1040,11 +1040,13 @@ def test_cli_flow_on_the_card(tmp_path, monkeypatch):
 # W8: the int8-weight product
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(1, 48, 64), (8, 200, 1792), (40, 33, 448), (64, 16, 7168)])
+@pytest.mark.parametrize("shape", [(1, 48, 64), (8, 200, 1792), (24, 72, 1792),
+                                   (40, 33, 448), (64, 16, 7168)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tc", "fma"])
 def test_int8w_linear_matches_plain_and_is_row_invariant(dtype, shape):
-    """W8 within ``int8w_tolerance`` of its plain version on its route, a
-    ragged N included; row 0 alone gives the bits it has inside M rows."""
+    """W8 within ``int8w_tolerance`` of its plain version on its route, at
+    1-4 tiles of 16 rows and a ragged N; rows 0, M/2 and M-1 alone give the
+    bits they have inside M rows."""
     from dalle_tpu_torch.ops import int8w_linear as w8
     M, N, K = shape
     gen = torch.Generator("cuda").manual_seed(M + N)
@@ -1054,12 +1056,34 @@ def test_int8w_linear_matches_plain_and_is_row_invariant(dtype, shape):
     b = torch.randn(N, device="cuda", generator=gen).to(dtype)
     route = "tc_launches" if dtype == torch.bfloat16 else "fma_launches"
     before = getattr(w8, route)
-    got = w8.int8w_linear(x, q, s, b)
+    got = w8.int8w_linear_kernel(x, q, s, b)
     assert getattr(w8, route) == before + 1
     want = w8.int8w_linear_plain(x, q, s, b)
     torch.cuda.synchronize()
     assert ((got.float() - want.float()).abs() <= w8.int8w_tolerance(x, q, s, b, want)).all()
-    assert torch.equal(w8.int8w_linear(x[:1], q, s, b)[0], got[0])
+    for r in sorted({0, M // 2, M - 1}):
+        assert torch.equal(w8.int8w_linear_kernel(x[r:r + 1], q, s, b)[0], got[r])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_int8w_linear_routes_by_rows(dtype):
+    """Up to ``MAX_ROWS`` rows launch the kernel, more take the matmul route;
+    both within ``int8w_tolerance`` of the plain version."""
+    from dalle_tpu_torch.ops import int8w_linear as w8
+    gen = torch.Generator("cuda").manual_seed(5)
+    N, K = 96, 512
+    q = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
+    s = torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3
+    b = torch.randn(N, device="cuda", generator=gen).to(dtype)
+    for M, counter in ((w8.MAX_ROWS, "launches"), (w8.MAX_ROWS + 1, "matmul_calls")):
+        x = torch.randn(1, M, K, device="cuda", generator=gen).to(dtype)
+        before = getattr(w8, counter)
+        got = w8.int8w_linear(x, q, s, b)
+        assert getattr(w8, counter) == before + 1 and got.shape == (1, M, N)
+        want = w8.int8w_linear_plain(x, q, s, b)
+        torch.cuda.synchronize()
+        assert ((got.float() - want.float()).abs()
+                <= w8.int8w_tolerance(x, q, s, b, want)).all()
 
 
 def test_int8w_generation_and_speculative_on_the_card():

@@ -29,7 +29,7 @@ from dalle_tpu_torch import DalleConfig, DalleWithVae, dalle_state_dict
 from dalle_tpu_torch.convert import flax_to_state_dict
 from dalle_tpu_torch.models.dalle import DALLE
 from dalle_tpu_torch.ops.quantize_weights import quantize_params_int8
-from dalle_tpu_torch.ops.sampling import top_p_filter
+from dalle_tpu_torch.ops.sampling import gumbel_noise, top_k_filter, top_p_filter
 from dalle_tpu_torch.serve import DecodeEngine, RequestQueue
 
 CFG = dict(num_text_tokens=32, text_seq_len=6, dim=32, depth=2, heads=2,
@@ -276,6 +276,77 @@ def test_int8_weight_engine_equals_sequential_generation(kw):
             _t(t[None]), generator=torch.Generator().manual_seed(30 + i),
             cond_scale=2.0 if i == 2 else 1.0)[0]
         np.testing.assert_array_equal(got[i], ref.numpy(), err_msg=f"request {i}")
+
+
+# a first divergence of the int8w engine from sequential generation must be
+# a near-tie: within 2^-5 of the largest |logit| (a few bf16 roundings of
+# the logits through two layers, doubled by the CFG merge at scale 2)
+NEAR_TIE = 2.0 ** -5
+
+
+def _request_draws(seed):
+    """A request's draws as its engine generator gives them: one (1, V) row
+    per token, in order."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.stack([gumbel_noise((1, VOCAB), generator=g) for _ in range(N_STEPS)])
+
+
+def _near_tie(m, text, toks, t, other, cond_scale, noise):
+    """(gap, largest |logit|) at step t of sequential int8w generation,
+    teacher-forced on ``toks[:t]`` over an int8 cache: the least of the gap
+    between the scores of ``toks[t]`` and ``other`` and the gaps of either
+    token's logit to the top-k cut."""
+    with torch.no_grad():
+        logits, cache, plen = m._prefill(text, None, 1, torch.int8)
+        if cond_scale != 1.0:
+            nl, ncache, _ = m._prefill(torch.zeros_like(text), None, 1, torch.int8)
+            logits = nl + (logits - nl) * cond_scale
+        for i in range(t):
+            logits, cache = m._decode_one(toks[i:i + 1], i, plen + i, cache)
+            if cond_scale != 1.0:
+                nl, ncache = m._decode_one(toks[i:i + 1], i, plen + i, ncache)
+                logits = nl + (logits - nl) * cond_scale
+    band = logits[0, m.num_text_tokens:].float()
+    kept = top_k_filter(band, thres=0.5)
+    kth = kept[torch.isfinite(kept)].min()
+    score = band + noise[t, 0]
+    a, z = int(toks[t]), int(other)
+    gap = min(abs(score[a] - score[z]).item(), abs(band[a] - kth).item(),
+              abs(band[z] - kth).item())
+    return gap, band.abs().max().item()
+
+
+@pytest.mark.parametrize("base", [30, 50])
+@pytest.mark.parametrize("kw", [dict(), dict(kv_block_tokens=4)], ids=["dense", "paged"])
+def test_int8w_engine_against_sequential_generation(kw, base):
+    """The int8w engine (the default: int8 weights, bf16 compute, an int8
+    cache) against sequential int8w generation under each request's draws.
+    NOT bit for bit, unlike the JAX package: an open fault (ROADMAP.md,
+    Queue 3). The engine attends through K3/K5's plain version, which
+    rounds q·scale and p to bf16; the sequential path's dense prefill
+    rounds at other points and K2 keeps f32, and the CFG merge doubles the
+    difference. So each request's tokens equal the sequential ones up to
+    its first divergence, which must be a near-tie (``NEAR_TIE``); on these
+    draws the CFG request diverges, which shows the fault. Once both paths
+    run one attention, this test asserts equal tokens instead."""
+    _, _, tm = _pair()
+    eng = DalleWithVae(tm, None).serve_engine(slots=2, **kw)
+    m8 = eng.model
+    got = _engine_run(eng, ENGINE_TEXTS, base)
+    diverged = []
+    for i, t in enumerate(ENGINE_TEXTS):
+        cond_scale = 2.0 if i == 2 else 1.0
+        noise = _request_draws(base + i)
+        ref = m8.generate_images_tokens(_t(t[None]), noise=noise, cond_scale=cond_scale,
+                                        cache_dtype=torch.int8)[0]
+        diff = np.flatnonzero(ref.numpy() != got[i])
+        if diff.size:
+            step = int(diff[0])
+            gap, scale = _near_tie(m8, _t(t[None]), ref, step, got[i][step], cond_scale,
+                                   noise)
+            assert gap <= NEAR_TIE * scale, (i, step, gap, scale)
+            diverged.append(i)
+    assert diverged == [2], f"the known mismatch moved: requests {diverged} diverge"
 
 
 def test_int8w_is_the_engines_default_and_paged_equals_dense():
