@@ -283,34 +283,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 steps and --resume for 2 more, in build/recipe_cli/.
 
 24. decode_surface the JAX package's decode surface at DALL·E-1.4B, batch 8:
-                W8 (int8-weight product, csrc/int8w_linear.cu: mma.sync
-                with the weights converted in registers for bf16 x, f32 FMA
-                for f32 x) against its plain version at every QLinear shape
-                and 1, 8, 16, 24, 40, 64 rows (1-4 tiles of 16 rows) within
-                int8w_tolerance, rows 0, M/2 and M-1 alone equal to the
-                same rows inside M; its times at 8-64 rows beside its
-                bound, the matmul route (dequantize, torch.matmul), the
-                plain version and torch.matmul on the bf16 weight, and
-                both routes summed over a decode step's QLinears; nvcc's
-                report; K3 on the speculative verify's caches (S = 514-516,
-                w = 2, 3, 5, distinct starts; tc and fma routes) within
-                window_tolerance; generate_images in int8w at full depth
-                beside phase generate's bf16_int8kv run, and with CFG at
-                depth 2 (finite images, K2 depth·255 per pass, W8 launches
-                per route: the prefills' projections on the matmul route,
-                every decode step's QLinears on the kernel), the first
-                decode step's logits within 0.1 of the bf16 model's
-                largest; the speculative sampler at depth 2 (full width)
-                at gamma 0, 1, 2, 4 (bf16) and 0, 2 (f32), and at full
-                depth at gamma 0, 2 (bf16), each on one draw table: rounds,
-                ms per image, K3 per round on its route, and each against
-                gamma=0 "equal" or its first divergence, whose score gap
-                must lie within 2^-5 of the row's largest logit;
-                generate_texts from 4 tokens to 256 (K2 24·251); the int8w
-                engine (the new default) dense and paged with 8 requests,
-                K3/K5 and W8 counted, and one request against sequential
-                int8w generation (agreement and the first divergence's
-                score gap reported, not checked); a depth-2 model overfit
+                W8 (int8-weight product, csrc/int8w_linear.cu: since PR 18
+                warpgroup MMA with the output channels on its 64-row side,
+                the weights converted in registers from a TMA ring, the
+                contraction split across a cluster and summed in rank
+                order, for bf16 x at any row count; f32 FMA for f32 x up to
+                64 rows) against its plain version at every QLinear shape:
+                bf16 at every row count 1-64 and 257, 514, 2,056 within
+                int8w_tolerance and bitwise equal to the same rows of one
+                2,056-row launch, that launch twice bitwise; f32 at 1, 8,
+                16, 24, 40, 64 rows, rows 0, M/2 and M-1 alone equal to the
+                same rows inside M; its times at 8-64 rows and the prefill
+                widths beside its bound, the route "dequantize, then
+                torch.matmul", the plain version and torch.matmul on the
+                bf16 weight, summed over a decode step's QLinears, beside
+                PR 16's recorded sums; nvcc's report; K3 on the speculative
+                verify's caches (S = 514-516, w = 2, 3, 5, distinct starts;
+                tc and fma routes) within window_tolerance; generate_images
+                in int8w at full depth beside phase generate's bf16_int8kv
+                run, and with CFG at depth 2 (finite images, K2 depth·255
+                per pass, every QLinear of the prefills and decode steps
+                on W8's kernel), the first decode step's logits within 0.1
+                of the bf16 model's largest; the speculative sampler at
+                depth 2 (full width) at gamma 0, 1, 2, 4 (bf16) and 0, 2
+                (f32), and at full depth at gamma 0, 2 (bf16), each on one
+                draw table: rounds, ms per image, K3 per round on its
+                route, and each against gamma=0 "equal" or its first
+                divergence, whose score gap must lie within 2^-5 of the
+                row's largest logit; generate_texts from 4 tokens to 256
+                (K2 24·251); the int8w engine (the default) dense and paged
+                with 8 requests, K3/K5 and W8 counted, and under auto one
+                request against sequential int8w generation (agreement and
+                the first divergence's score gap reported: the reference's
+                TPU caveat); then the dense int8w engine pinned
+                (use_kernel=False) on the same 8 requests against pinned
+                sequential generation of each, every token equal and no
+                K2, K3 or K5 launch (checked); a depth-2 model overfit
                 to a constant image, gamma=3 "repeat" equal to gamma=0 in
                 at most 128 rounds; token shift: cached decode ≡ forward at
                 depth 2 in f32, a DalleTrainer step through K1, full-depth
@@ -1728,8 +1736,12 @@ def phase_serve(torch, card):
 # ---------------------------------------------------------------------------
 
 W8_COUNTERS = ("launches", "tc_launches", "fma_launches", "matmul_calls")
-W8_ROWS = (1, 8, 16, 24, 40, 64)        # 1-4 tiles of 16 rows on the tensor-core route
+W8_ROWS = (1, 8, 16, 24, 40, 64)        # the f32 (fma) route's 1-4 tiles of 16 rows
 W8_TIMED = (8, 16, 24, 32, 40, 48, 64)
+W8_PREFILL = (257, 514, 2056)           # a prompt, a CFG pair's, a refill of 8 slots
+# PR 16's W8 summed over a decode step's 97 projections, ms (PERF.md section 6,
+# PR 16 call 6, NVIDIA H100 80GB HBM3 at 700 W)
+W8_PR16_STEP_MS = {8: 1.549, 16: 1.589, 24: 2.075, 32: 2.210, 40: 2.571, 48: 2.641, 64: 3.288}
 # the logits of the first decode step of the int8w model against the bf16
 # model's on the same inputs: int8 per-channel quantization moves each weight
 # by up to half its channel's scale (amax/254), through 24 layers and the
@@ -1785,13 +1797,13 @@ def w8_bounds(M, N, K, xsize):
 
 
 def _w8_timing(torch, cfg, rows=W8_TIMED):
-    """W8's two routes at every QLinear shape of the 1.4B model and each row
-    count of ``rows``, bf16 x: the kernel (``ms``), the route above
-    ``MAX_ROWS`` (the weight dequantized, then torch.matmul:
-    ``matmul_route_ms``), the plain version, torch.matmul on the bf16 weight
-    (``library_ms``) and the bound; then per row count the sums over a
-    decode step's QLinears (depth × the four layer shapes, plus to_logits)
-    for each route."""
+    """W8 at every QLinear shape of the 1.4B model and each row count of
+    ``rows``, bf16 x: the kernel (``ms``), the route "dequantize, then
+    torch.matmul" (``matmul_route_ms``: PR 16's above 64 rows, the f32
+    route's above ``MAX_ROWS``), the plain version, torch.matmul on the
+    bf16 weight (``library_ms``) and the bound; then per row count the sums
+    over a forward's QLinears (depth × the four layer shapes, plus
+    to_logits: the 97 projections of a decode step) for each."""
     from dalle_tpu_torch.ops import int8w_linear as w8
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 22)
     flush = _ReadFlush(torch)
@@ -1823,47 +1835,94 @@ def _w8_timing(torch, cfg, rows=W8_TIMED):
 
 
 def _w8_kernel(torch, card, cfg):
-    """W8 against its plain version at every QLinear shape of the 1.4B model
-    and every row count of W8_ROWS (each tile-row instantiation of the
-    tensor-core route), bf16 and f32 x, within int8w_tolerance; rows 0,
-    M/2 and M-1 alone equal the same rows inside M; then the times of both
-    routes (``_w8_timing``)."""
+    """W8 against its plain version at every QLinear shape of the 1.4B model.
+    bf16 x (the warpgroup route): one x of W8_PREFILL[-1] rows, its output
+    once in full; then every row count M of 1-64 and W8_PREFILL on x[:M]
+    within int8w_tolerance of the plain version's rows and bitwise equal to
+    the full output's first M rows (a row's bits do not depend on M, its
+    tile or its route), and the full launch run twice bitwise. f32 x (the
+    fma route) at W8_ROWS within int8w_tolerance, rows 0, M/2 and M-1 alone
+    equal to the same rows inside M. Then the times (``_w8_timing``) at
+    W8_TIMED and the prefill widths."""
     from dalle_tpu_torch.ops import int8w_linear as w8
     gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 20)
     shares, invariant, max_abs = {}, {}, 0.0
+    full_rows = W8_PREFILL[-1]
+    bf16_rows = list(range(1, 65)) + list(W8_PREFILL)
     for name, (N, K, bias) in w8_shapes(cfg).items():
         q = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
         s = torch.rand(N, generator=gen, device="cuda") * 0.02 + 1e-3
-        for dt in (torch.bfloat16, torch.float32):
-            b = (torch.randn(N, generator=gen, device="cuda") * 0.5).to(dt) if bias else None
-            for M in W8_ROWS:
-                x = torch.randn(M, K, generator=gen, device="cuda").to(dt)
-                got = w8.int8w_linear_kernel(x, q, s, b)
-                want = w8.int8w_linear_plain(x, q, s, b)
-                torch.cuda.synchronize()
-                share = ((got.float() - want.float()).abs()
-                         / w8.int8w_tolerance(x, q, s, b, want)).max().item()
-                key = f"{name}/{str(dt)[6:]}/M{M}"
-                shares[key] = share
-                max_abs = max(max_abs, (got.float() - want.float()).abs().max().item())
-                check(share <= 1.0, f"W8 {key}: {share} of int8w_tolerance")
-                if M > 1:
-                    picked = sorted({0, M // 2, M - 1})
-                    alone = torch.cat([w8.int8w_linear_kernel(x[r:r + 1], q, s, b)
-                                       for r in picked])
-                    invariant[key] = torch.equal(alone, got[picked])
-                    check(invariant[key], f"W8 {key}: a row alone differs from the row in {M}")
-    emit("w8_kernel", shapes={k: list(v) for k, v in w8_shapes(cfg).items()},
-         rows=list(W8_ROWS), max_abs_err=max_abs, worst_share=max(shares.values()),
-         shares=shares,
-         row_invariant=invariant, tolerance="int8w_linear.int8w_tolerance, per element",
+        # bf16: every row count against the full launch
+        b = (torch.randn(N, generator=gen, device="cuda") * 0.5).bfloat16() if bias else None
+        x = torch.randn(full_rows, K, generator=gen, device="cuda").bfloat16()
+        full = w8.int8w_linear_kernel(x, q, s, b)
+        want = w8.int8w_linear_plain(x, q, s, b)
+        bound = w8.int8w_tolerance(x, q, s, b, want)
+        again = w8.int8w_linear_kernel(x, q, s, b)
+        torch.cuda.synchronize()
+        key = f"{name}/bfloat16"
+        check(torch.equal(full, again), f"W8 {key}: two runs of {full_rows} rows differ")
+        worst, same = 0.0, True
+        for M in bf16_rows:
+            got = w8.int8w_linear_kernel(x[:M], q, s, b)
+            err = (got.float() - want[:M].float()).abs()
+            worst = max(worst, (err / bound[:M]).max().item())
+            max_abs = max(max_abs, err.max().item())
+            same = same and torch.equal(got, full[:M])
+        shares[key] = worst
+        invariant[key] = same
+        check(worst <= 1.0, f"W8 {key}: {worst} of int8w_tolerance")
+        check(same, f"W8 {key}: a row's bits depend on the row count")
+        del x, full, want, bound, again
+        # f32: the fma route
+        b = (torch.randn(N, generator=gen, device="cuda") * 0.5).float() if bias else None
+        for M in W8_ROWS:
+            x = torch.randn(M, K, generator=gen, device="cuda")
+            got = w8.int8w_linear_kernel(x, q, s, b)
+            want = w8.int8w_linear_plain(x, q, s, b)
+            torch.cuda.synchronize()
+            share = ((got.float() - want.float()).abs()
+                     / w8.int8w_tolerance(x, q, s, b, want)).max().item()
+            key = f"{name}/float32/M{M}"
+            shares[key] = share
+            max_abs = max(max_abs, (got.float() - want.float()).abs().max().item())
+            check(share <= 1.0, f"W8 {key}: {share} of int8w_tolerance")
+            if M > 1:
+                picked = sorted({0, M // 2, M - 1})
+                alone = torch.cat([w8.int8w_linear_kernel(x[r:r + 1], q, s, b)
+                                   for r in picked])
+                invariant[key] = torch.equal(alone, got[picked])
+                check(invariant[key], f"W8 {key}: a row alone differs from the row in {M}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {name: w8.w8_plan(N, K, sms) for name, (N, K, _) in w8_shapes(cfg).items()}
+    emit("w8_kernel", shapes={k: list(v) for k, v in w8_shapes(cfg).items()}, splits=plans,
+         bf16_rows=f"1-64 and {list(W8_PREFILL)}, against one launch of {full_rows} rows",
+         f32_rows=list(W8_ROWS), max_abs_err=max_abs, worst_share=max(shares.values()),
+         shares=shares, row_invariant=invariant, deterministic=True,
+         tolerance="int8w_linear.int8w_tolerance, per element",
          ptxas=ptxas_report("int8w_linear", "kernel"), card=card)
-    timing, step = _w8_timing(torch, cfg)
+    timing, step = _w8_timing(torch, cfg, rows=W8_TIMED + W8_PREFILL)
+    # the host's cost of a call at the w1 shape and 8 rows, beside cuBLAS's
+    N, K, _ = w8_shapes(cfg)["w1"]
+    q = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+    s = torch.rand(N, generator=gen, device="cuda") * 0.02 + 1e-3
+    b = (torch.randn(N, generator=gen, device="cuda") * 0.5).bfloat16()
+    x = torch.randn(1, 8, K, generator=gen, device="cuda").bfloat16()
+    wbf = w8.dequantize(q, s, torch.bfloat16)
+    host_us = {"int8w_linear": host_us_per_call(torch, lambda: w8.int8w_linear(x, q, s, b)),
+               "torch_matmul_bf16": host_us_per_call(torch, lambda: torch.matmul(x, wbf.t()))}
     emit("w8_kernel_timing", timing=timing, flush="a 512 MiB read before each launch",
          library="torch.matmul on the dequantized bf16 weight",
          matmul_route="int8w_linear_matmul: dequantize, then torch.matmul", card=card)
-    emit("w8_routes", max_rows=w8.MAX_ROWS, per_decode_step=step,
-         kernel_faster_at=[M for M in step if step[M]["ms"] <= step[M]["matmul_route_ms"]],
+    emit("w8_routes", f32_max_rows=w8.MAX_ROWS, per_decode_step=step,
+         host_us_per_call_w1_m8=host_us,
+         pr16_per_decode_step_ms=W8_PR16_STEP_MS,
+         pr16_source="PERF.md section 6, PR 16 call 6 (another call: compare within one "
+                     "call with chip_w8_compare.py)",
+         kernel_faster_than_matmul_route_at=[M for M in step
+                                             if step[M]["ms"] <= step[M]["matmul_route_ms"]],
+         kernel_faster_than_cublas_bf16_at=[M for M in step
+                                            if step[M]["ms"] <= step[M]["library_ms"]],
          card=card)
     return max_abs, max(shares.values()), timing
 
@@ -1929,6 +1988,7 @@ def phase_decode_surface(torch, card, gen_rows):
     """The JAX package's decode surface on the card (see the module
     docstring, phase 24). ``gen_rows``: phase generate's rows, whose
     bf16_int8kv run (the same model, text and draws) stands beside int8w."""
+    import numpy as np
     from dalle_tpu_torch import (DalleTrainer, DalleWithVae, DiscreteVAEAdapter, DVAEConfig,
                                  OptimConfig, TrainConfig, dalle_1p4b, init_dalle, init_dvae)
     from dalle_tpu_torch.ops import decode_attention as dec
@@ -1980,12 +2040,10 @@ def phase_decode_surface(torch, card, gen_rows):
         want_k2 = c.depth * (c.image_seq_len - 1) * caches
         check(dec.launches == want_k2, f"int8w depth {c.depth} cfg={cond_scale}: K2 "
                                        f"launched {dec.launches}, expected {want_k2}")
-        # a prefill's projections take the matmul route (b·257 rows) but its
-        # head the kernel (the last position's b rows); every decode step
-        # runs every QLinear through the kernel
+        # every QLinear of the prefill (b·257 rows, its head on the last
+        # position) and of every decode step runs the kernel
         linears = 4 * c.depth + 1                   # QLinears a forward runs
-        want = {"launches": (1 + (c.image_seq_len - 1) * linears) * caches,
-                "matmul_calls": (linears - 1) * caches}
+        want = {"launches": c.image_seq_len * linears * caches, "matmul_calls": 0}
         check(got["launches"] == want["launches"] == got["tc_launches"]
               and got["matmul_calls"] == want["matmul_calls"] and got["fma_launches"] == 0,
               f"int8w depth {c.depth} cfg={cond_scale}: W8 counts {got}, expected {want}")
@@ -2106,11 +2164,12 @@ def phase_decode_surface(torch, card, gen_rows):
         emit("int8w_serve", **engine_rows[mode])
         if mode == "dense":
             served = {c.request_id: c.tokens for c in done}
-    # engine against sequential int8w generation: reported, not assumed (not
-    # bit for bit in the bf16 modes: an open fault, ROADMAP.md Queue 3). The
-    # request's draws are its generator's, one (1, V) row a step as the
-    # engine and the sequential sampler take them; the first divergence is
-    # replayed over the int8 cache for its score gap
+    # engine against sequential int8w generation under auto: reported, not
+    # assumed (K3 in the engine, K2 in the sequential steps, rounding at
+    # other points: the reference's TPU caveat, dalle_tpu/models/dalle.py:
+    # 290-296). The request's draws are its generator's, one (1, V) row a
+    # step as the engine and the sequential sampler take them; the first
+    # divergence is replayed over the int8 cache for its score gap
     s = subs[6]
     g6 = torch.Generator("cuda").manual_seed(s["seed"])
     noise6 = torch.stack([gumbel_noise((1, cfg.image_vocab_size), generator=g6, device="cuda")
@@ -2121,7 +2180,55 @@ def phase_decode_surface(torch, card, gen_rows):
     agree = float((seq == eng6).float().mean())
     div = _first_divergence(torch, m8, text6, seq, eng6, noise6, 1.0, 0.5, torch.int8)
     emit("int8w_engine_vs_sequential", request=6, tokens=int(seq.shape[1]), agreement=agree,
-         first_divergence=div, card=card)
+         first_divergence=div, use_kernel=None, card=card)
+
+    # the pin: the int8w engine under use_kernel=False against pinned
+    # sequential generation of each request under its generator, bit for
+    # bit (the JAX package's contract); no K2, K3 or K5 launch in either
+    eng = wrapper.serve_engine(slots=8, use_kernel=False)
+    q = RequestQueue()
+    for i, s in enumerate(subs):
+        q.submit(request_id=i, **s)
+    q.close()
+    dec.launches = 0                                        # this path starts here
+    window_set_counts(dec, dict.fromkeys(WINDOW_COUNTERS, 0))
+    w8_set_counts(w8, dict.fromkeys(W8_COUNTERS, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pinned = {c.request_id: np.asarray(c.tokens) for c in eng.run(q)}
+    torch.cuda.synchronize()
+    pin_wall = time.perf_counter() - t0
+    pin_steps = eng.stats.steps
+    pin_step_ms = eng.stats.step_seconds * 1e3 / max(pin_steps, 1)
+    t0 = time.perf_counter()
+    equal, first_diff = {}, {}
+    for i, s in enumerate(subs):
+        seq_i = m8.generate_images_tokens(
+            torch.from_numpy(s["text"][None]).cuda(), cond_scale=s.get("cond_scale", 1.0),
+            generator=torch.Generator("cuda").manual_seed(s["seed"]),
+            cache_dtype=torch.int8, use_kernel=False)[0].cpu().numpy()
+        n = s.get("max_tokens") or cfg.image_seq_len
+        got_i = pinned.get(i, np.zeros((0,), np.int64))
+        equal[i] = got_i.shape == (n,) and bool((seq_i[:n] == got_i).all())
+        if not equal[i]:
+            d = np.flatnonzero(seq_i[:len(got_i)] != got_i)
+            first_diff[i] = int(d[0]) if d.size else int(len(got_i))
+    seq_wall = time.perf_counter() - t0
+    pin_kernels = {"decode_attend": dec.launches, "decode_attend_window": dec.window_launches,
+                   "decode_attend_window_paged": dec.paged_launches}
+    pin_w8 = w8_counts(w8)
+    emit("int8w_engine_pinned_vs_sequential", use_kernel=False, requests=len(subs),
+         equal=equal, first_difference=first_diff, kernel_launches=pin_kernels, w8=pin_w8,
+         engine_wall_s=pin_wall, engine_steps=pin_steps, engine_ms_per_step=pin_step_ms,
+         sequential_wall_s=seq_wall, auto_agreement_request6=agree, card=card)
+    check(all(equal.values()) and len(pinned) == len(subs),
+          f"pinned int8w engine against pinned sequential generation: equal {equal}, "
+          f"first differences {first_diff}")
+    check(all(v == 0 for v in pin_kernels.values()),
+          f"pinned runs launched decode kernels: {pin_kernels}")
+    check(pin_w8["tc_launches"] > 0 and pin_w8["matmul_calls"] == 0,
+          f"pinned runs: W8 {pin_w8}")
+    launches["w8"] = {k: launches["w8"][k] + pin_w8[k] for k in W8_COUNTERS}
     del model, vae, wrapper, wrapper2, m8, mb, eng
     torch.cuda.empty_cache()
 
@@ -4302,8 +4409,9 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "library": "torch.matmul on the dequantized bf16 weight",
         "timed_at": "1.4B w1: x (8, 1792) bf16, q (14336, 1792) int8, bias",
-        "kernel_functions": {"bfloat16": "tc_kernel<MT> (mma.sync, weights converted in "
-                                         "registers)", "float32": "fma_kernel"},
+        "kernel_functions": {"bfloat16": "wg_kernel<NT> (wgmma with the weights converted "
+                                         "in registers from a TMA ring; split contraction "
+                                         "summed in rank order)", "float32": "fma_kernel"},
         "by_case": surface["w8_timing"],
         "tolerance": "int8w_linear.int8w_tolerance, per element",
     })

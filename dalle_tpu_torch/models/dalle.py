@@ -19,7 +19,8 @@ logits, optionally in sequence chunks recomputed in the backward
 (``null_cond_prob``, or an injected ``null_mask``).
 
 Generation runs eagerly: a Python loop over decode steps, each step one
-``Transformer.decode_step`` whose attention is the decode kernel. The
+``Transformer.decode_step`` whose attention is the decode kernel (the JAX
+package's dense formula under ``use_kernel=False``). The
 ``serve_*`` methods are the continuous-batching engine's primitives
 (``serve/engine.py``): rows of one shared cache at ragged positions, each
 call a ``Transformer.decode_window`` at per-row offsets; a row that must not
@@ -302,25 +303,25 @@ class DALLE(nn.Module):
 
     # -- generation --------------------------------------------------------
     def _prefill(self, text, image_prime, batch: int, dtype=torch.float32,
-                 extra_slots: int = 0):
+                 extra_slots: int = 0, use_kernel=None):
         c = self.cfg
         cache = self.transformer.init_cache(batch, c.total_seq_len + extra_slots, dtype)
         tokens = self.embed_text(self.remap_and_bos(text))
         if image_prime is not None and image_prime.shape[1] > 0:
             tokens = torch.cat([tokens, self.embed_image(image_prime)], dim=1)
         tokens = self._stabilize(tokens)
-        y, cache = self.transformer.prefill(tokens, cache)
+        y, cache = self.transformer.prefill(tokens, cache, use_kernel=use_kernel)
         logits = self._finish(y[:, -1:], tokens.shape[1] - 1, 1)[:, 0]
         return logits, cache, tokens.shape[1]
 
-    def _decode_one(self, token_id, img_pos: int, offset: int, cache):
+    def _decode_one(self, token_id, img_pos: int, offset: int, cache, use_kernel=None):
         """Embed the image token sampled at image position ``img_pos`` and
         advance the cache at ``offset``."""
         tok = self._embed_image_ids(token_id[:, None])
         if not self.cfg.rotary_emb:
             tok = tok + self.image_pos_emb()[img_pos:img_pos + 1][None]
         tok = self._stabilize(tok)
-        y, cache = self.transformer.decode_step(tok, cache, offset)
+        y, cache = self.transformer.decode_step(tok, cache, offset, use_kernel=use_kernel)
         return self._finish(y, offset, 1)[:, 0], cache
 
     @torch.no_grad()
@@ -329,7 +330,7 @@ class DALLE(nn.Module):
                                filter_thres: float = 0.5, temperature: float = 1.0,
                                cond_scale: float = 1.0,
                                image_prime: Optional[torch.Tensor] = None,
-                               cache_dtype=torch.float32):
+                               cache_dtype=torch.float32, use_kernel=None):
         """AR-sample the image token sequence → (b, image_seq_len) int64.
 
         Gumbel draws come from ``generator``, or from ``noise`` of shape
@@ -338,7 +339,16 @@ class DALLE(nn.Module):
         logits, with no decode after it). ``cond_scale != 1`` runs
         classifier-free guidance with a second, null-text cache.
         ``image_prime`` (b, n_prime) token ids fix the first image tokens.
-        ``cache_dtype`` float32, bfloat16 or int8 (quantized KV)."""
+        ``cache_dtype`` float32, bfloat16 or int8 (quantized KV).
+        ``use_kernel`` pins the decode steps' attend (``cached_attend``):
+        None or True the decode kernel K2 (its plain version on the CPU),
+        False the JAX package's dense formula, the prefill then attending
+        the cache it writes (``Attention.prefill``). Pin False here AND on a serve
+        engine for strict bitwise parity between the two, as the JAX
+        package says (``dalle_tpu/models/dalle.py:290-296``): K2 and the
+        engine's windowed kernels K3/K5 are distinct implementations that
+        round at other points, so under ``auto`` the bf16 modes may part at
+        a near-tie."""
         c = self.cfg
         dev = self._device()
         text = text.to(dev)
@@ -352,10 +362,12 @@ class DALLE(nn.Module):
                              f"got {tuple(noise.shape)}")
         use_cfg = cond_scale != 1.0
 
-        logits, cache, prefix_len = self._prefill(text, image_prime, b, cache_dtype)
+        logits, cache, prefix_len = self._prefill(text, image_prime, b, cache_dtype,
+                                                  use_kernel=use_kernel)
         if use_cfg:
             null_logits, null_cache, _ = self._prefill(torch.zeros_like(text),
-                                                       image_prime, b, cache_dtype)
+                                                       image_prime, b, cache_dtype,
+                                                       use_kernel=use_kernel)
             logits = null_logits + (logits - null_logits) * cond_scale
 
         def sample(logits, i):
@@ -368,9 +380,10 @@ class DALLE(nn.Module):
             tok = sample(logits, i)
             toks.append(tok)
             offset = prefix_len + i
-            logits, cache = self._decode_one(tok, n_prime + i, offset, cache)
+            logits, cache = self._decode_one(tok, n_prime + i, offset, cache, use_kernel)
             if use_cfg:
-                nl, null_cache = self._decode_one(tok, n_prime + i, offset, null_cache)
+                nl, null_cache = self._decode_one(tok, n_prime + i, offset, null_cache,
+                                                  use_kernel)
                 logits = nl + (logits - nl) * cond_scale
         toks.append(sample(logits, n_steps - 1))
         out = torch.stack(toks, dim=1)
@@ -567,21 +580,25 @@ class DALLE(nn.Module):
             return ids.to(dev)
         return to_device(np.asarray(ids, np.int64), dev)
 
-    def serve_refill(self, text, cache, refill_mask):
+    def serve_refill(self, text, cache, refill_mask, use_kernel=None):
         """Admission: prefill the prompts of the ``refill_mask`` rows ((b,)
         host bool) in one multi-row window at [0, prefix_len); the other rows
-        park. Returns (logits (b, V) for each row's first image token, cache)."""
+        park. ``use_kernel`` pins the window's attend. Returns (logits (b, V)
+        for each row's first image token, cache)."""
         S = cache["kv_0"].max_seq
         tokens = self._stabilize(self.embed_text(self.remap_and_bos(self._ids(text))))
         offsets = np.where(np.asarray(refill_mask, bool), 0, S)
-        y, cache = self.transformer.decode_window(tokens, cache, offsets)
+        y, cache = self.transformer.decode_window(tokens, cache, offsets,
+                                                  use_kernel=use_kernel)
         return self.serve_img_logits(y[:, -1]), cache
 
-    def serve_refill_shared(self, text1, cache, refill_mask, cache_dtype=torch.float32):
+    def serve_refill_shared(self, text1, cache, refill_mask, cache_dtype=torch.float32,
+                            use_kernel=None):
         """Shared-prefix admission: ONE b=1 prefill (``serve_prefill_row``)
         copied into every ``refill_mask`` row of the dense cache. Returns
         (logits (1, V), cache)."""
-        logits1, cache1 = self.serve_prefill_row(text1, cache_dtype=cache_dtype)
+        logits1, cache1 = self.serve_prefill_row(text1, cache_dtype=cache_dtype,
+                                                 use_kernel=use_kernel)
         rows = self._ids(np.flatnonzero(np.asarray(refill_mask, bool)))
         for name, small in cache1.items():
             big = cache[name]
@@ -590,36 +607,41 @@ class DALLE(nn.Module):
                 big.scale[rows] = small.scale
         return logits1, cache
 
-    def serve_refill_window(self, ids, cache, refill_mask, start: int):
+    def serve_refill_window(self, ids, cache, refill_mask, start: int,
+                            use_kernel=None):
         """Chunked-prefill admission: one window of already remapped+bos'd
         prompt ids (b, w) written at [start, start+w) of the ``refill_mask``
-        rows. Returns (logits (b, V) from the window's last position, cache)."""
+        rows; ``use_kernel`` pins its attend. Returns (logits (b, V) from the
+        window's last position, cache)."""
         S = cache["kv_0"].max_seq
         ids = self._ids(ids)
         tok = self._embed_text_ids(ids)
         if not self.cfg.rotary_emb:
             tok = tok + self.text_pos_emb.weight[start:start + ids.shape[1]]
         offsets = np.where(np.asarray(refill_mask, bool), start, S)
-        y, cache = self.transformer.decode_window(self._stabilize(tok), cache, offsets)
+        y, cache = self.transformer.decode_window(self._stabilize(tok), cache, offsets,
+                                                  use_kernel=use_kernel)
         return self.serve_img_logits(y[:, -1]), cache
 
-    def serve_prefill_row(self, text, cache_dtype=torch.float32):
+    def serve_prefill_row(self, text, cache_dtype=torch.float32, use_kernel=None):
         """Single-request prefill, the sequential ``_prefill``: (1,
         text_seq_len) text → (logits (1, V), a fresh b=1 cache)."""
-        logits, cache, _ = self._prefill(self._ids(text), None, 1, cache_dtype)
+        logits, cache, _ = self._prefill(self._ids(text), None, 1, cache_dtype,
+                                         use_kernel=use_kernel)
         return logits, cache
 
-    def serve_decode(self, tok, img_pos, offsets, cache):
+    def serve_decode(self, tok, img_pos, offsets, cache, use_kernel=None):
         """One decode step for every slot: ``tok`` (b,) image token ids on
         the device, ``img_pos`` (b,) image grid positions and ``offsets``
-        (b,) cache positions on the host (parked rows pass max_seq).
-        Returns (logits (b, V), cache)."""
+        (b,) cache positions on the host (parked rows pass max_seq);
+        ``use_kernel`` pins the attend. Returns (logits (b, V), cache)."""
         c = self.cfg
         emb = self._embed_image_ids(tok[:, None])
         if not c.rotary_emb:
             pos = np.clip(np.asarray(img_pos, np.int64), 0, c.image_seq_len - 1)
             emb = emb + self.image_pos_emb()[self._ids(pos)][:, None]
-        y, cache = self.transformer.decode_window(self._stabilize(emb), cache, offsets)
+        y, cache = self.transformer.decode_window(self._stabilize(emb), cache, offsets,
+                                                  use_kernel=use_kernel)
         return self.serve_img_logits(y[:, 0]), cache
 
 

@@ -210,37 +210,50 @@ class Attention(nn.Module):
                      softmax_f32=self.softmax_f32)
         return self._merge(out)
 
-    def prefill(self, x, cache: KVCache, *, rotary=None, static_mask=None):
+    def prefill(self, x, cache: KVCache, *, rotary=None, static_mask=None,
+                use_kernel=None):
         """Full-prefix forward that also fills the KV cache from position 0
-        (f32 softmax, as the JAX package's prefill)."""
+        (f32 softmax, as the JAX package's prefill), attending the fresh
+        keys and values. Under ``use_kernel=False`` a causal layer without a
+        static mask attends the cache rows it has just written instead, a
+        window of n positions at 0 through the pinned
+        ``cached_attend_window``: the serve engine's refill window, so an
+        int8 cache's quantized prefix is what both paths see."""
         q, k, v = self._split(x)
         if rotary is not None:
             rot = rotary[:x.shape[1]][None, None]
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
         cache.append(k, v, 0)
-        out = attend(q, k, v, causal=self.causal, static_mask=static_mask,
-                     stable=self.stable)
+        if use_kernel is False and self.causal and static_mask is None:
+            starts = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+            out = cached_attend_window(q, cache, starts, stable=self.stable,
+                                       use_kernel=False)
+        else:
+            out = attend(q, k, v, causal=self.causal, static_mask=static_mask,
+                         stable=self.stable)
         return self._merge(out), cache
 
     def decode(self, x_t, cache: KVCache, offset: int, *, rotary=None,
-               static_mask=None):
+               static_mask=None, use_kernel=None):
         """One-token step at position ``offset``: append, then attend to
-        positions 0..offset (the mask row is row ``offset``)."""
+        positions 0..offset (the mask row is row ``offset``). ``use_kernel``
+        pins the attend (``cached_attend``: False is the dense formula)."""
         q, k, v = self._split(x_t)
         if rotary is not None:
             rot = rotary[offset:offset + 1][None, None]
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
         cache.append(k, v, offset)
         out = cached_attend(q, cache, offset + 1, static_mask=static_mask,
-                            stable=self.stable, qpos=offset)
+                            stable=self.stable, qpos=offset, use_kernel=use_kernel)
         return self._merge(out), cache
 
-    def decode_window(self, x_w, cache, offsets, *, rotary=None):
+    def decode_window(self, x_w, cache, offsets, *, rotary=None, use_kernel=None):
         """``w`` tokens per row at PER-ROW positions ``offsets[b] ..
         offsets[b]+w-1`` (host (b,) offsets or a ``WindowPlan``): append
         them (a dense ``KVCache`` or a ``PagedKVCache``), then attend through
-        ``cached_attend_window`` (K3 or K5). Rotary rows come from the full
-        table at each (row, slot), clamped into it. Full attention only."""
+        ``cached_attend_window`` (K3 or K5; the dense formula under
+        ``use_kernel=False``). Rotary rows come from the full table at each
+        (row, slot), clamped into it. Full attention only."""
         plan = (offsets if isinstance(offsets, WindowPlan)
                 else cache.window_plan(offsets, x_w.shape[1]))
         q, k, v = self._split(x_w)
@@ -249,7 +262,8 @@ class Attention(nn.Module):
             q, k, v = (apply_rotary(rot, t) for t in (q, k, v))
         cache.append_rows(k, v, plan)
         # q is a strided view of the projection when rotary is off
-        out = cached_attend_window(q.contiguous(), cache, plan.starts)
+        out = cached_attend_window(q.contiguous(), cache, plan.starts,
+                                   stable=self.stable, use_kernel=use_kernel)
         return self._merge(out), cache
 
 
@@ -604,23 +618,27 @@ class Transformer(nn.Module):
                                                max_seq, c.dim_head, dtype, device=device)
                 for ind in range(c.depth)}
 
-    def prefill(self, x, cache: Dict[str, Any]):
-        """Run the full prefix, filling every layer's caches. Returns (y, cache)."""
+    def prefill(self, x, cache: Dict[str, Any], *, use_kernel=None):
+        """Run the full prefix, filling every layer's caches; ``use_kernel``
+        as in ``Attention.prefill``. Returns (y, cache)."""
         for ind in range(self.cfg.depth):
             la, attn, lf, ff, mask = self._layer(ind)
             y = self._shifted(cache, f"shift_attn_{ind}", la.pre_prefill, x)
-            y, _ = attn.prefill(y, cache[f"kv_{ind}"], rotary=self.rotary, static_mask=mask)
+            y, _ = attn.prefill(y, cache[f"kv_{ind}"], rotary=self.rotary, static_mask=mask,
+                                use_kernel=use_kernel)
             x = x + la.post(y)
             x = x + lf.post(ff(self._shifted(cache, f"shift_ff_{ind}", lf.pre_prefill, x)))
         return x, cache
 
-    def decode_step(self, x_t, cache: Dict[str, Any], offset: int):
-        """One token at position ``offset``. Returns (y_t, cache)."""
+    def decode_step(self, x_t, cache: Dict[str, Any], offset: int, *,
+                    use_kernel=None):
+        """One token at position ``offset``; ``use_kernel`` pins every
+        layer's attend (``cached_attend``). Returns (y_t, cache)."""
         for ind in range(self.cfg.depth):
             la, attn, lf, ff, mask = self._layer(ind)
             y = self._shifted(cache, f"shift_attn_{ind}", la.pre_decode, x_t, offset)
             y, _ = attn.decode(y, cache[f"kv_{ind}"], offset, rotary=self.rotary,
-                               static_mask=mask)
+                               static_mask=mask, use_kernel=use_kernel)
             x_t = x_t + la.post(y)
             y = self._shifted(cache, f"shift_ff_{ind}", lf.pre_decode, x_t, offset)
             x_t = x_t + lf.post(ff(y))
@@ -635,11 +653,13 @@ class Transformer(nn.Module):
             cache[key] = state
         return y
 
-    def decode_window(self, x_w, cache: Dict[str, Any], offsets):
+    def decode_window(self, x_w, cache: Dict[str, Any], offsets, *,
+                      use_kernel=None):
         """w tokens per row at per-row positions ``offsets`` ((b,) on the
         host, or a ``WindowPlan``): the serve engine's refill windows, prefill
         chunks and decode steps, and the speculative verify. One
-        ``WindowPlan`` serves every layer. Full attention and no token shift
+        ``WindowPlan`` serves every layer; ``use_kernel`` pins every layer's
+        attend (``cached_attend_window``). Full attention and no token shift
         (the JAX package's errors). Returns (y_w, cache)."""
         if self.cfg.shift_tokens:
             raise ValueError("speculative decode does not support shift_tokens")
@@ -651,7 +671,7 @@ class Transformer(nn.Module):
         for ind in range(self.cfg.depth):
             la, attn, lf, ff, _ = self._layer(ind)
             y, _ = attn.decode_window(la.norm(x_w), cache[f"kv_{ind}"], plan,
-                                      rotary=self.rotary)
+                                      rotary=self.rotary, use_kernel=use_kernel)
             x_w = x_w + la.post(y)
             x_w = x_w + lf(x_w, ff)
         return x_w, cache

@@ -193,27 +193,32 @@ class DalleWithVae:
     def serve_engine(self, *, slots: int, precision: str = "int8w",
                      filter_thres: float = 0.5, temperature: float = 1.0,
                      topk_approx: bool = False, steps_per_sync: int = 1,
-                     decode_health: bool = False, prefill_chunk: int = 0,
-                     kv_block_tokens: int = 0, kv_pool_blocks=None,
-                     radix_cache: bool = True, noise_fn=None):
+                     use_kernel=None, decode_health: bool = False,
+                     prefill_chunk: int = 0, kv_block_tokens: int = 0,
+                     kv_pool_blocks=None, radix_cache: bool = True, noise_fn=None):
         """Continuous-batching decode engine (``serve/engine.py``) over this
         wrapper's model, in a precision mode of ``generate_images``, reusing
         the wrapper's cached derived weights. The default is ``int8w``, as in
-        the JAX package: int8 weights (per-channel scales, the W8 kernel for
-        the decode steps) beside the int8 KV cache, the least weight and
-        cache bytes a decode step reads. At f32 compute and cache a
-        request's tokens equal sequential ``generate_images_tokens`` under
-        the request's generator bit for bit (with int8 weights too: the W8
-        product gives a row the same bits at any row count). In the bf16
-        modes, the default included, they are not: the engine's windowed
-        attention (K3/K5) rounds q·scale and p to bf16, while the
-        sequential path's dense prefill rounds at other points and K2 keeps
-        f32, so a near-tie can flip a token and the request's later tokens
-        with it. The JAX package runs one attention for both and is bit
-        exact; here this is an open fault (``ROADMAP.md``, Queue 3).
-        Pass ``precision="float32"`` for the full-width
-        engine. The engine runs where the model is, and emits
-        image token ids per request."""
+        the JAX package: int8 weights (per-channel scales, the W8 kernel)
+        beside the int8 KV cache, the least weight and cache bytes a decode
+        step reads.
+
+        Its tokens against the same model's sequential
+        ``generate_images_tokens`` under the request's generator keep the
+        reference's contract (``dalle_tpu/models/dalle.py:290-296``):
+        * with ``use_kernel=False`` here and on the sequential call, bit for
+          bit in every precision: both paths then attend through the JAX
+          package's dense formula, and the W8 product gives a row the same
+          bits at any row count;
+        * under ``use_kernel`` None (auto) or True, the engine attends
+          through the windowed kernels K3/K5 and the sequential decode
+          steps through K2, distinct implementations that round at other
+          points; at f32 compute and cache they differ in summation order
+          only (on the CPU bit for bit), in the bf16 modes (the default
+          included) they may part at a near-tie, as the JAX package's do on
+          its TPU.
+        Pass ``precision="float32"`` for the full-width engine. The engine
+        runs where the model is, and emits image token ids per request."""
         from ..serve.engine import DecodeEngine
         model, cache_dtype = self._resolve_precision(precision)
         return DecodeEngine(model, slots=slots, cache_dtype=cache_dtype,
@@ -222,5 +227,5 @@ class DalleWithVae:
                             decode_health=decode_health, prefill_chunk=prefill_chunk,
                             kv_block_tokens=kv_block_tokens,
                             kv_pool_blocks=kv_pool_blocks, radix_cache=radix_cache,
-                            noise_fn=noise_fn,
+                            use_kernel=use_kernel, noise_fn=noise_fn,
                             device=next(model.parameters()).device)

@@ -5,7 +5,9 @@ softmax, key mask and static-mask alignment; the merged sequence-major
 ``KVCache``; ``cached_attend``, which sends a decode step to the CUDA kernel
 (``ops/decode_attention.py``) on the card and to its plain version on the
 CPU; and ``cached_attend_window``, the serve engine's per-row windowed
-attend, which sends a dense slab to K3 and a paged pool to K5.
+attend, which sends a dense slab to K3 and a paged pool to K5. Both take
+the JAX package's ``use_kernel`` pin: ``False`` runs the JAX package's
+dense formula instead of any kernel, on either device.
 
 Windowed writes (``append_rows``) take their per-row offsets on the host.
 A ``WindowPlan`` turns them, once per dispatch, into the kernel's (b,)
@@ -235,36 +237,87 @@ class KVCache:
         return k, v
 
 
+def _dense_cached(q: torch.Tensor, cache: KVCache, valid: torch.Tensor, *,
+                  stable: bool, scale: Optional[float]) -> torch.Tensor:
+    """The JAX package's dense cached attend (``use_kernel=False``,
+    ``dalle_tpu/ops/attention.py:244-261`` and :316 on): q·scale and the
+    scores in q's dtype against the whole cache read in q's dtype, the
+    positions outside ``valid`` (broadcast to (b, h, w, S)) masked, the
+    softmax in f32 cast to the cache's read dtype, then p·v, each batch row
+    in its own products. Output in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q = q * scale
+    ck, cv = cache.read_kv(dtype=q.dtype)
+    ck = ck.to(torch.promote_types(q.dtype, ck.dtype))
+    # each batch row in its own products: cuBLAS picks its kernel by the
+    # batch count, and a row's bits must not depend on how many rows share
+    # the call (the engine's slots against a b=1 sequential request)
+    dots = torch.cat([torch.matmul(q[i:i + 1], ck[i:i + 1].transpose(-1, -2))
+                      for i in range(q.shape[0])])
+    dots = dots.masked_fill(~valid, NEG_INF)
+    softmax = stable_softmax if stable else torch.softmax
+    attn = softmax(dots.to(torch.float32), dim=-1).to(cv.dtype)
+    return torch.cat([torch.matmul(attn[i:i + 1], cv[i:i + 1])
+                      for i in range(q.shape[0])]).to(q.dtype)
+
+
 def cached_attend(q: torch.Tensor, cache: KVCache, length: int, *,
                   static_mask: Optional[torch.Tensor] = None,
                   stable: bool = False, qpos: Optional[int] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None,
+                  use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Single-step decode: q is (b,h,1,d); attends to cache[:length].
     ``qpos`` (default length-1) indexes the static_mask row.
 
-    Runs the decode kernel (``decode_attend``: CUDA on the card, its plain
-    version on the CPU), a layer with the stable softmax too: dividing the
-    scores by alpha = 1024 (a power of two), subtracting their max and
-    multiplying back is exact in f32, so it is the kernel's f32
-    max-subtracted softmax. ``stable`` is kept for the JAX signature."""
+    ``use_kernel`` None or True runs the decode kernel (``decode_attend``:
+    CUDA on the card, its plain version on the CPU), a layer with the
+    stable softmax too: dividing the scores by alpha = 1024 (a power of
+    two), subtracting their max and multiplying back is exact in f32, so it
+    is the kernel's f32 max-subtracted softmax. ``use_kernel=False`` pins
+    the JAX package's dense formula on either device (``_dense_cached``),
+    the same attend as ``cached_attend_window``'s pinned path: the parity
+    mode, in which the serve engine's tokens equal sequential
+    generation's bit for bit."""
     row = None
     if static_mask is not None:
         row = static_mask[length - 1 if qpos is None else qpos]
+    if use_kernel is False:
+        S = cache.max_seq
+        valid = torch.arange(S, device=q.device) < length
+        if row is not None:
+            # the mask may cover more positions than the cache holds
+            valid = valid & (row[:S] != 0)
+        return _dense_cached(q, cache, valid, stable=stable, scale=scale)
     # q may be a strided view of the qkv projection (rotary off); the kernel
     # takes it dense
     return decode_attend(q.contiguous(), cache, length, mask_row=row, scale=scale)
 
 
 def cached_attend_window(q: torch.Tensor, cache, starts, *,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         stable: bool = False,
+                         scale: Optional[float] = None,
+                         use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Multi-token cached decode with PER-ROW positions: q (b, h, w, d), row
     b's queries at ``starts[b] .. starts[b]+w-1``, query j attending the
-    cache positions <= starts[b]+j. A dense ``KVCache`` goes to K3
-    (``decode_attend_window``), a paged ``PagedKVCache`` to K5
-    (``decode_attend_window_paged``): CUDA on the card, their plain versions
-    on the CPU. A layer with the stable softmax takes them too: dividing the
-    scores by alpha, subtracting their max and multiplying back is the
-    kernels' f32 max-subtracted softmax."""
+    cache positions <= starts[b]+j. ``use_kernel`` None or True sends a
+    dense ``KVCache`` to K3 (``decode_attend_window``) and a paged
+    ``PagedKVCache`` to K5 (``decode_attend_window_paged``): CUDA on the
+    card, their plain versions on the CPU. A layer with the stable softmax
+    takes them too: dividing the scores by alpha, subtracting their max and
+    multiplying back is the kernels' f32 max-subtracted softmax.
+    ``use_kernel=False`` pins the JAX package's dense formula
+    (``_dense_cached``); a paged cache first gathers its dense slab, as the
+    JAX package does."""
+    if use_kernel is False:
+        if hasattr(cache, "pool"):
+            cache = cache.gather_dense()
+        w = q.shape[2]
+        starts = torch.as_tensor(starts, device=q.device).long()
+        qabs = starts[:, None] + torch.arange(w, device=q.device)[None, :]      # (b, w)
+        valid = (torch.arange(cache.max_seq, device=q.device)[None, None, :]
+                 <= qabs[:, :, None])[:, None]                                   # (b,1,w,S)
+        return _dense_cached(q, cache, valid, stable=stable, scale=scale)
     if hasattr(cache, "pool"):
         return decode_attend_window_paged(q, cache, starts, scale=scale)
     return decode_attend_window(q, cache, starts, scale=scale)

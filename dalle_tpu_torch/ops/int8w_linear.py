@@ -10,22 +10,27 @@ replaces no ``pallas_call``: in PyTorch a dequantize followed by
 them again, which would make int8 weights slower than bf16 in the decode
 steps they exist to speed up.
 
-The function is routed by shape, on the card:
+On the card (``csrc/int8w_linear.cu``):
 
-* up to ``MAX_ROWS`` (64) rows (a decode step, a speculative window, the
-  engine's steps): ``csrc/int8w_linear.cu``, route ``"tc"`` for bf16 x
-  (``mma.sync`` with the weights converted in registers) or ``"fma"`` for
-  f32 x. Only the int8 bytes cross HBM.
-* more rows (prefills and refill windows, bound by compute): the weight is
-  dequantized into a scratch of T and multiplied by ``torch.matmul``, the
-  counterpart of XLA's dot outside any Pallas kernel. This is a route by
-  shape, not a fallback: a kernel that fails to build or launch raises.
+* bf16 x, any number of rows (decode steps, speculative windows, the
+  engine's steps, prefills and refill windows): route ``"tc"``, the
+  warpgroup MMA with the output channels on its 64-row side, the weights
+  converted in registers from a TMA ring, x rows in tiles of ``tile_rows``,
+  the contraction cut into ``w8_plan``'s split across a cluster and summed
+  in rank order. Only the int8 bytes cross HBM.
+* f32 x, up to ``MAX_ROWS`` (64) rows: route ``"fma"`` (f32 FMA); more rows
+  (an f32 model's prefills) take the dequantized weight into
+  ``torch.matmul``, the counterpart of XLA's dot outside any Pallas kernel.
+  This is a route by dtype and shape, not a fallback: a kernel that fails to
+  build or launch raises.
 
-``MAX_ROWS`` is the kernel's own limit: on an H100 80GB HBM3 at 700 W the
-kernel took less time than the matmul route at every QLinear shape of the
-1.4B model and every row count from 8 to 64 (``chip_smoke.py``, its
-``w8_routes`` line; ``PERF.md``), so the crossover lies above what the
-kernel takes.
+The bf16 route takes every row count: summed over the 1.4B model's 97
+projections it beat the route "dequantize, then ``torch.matmul``" at every
+row count measured, 8-64 and the prefill widths 257, 514 and 2,056
+(``chip_smoke.py``'s ``w8_routes`` line; ``PERF.md``), though at 2,056 rows
+the route is the faster at to_qkv and to_out. A route chosen by shape would
+give a row other bits at other row counts, and the serve engine's tokens
+rest on a row's bits.
 
 On a CPU tensor the wrapper runs ``int8w_linear_plain``, the JAX formula in
 tensor code. ``launches`` counts kernel launches, ``tc_launches`` and
@@ -33,10 +38,10 @@ tensor code. ``launches`` counts kernel launches, ``tc_launches`` and
 took the ``torch.matmul`` route (no kernel of this module).
 
 A row's output does not depend on M or on the row's place in a launch of
-the kernel (``csrc/int8w_linear.cu``): without that the serve engine's
-tokens could not equal sequential generation's. (They do at f32 compute;
-in the bf16 modes the two paths' attention rounds at other points, an open
-fault in ``ROADMAP.md``.)
+the kernel: ``w8_plan`` fixes the split from (N, K) alone and each output
+element is one sum in one order at every M. Without that the serve
+engine's tokens could not equal sequential generation's (under
+``use_kernel=False`` they do, in every precision).
 """
 
 from __future__ import annotations
@@ -47,9 +52,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-MAX_ROWS = 64         # rows the kernel takes (four tiles of 16); more go to torch.matmul
-STEP = 64             # weight bytes of a row per step of the kernel
-WARPS = 8             # the contraction is split across a CTA's warps in runs of steps
+MAX_ROWS = 64         # rows of the f32 route's kernel; more go to torch.matmul
+STEP = 64             # the f32 route: weight bytes of a row per step
+WARPS = 8             # the f32 route: the contraction is split across a CTA's warps
+UNIT = 128            # the bf16 route: contraction elements per ring stage
+MAX_SPLIT = 8         # the bf16 route: CTAs of a cluster along the contraction
+TILES = (8, 16, 32, 64)   # the bf16 route's x-row tiles up to 64 rows; 128 above
 
 launches = 0
 tc_launches = 0
@@ -105,11 +113,59 @@ def _kernel():
         from ._build import library
         fn = library("int8w_linear").int8w_linear
         p, i = ctypes.c_void_p, ctypes.c_int
-        # x, x dtype, q, s, bias, out, M N K, stream
-        fn.argtypes = [p, i, p, p, p, p, i, i, i, p]
+        # x, x dtype, q, s, bias, out, M N K, tile rows, split, ranks, stream
+        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def w8_plan(N: int, K: int, sm_count: int = 132) -> int:
+    """The bf16 route's split of the contraction for an (N, K) weight into
+    ranges of whole ``UNIT``-element stages, from N and K alone (never M:
+    every row count then sums each output element in one order): one where
+    the 64-channel tiles of a decode step fill the card's ``sm_count`` SMs,
+    else the least that gives two CTAs an SM, at most ``MAX_SPLIT`` and the
+    stage count."""
+    units = -(-K // UNIT)
+    tiles = -(-N // 64)
+    if tiles >= sm_count:
+        return 1
+    return max(1, min(MAX_SPLIT, units, -(-2 * sm_count // tiles)))
+
+
+def tile_rows(M: int) -> int:
+    """x rows a tile of the bf16 route at M rows: the least of ``TILES``
+    that holds M (64 channels a CTA), or tiles of 128 rows (128 channels a
+    CTA) above 64 rows."""
+    for nt in TILES:
+        if M <= nt:
+            return nt
+    return 128
+
+
+def walk_ranks(M: int, N: int, split: int, sm_count: int = 132) -> int:
+    """CTAs along the contraction of a 128-row tile: one, walking every
+    range of the split with a running sum, where the tiles alone fill the
+    card; else the split's cluster. Both sum each output element in the
+    same order."""
+    tiles = -(-N // 128) * -(-M // 128)
+    return 1 if tiles >= sm_count else split
+
+
+_plans = {}
+
+
+def _launch_plan(device, M: int, N: int, K: int):
+    """(tile rows, split, ranks) of a bf16 launch, kept per (device, M, N, K)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (idx, M, N, K)
+    plan = _plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        split, nt = w8_plan(N, K, sms), tile_rows(M)
+        plan = _plans[key] = (nt, split, walk_ranks(M, N, split, sms) if nt == 128 else split)
+    return plan
 
 
 def _check(x2, q, s, b):
@@ -136,7 +192,7 @@ def _check(x2, q, s, b):
 
 def int8w_linear_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                         b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The route above ``MAX_ROWS`` rows: x2 (M, K) times the weight
+    """The f32 route above ``MAX_ROWS`` rows: x2 (M, K) times the weight
     dequantized into a scratch of x's dtype, by ``torch.matmul``."""
     y = torch.matmul(x2, dequantize(q, s, x2.dtype).t())
     return y if b is None else y + b.to(y.dtype)
@@ -146,8 +202,9 @@ def int8w_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., K) × int8 q (N, K) with f32 per-channel scales s (N,), plus an
     optional bias (N,) → (..., N) in x's dtype. CPU tensors run the plain
-    version; CUDA tensors run the kernel (at most ``MAX_ROWS`` rows) or
-    ``torch.matmul`` on the dequantized weight (more rows)."""
+    version; CUDA tensors run the kernel (bf16 at any row count, f32 up to
+    ``MAX_ROWS`` rows) or, for f32 x of more rows, ``torch.matmul`` on the
+    dequantized weight."""
     global matmul_calls
     if x.device.type == "cpu":
         return int8w_linear_plain(x, q, s, b)
@@ -156,7 +213,7 @@ def int8w_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     M, N = x2.shape[0], q.shape[0]
-    if M > MAX_ROWS:
+    if x2.dtype == torch.float32 and M > MAX_ROWS:
         matmul_calls += 1
         return int8w_linear_matmul(x2, q, s, b).reshape(*lead, N)
     return int8w_linear_kernel(x2, q, s, b).reshape(*lead, N)
@@ -164,13 +221,13 @@ def int8w_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 def int8w_linear_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                         b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel alone on CUDA x2 (M, K), M up to ``MAX_ROWS``; counted in
-    ``launches`` and its route's count."""
+    """The kernel alone on CUDA x2 (M, K): bf16 at any M, f32 up to
+    ``MAX_ROWS``; counted in ``launches`` and its route's count."""
     global launches, tc_launches, fma_launches
     M, K = x2.shape
     N = q.shape[0]
-    if M > MAX_ROWS:
-        raise ValueError(f"the kernel takes at most {MAX_ROWS} rows, got {M}")
+    if x2.dtype == torch.float32 and M > MAX_ROWS:
+        raise ValueError(f"the f32 route takes at most {MAX_ROWS} rows, got {M}")
     if b is not None:
         b = b.to(x2.dtype)
     x2 = x2.contiguous()
@@ -178,9 +235,12 @@ def int8w_linear_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0:
         return out
+    nt, split, ranks = 0, 1, 1
+    if x2.dtype == torch.bfloat16:
+        nt, split, ranks = _launch_plan(x2.device, M, N, K)
     rc = _kernel()(x2.data_ptr(), _DTYPE_CODE[x2.dtype], q.data_ptr(), s.data_ptr(),
-                   None if b is None else b.data_ptr(), out.data_ptr(), M, N, K,
-                   torch.cuda.current_stream(x2.device).cuda_stream)
+                   None if b is None else b.data_ptr(), out.data_ptr(), M, N, K, nt, split,
+                   ranks, torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8w_linear kernel failed to launch: CUDA error {rc}")
     launches += 1

@@ -23,18 +23,29 @@ step's tokens come back in one read per ``steps_per_sync`` steps.
 Randomness: every occupied slot owns a ``torch.Generator`` on the engine's
 device seeded with its request's seed, and draws (1, V) once per token the
 row emits (a CFG pair's null row is seeded alike, so both rows draw the
-same). So at f32 compute a request's tokens are those of the port's
-sequential ``generate_images_tokens(text[None], generator=torch.Generator(dev)
-.manual_seed(seed))``, in any admission order; in the bf16 modes a near-tie
-may flip one (``DalleWithVae.serve_engine``). ``noise_fn(seed, t) -> (V,)``
-replaces the generators with an injected draw for token t (the tests feed
-the JAX engine's draws through it).
+same). So a request's tokens are those of the port's sequential
+``generate_images_tokens(text[None], generator=torch.Generator(dev)
+.manual_seed(seed))``, in any admission order, under the reference's
+contract (``DalleWithVae.serve_engine``): bit for bit with
+``use_kernel=False`` here and on the sequential call, at f32 compute under
+either mode, and in the bf16 modes under ``auto`` up to a near-tie.
+``noise_fn(seed, t) -> (V,)`` replaces the generators with an injected draw
+for token t (the tests feed the JAX engine's draws through it).
 
 Not ported: ``decode_health`` and ``topk_approx`` (raise
 ``NotImplementedError``), the AOT executables (``install_executables``;
 CUDA-graph capture is its counterpart), the obs spans, gauges and events,
-and the chaos step hook. The JAX engine's ``use_kernel`` knob has no
-counterpart: the card always runs the kernels, the CPU their plain versions.
+and the chaos step hook.
+
+``use_kernel`` is the JAX engine's pin of the attend in every dispatch
+(``serve_refill``, ``serve_refill_window``, ``serve_decode``). None (the
+default) or True runs the windowed kernels K3/K5, their plain versions on
+the CPU; False runs the JAX package's dense formula on either device, the
+one ``generate_images_tokens(use_kernel=False)`` runs in its decode steps.
+The b=1 prefills (``_refill_row``, ``_refill_shared``) are the sequential
+``_prefill`` in either mode; under the pin it attends the cache rows it
+writes, as the refill windows do, so an int8 cache's quantized prefix is
+what every admission path and sequential generation see.
 """
 
 from __future__ import annotations
@@ -113,15 +124,17 @@ class DecodeEngine:
     ``slots``: the batch B. ``cache_dtype``: KV storage (float32, bfloat16
     or int8); the model's own compute dtype (``DALLE.compute_dtype``) is
     the engine's, int8 weights (``quantize_params_int8``) included. Sampling knobs
-    mirror ``generate_images_tokens``. ``device``: where the engine runs, the
-    CUDA card unless the caller passes "cpu"; the model must be there."""
+    mirror ``generate_images_tokens``. ``use_kernel`` pins the attend of
+    every dispatch (module docstring). ``device``: where the engine runs,
+    the CUDA card unless the caller passes "cpu"; the model must be
+    there."""
 
     def __init__(self, model: DALLE, *, slots: int, cache_dtype=torch.float32,
                  filter_thres: float = 0.5, temperature: float = 1.0,
                  topk_approx: bool = False, steps_per_sync: int = 1,
                  decode_health: bool = False, prefill_chunk: int = 0,
                  kv_block_tokens: int = 0, kv_pool_blocks: Optional[int] = None,
-                 radix_cache: bool = True,
+                 radix_cache: bool = True, use_kernel=None,
                  noise_fn: Optional[Callable[[int, int], object]] = None,
                  device=None):
         c = model.cfg
@@ -146,6 +159,7 @@ class DecodeEngine:
         self.filter_thres = filter_thres
         self.temperature = temperature
         self.noise_fn = noise_fn
+        self.use_kernel = use_kernel
 
         self.text_seq_len = c.text_seq_len
         self.prefix_len = c.text_seq_len + 1          # <bos> + text
@@ -247,7 +261,8 @@ class DecodeEngine:
     # -- device dispatches -------------------------------------------------
     @torch.no_grad()
     def _refill(self, texts, seeds, n_rows, mask) -> None:
-        logits_r, self.cache = self.model.serve_refill(texts, self.cache, mask)
+        logits_r, self.cache = self.model.serve_refill(texts, self.cache, mask,
+                                                       self.use_kernel)
         self.stats.window_dispatches += 1
         rows = np.flatnonzero(mask)
         self._activate(rows, seeds, n_rows, logits_r[to_device(rows, self.device)])
@@ -256,7 +271,8 @@ class DecodeEngine:
     def _refill_row(self, text1, seed: int, n_tok: int, row: int) -> None:
         """Admit ONE request into slot ``row``: a b=1 prefill (the
         sequential ``_prefill``) copied into the shared cache."""
-        logits1, cache1 = self.model.serve_prefill_row(text1, self.cache_dtype)
+        logits1, cache1 = self.model.serve_prefill_row(text1, self.cache_dtype,
+                                                       self.use_kernel)
         for name, small in cache1.items():
             big = self.cache[name]
             big.kv[row] = small.kv[0]
@@ -273,7 +289,7 @@ class DecodeEngine:
         """Shared-prefix admission: one b=1 prefill copied into every masked
         row, each row with its own seed."""
         logits1, self.cache = self.model.serve_refill_shared(
-            text1, self.cache, mask, self.cache_dtype)
+            text1, self.cache, mask, self.cache_dtype, self.use_kernel)
         self._activate(np.flatnonzero(mask), seeds, n_rows, logits1)
 
     @torch.no_grad()
@@ -282,7 +298,7 @@ class DecodeEngine:
         """One bounded window of a chunked prefill at [start, start+w) of the
         masked rows; rows turn active only on the final chunk."""
         logits_r, self.cache = self.model.serve_refill_window(
-            ids_chunk, self.cache, mask, int(start))
+            ids_chunk, self.cache, mask, int(start), self.use_kernel)
         self.stats.window_dispatches += 1
         if last:
             rows = np.flatnonzero(mask)
@@ -333,7 +349,8 @@ class DecodeEngine:
         tok = gumbel_sample_rows(img, noise, thres=self.filter_thres,
                                  temperature=self.temperature)
         if decode_rows.any():
-            new_logits, self.cache = self.model.serve_decode(tok, j, offsets, self.cache)
+            new_logits, self.cache = self.model.serve_decode(tok, j, offsets, self.cache,
+                                                             self.use_kernel)
             self.stats.window_dispatches += 1
             rows = to_device(np.flatnonzero(decode_rows), self.device)
             self.logits[rows] = new_logits[rows]

@@ -610,6 +610,35 @@ def test_engine_on_the_card_goes_through_k3_and_k5_and_matches_sequential():
             np.testing.assert_array_equal(done[i], ref[:9 if i == 2 else n])
 
 
+def test_pinned_int8w_engine_equals_pinned_sequential_on_the_card():
+    """The int8w engine under ``use_kernel=False``, dense and paged, against
+    pinned sequential int8w generation of each request under its generator
+    (a CFG request and a ragged one among them): every token equal, and no
+    K2, K3 or K5 launch in either."""
+    from dalle_tpu_torch.models.wrapper import DalleWithVae
+    model = init_dalle(DalleConfig(**TINY), seed=7)
+    rng = np.random.RandomState(2)
+    texts = rng.randint(1, TINY["num_text_tokens"], (4, TINY["text_seq_len"])).astype(np.int32)
+    n = TINY["image_fmap_size"] ** 2
+    wrapper = DalleWithVae(model, None)
+    before = dec.launches, dec.window_launches, dec.paged_launches
+    for kw in (dict(), dict(kv_block_tokens=4)):
+        eng = wrapper.serve_engine(slots=2, use_kernel=False, **kw)
+        q = RequestQueue()
+        for i, t in enumerate(texts):
+            q.submit(t, seed=20 + i, request_id=i, max_tokens=9 if i == 2 else None,
+                     cond_scale=2.0 if i == 1 else 1.0)
+        q.close()
+        done = {c.request_id: c.tokens for c in eng.run(q)}
+        for i, t in enumerate(texts):
+            ref = eng.model.generate_images_tokens(
+                torch.from_numpy(t[None]).cuda(), cond_scale=2.0 if i == 1 else 1.0,
+                generator=torch.Generator("cuda").manual_seed(20 + i),
+                cache_dtype=torch.int8, use_kernel=False)[0].cpu().numpy()
+            np.testing.assert_array_equal(done[i], ref[:9 if i == 2 else n])
+    assert (dec.launches, dec.window_launches, dec.paged_launches) == before
+
+
 # ---------------------------------------------------------------------------
 # K8: the whole-sequence attention kernels
 # ---------------------------------------------------------------------------
@@ -1045,8 +1074,8 @@ def test_cli_flow_on_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tc", "fma"])
 def test_int8w_linear_matches_plain_and_is_row_invariant(dtype, shape):
     """W8 within ``int8w_tolerance`` of its plain version on its route, at
-    1-4 tiles of 16 rows and a ragged N; rows 0, M/2 and M-1 alone give the
-    bits they have inside M rows."""
+    every tile of rows up to 64, split contractions and a ragged N; rows 0,
+    M/2 and M-1 alone give the bits they have inside M rows."""
     from dalle_tpu_torch.ops import int8w_linear as w8
     M, N, K = shape
     gen = torch.Generator("cuda").manual_seed(M + N)
@@ -1067,15 +1096,18 @@ def test_int8w_linear_matches_plain_and_is_row_invariant(dtype, shape):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_int8w_linear_routes_by_rows(dtype):
-    """Up to ``MAX_ROWS`` rows launch the kernel, more take the matmul route;
-    both within ``int8w_tolerance`` of the plain version."""
+    """bf16 x launches the kernel at every row count (prefill widths in
+    tiles of 128 rows, a row's bits those it has alone); f32 x up to
+    ``MAX_ROWS`` rows, more take the matmul route; all within
+    ``int8w_tolerance`` of the plain version."""
     from dalle_tpu_torch.ops import int8w_linear as w8
     gen = torch.Generator("cuda").manual_seed(5)
     N, K = 96, 512
     q = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
     s = torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3
     b = torch.randn(N, device="cuda", generator=gen).to(dtype)
-    for M, counter in ((w8.MAX_ROWS, "launches"), (w8.MAX_ROWS + 1, "matmul_calls")):
+    above = "launches" if dtype == torch.bfloat16 else "matmul_calls"
+    for M, counter in ((w8.MAX_ROWS, "launches"), (w8.MAX_ROWS + 1, above), (257, above)):
         x = torch.randn(1, M, K, device="cuda", generator=gen).to(dtype)
         before = getattr(w8, counter)
         got = w8.int8w_linear(x, q, s, b)
@@ -1084,6 +1116,8 @@ def test_int8w_linear_routes_by_rows(dtype):
         torch.cuda.synchronize()
         assert ((got.float() - want.float()).abs()
                 <= w8.int8w_tolerance(x, q, s, b, want)).all()
+        if dtype == torch.bfloat16:
+            assert torch.equal(w8.int8w_linear(x[:, -1:], q, s, b)[0, 0], got[0, -1])
 
 
 def test_int8w_generation_and_speculative_on_the_card():

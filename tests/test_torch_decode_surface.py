@@ -318,17 +318,36 @@ def _near_tie(m, text, toks, t, other, cond_scale, noise):
 
 @pytest.mark.parametrize("base", [30, 50])
 @pytest.mark.parametrize("kw", [dict(), dict(kv_block_tokens=4)], ids=["dense", "paged"])
+def test_int8w_engine_pinned_equals_sequential_generation(kw, base):
+    """The int8w engine pinned to the dense attend (``use_kernel=False``)
+    against sequential int8w generation pinned alike, under each request's
+    draws: equal tokens, the CFG request's included, as the JAX package
+    promises under the pin (``dalle_tpu/models/dalle.py:290-296``)."""
+    _, _, tm = _pair()
+    eng = DalleWithVae(tm, None).serve_engine(slots=2, use_kernel=False, **kw)
+    m8 = eng.model
+    got = _engine_run(eng, ENGINE_TEXTS, base)
+    for i, t in enumerate(ENGINE_TEXTS):
+        ref = m8.generate_images_tokens(_t(t[None]), noise=_request_draws(base + i),
+                                        cond_scale=2.0 if i == 2 else 1.0,
+                                        cache_dtype=torch.int8, use_kernel=False)[0]
+        np.testing.assert_array_equal(got[i], ref.numpy(), err_msg=f"request {i}")
+
+
+@pytest.mark.parametrize("base", [30, 50])
+@pytest.mark.parametrize("kw", [dict(), dict(kv_block_tokens=4)], ids=["dense", "paged"])
 def test_int8w_engine_against_sequential_generation(kw, base):
     """The int8w engine (the default: int8 weights, bf16 compute, an int8
-    cache) against sequential int8w generation under each request's draws.
-    NOT bit for bit, unlike the JAX package: an open fault (ROADMAP.md,
-    Queue 3). The engine attends through K3/K5's plain version, which
-    rounds q·scale and p to bf16; the sequential path's dense prefill
-    rounds at other points and K2 keeps f32, and the CFG merge doubles the
+    cache) under ``auto`` against sequential int8w generation under each
+    request's draws: the reference's TPU caveat
+    (``dalle_tpu/models/dalle.py:290-296``), which the port shows on the
+    CPU too. The engine attends through K3/K5's plain version, which rounds
+    q·scale and p to bf16; the sequential path's dense prefill rounds at
+    other points and K2 keeps f32, and the CFG merge doubles the
     difference. So each request's tokens equal the sequential ones up to
     its first divergence, which must be a near-tie (``NEAR_TIE``); on these
-    draws the CFG request diverges, which shows the fault. Once both paths
-    run one attention, this test asserts equal tokens instead."""
+    draws the CFG request diverges. Pinned, the two are equal
+    (``test_int8w_engine_pinned_equals_sequential_generation``)."""
     _, _, tm = _pair()
     eng = DalleWithVae(tm, None).serve_engine(slots=2, **kw)
     m8 = eng.model

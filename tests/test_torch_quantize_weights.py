@@ -8,11 +8,13 @@ kernel's is 0). ``QLinear`` in f32 tracks ``QDense`` with
 ``compute_dtype=None`` within 1e-5 (summation order only) and in bf16
 within 2e-2 of the largest output (bf16 roundings at other points: the JAX
 CPU dot rounds its bf16 product once, as the port's does, but sums in
-another order). The W8 kernel's order of work (warps' runs of 64-byte steps,
-four k16 products a step over dealt-out columns, the warps' sums in order;
-f32 FMA over 16 columns a lane then the quad and the warps) is written out
-in tensor code and held to the plain version within ``int8w_tolerance``;
-a row of it alone equals the same row inside 64.
+another order). The W8 kernel's order of work is written out in tensor
+code and held to the plain version within ``int8w_tolerance``: for bf16 x,
+``w8_plan``'s split of the contraction into ranges of 128-element stages,
+each range's k16 products in k order summed in f32, the ranges added in
+rank order; for f32 x, warps' runs of 64-byte steps, f32 FMA over 16
+columns a lane, then the quad and the warps. A row of it alone equals the
+same row inside 64, and the plan depends on (N, K) alone.
 """
 
 import functools
@@ -181,34 +183,46 @@ def _warp_runs(K):
     return [(n * w // w8.WARPS, n * (w + 1) // w8.WARPS) for w in range(w8.WARPS)]
 
 
+def _split_ranges(N, K):
+    """The bf16 route's contraction ranges: ``w8_plan``'s split of the
+    ``UNIT``-element stages, as element ranges."""
+    split = w8.w8_plan(N, K)
+    units = -(-K // w8.UNIT)
+    return [(units * r // split * w8.UNIT, min(K, units * (r + 1) // split * w8.UNIT))
+            for r in range(split)]
+
+
 def w8_order_of_work(x, q, s, b):
-    """The kernel's sums: each warp's run of 64-byte steps; a bf16 step as
-    four k16 products over the columns dealt to them (lane t's bytes 4j..4j+3
-    of its 16 go to product j), the dequantized weight rounded to bf16 and
-    each product summed in f32; an f32 step as 16 columns a lane in order,
-    then the quad's four lanes; the warps' sums in warp order; then bf16
-    rounding and the bias."""
+    """The kernel's sums. bf16 x: each contraction range of the plan, its
+    k16 products in k order (the dequantized weight rounded to bf16, each
+    product summed in f32), the ranges' sums added in rank order. f32 x:
+    each warp's run of 64-byte steps, a step as 16 columns a lane in order,
+    then the quad's four lanes; the warps' sums in warp order. Then the
+    rounding to x's dtype and the bias."""
     M, K = x.shape
+    N = q.shape[0]
     w = w8.dequantize(q, s, x.dtype).float()
     xf = x.float()
-    total = torch.zeros(M, q.shape[0])
-    for s0, s1 in _warp_runs(K):
-        part = torch.zeros(M, q.shape[0])
-        for step in range(s0, s1):
-            base = step * w8.STEP
-            if x.dtype == torch.bfloat16:
-                for j in range(4):
-                    cols = [base + 16 * t + 4 * j + c for t in range(4) for c in range(4)]
-                    cols = [k for k in cols if k < K]
-                    part = part + xf[:, cols] @ w[:, cols].t()
-            else:
+    total = None
+    if x.dtype == torch.bfloat16:
+        for k0, k1 in _split_ranges(N, K):
+            part = torch.zeros(M, N)
+            for k in range(k0, k1, 16):
+                part = part + xf[:, k:k + 16] @ w[:, k:k + 16].t()
+            total = part if total is None else total + part
+    else:
+        total = torch.zeros(M, N)
+        for s0, s1 in _warp_runs(K):
+            part = torch.zeros(M, N)
+            for step in range(s0, s1):
+                base = step * w8.STEP
                 lanes = []
                 for t in range(4):
                     cols = [k for k in range(base + 16 * t, base + 16 * t + 16) if k < K]
                     lanes.append(xf[:, cols] @ w[:, cols].t() if cols
-                                 else torch.zeros(M, q.shape[0]))
+                                 else torch.zeros(M, N))
                 part = part + ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3]))
-        total = total + part
+            total = total + part
     y = total.to(x.dtype)
     return y if b is None else y + b.to(y.dtype)
 
@@ -230,6 +244,24 @@ def test_w8_rows_alone_equal_rows_inside_64():
     full = w8_order_of_work(x, q, s, b)
     for r in (0, 17, 63):
         assert torch.equal(w8_order_of_work(x[r:r + 1], q, s, b)[0], full[r])
+
+
+def test_w8_plan_fills_the_card_from_n_and_k_alone():
+    """The bf16 route's plan takes no row count; at the 1.4B model's QLinear
+    shapes it gives two CTAs an SM of 132 (or its largest split) where the
+    64-channel tiles alone do not fill them; tiles of rows grow with M and
+    hold it."""
+    for N, K in ((5376, 1792), (1792, 1792), (14336, 1792), (1792, 7168), (58624, 1792)):
+        split = w8.w8_plan(N, K)
+        units, tiles = -(-K // w8.UNIT), -(-N // 64)
+        assert 1 <= split <= min(w8.MAX_SPLIT, units)
+        assert (split == 1) == (tiles >= 132), (N, K, split)
+        assert tiles >= 132 or tiles * split >= 264 or split == min(w8.MAX_SPLIT, units)
+    last = 0
+    for M in (1, 8, 9, 33, 64, 65, 257, 2056):
+        nt = w8.tile_rows(M)
+        assert nt >= min(M, 128) and nt >= last
+        last = nt
 
 
 def test_w8_wrapper_on_the_cpu_is_the_plain_version():
