@@ -324,11 +324,51 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 depth 2 in f32, a DalleTrainer step through K1, full-depth
                 bf16 generation (K2 24·255).
 
+25. taming    the taming stack at full width, in build/taming_smoke/ (removed
+                after): ``cli.train_vqgan`` at taming's vqgan_imagenet_f16_1024
+                (256 px, ch 128, ch_mult 1,1,2,2,4, 2 res blocks, attention at
+                16, 1,024 codes of 256) for 3 steps at batch 8 with
+                disc_start 0, so LPIPS, the adaptive weight and the
+                discriminator run; then 6 VQGANTrainer steps timed (nll
+                falling, every metric finite), peak memory; the trained
+                model written in taming's layout with its yaml and read back
+                through VQGanVAE.from_pretrained (the same codes), encode and
+                decode ms an image; K2 at the faceshq GPT's cache (b 8, h 16,
+                d 64, S 512, f32) against its plain version at lengths 1,
+                31, 32, 257, 512, then timed beside its bound, the plain
+                version and SDPA; the GPT of taming's faceshq_transformer
+                (vocab 1,024, block 512, 24 layers, 16 heads, 1,024 wide)
+                over a CoordStage(1024, 16) and the VQGAN: 4 Net2Net loss +
+                Adam steps (loss falling), cached decode ≡ forward within
+                1e-3, Net2NetTransformer.sample of 256 tokens at batch 8
+                with top-k 100 (K2 launched 24 · 255 times, K1 never; ms a
+                token); ``cli.train_dalle`` at the 1.4B widths, depth 2, over
+                the taming files (--vqgan_model_path, --vqgan_config_path)
+                for one step and ``cli.generate --bf16`` of 8 images (K2
+                2 · 255).
+26. reversible DALL·E-1.4B with reversible blocks, batch 8, bf16: first at
+                depth 2, full width, the loss and every gradient of one
+                step against the naive coupling's (autograd through stored
+                activations, the same kernels): in f32 compute within
+                REV_F32_TOL of each tensor's largest entry; in bf16 each
+                tensor no farther from the f32 step's than the naive bf16
+                step's is, plus REV_BF16_MARGIN; the loss within
+                REV_LOSS_TOL;
+                then 6 DalleTrainer steps at depth 24 (losses falling), K1's
+                forward launched 48 times a step (the forward and the
+                backward's recompute) and its backward 24, the profiler
+                counting K1's fwd, dq and dkv kernels in one step; ms a step
+                and peak memory beside phase train's sequential step, and
+                what one step's forward and backward hold above the masters
+                and optimizer state: reversible, naive, sequential (phase
+                train's, no remat) and sequential with remat, on the same
+                weights.
+
 Phases 11-20, 23 and 24 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
 persist_parity and ring_parity after serve_parity; decode_surface after
 serve; recipe and then train_persist after train; train_long and then
-train_ring, then cli and paper last. Each prints its seconds.
+train_ring, then cli, paper, taming and reversible last. Each prints its seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -4174,6 +4214,464 @@ def phase_paper(torch, card):
             "decode_attend": counts["generate"]["decode_attend"]}
 
 
+# ---------------------------------------------------------------------------
+# The taming stack (VQGAN, its GAN trainer, the pretrained import, minGPT and
+# Net2Net) and reversible DALL·E training
+# ---------------------------------------------------------------------------
+
+TAMING_BATCH = 8         # images a VQGAN step and a GPT step
+TAMING_STEPS = 6
+GPT_STEPS = 4
+GPT_TOP_K = 100
+# taming's configs/faceshq_transformer.yaml: the GPT over a VQGAN f16 with a
+# CoordStage(n_embed 1024, down_factor 16) condition
+FACESHQ_GPT = dict(vocab_size=1024, block_size=512, n_layer=24, n_head=16, n_embd=1024)
+K2_GPT_LENGTHS = (1, 31, 32, 257, 512)
+
+
+def _taming_layout(model):
+    """A port VQModel's state_dict under taming's names (the inverse of
+    ``models/pretrained.taming_key``), on the host."""
+    from dalle_tpu_torch.models.pretrained import taming_key
+    out = {}
+    for k, v in model.state_dict().items():
+        up = re.sub(r"\.(down|up)_(\d+)_(block|attn)_(\d+)\.", r".\1.\2.\3.\4.", k)
+        up = re.sub(r"\.down_(\d+)_downsample\.", r".down.\1.downsample.", up)
+        up = re.sub(r"\.up_(\d+)_upsample\.", r".up.\1.upsample.", up)
+        up = re.sub(r"\.mid_(block_1|attn_1|block_2)\.", r".mid.\1.", up)
+        up = up.replace("codebook.weight", "quantize.embedding.weight")
+        check(taming_key(up) == k, f"taming name {up} does not map back to {k}")
+        out[up] = v.detach().cpu()
+    return out
+
+
+def _taming_yaml(cfg) -> str:
+    """taming's config yaml for ``cfg`` (its layout: model.params with the
+    ddconfig, block lists)."""
+    def block_list(name, xs):
+        return f"      {name}:\n" + "".join(f"      - {x}\n" for x in xs)
+    return ("model:\n  base_learning_rate: 4.5e-06\n  target: taming.models.vqgan.VQModel\n"
+            f"  params:\n    embed_dim: {cfg.embed_dim}\n    n_embed: {cfg.n_embed}\n"
+            f"    ddconfig:\n      double_z: false\n      z_channels: {cfg.z_channels}\n"
+            f"      resolution: {cfg.resolution}\n      in_channels: {cfg.in_channels}\n"
+            f"      out_ch: {cfg.out_ch}\n      ch: {cfg.ch}\n"
+            + block_list("ch_mult", cfg.ch_mult)
+            + f"      num_res_blocks: {cfg.num_res_blocks}\n"
+            + block_list("attn_resolutions", cfg.attn_resolutions)
+            + f"      dropout: {cfg.dropout}\n")
+
+
+def _k2_gpt_case(torch, card):
+    """K2 at the faceshq GPT's cache (b 8, h 16, d 64, S 512, f32) against
+    its plain version at K2_GPT_LENGTHS, then its time at length 512 beside
+    its bound, the plain version's and SDPA's."""
+    import torch.nn.functional as F
+    from dalle_tpu_torch.ops import decode_attention as dec
+    gen = torch.Generator("cuda").manual_seed(SMOKE_SEED + 19)
+    b, h, d, S = TAMING_BATCH, FACESHQ_GPT["n_head"], 64, FACESHQ_GPT["block_size"]
+    saved = dec.launches
+    cache = _cache(torch, b, h, d, S, torch.float32, gen)
+    q = torch.randn(b, h, 1, d, device="cuda", generator=gen)
+    errs = {}
+    for length in K2_GPT_LENGTHS:
+        out = dec.decode_attend(q, cache, length)
+        ref = dec.decode_attend_plain(q, cache.kv, cache.scale, length)
+        torch.cuda.synchronize()
+        errs[f"L{length}"] = err = (out - ref).abs().max().item()
+        check(err <= TOL["float32"], f"decode_attend at the GPT shape, length {length}: "
+                                     f"max abs err {err} > {TOL['float32']}")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    ms = median_ms(lambda: dec.decode_attend(q, cache, S), 50, flush)
+    dec.launches = saved               # comparison and timing launches are not the path's
+    plain_ms = median_ms(lambda: dec.decode_attend_plain(q, cache.kv, cache.scale, S), 20,
+                         flush)
+    kd, vd = (t.contiguous() for t in cache.read_kv(dtype=torch.float32))
+    sdpa = lambda: F.scaled_dot_product_attention(q, kd, vd)  # noqa: E731
+    lib_ms = median_ms(sdpa, 50, flush)
+    nbytes = q.numel() * 4 * 2 + b * S * 2 * h * d * 4
+    ops = 4 * b * h * S * d + 5 * b * h * S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+           "roofline_share": max(t_bytes, t_ops) / ms,
+           "plan": dec.decode_plan(b, h, S, d, torch.float32, sm_count)._asdict(),
+           "library_kernels": sdpa_kernels(torch, sdpa), "max_abs_err": max(errs.values()),
+           "max_abs_err_by_length": errs, "tolerance": TOL["float32"],
+           "timed_at": f"b={b} h={h} d={d} S={S} length={S}, float32 cache"}
+    emit("taming_k2", card=card, **row)
+    del cache, kd, vd, flush
+    return row
+
+
+def phase_taming(torch, card):
+    import os
+    import shutil
+
+    from dalle_tpu_torch.cli import generate, train_dalle, train_vqgan
+    from dalle_tpu_torch.cli._common import read_png
+    from dalle_tpu_torch.config import OptimConfig, TrainConfig, VQGANConfig
+    from dalle_tpu_torch.data.synthetic import ShapesDataset
+    from dalle_tpu_torch.models.cond_transformer import CoordStage, Net2NetTransformer
+    from dalle_tpu_torch.models.gan import GANLossConfig
+    from dalle_tpu_torch.models.mingpt import GPTConfig, init_gpt, make_sampler
+    from dalle_tpu_torch.models.pretrained import VQGanVAE
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.train.checkpoints import CheckpointManager
+    from dalle_tpu_torch.train.train_state import make_optimizer
+    from dalle_tpu_torch.train.trainer_vqgan import VQGANTrainer
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = VQGANConfig()                      # taming's vqgan_imagenet_f16_1024
+    b = TAMING_BATCH
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "taming_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    ds = ShapesDataset(cfg.resolution)
+    images01 = ds.as_arrays(limit=b)[0]
+    images = images01 * 2.0 - 1.0
+    out = {}
+    try:
+        # -- the VQGAN's GAN step through its entry point -----------------------
+        t0 = time.perf_counter()
+        rc = train_vqgan.main(["--synthetic", "--resolution", str(cfg.resolution),
+                               "--batch_size", str(b), "--steps", "3", "--disc_start", "0",
+                               "--output_dir", os.path.join(work, "vqgan"), "--no_preflight",
+                               "--seed", str(SMOKE_SEED)])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"train_vqgan exited {rc}")
+        meta = CheckpointManager(os.path.join(work, "vqgan")).load_metadata()
+        check(meta["model_class"] == "VQModel" and meta["hparams"] == cfg.to_dict(),
+              "train_vqgan's checkpoint does not name the VQGAN")
+
+        # -- its step, timed ------------------------------------------------------
+        tc = TrainConfig(batch_size=b, seed=SMOKE_SEED,
+                         optim=OptimConfig(learning_rate=4.5e-6 * b, beta1=0.5, beta2=0.9,
+                                           grad_clip_norm=0.0))
+        tr = VQGANTrainer(cfg, tc, GANLossConfig(disc_start=0))
+        torch.cuda.reset_peak_memory_stats()
+        walls, rows = [], []
+        for _ in range(TAMING_STEPS):
+            t0 = time.perf_counter()
+            rows.append(tr.train_step(images))       # ends in a host read of the metrics
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for m in rows:
+            check(all(math.isfinite(m[k]) for k in ("loss", "disc_loss", "d_weight", "g_loss")),
+                  f"VQGAN step: non-finite metrics {m}")
+        check(rows[-1]["nll_loss"] < rows[0]["nll_loss"],
+              f"VQGAN nll did not fall: {[m['nll_loss'] for m in rows]}")
+        vq_row = {"batch": b, "steps": TAMING_STEPS, "ms_per_step_first": walls[0] * 1e3,
+                  "ms_per_step": statistics.median(walls[1:]) * 1e3, "peak_gib": peak,
+                  "params_gen": tr.num_params,
+                  "params_disc": sum(p.numel() for p in tr.disc.parameters()),
+                  "first": rows[0], "last": rows[-1], "compute": tc.precision.compute,
+                  "cli_train_vqgan_s": cli_s}
+        emit("taming_vqgan_step", card=card, **vq_row)
+        model = tr.model.eval()
+        del tr
+        torch.cuda.empty_cache()
+
+        # -- encode + decode, through the pretrained import of a taming file ----
+        os.makedirs(work, exist_ok=True)
+        ckpt, yml = os.path.join(work, "vqgan.ckpt"), os.path.join(work, "vqgan.yaml")
+        torch.save({"state_dict": _taming_layout(model)}, ckpt)
+        with open(yml, "w", encoding="utf-8") as f:
+            f.write(_taming_yaml(cfg))
+        vae = VQGanVAE.from_pretrained(ckpt, yml)
+        x01 = torch.from_numpy(images01).cuda()
+        ids = vae.get_codebook_indices(x01)
+        check(torch.equal(ids, model.get_codebook_indices(torch.from_numpy(images).cuda())),
+              "the taming file's VQGAN encodes otherwise than the trained model")
+        dec_img = vae.decode(ids)
+        check(tuple(ids.shape) == (b, 256) and int(ids.max()) < cfg.n_embed
+              and tuple(dec_img.shape) == (b, 256, 256, 3)
+              and bool(torch.isfinite(dec_img).all()), "VQGAN encode/decode shapes")
+        enc_ms = median_ms(lambda: vae.get_codebook_indices(x01), 5)
+        dec_ms = median_ms(lambda: vae.decode(ids), 5)
+        emit("taming_vqgan_codec", batch=b, encode_ms_per_image=enc_ms / b,
+             decode_ms_per_image=dec_ms / b, codes_used=int(torch.unique(ids).numel()),
+             card=card)
+        vq_row.update(encode_ms_per_image=enc_ms / b, decode_ms_per_image=dec_ms / b)
+
+        # -- K2 at the GPT's cache, before the GPT runs --------------------------
+        k2_row = _k2_gpt_case(torch, card)
+
+        # -- the faceshq GPT over the VQGAN: loss + Adam -------------------------
+        gcfg = GPTConfig(**FACESHQ_GPT)
+        gpt = init_gpt(gcfg, seed=SMOKE_SEED).train()
+        coord = CoordStage(gcfg.vocab_size, 16)
+        n2n = Net2NetTransformer.from_vqgan(gcfg, model, cond_encode=coord.encode, gpt=gpt)
+        ramp = torch.linspace(0, 1, cfg.resolution, device="cuda")
+        c = ramp[None, :, None, None].expand(b, cfg.resolution, cfg.resolution, 1).contiguous()
+        # faceshq_transformer.yaml's base_learning_rate 4.5e-6 scaled by the
+        # batch (taming's rule); at 1e-4 the loss spiked at step 3
+        opt = make_optimizer(OptimConfig(learning_rate=4.5e-6 * b, grad_clip_norm=1.0),
+                             list(gpt.parameters()))
+        x = torch.from_numpy(images).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for _ in range(GPT_STEPS):
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = n2n.loss(x, c)
+            loss.backward()
+            opt.step(loss.detach())
+            losses.append(loss.item())
+            walls.append(time.perf_counter() - t0)
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"GPT loss: {losses}")
+        gpt_row = {"params": sum(p.numel() for p in gpt.parameters()), "batch": b,
+                   "tokens_a_row": 2 * 256 - 1, "losses": losses,
+                   "ms_per_step": statistics.median(walls[1:]) * 1e3,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "compute": "float32 (TF32 off)"}
+        emit("taming_gpt_step", card=card, **gpt_row)
+        del opt
+        gpt.eval()
+
+        # -- cached decode ≡ forward at full width -------------------------------
+        c_ids = n2n.encode_to_c(c)
+        z = n2n.encode_to_z(x)
+        with torch.no_grad():
+            full = gpt(torch.cat([c_ids, z], 1)[:, :-1])
+            logits, cache, n0 = gpt.prefill(c_ids, gpt.init_cache(b))
+            err = (logits - full[:, n0 - 1]).abs().max().item()
+            for i in range(z.shape[1] - 1):
+                logits, cache = gpt.decode_one(z[:, i:i + 1], n0 + i, cache)
+                err = max(err, (logits - full[:, n0 + i]).abs().max().item())
+        check(err <= 1e-3, f"GPT cached decode vs forward: max abs err {err} > 1e-3")
+        del cache, full
+
+        # -- sampling: 256 tokens at batch 8, top-k -------------------------------
+        gen = torch.Generator("cuda").manual_seed(SMOKE_SEED)
+        dec.launches = 0                                 # the sampling path starts here
+        k1_before = fa.fwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs, zs = n2n.sample(c, 256, top_k=GPT_TOP_K, generator=gen, return_ids=True)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        k2_launches = dec.launches
+        check(k2_launches == gcfg.n_layer * 255,
+              f"Net2Net sampling launched K2 {k2_launches} times, expected "
+              f"{gcfg.n_layer * 255}")
+        check(fa.fwd_launches == k1_before, "sampling launched K1")
+        check(tuple(imgs.shape) == (b, 256, 256, 3) and bool(torch.isfinite(imgs).all())
+              and int(zs.max()) < cfg.n_embed, "Net2Net sample: images or codes")
+        sampler = make_sampler(gpt, 256, top_k=GPT_TOP_K, vocab_limit=cfg.n_embed)
+        saved = dec.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler(c_ids, generator=gen)
+        torch.cuda.synchronize()
+        tokens_s = time.perf_counter() - t0
+        dec.launches = saved
+        sample_row = {"batch": b, "tokens": 256, "prompt": int(c_ids.shape[1]),
+                      "top_k": GPT_TOP_K, "k2_launches": k2_launches,
+                      "wall_s_with_decode": sample_s, "ms_per_token": tokens_s * 1e3 / 256,
+                      "distinct_codes": int(torch.unique(zs).numel()),
+                      "decode_vs_forward_max_abs_err": err}
+        emit("taming_gpt_sample", card=card, **sample_row)
+        del gpt, n2n, model
+        torch.cuda.empty_cache()
+
+        # -- DALL·E over the VQGAN from the command line (phase cli's depth) -----
+        vq_flags = ["--vqgan_model_path", ckpt, "--vqgan_config_path", yml]
+        dalle_dir, outs = os.path.join(work, "dalle"), os.path.join(work, "outputs")
+        fa.fwd_launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        rc = train_dalle.main(["--synthetic", "--image_size", str(cfg.resolution), "--dim",
+                               "1792", "--depth", str(CLI_DEPTH), "--heads", "14",
+                               "--dim_head", "128", "--text_seq_len", "256", "--batch_size",
+                               str(b), "--steps", "1", "--no_preflight", "--output_dir",
+                               dalle_dir, "--seed", str(SMOKE_SEED)] + vq_flags)
+        train_s = time.perf_counter() - t0
+        check(rc == 0 and fa.fwd_launches > 0 and fa.bwd_launches == CLI_DEPTH,
+              f"train_dalle over the VQGAN: rc {rc}, K1 {fa.fwd_launches} / "
+              f"{fa.bwd_launches}")
+        meta = CheckpointManager(dalle_dir).load_metadata()
+        check(meta["vae_class_name"] == "VQGanVAE", f"vae {meta['vae_class_name']}")
+        dec.launches = 0
+        t0 = time.perf_counter()
+        rc = generate.main(["--dalle_path", dalle_dir, "--text", "a red circle",
+                            "--num_images", str(b), "--batch_size", str(b), "--bf16",
+                            "--outputs_dir", outs] + vq_flags)
+        gen_s = time.perf_counter() - t0
+        cli_k2 = dec.launches
+        pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(outs) for f in fs)
+        check(rc == 0 and len(pngs) == b and cli_k2 == CLI_DEPTH * 255,
+              f"generate over the VQGAN: rc {rc}, {len(pngs)} PNGs, K2 {cli_k2}")
+        check(all(read_png(p).shape == (256, 256, 3) for p in pngs), "PNG shapes")
+        emit("taming_dalle_cli", depth=CLI_DEPTH, train_dalle_s=train_s, generate_s=gen_s,
+             images=len(pngs), k2_launches=cli_k2, card=card)
+        out = {"vqgan": vq_row, "gpt": gpt_row, "sample": sample_row, "k2": k2_row,
+               "k2_launches": k2_launches, "k2_launches_cli": cli_k2}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("taming_done", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+REVERSIBLE_STEPS = 6
+# the reversible step's gradients against the naive coupling's (autograd
+# through stored activations, the same kernels), at full width and depth 2.
+# f32 compute: the coupling inverts exactly up to f32 rounding, and K1's bf16
+# roundings may flip where the recomputed inputs differ in their last bits
+# (tests/test_torch_cuda.py's tolerance for such flips), 1e-2 of each
+# tensor's largest gradient. bf16 compute: the inversion rounds in bf16, so
+# each tensor's gradient is held to the f32 step's no farther than the naive
+# bf16 step's is, plus 2^-5 of that tensor's largest. The loss is the same
+# forward: 1e-6 relative.
+REV_F32_TOL = 1e-2
+REV_BF16_MARGIN = 2.0 ** -5
+REV_LOSS_TOL = 1e-6
+
+
+def _naive(transformer):
+    forward = type(transformer).forward
+
+    def run(x, key_mask=None, dropout_masks=None):
+        return forward(transformer, x, key_mask, dropout_masks, reversible_naive=True)
+    return run
+
+
+def _shares(got, want):
+    """Each tensor's max |got - want| over its largest |want|."""
+    return {n: ((got[n] - g).abs().max() / (g.abs().max() + 1e-8)).item()
+            for n, g in want.items()}
+
+
+def _reversible_parity(torch, tc):
+    """Full width, depth 2: the reversible step's loss and gradients against
+    the naive coupling's, in f32 and in bf16 compute (module constants)."""
+    from dalle_tpu_torch import DalleTrainer, PrecisionConfig, dalle_1p4b
+    grads, losses = {}, {}
+    for compute in ("float32", "bfloat16"):
+        tr = DalleTrainer(dalle_1p4b(depth=2, reversible=True),
+                          dataclasses.replace(tc, precision=PrecisionConfig(compute=compute)))
+        text, img = _train_batch(tr.model_cfg, tc.batch_size, SMOKE_SEED)
+        text, img = torch.from_numpy(text).cuda(), torch.from_numpy(img).cuda()
+        for naive in (False, True):
+            tr.optimizer.zero_grad()
+            if naive:
+                tr.model.transformer.forward = _naive(tr.model.transformer)
+            loss, _ = tr.loss_and_backward(text, img)
+            losses[compute, naive] = loss.item()
+            grads[compute, naive] = {n: p.grad.clone() for n, p in tr.model.named_parameters()}
+        del tr
+        torch.cuda.empty_cache()
+    f32 = _shares(grads["float32", False], grads["float32", True])
+    rev16 = _shares(grads["bfloat16", False], grads["float32", True])
+    naive16 = _shares(grads["bfloat16", True], grads["float32", True])
+    excess = {n: rev16[n] - naive16[n] for n in rev16}
+    loss_rel = {c: abs(losses[c, False] - losses[c, True]) / abs(losses[c, True])
+                for c in ("float32", "bfloat16")}
+    row = {"losses": {f"{c}/{'naive' if n else 'reversible'}": v
+                      for (c, n), v in losses.items()},
+           "f32_worst_share": max(f32.values()), "f32_tolerance": REV_F32_TOL,
+           "bf16_worst_excess_over_naive": max(excess.values()),
+           "bf16_margin": REV_BF16_MARGIN,
+           "bf16_reversible_vs_naive_worst_share": max(_shares(
+               grads["bfloat16", False], grads["bfloat16", True]).values()),
+           "bf16_naive_vs_f32_worst_share": max(naive16.values()),
+           "loss_rel_err": loss_rel, "loss_tolerance": REV_LOSS_TOL}
+    check(row["f32_worst_share"] <= REV_F32_TOL,
+          f"reversible f32 gradients: worst {row['f32_worst_share']} of a tensor's largest "
+          f"> {REV_F32_TOL}")
+    check(row["bf16_worst_excess_over_naive"] <= REV_BF16_MARGIN,
+          f"reversible bf16 gradients: {row['bf16_worst_excess_over_naive']} farther from "
+          f"the f32 step than the naive bf16 step's > {REV_BF16_MARGIN}")
+    check(max(loss_rel.values()) <= REV_LOSS_TOL, f"reversible loss: {loss_rel}")
+    return row
+
+
+def phase_reversible(torch, card, seq_row):
+    from dalle_tpu_torch import DalleTrainer, OptimConfig, TrainConfig, dalle_1p4b
+    from dalle_tpu_torch.ops import fused_attention as fa
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    b = 8
+    tc = TrainConfig(batch_size=b, seed=SMOKE_SEED,
+                     optim=OptimConfig(optimizer="adam", learning_rate=3e-4, grad_clip_norm=0.5))
+    parity = _reversible_parity(torch, tc)
+    emit("reversible_parity", depth=2, dim=dalle_1p4b().dim, **parity)
+
+    # -- the reversible 1.4B step ----------------------------------------------
+    cfg = dalle_1p4b(reversible=True)
+    tr = DalleTrainer(cfg, tc)
+    text, img = _train_batch(cfg, b, SMOKE_SEED)
+    text, img = torch.from_numpy(text).cuda(), torch.from_numpy(img).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    fa.fwd_launches = fa.bwd_launches = 0          # the reversible path starts here
+    for _ in range(REVERSIBLE_STEPS):
+        t0 = time.perf_counter()
+        m = tr.train_step(text, img)
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    launches = {"fused_attention_fwd": fa.fwd_launches, "fused_attention_bwd": fa.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"reversible losses: {losses}")
+    want = {"fused_attention_fwd": 2 * cfg.depth * REVERSIBLE_STEPS,
+            "fused_attention_bwd": cfg.depth * REVERSIBLE_STEPS}
+    check(launches == want, f"reversible K1 launches {launches}, expected {want}")
+
+    # K1's kernels in one profiled step: the forward's 24, the recompute's 24,
+    # and the backward's dq and dk/dv kernels
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    saved = fa.fwd_launches, fa.bwd_launches
+    with torch.profiler.profile(activities=acts) as prof:
+        tr.train_step(text, img)
+    fa.fwd_launches, fa.bwd_launches = saved
+    kernels = {w: sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and f"::{w}_kernel<" in e.name) for w in ("fwd", "dq", "dkv")}
+    check(kernels == {"fwd": 2 * cfg.depth, "dq": cfg.depth, "dkv": cfg.depth},
+          f"the profiler counted K1's kernels {kernels} in one reversible step")
+    dev_us, _ = device_time(torch, prof)
+
+    # what the forward and backward hold above the masters and the optimizer
+    # state, on the same weights: reversible, the naive coupling, the
+    # sequential stack as phase train runs it (no remat) and with remat
+    tcfg = tr.model.transformer.cfg
+    act_peak = {}
+    for mode in ("reversible", "naive", "sequential", "sequential_remat"):
+        if mode == "naive":
+            tr.model.transformer.forward = _naive(tr.model.transformer)
+        if mode == "sequential":
+            del tr.model.transformer.forward
+            tr.model.transformer.cfg = dataclasses.replace(tcfg, reversible=False)
+        if mode == "sequential_remat":
+            tr.model.transformer.cfg = dataclasses.replace(tcfg, reversible=False,
+                                                           use_remat=True)
+        tr.optimizer.zero_grad()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.loss_and_backward(text, img)
+        torch.cuda.synchronize()
+        act_peak[mode] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    tr.model.transformer.cfg = tcfg
+    ms = statistics.median(walls[1:]) * 1e3
+    row = dict(batch=b, steps=REVERSIBLE_STEPS, losses=losses, ms_per_step=ms,
+               ms_per_step_first=walls[0] * 1e3,
+               sequential_ms_per_step=seq_row["ms_per_step"],
+               tokens_per_s=b * cfg.total_seq_len / ms * 1e3, peak_gib=peak,
+               sequential_peak_gib=seq_row["peak_gib"], launches=launches,
+               profiler_k1_kernels=kernels,
+               device_ms=dev_us / 1e3 if dev_us else "not measured",
+               step_peak_above_state_gib=act_peak, card=card)
+    emit("reversible", **row)
+    del tr
+    torch.cuda.empty_cache()
+    emit("reversible_done", seconds=time.perf_counter() - t_phase)
+    return launches, row
+
+
 def main() -> int:
     try:
         import torch
@@ -4215,6 +4713,8 @@ def main() -> int:
     k6_launches, k6_row = phase_train_ring(torch, card, k4_row)
     cli_launches = phase_cli(torch, card)
     paper_launches = phase_paper(torch, card)
+    taming = phase_taming(torch, card)
+    rev_launches, rev_row = phase_reversible(torch, card, k1_row)
 
     f32 = timing["float32"]
     kernels = [{
@@ -4233,6 +4733,9 @@ def main() -> int:
                   "stages of up to 64 positions (decode_plan), rank-order merge through "
                   "distributed shared memory",
         "by_cache_dtype": timing, "tolerance": TOL,
+        "launches_taming_sample": taming["k2_launches"],
+        "launches_taming_cli": taming["k2_launches_cli"],
+        "taming_gpt_case": taming["k2"],
     }]
     for which, name, line in (("fwd", "fused_attention_fwd", 218),
                               ("bwd", "fused_attention_bwd", 238)):
@@ -4246,6 +4749,8 @@ def main() -> int:
             "launches_shift_step": surface["k1"][name],
             "launches_cli": cli_launches[name],
             "launches_paper": paper_launches[name],
+            "launches_reversible": rev_launches[name],
+            "reversible_profiler_kernels": rev_row["profiler_k1_kernels"],
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

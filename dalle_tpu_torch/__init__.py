@@ -31,27 +31,44 @@ CLIP with ``--clip_path``. ``python -m dalle_tpu_torch.cli.train_vae``
 trains the dVAE (``VAETrainer``) and ``python -m
 dalle_tpu_torch.cli.train_clip`` the CLIP (``CLIPTrainer``); the three
 trainers share one shell with NaN rollback (``train/base_trainer.py``).
+The taming stack: ``python -m dalle_tpu_torch.cli.train_vqgan`` trains a
+VQGAN (``models/vqgan.py``) with its PatchGAN discriminator and LPIPS on the
+shipped perceptual weights (``VQGANTrainer``); ``models/pretrained.py``
+loads a taming checkpoint with its yaml, or OpenAI's dVAE pickles, from
+local files as the VAE of ``train_dalle`` and ``generate``
+(``--vqgan_model_path``, ``--vqgan_config_path``, ``--openai_vae_dir``);
+``models/mingpt.py`` and ``models/cond_transformer.py`` are taming's second
+stage, whose sampling decodes through the decode kernel. ``reversible=True``
+trains DALL·E with reversible blocks (``models/reversible.py``), the fused
+attention kernels running again inside the backward's recompute.
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """
 
 from .config import (AnnealConfig, ClipConfig, DalleConfig, DVAEConfig, MeshConfig,
                      OptimConfig, PrecisionConfig, TrainConfig, TransformerConfig,
-                     dalle_1p4b)
+                     VQGANConfig, dalle_1p4b)
 from .convert import adam_state_from_optax, clip_state_dict, dalle_state_dict, dvae_state_dict
 from .device import resolve_device
 from .models.clip import CLIP, init_clip
 from .models.dalle import DALLE, init_dalle
 from .models.dvae import DiscreteVAE, init_dvae
+from .models.cond_transformer import Net2NetTransformer
+from .models.mingpt import GPT, GPTConfig, init_gpt
+from .models.pretrained import OpenAIDiscreteVAE, VQGanVAE
+from .models.vqgan import VQModel, init_vqgan
 from .models.wrapper import DalleWithVae, DiscreteVAEAdapter
 from .train.checkpoints import load_clip
 from .train.trainer_clip import CLIPTrainer
 from .train.trainer_dalle import DalleTrainer
 from .train.trainer_vae import VAETrainer
+from .train.trainer_vqgan import VQGANTrainer
 
 __all__ = ["AnnealConfig", "ClipConfig", "DalleConfig", "DVAEConfig", "MeshConfig",
            "OptimConfig", "PrecisionConfig", "TrainConfig", "TransformerConfig", "dalle_1p4b",
            "adam_state_from_optax", "clip_state_dict", "dalle_state_dict", "dvae_state_dict",
            "resolve_device", "CLIP", "init_clip", "load_clip", "DALLE", "init_dalle",
            "DiscreteVAE", "init_dvae", "DalleWithVae", "DiscreteVAEAdapter",
-           "CLIPTrainer", "DalleTrainer", "VAETrainer"]
+           "CLIPTrainer", "DalleTrainer", "VAETrainer", "VQGANConfig", "VQModel",
+           "init_vqgan", "VQGANTrainer", "GPT", "GPTConfig", "init_gpt", "Net2NetTransformer",
+           "VQGanVAE", "OpenAIDiscreteVAE"]

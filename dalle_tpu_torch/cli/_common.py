@@ -4,9 +4,12 @@ PNGs.
 
 Port of ``scripts/_common.py``. The VAE precedence chain is the
 reference's: the VAE embedded in a checkpoint directory (``vae/``), then
-``--vae_path`` (a port dVAE checkpoint), then ``--untrained_vae`` (random
-weights from seed 0). The pretrained VAEs (``--taming``, the OpenAI
-default) wait for ``ROADMAP.md`` Queue 1 item 10 and raise.
+``--vae_path`` (a port dVAE checkpoint), then the taming VQGAN
+(``--taming`` / ``--vqgan_model_path`` with ``--vqgan_config_path``), then
+``--untrained_vae`` (random weights from seed 0), then OpenAI's dVAE
+(``--openai_vae_dir``). The pretrained VAEs load local files only
+(``models/pretrained.py``); without them the chain raises where the JAX
+package downloads.
 
 PNGs are written by a small stdlib writer (``zlib`` + ``struct``): the
 card's machine has no PIL.
@@ -69,20 +72,26 @@ def load_dvae_adapter(ckpt_dir: str, device) -> DiscreteVAEAdapter:
     return DiscreteVAEAdapter(model)
 
 
-def build_vae_from_args(args, device) -> DiscreteVAEAdapter:
+def build_vae_from_args(args, device):
     """The VAE the flags name (after the checkpoint's own, which the entry
-    points try first)."""
+    points try first): ``--vae_path``, then the taming VQGAN
+    (``--taming`` / ``--vqgan_model_path``), then ``--untrained_vae``, then
+    OpenAI's dVAE. The pretrained ones load from local files only
+    (``--vqgan_model_path`` with ``--vqgan_config_path``,
+    ``--openai_vae_dir``); without them this raises FileNotFoundError
+    naming those flags, where the JAX package downloads."""
+    from ..models.pretrained import OpenAIDiscreteVAE, VQGanVAE
     if getattr(args, "vae_path", None):
         return load_dvae_adapter(args.vae_path, device)
     if getattr(args, "taming", False) or getattr(args, "vqgan_model_path", None):
-        raise unported("--taming / --vqgan_model_path (the pretrained VQGAN)", "10")
+        return VQGanVAE.from_pretrained(args.vqgan_model_path,
+                                        getattr(args, "vqgan_config_path", None), device)
     if getattr(args, "untrained_vae", False):
         cfg = DVAEConfig(image_size=args.image_size, num_tokens=args.untrained_vae_tokens,
                          codebook_dim=64, num_layers=args.untrained_vae_layers,
                          hidden_dim=32)
         return DiscreteVAEAdapter(init_dvae(cfg, seed=0, device=device))
-    raise unported("the pretrained OpenAI dVAE (pass --untrained_vae or --vae_path)",
-                   "10")
+    return OpenAIDiscreteVAE.from_pretrained(getattr(args, "openai_vae_dir", None), device)
 
 
 def add_vae_args(parser):
@@ -90,8 +99,14 @@ def add_vae_args(parser):
     grp.add_argument("--vae_path", type=str, default=None,
                      help="checkpoint dir of a port dVAE")
     grp.add_argument("--taming", action="store_true",
-                     help="the pretrained taming VQGAN (not ported yet)")
-    grp.add_argument("--vqgan_model_path", type=str, default=None)
+                     help="the pretrained taming VQGAN (local files only: "
+                          "--vqgan_model_path and --vqgan_config_path)")
+    grp.add_argument("--vqgan_model_path", type=str, default=None,
+                     help="a taming VQGAN checkpoint (.ckpt)")
+    grp.add_argument("--vqgan_config_path", type=str, default=None,
+                     help="its taming config yaml")
+    grp.add_argument("--openai_vae_dir", type=str, default=None,
+                     help="a directory with OpenAI's encoder.pkl and decoder.pkl")
     grp.add_argument("--untrained_vae", action="store_true",
                      help="random dVAE (smoke tests; no download needed)")
     grp.add_argument("--untrained_vae_tokens", type=int, default=512)

@@ -111,7 +111,8 @@ def main(argv=None) -> int:
               f"num_text_tokens {model.cfg.num_text_tokens}: pass the "
               f"--tokenizer/--bpe_path the model was trained with", file=sys.stderr)
         return 2
-    explicit_vae = args.vae_path or args.taming or args.vqgan_model_path or args.untrained_vae
+    explicit_vae = (args.vae_path or args.taming or args.vqgan_model_path or args.untrained_vae
+                    or args.openai_vae_dir)
     vae = None if explicit_vae else load_vae_sidecar(args.dalle_path, device)
     if vae is None:
         vae = build_vae_from_args(args, device)

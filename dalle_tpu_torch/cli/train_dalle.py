@@ -13,11 +13,14 @@ rotation. Runs on the CUDA card unless ``--device cpu``.
 ``--lr_scheduler plateau`` scales the rate down on a plateau of the loss,
 ``--attn_dropout`` and ``--ff_dropout`` train with dropout, and
 ``--device_prefetch`` / ``--defer_metrics`` set the loop's host overlap,
-and ``--shift_tokens`` trains with token shift.
+``--shift_tokens`` trains with token shift and ``--reversible`` with
+reversible blocks (``models/reversible.py``). The VAE may be a taming VQGAN
+from local files (``--vqgan_model_path`` and ``--vqgan_config_path``) or
+OpenAI's (``--openai_vae_dir``).
 
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_text_folder`` and ``--wds`` (the card's
-machine has no image decoder), ``--reversible`` and the telemetry flags.
+machine has no image decoder) and the telemetry flags.
 """
 
 from __future__ import annotations
@@ -97,8 +100,6 @@ def _check_ported(args):
     if args.image_text_folder or args.wds:
         raise unported("--image_text_folder / --wds (no image decoder on the card's "
                        "machine)", "3")
-    if args.reversible:
-        raise unported("--reversible", "9")
     if args.trace or args.watchdog_deadline_s or args.prometheus_path:
         raise unported("the telemetry flags (--trace, --watchdog_deadline_s, "
                        "--prometheus_path)", "12")
@@ -137,6 +138,7 @@ def main(argv=None) -> int:
         dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
         attn_types=tuple(args.attn_types.split(",")), stable=args.stable,
         rotary_emb=not args.no_rotary, shift_tokens=args.shift_tokens,
+        reversible=args.reversible,
         loss_img_weight=args.loss_img_weight,
         attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout)
     train_cfg = TrainConfig(
@@ -150,8 +152,9 @@ def main(argv=None) -> int:
                           lr_scheduler=args.lr_scheduler))
     trainer = DalleTrainer(model_cfg, train_cfg, device=device,
                            null_cond_prob=args.null_cond_prob)
+    vae_cfg = getattr(getattr(vae, "model", None), "cfg", None)
     trainer.extra_meta = {"vae_class_name": type(vae).__name__,
-                          "vae_hparams": vae.model.cfg.to_dict()}
+                          "vae_hparams": None if vae_cfg is None else vae_cfg.to_dict()}
     save_vae_sidecar(args.output_dir, vae)
     if args.resume:
         meta = trainer.restore()

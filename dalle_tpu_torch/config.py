@@ -1,7 +1,7 @@
 """Model and training configuration for the PyTorch port.
 
-A copy of ``DVAEConfig``, ``TransformerConfig``, ``DalleConfig``,
-``ClipConfig``, ``MeshConfig``, ``PrecisionConfig``, ``OptimConfig`` and
+A copy of ``DVAEConfig``, ``VQGANConfig``, ``TransformerConfig``,
+``DalleConfig``, ``ClipConfig``, ``MeshConfig``, ``PrecisionConfig``, ``OptimConfig`` and
 ``AnnealConfig`` from the JAX package (``dalle_tpu/config.py``): same
 fields, same defaults, same derived properties, so a config built for one
 package builds the same model and optimizer in the other. ``TrainConfig``
@@ -14,6 +14,7 @@ over.
 
 from __future__ import annotations
 
+import math
 import typing
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Optional, Tuple
@@ -90,6 +91,37 @@ class DVAEConfig(ConfigBase):
     @property
     def fmap_size(self) -> int:
         return self.image_size // (2 ** self.num_layers)
+
+
+@dataclass(frozen=True)
+class VQGANConfig(ConfigBase):
+    """VQGAN autoencoder (taming's ``VQModel`` / ``GumbelVQ``): the
+    defaults are taming's ``vqgan_imagenet_f16_1024``. ``remap_used``
+    restricts the interface indices to a used subset of the codebook, its
+    unknown codes mapped per ``remap_unknown`` ('random' | 'extra' | an
+    int)."""
+    embed_dim: int = 256
+    n_embed: int = 1024
+    double_z: bool = False
+    z_channels: int = 256
+    resolution: int = 256
+    in_channels: int = 3
+    out_ch: int = 3
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 1, 2, 2, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: Tuple[int, ...] = (16,)
+    dropout: float = 0.0
+    quantizer: str = "vq"     # vq | gumbel
+    beta: float = 0.25        # commitment cost
+    gumbel_kl_weight: float = 5e-4
+    straight_through: bool = True
+    remap_used: Optional[Tuple[int, ...]] = None
+    remap_unknown: str = "random"
+
+    @property
+    def num_layers(self) -> int:
+        return int(math.log2(self.resolution) - math.log2(self.attn_resolutions[0]))
 
 
 @dataclass(frozen=True)

@@ -17,6 +17,8 @@ across one to one; only leaves change:
   (out,), and ``shared_emb_scale`` (rows, 1) stays as it is. Loading it
   makes the ``QLinear``s and the tied table int8
   (``ops/quantize_weights.py``).
+* A discriminator's ``batch_stats`` (``mean``, ``var``) → BatchNorm's
+  ``running_mean``/``running_var`` (``disc_state_dict``).
 * ConvTranspose kernel (the dVAE decoder's ``up_*``): flax does not flip its
   kernel, torch's transposed convolution does, so the kernel is flipped
   spatially and laid out (in, out, kh, kw); see ``models/dvae.py``.
@@ -95,6 +97,35 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> Dict:
+    """The inverse map: a port ``state_dict`` → a flax variables tree shaped
+    as ``like`` (a tree of arrays or of shape structs, ``{"params": ...}``
+    with an optional ``batch_stats`` collection), numpy leaves in the flax
+    layout. Each leaf's layout change is undone through the index
+    permutation ``_convert_leaf`` makes of it."""
+    def build(tree, prefix, coll):
+        out = {}
+        for k, v in tree.items():
+            path = prefix + (k,)
+            if isinstance(v, Mapping):
+                out[k] = build(v, path, coll)
+                continue
+            if coll == "batch_stats":
+                out[k] = state[".".join(path[:-1] + (_STATS[k],))].detach().cpu().numpy()
+                continue
+            idx = np.arange(int(np.prod(v.shape))).reshape(v.shape)
+            leaf, moved = _convert_leaf(path, idx)
+            src = state[".".join(path[:-1] + (leaf,))].detach().float().cpu().numpy()
+            flat = np.empty(idx.size, np.float32)
+            flat[np.asarray(moved).ravel()] = src.ravel()
+            out[k] = flat.reshape(v.shape)
+        return out
+    return {coll: build(tree, (), coll) for coll, tree in like.items()}
+
+
 def dalle_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``models/dalle.DALLE`` state_dict from ``dalle_tpu``'s DALLE params."""
     return flax_to_state_dict(params)
@@ -110,6 +141,42 @@ def clip_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``models/clip.CLIP`` state_dict from ``dalle_tpu``'s CLIP params: the
     embeddings, the biased ``to_visual_embedding``, the two towers, the
     latent projections and the root scalar ``temperature``."""
+    return flax_to_state_dict(params)
+
+
+def vqgan_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``models/vqgan.VQModel`` state_dict from ``dalle_tpu``'s VQModel
+    params: the encoder and decoder stacks by their flax names, GroupNorm
+    scale → weight, the codebook, the 1×1 quant convolutions."""
+    return flax_to_state_dict(params)
+
+
+def disc_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``models/gan.NLayerDiscriminator`` state_dict from ``dalle_tpu``'s
+    discriminator variables: the params as any tree, and the BatchNorm
+    ``batch_stats`` collection's ``mean``/``var`` → ``running_mean``/
+    ``running_var``. ActNorm's ``loc``/``scale`` keep their (1, 1, C)
+    shape; a converted ActNorm counts as initialized."""
+    out = flax_to_state_dict(variables)
+    names = {"mean": "running_mean", "var": "running_var"}
+    for path, x in _leaves(variables.get("batch_stats", {})):
+        out[".".join(path[:-1] + (names[path[-1]],))] = _tensor(x)
+    for key in [k for k in out if k.endswith(".loc")]:
+        out[key[:-len("loc")] + "initialized"] = torch.ones((), dtype=torch.uint8)
+    return out
+
+
+def lpips_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``models/lpips.LPIPS`` state_dict from ``dalle_tpu``'s LPIPS params:
+    the trunk's kernels OIHW, each head ``lin{i}`` as its (1, 1, 1, C)."""
+    return flax_to_state_dict(params)
+
+
+def gpt_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``models/mingpt.GPT`` state_dict from ``dalle_tpu``'s GPT params:
+    ``tok_emb``, the root ``pos_emb`` (1, block_size, n_embd) as it is, each
+    ``block_{i}``'s LayerNorms and Dense layers, ``ln_f`` and the unbiased
+    ``head``."""
     return flax_to_state_dict(params)
 
 

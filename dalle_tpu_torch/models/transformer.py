@@ -33,6 +33,14 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
   they tile (``ops/chunk_attention.py``). Full, axial and conv layers only;
   causal, no key mask; the stable softmax is ignored. Prefill and decode
   keep the dense core.
+* ``reversible`` runs the layers as the two-stream coupling y1 = x1 +
+  attn(x2), y2 = x2 + ff(y1), output (y1 + y2) / 2
+  (``models/reversible.py``): the forward keeps no block's activations and
+  the backward recomputes each branch from the inverted coupling, K1's
+  forward and backward (or K4's, K8's) inside that recompute. The dropout
+  masks are drawn before the forward, so the recompute reuses them; a
+  shared layer's gradient sums over its uses. Prefill and decode run the
+  sequential stack, as in the JAX package.
 * ``use_remat`` recomputes each attn+ff block pair in the backward
   (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package;
   the recompute runs K1's, K4's or K8's forward again.
@@ -83,6 +91,7 @@ from ..ops.persistent_attention import persistent_attention
 from ..ops.quantize_weights import QLinear
 from ..ops.rotary import apply_rotary, dalle_pos_emb
 from ..parallel.ring_attention import ring_attention
+from .reversible import run_reversible
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -111,6 +120,15 @@ def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
     """flax ``nn.Dropout`` with its keep mask given: ``x / (1 - rate)``
     where ``keep``, else 0."""
     return torch.where(keep, x / (1.0 - rate), 0)
+
+
+def drawn_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """``dropout`` with its keep mask drawn from ``generator`` (True with
+    probability 1 - rate); ``x`` itself when rate is 0."""
+    if rate <= 0:
+        return x
+    return dropout(x, torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate,
+                   rate)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -413,8 +431,6 @@ class Transformer(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         self.sp = sp
-        if c.reversible:
-            raise NotImplementedError("reversible blocks are not ported yet")
         fmap = c.image_fmap_size
         self.text_len = c.seq_len + 1 - fmap * fmap if c.causal else 0
 
@@ -524,20 +540,49 @@ class Transformer(nn.Module):
                 self.cfg.causal, device)
         return self._schedules[key]
 
-    def _block(self, x, ind: int, key_mask, mode, drop=(None, None)):
-        """One attn + ff residual pair (the unit ``use_remat`` recomputes);
-        ``drop`` holds its two keep masks, or None."""
-        la, attn, lf, ff, mask = self._layer(ind)
+    def _attn_branch(self, x, ind: int, key_mask, mode, drop=None):
+        """Layer ``ind``'s attention residual branch on ``x``; ``drop`` its
+        keep mask, or None."""
+        la, attn, _, _, mask = self._layer(ind)
         n = x.shape[1]
         table = (self.fused_table(ind, n, x.device) if mode in ("fused", "persist")
                  else None)
         sched = self.flash_schedule(ind, n, x.device) if mode == "flash" else None
         ring = self.sp if mode == "ring" else 1
-        x = x + la(x, attn, key_mask=key_mask, rotary=self.rotary, static_mask=mask,
-                   fused=mode == "fused", persist=mode == "persist", table=table,
-                   flash=sched, ring=ring, ring_spec=self._mask_specs[self.mask_keys[ind]],
-                   drop=drop[0])
-        return x + lf(x, ff, drop=drop[1])
+        return la(x, attn, key_mask=key_mask, rotary=self.rotary, static_mask=mask,
+                  fused=mode == "fused", persist=mode == "persist", table=table,
+                  flash=sched, ring=ring, ring_spec=self._mask_specs[self.mask_keys[ind]],
+                  drop=drop)
+
+    def _ff_branch(self, x, ind: int, drop=None):
+        return getattr(self, f"layer_ff_{ind}")(x, getattr(self, self.ff_names[ind]), drop=drop)
+
+    def _block(self, x, ind: int, key_mask, mode, drop=(None, None)):
+        """One attn + ff residual pair (the unit ``use_remat`` recomputes);
+        ``drop`` holds its two keep masks, or None."""
+        x = x + self._attn_branch(x, ind, key_mask, mode, drop[0])
+        return x + self._ff_branch(x, ind, drop[1])
+
+    def reversible_blocks(self, key_mask=None, dropout_masks=None, mode=False):
+        """The (f, g) pairs and their parameter tuples of the reversible
+        coupling (``models/reversible.py``): f the attention branch and g
+        the feed-forward branch of each layer, each closed over its dropout
+        mask and reading its parameters from the modules."""
+        fns, params = [], []
+        for ind in range(self.cfg.depth):
+            la, attn, lf, ff, _ = self._layer(ind)
+            drop = (None, None) if dropout_masks is None else dropout_masks[ind]
+
+            def f(_p, h, _ind=ind, _drop=drop[0]):
+                return self._attn_branch(h, _ind, key_mask, mode, _drop)
+
+            def g(_p, h, _ind=ind, _drop=drop[1]):
+                return self._ff_branch(h, _ind, _drop)
+
+            fns.append((f, g))
+            params.append((tuple(la.parameters()) + tuple(attn.parameters()),
+                           tuple(lf.parameters()) + tuple(ff.parameters())))
+        return fns, params
 
     def attention_mode(self, device, key_mask=None):
         """The resolved full-sequence mode on ``device``: "ring" whenever
@@ -573,11 +618,17 @@ class Transformer(nn.Module):
         return [(keep(c.attn_dropout, c.dim), keep(c.ff_dropout, c.dim * c.ff_mult))
                 for _ in range(c.depth)]
 
-    def forward(self, x, key_mask=None, dropout_masks=None):
+    def forward(self, x, key_mask=None, dropout_masks=None, reversible_naive: bool = False):
         """The full-sequence forward; ``dropout_masks`` (``dropout_masks``'s
-        form) switches dropout on."""
+        form) switches dropout on. A ``reversible`` model runs the coupling
+        of ``models/reversible.py`` (``reversible_naive``: through
+        autograd's stored activations, the oracle) and ignores
+        ``use_remat``, as the JAX package does."""
         c = self.cfg
         mode = self.attention_mode(x.device, key_mask)
+        if c.reversible:
+            fns, params = self.reversible_blocks(key_mask, dropout_masks, mode)
+            return run_reversible(fns, params, x, naive=reversible_naive)
         remat = c.use_remat and torch.is_grad_enabled()
         for ind in range(c.depth):
             drop = (None, None) if dropout_masks is None else dropout_masks[ind]

@@ -2,8 +2,8 @@
 checkpoints, the fit loop with scanned groups and device prefetch, and NaN
 rollback.
 
-Port of ``dalle_tpu/train/base_trainer.py`` for the port's three trainers
-(``DalleTrainer``, ``VAETrainer``, ``CLIPTrainer``). A subclass builds
+Port of ``dalle_tpu/train/base_trainer.py`` for the port's four trainers
+(``DalleTrainer``, ``VAETrainer``, ``CLIPTrainer``, ``VQGANTrainer``). A subclass builds
 ``self.model`` (its parameters are the f32 masters), calls
 ``_setup_training`` with its loss, and defines ``_put_batch(batch,
 stacked)`` (a batch as ``train_step`` takes it, on the device),
@@ -342,8 +342,7 @@ class BaseTrainer:
     def _snapshot_good(self):
         """Keep a copy of the masters and the optimizer state (and count)."""
         self._good = None    # freed first: "auto" gauges the memory without it
-        live = {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        live = self._rollback_state()
         nbytes = _tree_bytes(live)
         mode = self._snapshot_mode(nbytes)
         t0 = time.perf_counter()
@@ -359,10 +358,18 @@ class BaseTrainer:
         the snapshot outlives another NaN); metrics of the poisoned steps
         die with them."""
         _mode, _step, good = self._good
+        self._load_rollback_state(good)
+        self._pending = self._deferred = None
+
+    def _rollback_state(self) -> Dict[str, Any]:
+        """What a rollback snapshot copies: the masters and the optimizer's
+        state (references to the live tensors)."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def _load_rollback_state(self, good: Dict[str, Any]):
         with torch.no_grad():
             self.model.load_state_dict(good["model"])
         self.optimizer.load_state_dict(good["optimizer"])
-        self._pending = self._deferred = None
 
     # -- the loop ------------------------------------------------------------
     def _batches(self, batches: Iterable):

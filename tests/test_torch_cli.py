@@ -396,8 +396,12 @@ def test_train_rejects_a_small_vocab_and_a_vae_of_another_size(tmp_path, port_va
 TRAIN_UNPORTED = [["--image_text_folder", "x"], ["--wds", "x"], ["--reversible"],
                   ["--shift_tokens"], ["--trace"], ["--watchdog_deadline_s", "5"],
                   ["--prometheus_path", "p"], ["--taming"], []]
-# ported since these cases were written: each case now runs its flag end to end
-TRAIN_PORTED = {"--shift_tokens"}
+# ported since these cases were written: each case now runs its flag end to end,
+# its hparam recorded in the checkpoint
+TRAIN_PORTED = {"--shift_tokens": "shift_tokens", "--reversible": "reversible"}
+# the pretrained VAEs load local files only: without them the chain raises
+# naming the flags that take them (the JAX package would download)
+TRAIN_NEEDS_FILES = (["--taming"], [])
 # --clip_path is ported: its case now gives it a path with a DALL·E checkpoint
 # and no CLIP one, which is refused
 GENERATE_UNPORTED = [["--int8w"], ["--speculative", "2"], ["--clip_path", "DALLE"], ["--gentxt"],
@@ -416,7 +420,11 @@ def test_train_unported_flags_raise(tmp_path, flags):
     if flags[0:1] and flags[0] in TRAIN_PORTED:
         assert train_dalle.main(argv + TINY_TRAIN + flags) == 0
         meta = CheckpointManager(str(tmp_path)).load_metadata()
-        assert meta["hparams"]["shift_tokens"] is True
+        assert meta["hparams"][TRAIN_PORTED[flags[0]]] is True
+        return
+    if flags in TRAIN_NEEDS_FILES:
+        with pytest.raises(FileNotFoundError, match="--vqgan_model_path.*--openai_vae_dir"):
+            train_dalle.main(argv + flags)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         train_dalle.main(argv + flags)

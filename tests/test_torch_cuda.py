@@ -1137,3 +1137,80 @@ def test_int8w_generation_and_speculative_on_the_card():
     seq = m8.generate_images_tokens_speculative(text, gamma=0, noise=noise)
     spec = m8.generate_images_tokens_speculative(text, gamma=2, noise=noise)
     assert torch.equal(seq, spec)
+
+
+# ---------------------------------------------------------------------------
+# The taming stack and reversible blocks: K2 under the GPT sampler, K1 in the
+# reversible recompute
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("length", [1, 31, 32, 257, 512])
+def test_kernel_matches_plain_at_the_gpt_decode_shape(length):
+    """K2 at the faceshq GPT's cache (b 8, h 16, d 64, S 512, f32), the shape
+    Net2Net sampling decodes at, within the f32 tolerance of the plain
+    version."""
+    q, cache = _cache(8, 16, 512, 64, torch.float32, seed=length)
+    before = dec.launches
+    out = dec.decode_attend(q, cache, length)
+    assert dec.launches == before + 1
+    ref = dec.decode_attend_plain(q, cache.kv, cache.scale, length)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+
+
+def test_gpt_sampler_on_the_card_goes_through_k2_and_matches_the_forward():
+    """The GPT's cached logits through K2 equal its forward's at every
+    sampled position (f32), and the sampler launches K2 once per layer and
+    decoded token."""
+    from dalle_tpu_torch.models.mingpt import GPTConfig, init_gpt, make_sampler
+    cfg = GPTConfig(vocab_size=64, block_size=40, n_layer=2, n_head=4, n_embd=64)
+    gpt = init_gpt(cfg, seed=0, device="cuda")
+    prompt = torch.randint(0, 64, (3, 5), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    before = dec.launches
+    out = make_sampler(gpt, 12, top_k=8)(prompt, generator=torch.Generator("cuda").manual_seed(1))
+    assert dec.launches - before == cfg.n_layer * 11 and out.shape == (3, 17)
+    with torch.no_grad():
+        full = gpt(out)
+        logits, cache, n = gpt.prefill(out[:, :5], gpt.init_cache(3))
+        for i in range(5, 16):
+            step, cache = gpt.decode_one(out[:, i:i + 1], i, cache)
+            assert (step - full[:, i]).abs().max().item() <= 1e-4, i
+
+
+def test_reversible_step_on_the_card_runs_k1_inside_the_recompute():
+    """A reversible model's step launches K1's forward twice a layer (the
+    forward, then the backward's recompute) and its backward once, and its
+    gradients equal the naive coupling's through the same kernels (f32
+    compute; the recompute inverts the coupling, 1e-3 of each tensor's
+    largest gradient)."""
+    cfg = DalleConfig(**TINY, reversible=True, use_remat=False, loss_chunk=11)
+    model = init_dalle(cfg, seed=0, device="cuda").train()
+    rng = np.random.RandomState(0)
+    text = torch.from_numpy(rng.randint(1, 60, (2, 6))).cuda()
+    img = torch.from_numpy(rng.randint(0, 48, (2, 16))).cuda()
+    grads = []
+    for naive in (False, True):
+        model.zero_grad()
+        before = fa.fwd_launches, fa.bwd_launches
+        if naive:
+            model.transformer.forward = _naive_forward(model.transformer)
+        loss, _ = model(text, img, True)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (fa.fwd_launches - before[0], fa.bwd_launches - before[1])
+        depth = cfg.depth
+        assert launched == ((depth, depth) if naive else (2 * depth, depth)), launched
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    del model.transformer.forward
+    for name, g in grads[1].items():
+        tol = 1e-3 * g.abs().max().item() + 1e-7
+        assert (grads[0][name] - g).abs().max().item() <= tol, name
+
+
+def _naive_forward(transformer):
+    cls_forward = type(transformer).forward
+
+    def forward(x, key_mask=None, dropout_masks=None):
+        return cls_forward(transformer, x, key_mask, dropout_masks, reversible_naive=True)
+    return forward
