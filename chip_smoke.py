@@ -316,15 +316,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 request against sequential int8w generation (agreement and
                 the first divergence's score gap reported: the reference's
                 TPU caveat); then the dense int8w engine pinned
-                (use_kernel=False) on the same 8 requests against pinned
-                sequential generation of each, every token equal and no
+                (use_kernel=False) at depth 2 (full width) on the same 8
+                requests against pinned sequential generation of each,
+                every token equal and no
                 K2, K3 or K5 launch (checked); a depth-2 model overfit
                 to a constant image, gamma=3 "repeat" equal to gamma=0 in
                 at most 128 rounds; token shift: cached decode ≡ forward at
                 depth 2 in f32, a DalleTrainer step through K1, full-depth
                 bf16 generation (K2 24·255).
 
-25. taming    the taming stack at full width, in build/taming_smoke/ (removed
+25. serve_obs the serving path's telemetry and product pipeline at
+                DALL·E-1.4B (int8w, 8 slots): (a) the dense engine on
+                decode_surface's 8 requests with obs off, then with tracing,
+                the flight recorder, decode_health and a chaos FaultPlan
+                (slow, 0.25 s at engine step 16): every token equal, 8
+                serve/request spans with finite entropy, topk_mass and
+                repeat_ratio and 8 serve/request_ttft, the health.decode_*
+                gauges, the chaos_fault event and step 16's wall >= 0.25 s;
+                as many synchronising calls a step with decode_health as
+                without; decode_quality within DQ_TOL of float64 on the same
+                logits; ms/step off and on, TTFT p50/p95 from the
+                serve.ttft_seconds histogram beside the wall clock's. (b)
+                The paged engine on phase serve's paged traffic: every
+                chunk width dispatched in chunk_widths(), the kv.* gauges
+                equal to kv_stats() after each admission pass. (c)
+                image_pipeline(top_k=4) with the 1.4B dVAE and phase
+                paper's CLIP over 2 groups of 8 engine candidates: ordered
+                by score, scores within RERANK_TOL of rerank_scores on the
+                same pixels, both stages' spans, the two groups' stages
+                overlapping; ms per group per stage. (d) cli.generate
+                --trace at depth 2: trace.json parses, its span names are
+                the JAX script's, K2 launched 2 · 255 times. K3, K5, W8 and
+                K2 counted from zero around each run.
+26. taming    the taming stack at full width, in build/taming_smoke/ (removed
                 after): ``cli.train_vqgan`` at taming's vqgan_imagenet_f16_1024
                 (256 px, ch 128, ch_mult 1,1,2,2,4, 2 res blocks, attention at
                 16, 1,024 codes of 256) for 3 steps at batch 8 with
@@ -346,7 +370,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 the taming files (--vqgan_model_path, --vqgan_config_path)
                 for one step and ``cli.generate --bf16`` of 8 images (K2
                 2 · 255).
-26. reversible DALL·E-1.4B with reversible blocks, batch 8, bf16: first at
+27. reversible DALL·E-1.4B with reversible blocks, batch 8, bf16: first at
                 depth 2, full width, the loss and every gradient of one
                 step against the naive coupling's (autograd through stored
                 activations, the same kernels): in f32 compute within
@@ -364,10 +388,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 train's, no remat) and sequential with remat, on the same
                 weights.
 
-Phases 11-20, 23 and 24 run beside their kin: flash_kernel, persist_kernel,
+Phases 11-20 and 23-25 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
-persist_parity and ring_parity after serve_parity; decode_surface after
-serve; recipe and then train_persist after train; train_long and then
+persist_parity and ring_parity after serve_parity; decode_surface and serve_obs
+after serve; recipe and then train_persist after train; train_long and then
 train_ring, then cli, paper, taming and reversible last. Each prints its seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
@@ -2224,8 +2248,12 @@ def phase_decode_surface(torch, card, gen_rows):
 
     # the pin: the int8w engine under use_kernel=False against pinned
     # sequential generation of each request under its generator, bit for
-    # bit (the JAX package's contract); no K2, K3 or K5 launch in either
-    eng = wrapper.serve_engine(slots=8, use_kernel=False)
+    # bit (the JAX package's contract); no K2, K3 or K5 launch in either.
+    # At full width, depth cut to 2 (wrapper2): eight b=1 sequential runs
+    # at depth 24 took most of this phase; bit-for-bit equality needs no
+    # depth
+    m8p, _ = wrapper2._resolve_precision("int8w")
+    eng = wrapper2.serve_engine(slots=8, use_kernel=False)
     q = RequestQueue()
     for i, s in enumerate(subs):
         q.submit(request_id=i, **s)
@@ -2243,7 +2271,7 @@ def phase_decode_surface(torch, card, gen_rows):
     t0 = time.perf_counter()
     equal, first_diff = {}, {}
     for i, s in enumerate(subs):
-        seq_i = m8.generate_images_tokens(
+        seq_i = m8p.generate_images_tokens(
             torch.from_numpy(s["text"][None]).cuda(), cond_scale=s.get("cond_scale", 1.0),
             generator=torch.Generator("cuda").manual_seed(s["seed"]),
             cache_dtype=torch.int8, use_kernel=False)[0].cpu().numpy()
@@ -2258,6 +2286,7 @@ def phase_decode_surface(torch, card, gen_rows):
                    "decode_attend_window_paged": dec.paged_launches}
     pin_w8 = w8_counts(w8)
     emit("int8w_engine_pinned_vs_sequential", use_kernel=False, requests=len(subs),
+         depth=cfg2.depth,
          equal=equal, first_difference=first_diff, kernel_launches=pin_kernels, w8=pin_w8,
          engine_wall_s=pin_wall, engine_steps=pin_steps, engine_ms_per_step=pin_step_ms,
          sequential_wall_s=seq_wall, auto_agreement_request6=agree, card=card)
@@ -2352,6 +2381,368 @@ def phase_decode_surface(torch, card, gen_rows):
     return dict(launches=launches, engine=eng_launches, k1=k1, spec=spec,
                 w8_err=w8_err, w8_share=w8_share, w8_timing=w8_timing,
                 k3_ragged=k3_shares)
+
+
+# ---------------------------------------------------------------------------
+# serve_obs: the serving path's telemetry and product pipeline
+# ---------------------------------------------------------------------------
+
+SERVE_OBS_SLOW_STEP = 16        # the chaos fault's engine step
+SERVE_OBS_SLOW_S = 0.25         # and its delay
+# decode_quality on the card against a float64 computation on the host of the
+# same bf16 logits: f32 log-softmax and sums over 8,192 entries, ~1e-6
+DQ_TOL = 1e-4
+# the pipeline's batched CLIP scores against rerank_scores on the same pixels:
+# one text embedding against eight, or eight against eight, in f32
+RERANK_TOL = 1e-5
+# the span names the JAX package's scripts/generate.py records for
+# ``--text P --num_images 8 --batch_size 8 --trace DIR`` (held to the JAX
+# script on the CPU by tests/test_torch_cli.py)
+GENERATE_TRACE_SPANS = {"generate/prompt", "decode/generate_tokens", "sampling/top_k_filter",
+                        "sampling/gumbel_sample", "decode/vae_decode"}
+
+
+def _hist_quantile(snap, name, q):
+    """The q-quantile of an obs histogram in a metrics snapshot, linear within
+    its bucket (Prometheus' histogram_quantile); the last finite bound when it
+    falls in +Inf."""
+    prefix = name + '_bucket{le="'
+    cums = sorted((float(k[len(prefix):-2]), v) for k, v in snap.items()
+                  if k.startswith(prefix) and "+Inf" not in k)
+    rank = q * snap[name + "_count"]
+    lo, below = 0.0, 0.0
+    for bound, cum in cums:
+        if cum >= rank:
+            return lo + (bound - lo) * (rank - below) / max(cum - below, 1e-12)
+        lo, below = bound, cum
+    return cums[-1][0]
+
+
+def _engine_counts(dec, w8):
+    return {"decode_attend_window": dec.window_launches,
+            "decode_attend_window_paged": dec.paged_launches, "w8": w8_counts(w8)["launches"]}
+
+
+def _zero_engine_counts(dec, w8):
+    window_set_counts(dec, dict.fromkeys(WINDOW_COUNTERS, 0))
+    w8_set_counts(w8, dict.fromkeys(W8_COUNTERS, 0))
+
+
+def phase_serve_obs(torch, card):
+    """The serving path's telemetry and product pipeline at DALL·E-1.4B (see
+    the module docstring, phase 25): (a) the int8w engine without and with
+    tracing, decode_health and a chaos fault; (b) the paged engine's chunk
+    widths and kv gauges; (c) image_pipeline over two groups of engine
+    candidates; (d) cli.generate --trace at depth 2."""
+    import base64
+    import json as _json
+    import os
+    import shutil
+
+    import numpy as np
+
+    from dalle_tpu_torch import (ClipConfig, DalleWithVae, DiscreteVAEAdapter, DVAEConfig,
+                                 chaos, dalle_1p4b, init_clip, init_dalle, init_dvae, obs)
+    from dalle_tpu_torch.cli import generate
+    from dalle_tpu_torch.cli._common import save_vae_sidecar
+    from dalle_tpu_torch.models.wrapper import rerank_scores
+    from dalle_tpu_torch.obs.health import decode_quality
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.ops import int8w_linear as w8
+    from dalle_tpu_torch.serve import CandidateGroup, RequestQueue
+    from dalle_tpu_torch.train.checkpoints import CheckpointManager
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_obs_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = dalle_1p4b()
+    vae = DiscreteVAEAdapter(init_dvae(DVAEConfig(), seed=SMOKE_SEED))
+    clip = init_clip(ClipConfig(num_text_tokens=49408, visual_image_size=128,
+                                visual_patch_size=16), seed=SMOKE_SEED)
+    wrapper = DalleWithVae(init_dalle(cfg, seed=SMOKE_SEED), vae, clip)
+    wrapper._resolve_precision("int8w")                # the one-time quantization
+    subs = _serve_traffic(cfg, False)[:8]
+    launches, row = {}, {"card": card}
+
+    def served(eng, items, trace=False):
+        """Run ``items`` through ``eng`` with the counts zeroed just before;
+        (completions by id, wall s, the launches, step start times by step)."""
+        q = RequestQueue()
+        for i, s in enumerate(items):
+            q.submit(request_id=i, **s)
+        q.close()
+        starts, real = {}, eng._multi_step
+
+        def timed_step():
+            starts[eng.stats.steps] = time.perf_counter()
+            return real()
+        eng._multi_step = timed_step
+        _zero_engine_counts(dec, w8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {c.request_id: c for c in done}, wall, _engine_counts(dec, w8), starts
+
+    # (a) the int8w engine, telemetry off, then tracing + decode_health + a
+    # slow fault at step 16
+    off_eng = wrapper.serve_engine(slots=8)
+    off, off_wall, launches["engine_off"], _ = served(off_eng, subs)
+    obs.configure()
+    obs.configure_recorder(os.path.join(work, "recorder"))
+    chaos.install(chaos.FaultPlan([chaos.Fault(kind="slow", step=SERVE_OBS_SLOW_STEP,
+                                               duration_s=SERVE_OBS_SLOW_S)]))
+    try:
+        on_eng = wrapper.serve_engine(slots=8, decode_health=True)
+        on, on_wall, launches["engine_on"], starts = served(on_eng, subs)
+        spans = obs.get_tracer().snapshot_spans()
+        snap = obs.metrics_snapshot()
+        events = obs.get_recorder().snapshot_events()
+    finally:
+        chaos.uninstall()
+        obs.disable()
+        obs.disable_recorder()
+    check(sorted(on) == sorted(off) == list(range(len(subs))), "serve_obs: lost requests")
+    same = {i: bool(np.array_equal(on[i].tokens, off[i].tokens)) for i in off}
+    check(all(same.values()), f"serve_obs: tokens differ with telemetry on: {same}")
+    for mode in ("engine_off", "engine_on"):
+        n = launches[mode]
+        check(n["decode_attend_window"] > 0 and n["w8"] > 0
+              and n["decode_attend_window_paged"] == 0, f"serve_obs {mode}: launches {n}")
+    req = [a for name, *_, a in spans if name == "serve/request"]
+    ttft_spans = [a for name, *_, a in spans if name == "serve/request_ttft"]
+    check(len(req) == len(ttft_spans) == len(subs),
+          f"serve_obs: {len(req)} serve/request, {len(ttft_spans)} serve/request_ttft spans")
+    check(all(math.isfinite(a[k]) for a in req for k in ("entropy", "topk_mass",
+                                                         "repeat_ratio")),
+          "serve_obs: a request's health args are not finite")
+    gauges = {k: snap.get(k) for k in ("health.decode_entropy", "health.decode_topk_mass",
+                                       "health.decode_repeat_ratio")}
+    check(all(v is not None and math.isfinite(v) for v in gauges.values()),
+          f"serve_obs: health gauges {gauges}")
+    fault = [e for e in events if e["kind"] == "chaos_fault"]
+    slow_wall = starts[SERVE_OBS_SLOW_STEP] - starts[SERVE_OBS_SLOW_STEP - 1]
+    check([e.get("at_step") for e in fault] == [SERVE_OBS_SLOW_STEP]
+          and slow_wall >= SERVE_OBS_SLOW_S,
+          f"serve_obs: chaos events {fault}, step {SERVE_OBS_SLOW_STEP}'s wall {slow_wall}")
+
+    # one engine step's synchronising calls, decode_health on and off (the
+    # stats ride the tokens' read), then steady steps of both in turns (off,
+    # on, on, off): the runs above part by the host's noise as much as by
+    # the taps
+    syncs, engs, steady = {}, {}, {False: [], True: []}
+    for health in (False, True):
+        eng = engs[health] = wrapper.serve_engine(slots=8, decode_health=health)
+        q = RequestQueue()
+        for i, s in enumerate(subs):
+            q.submit(request_id=i, **s)
+        q.close()
+        eng.run(q, max_steps=4)                   # admitted; rows stay active
+        places, outside = _sync_calls(torch, eng._multi_step)
+        syncs[health] = [p for p, _ in places]
+    check(len(syncs[True]) == len(syncs[False]) >= 1,
+          f"serve_obs: synchronising calls a step {syncs}")
+    for health in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            engs[health]._multi_step()
+        torch.cuda.synchronize()
+        steady[health].append((time.perf_counter() - t0) * 1e3 / 16)
+    # where decode_health's time goes: a profiled window of 8 steady steps of
+    # each engine, the device's ms a step and the ops whose own host time a
+    # step grew most with the taps
+    host_ops, dev_ms = {}, {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for health in (False, True):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(8):
+                engs[health]._multi_step()
+            torch.cuda.synchronize()
+        dev_us, _ = device_time(torch, prof)
+        dev_ms[health] = dev_us / 1e3 / 8 if dev_us else "not measured"
+        host_ops[health] = {e.key: (e.self_cpu_time_total / 1e3 / 8, e.count / 8)
+                            for e in prof.key_averages()}
+    grew = sorted(((k, ms - host_ops[False].get(k, (0.0, 0.0))[0],
+                    n - host_ops[False].get(k, (0.0, 0.0))[1])
+                   for k, (ms, n) in host_ops[True].items()), key=lambda t: -t[1])[:10]
+    img = eng.logits[:, eng.num_text_tokens:]
+    got = decode_quality(img)
+    x = img.double().cpu()
+    lp = torch.log_softmax(x, dim=-1)
+    p = lp.exp()
+    want = {"entropy": -(p * lp).sum(-1),
+            "topk_mass": torch.topk(p, 32, dim=-1).values.sum(-1)}
+    dq_err = max(float((got[k].double().cpu() - want[k]).abs().max()) for k in want)
+    check(dq_err <= DQ_TOL, f"serve_obs: decode_quality against float64 {dq_err}")
+    del eng, engs
+    ttft = sorted(c.ttft_s for c in on.values())
+    row.update(
+        a=dict(requests=len(subs), slots=8, precision="int8w",
+               ms_per_step_off=off_eng.stats.step_seconds * 1e3 / off_eng.stats.steps,
+               ms_per_step_on=on_eng.stats.step_seconds * 1e3 / on_eng.stats.steps,
+               steady_ms_per_step_off=steady[False], steady_ms_per_step_health=steady[True],
+               device_ms_per_step_off=dev_ms[False], device_ms_per_step_health=dev_ms[True],
+               host_ms_per_step_profiled={str(h): sum(v[0] for v in host_ops[h].values())
+                                          for h in (False, True)},
+               health_host_ops_grew=[[k, ms, n] for k, ms, n in grew],
+               steps_off=off_eng.stats.steps, steps_on=on_eng.stats.steps,
+               wall_s_off=off_wall, wall_s_on=on_wall,
+               ttft_p50_s_hist=_hist_quantile(snap, "serve.ttft_seconds", 0.5),
+               ttft_p95_s_hist=_hist_quantile(snap, "serve.ttft_seconds", 0.95),
+               ttft_p50_s_wall=float(np.percentile(ttft, 50)),
+               ttft_p95_s_wall=float(np.percentile(ttft, 95)),
+               slow_step_wall_s=slow_wall, spans=len(spans), tokens_equal=True,
+               health_gauges=gauges, sync_calls_a_step=len(syncs[True]),
+               sync_places=syncs[True], decode_quality_vs_f64=dq_err,
+               launches_off=launches["engine_off"], launches_on=launches["engine_on"]))
+    emit("serve_obs_engine", **row["a"], card=card)
+
+    # (b) the paged engine: every dispatched width in chunk_widths(), the kv
+    # gauges equal kv_stats() after every admission pass
+    peng = wrapper.serve_engine(slots=8, kv_block_tokens=16)
+    widths, ledgers = [], []
+    real_chunk, real_admit = peng._refill_chunk, peng._admit_paged
+
+    def chunk(ids, *a):
+        widths.append(int(ids.shape[1]))
+        return real_chunk(ids, *a)
+
+    def admit(placed):
+        real_admit(placed)
+        m, kv = obs.metrics_snapshot(), peng.kv_stats()
+        ledgers.append(({k: m[f"kv.pages_{k}"] for k in ("free", "used", "shared", "cow_copies")},
+                        {k: float(kv[f"pages_{k}"] if k != "cow_copies" else kv[k])
+                         for k in ("free", "used", "shared", "cow_copies")}))
+    peng._refill_chunk, peng._admit_paged = chunk, admit
+    paged_subs = _serve_traffic(cfg, True)
+    obs.configure()
+    try:
+        pdone, pwall, launches["paged"], _ = served(peng, paged_subs)
+    finally:
+        obs.disable()
+    allowed = peng.chunk_widths()
+    check(len(pdone) == len(paged_subs) and widths and set(widths) <= set(allowed),
+          f"serve_obs paged: widths {sorted(set(widths))} against chunk_widths {allowed}")
+    check(ledgers and all(g == k for g, k in ledgers),
+          f"serve_obs paged: kv gauges against kv_stats {ledgers[:2]}")
+    n = launches["paged"]
+    check(n["decode_attend_window_paged"] > 0 and n["w8"] > 0
+          and n["decode_attend_window"] == 0, f"serve_obs paged: launches {n}")
+    row["b"] = dict(requests=len(pdone), wall_s=pwall, chunk_widths=list(allowed),
+                    widths_dispatched=sorted(set(widths)), chunks=len(widths),
+                    admissions=len(ledgers), radix_full_hits=peng.stats.radix_full_hits,
+                    launches=n)
+    emit("serve_obs_paged", **row["b"], card=card)
+    del peng
+
+    # (c) the product pipeline over two groups of eight engine candidates
+    texts = _serve_text(cfg, 2, SMOKE_SEED + 20)
+    cand = [dict(text=texts[g], seed=3000 + 8 * g + i, group_id=g) for g in range(2)
+            for i in range(8)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    obs.configure()
+    pipe = wrapper.image_pipeline(top_k=4)
+    try:
+        cdone, cwall, launches["pipeline_engine"], _ = served(wrapper.serve_engine(slots=8),
+                                                               cand)
+        groups = [CandidateGroup(group_id=g, text=texts[g],
+                                 tokens=np.stack([cdone[8 * g + i].tokens for i in range(8)]),
+                                 seeds=[3000 + 8 * g + i for i in range(8)], top_k=4,
+                                 trace_id=f"group-{g}") for g in range(2)]
+        obs.disable()
+        # the first group through the stages pays their one-time set-up
+        # (kernel loads, cuDNN's choice of algorithms): timed alone
+        t0 = time.perf_counter()
+        pipe.process(groups[0])
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        obs.configure()                  # the pipeline's spans alone
+        t0 = time.perf_counter()
+        pending = [pipe.submit(gr) for gr in groups]
+        ranked = [p.result(timeout=120) for p in pending]
+        pipe_wall = time.perf_counter() - t0
+        pspans = obs.get_tracer().snapshot_spans()
+        pixels = [pipe._decode_stage(gr) for gr in groups]
+    finally:
+        pipe.close(timeout=60)
+        obs.disable()
+        torch.backends.cudnn.deterministic = deterministic
+    rerank_err = 0.0
+    for gr, r, px in zip(groups, ranked, pixels):
+        check(r.error is None and r.reranked and len(r.top_k) == 4,
+              f"serve_obs pipeline: group {gr.group_id} {r.error}")
+        check(r.order == sorted(range(8), key=lambda i: (-r.scores[i], i))
+              and [e["candidate"] for e in r.top_k] == r.order[:4]
+              and all(len(base64.b64decode(e["pixels_b64"])) == vae.image_size ** 2 * 3
+                      for e in r.top_k),
+              f"serve_obs pipeline: group {gr.group_id} not ordered by score")
+        want = rerank_scores(clip, torch.from_numpy(np.repeat(gr.text[None], 8, 0)).cuda(),
+                             torch.from_numpy(px).cuda()).float().cpu().numpy()
+        rerank_err = max(rerank_err, float(np.abs(np.asarray(r.scores) - want).max()))
+    check(rerank_err <= RERANK_TOL, f"serve_obs pipeline: scores against rerank_scores "
+          f"{rerank_err}")
+    stage = {name: sorted((t0, t0 + d, a["group_id"]) for n_, t0, d, _, _, a in pspans
+                          if n_ == f"pipeline/{name}") for name in ("decode_pixels", "rerank")}
+    check(all(len(v) == 2 for v in stage.values()), f"serve_obs pipeline: spans {stage}")
+    at = {(name, g): (s0, s1) for name, v in stage.items() for s0, s1, g in v}
+    dec_b, rr_a = at[("decode_pixels", 1)], at[("rerank", 0)]
+    overlap = dec_b[0] < rr_a[1] and rr_a[0] < dec_b[1]
+    check(overlap, f"serve_obs pipeline: group 1's decode and group 0's rerank do not "
+          f"overlap {stage}")
+    n = launches["pipeline_engine"]
+    check(n["decode_attend_window"] > 0 and n["w8"] > 0, f"serve_obs pipeline: launches {n}")
+    row["c"] = dict(groups=2, candidates=8, top_k=4, engine_wall_s=cwall,
+                    pipeline_wall_s=pipe_wall,
+                    decode_pixels_ms_per_group=[(e - s) * 1e3 for s, e, _ in
+                                                stage["decode_pixels"]],
+                    rerank_ms_per_group=[(e - s) * 1e3 for s, e, _ in stage["rerank"]],
+                    first_group_cold_ms=cold_ms,
+                    stages_overlap=overlap, scores_vs_rerank_scores=rerank_err,
+                    launches=n, top_scores=[r.scores[r.order[0]] for r in ranked])
+    emit("serve_obs_pipeline", **row["c"], card=card)
+    del wrapper, pipe
+    torch.cuda.empty_cache()
+
+    # (d) cli.generate --trace at the 1.4B widths, depth 2
+    ck, out, tdir = (os.path.join(work, n) for n in ("dalle", "outputs", "trace"))
+    cfg2 = dalle_1p4b(depth=CLI_DEPTH)
+    state = {k: v.cpu() for k, v in init_dalle(cfg2, seed=SMOKE_SEED).state_dict().items()}
+    CheckpointManager(ck).save(0, {"model": state},
+                               {"model_class": "DALLE", "hparams": cfg2.to_dict(),
+                                "vae_class_name": "DiscreteVAEAdapter"})
+    save_vae_sidecar(ck, vae)
+    dec.launches = 0                                  # this path starts here
+    t0 = time.perf_counter()
+    try:
+        rc = generate.main(["--dalle_path", ck, "--text", PAPER_PROMPT, "--num_images", "8",
+                            "--batch_size", "8", "--outputs_dir", out, "--trace", tdir,
+                            "--seed", str(SMOKE_SEED)])
+    finally:
+        obs.disable()
+    gen_wall = time.perf_counter() - t0
+    k2 = dec.launches
+    doc = _json.load(open(os.path.join(tdir, "trace.json")))
+    names = {e["name"] for e in doc["traceEvents"]}
+    jsonl = [_json.loads(line) for line in open(os.path.join(tdir, "spans.jsonl"))]
+    check(rc == 0 and names == GENERATE_TRACE_SPANS == {r["name"] for r in jsonl}
+          and all(e["ph"] == "X" and e["dur"] >= 0 for e in doc["traceEvents"]),
+          f"serve_obs generate --trace: rc {rc}, spans {sorted(names)}")
+    check(k2 == CLI_DEPTH * (cfg2.image_seq_len - 1), f"generate --trace: K2 launched {k2}")
+    tok = [r for r in jsonl if r["name"] == "decode/generate_tokens"]
+    row["d"] = dict(depth=CLI_DEPTH, wall_s=gen_wall, spans=sorted(names), k2_launches=k2,
+                    generate_tokens_s=tok[0]["dur_s"],
+                    ms_per_token=tok[0]["dur_s"] * 1e3 / cfg2.image_seq_len)
+    emit("serve_obs_generate_trace", **row["d"], card=card)
+    launches["generate_trace"] = {"decode_attend": k2}
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("serve_obs_done", seconds=row["seconds"], card=card)
+    return launches, row
 
 
 # ---------------------------------------------------------------------------
@@ -4706,6 +5097,7 @@ def main() -> int:
     launches, gen_rows = phase_generate(torch, card)
     serve_launches, _ = phase_serve(torch, card)
     surface = phase_decode_surface(torch, card, gen_rows)
+    obs_launches, obs_row = phase_serve_obs(torch, card)
     k1_launches, k1_row = phase_train(torch, card)
     recipe_launches, _ = phase_recipe(torch, card, k1_row)
     k8_launches, _ = phase_train_persist(torch, card, k1_row)
@@ -4724,6 +5116,7 @@ def main() -> int:
         "launches": launches, "launches_cli": cli_launches["decode_attend"],
         "launches_decode_surface": surface["launches"]["decode_attend"],
         "launches_paper": paper_launches["decode_attend"],
+        "launches_serve_obs_generate_trace": obs_launches["generate_trace"]["decode_attend"],
         "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
@@ -4773,6 +5166,8 @@ def main() -> int:
             "replaces": f"dalle_tpu/ops/decode_attention.py:{line}",
             "launches": serve_launches[mode][name],
             "launches_int8w_engine": surface["engine"][mode][name],
+            "launches_serve_obs": sum(v[name] for k, v in obs_launches.items()
+                                      if k != "generate_trace"),
             "launches_speculative": (sum(v["k3_launches"] for v in surface["spec"].values())
                                      if kname == "K3" else 0),
             "max_abs_err": max(mine.values()),
@@ -4909,6 +5304,8 @@ def main() -> int:
                     "fusion, no pallas_call)",
         "launches": surface["launches"]["w8"]["launches"],
         "launches_by_route": surface["launches"]["w8"],
+        "launches_serve_obs": sum(v["w8"] for k, v in obs_launches.items()
+                                  if k != "generate_trace"),
         "max_abs_err": surface["w8_err"], "worst_share_of_tolerance": surface["w8_share"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],

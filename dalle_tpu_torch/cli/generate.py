@@ -12,14 +12,18 @@ images written as ``img_{i}.png`` in that order, the scores beside them in
 ``--speculative GAMMA`` (with ``--draft row|repeat``) through the
 draft-and-verify sampler, and ``--gentxt`` first completes each prompt
 with ``generate_texts`` from its tokens and prints
-``gentxt: 'prompt' → 'completion'``.
+``gentxt: 'prompt' → 'completion'``. ``--trace DIR`` turns the obs tracer
+on: a ``generate/prompt`` span around each prompt, the wrapper's
+``decode/*`` spans and per-token latency inside, written to ``DIR`` as
+``trace.json`` (Perfetto) and ``spans.jsonl`` with the last per-token
+latency printed.
 
     python -m dalle_tpu_torch.cli.generate --dalle_path ./dalle_ckpt \\
         --text "red circle|blue square" --num_images 8 --batch_size 8 --int8w \\
         --speculative 2 --clip_path ./clip_ckpt
 
-Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``--fast_topk`` and ``--trace``.
+``--fast_topk`` (the TPU's approximate top-k unit) raises
+``NotImplementedError`` with its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -69,17 +73,18 @@ def build_parser():
     ap.add_argument("--clip_path", type=str, default=None,
                     help="checkpoint dir from dalle_tpu_torch.cli.train_clip: rerank "
                          "the images, best first")
-    unp = ap.add_argument_group("not ported yet")
+    ap.add_argument("--trace", type=str, default=None, metavar="DIR",
+                    help="trace the run: per-prompt and decode spans and the per-token "
+                         "latency, written to DIR as trace.json (Perfetto) and spans.jsonl")
+    unp = ap.add_argument_group("not ported")
     unp.add_argument("--fast_topk", action="store_true")
-    unp.add_argument("--trace", type=str, default=None, metavar="DIR")
     add_vae_args(ap)
     add_device_arg(ap)
     return ap
 
 
 def _check_ported(args):
-    for flag, item, on in (("--fast_topk", "6", args.fast_topk),
-                           ("--trace", "12", args.trace)):
+    for flag, item, on in (("--fast_topk", "6", args.fast_topk),):
         if on:
             raise unported(flag, item)
 
@@ -98,10 +103,13 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    from .. import obs
     from ..device import resolve_device
     from ..models.wrapper import DalleWithVae
     from ..text.tokenizer import get_tokenizer
 
+    if args.trace:
+        obs.configure()
     device = resolve_device(args.device)
     tok_kw = {"bpe_path": args.bpe_path} if args.bpe_path else {}
     tokenizer = get_tokenizer(args.tokenizer, **tok_kw)
@@ -130,41 +138,51 @@ def main(argv=None) -> int:
 
     prompts = [t.strip() for t in args.text.split("|") if t.strip()]
     for prompt in prompts:
-        text_str = prompt
-        if args.gentxt:
-            prime = tokenizer.tokenize([prompt], model.cfg.text_seq_len, truncate_text=True)
-            prime = prime[:, :max(1, int((prime != 0).sum()))]
-            out_ids = dv.generate_texts(prime, generator=generator)
-            text_str = tokenizer.decode(out_ids[0].tolist())
-            print(f"gentxt: {prompt!r} → {text_str!r}")
-        text = tokenizer.tokenize([text_str], model.cfg.text_seq_len, truncate_text=True)
-        outdir = os.path.join(args.outputs_dir, text_str.replace(" ", "_")[:64])
-        os.makedirs(outdir, exist_ok=True)
-        made, kept, scores = 0, [], []
-        while made < args.num_images:
-            n = min(args.batch_size, args.num_images - made)
-            out = dv.generate_images(
-                text.repeat(n, 1), generator=generator, filter_thres=args.top_k_thres,
-                temperature=args.temperature, cond_scale=args.cond_scale,
-                precision=precision, clip=clip, speculative=args.speculative,
-                draft=args.draft)
-            if clip is None:
-                save_image_grid(out, os.path.join(outdir, f"img_{made}_{{}}.png"))
-            else:
-                # the rerank needs the whole set of the prompt
-                kept.append(out[0].float().cpu())
-                scores.append(out[1].float().cpu())
-            made += n
-        if clip is not None:
-            scores = torch.cat(scores).numpy()
-            order = np.argsort(-scores, kind="stable")
-            print("clip scores (best first): "
-                  + " ".join(f"{scores[i]:.4f}" for i in order))
-            save_image_grid(torch.cat(kept)[torch.from_numpy(order)],
-                            os.path.join(outdir, "img_{}.png"))
-            with open(os.path.join(outdir, "clip_scores.json"), "w", encoding="utf-8") as f:
-                json.dump([float(scores[i]) for i in order], f)
-        print(f"wrote {made} images for {text_str!r} → {outdir}")
+        with obs.span("generate/prompt", prompt=prompt[:64]):
+            text_str = prompt
+            if args.gentxt:
+                prime = tokenizer.tokenize([prompt], model.cfg.text_seq_len, truncate_text=True)
+                prime = prime[:, :max(1, int((prime != 0).sum()))]
+                out_ids = dv.generate_texts(prime, generator=generator)
+                text_str = tokenizer.decode(out_ids[0].tolist())
+                print(f"gentxt: {prompt!r} → {text_str!r}")
+            text = tokenizer.tokenize([text_str], model.cfg.text_seq_len, truncate_text=True)
+            outdir = os.path.join(args.outputs_dir, text_str.replace(" ", "_")[:64])
+            os.makedirs(outdir, exist_ok=True)
+            made, kept, scores = 0, [], []
+            while made < args.num_images:
+                n = min(args.batch_size, args.num_images - made)
+                out = dv.generate_images(
+                    text.repeat(n, 1), generator=generator, filter_thres=args.top_k_thres,
+                    temperature=args.temperature, cond_scale=args.cond_scale,
+                    precision=precision, clip=clip, speculative=args.speculative,
+                    draft=args.draft)
+                if clip is None:
+                    save_image_grid(out, os.path.join(outdir, f"img_{made}_{{}}.png"))
+                else:
+                    # the rerank needs the whole set of the prompt
+                    kept.append(out[0].float().cpu())
+                    scores.append(out[1].float().cpu())
+                made += n
+            if clip is not None:
+                scores = torch.cat(scores).numpy()
+                order = np.argsort(-scores, kind="stable")
+                print("clip scores (best first): "
+                      + " ".join(f"{scores[i]:.4f}" for i in order))
+                save_image_grid(torch.cat(kept)[torch.from_numpy(order)],
+                                os.path.join(outdir, "img_{}.png"))
+                with open(os.path.join(outdir, "clip_scores.json"), "w", encoding="utf-8") as f:
+                    json.dump([float(scores[i]) for i in order], f)
+            print(f"wrote {made} images for {text_str!r} → {outdir}")
+    if args.trace:
+        os.makedirs(args.trace, exist_ok=True)
+        n = obs.export_chrome_trace(os.path.join(args.trace, "trace.json"))
+        obs.export_spans_jsonl(os.path.join(args.trace, "spans.jsonl"))
+        snap = obs.metrics_snapshot()
+        if "obs.decode_per_token_ms" in snap:
+            print(f"[trace] last per-token decode latency: "
+                  f"{snap['obs.decode_per_token_ms']:.3f} ms")
+        print(f"[trace] {n} spans → {args.trace}/trace.json (Perfetto), spans.jsonl")
     return 0
 
 

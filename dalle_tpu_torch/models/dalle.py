@@ -41,7 +41,8 @@ from ..config import DalleConfig
 from ..device import resolve_device, to_device
 from ..ops.int8w_linear import int8w_linear
 from ..ops.quantize_weights import QLinear
-from ..ops.sampling import gumbel_noise, gumbel_sample, gumbel_sample_rows, top_k_filter
+from ..ops.sampling import (gumbel_noise, gumbel_sample, gumbel_sample_rows, quiet_spans,
+                            top_k_filter)
 from .transformer import LN_EPS, DivideMax, Transformer
 
 MASK_VALUE = -1e9  # fill for the logits mask
@@ -376,15 +377,18 @@ class DALLE(nn.Module):
                                  noise=None if noise is None else noise[i])
 
         toks = []
-        for i in range(n_steps - 1):
-            tok = sample(logits, i)
-            toks.append(tok)
-            offset = prefix_len + i
-            logits, cache = self._decode_one(tok, n_prime + i, offset, cache, use_kernel)
-            if use_cfg:
-                nl, null_cache = self._decode_one(tok, n_prime + i, offset, null_cache,
-                                                  use_kernel)
-                logits = nl + (logits - nl) * cond_scale
+        # the JAX package scans these steps (no sampling span) and samples
+        # the last token eagerly (its spans recorded): so does the port
+        with quiet_spans():
+            for i in range(n_steps - 1):
+                tok = sample(logits, i)
+                toks.append(tok)
+                offset = prefix_len + i
+                logits, cache = self._decode_one(tok, n_prime + i, offset, cache, use_kernel)
+                if use_cfg:
+                    nl, null_cache = self._decode_one(tok, n_prime + i, offset, null_cache,
+                                                      use_kernel)
+                    logits = nl + (logits - nl) * cond_scale
         toks.append(sample(logits, n_steps - 1))
         out = torch.stack(toks, dim=1)
         if n_prime > 0:
@@ -538,15 +542,16 @@ class DALLE(nn.Module):
                                  noise=None if noise is None else noise[i])
 
         toks = []
-        for i in range(n_new - 1):
-            tok = sample(logits, i)
-            toks.append(tok)
-            pos = start + 1 + i            # this token's position (after <bos>)
-            emb = self._embed_text_ids(tok[:, None])
-            if not c.rotary_emb:
-                emb = emb + self.text_pos_emb.weight[pos:pos + 1][None]
-            y, cache = self.transformer.decode_step(self._stabilize(emb), cache, pos)
-            logits = self._finish(y, pos, 1)[:, 0]
+        with quiet_spans():            # scanned in the JAX package, as above
+            for i in range(n_new - 1):
+                tok = sample(logits, i)
+                toks.append(tok)
+                pos = start + 1 + i            # this token's position (after <bos>)
+                emb = self._embed_text_ids(tok[:, None])
+                if not c.rotary_emb:
+                    emb = emb + self.text_pos_emb.weight[pos:pos + 1][None]
+                y, cache = self.transformer.decode_step(self._stabilize(emb), cache, pos)
+                logits = self._finish(y, pos, 1)[:, 0]
         toks.append(sample(logits, n_new - 1))
         return torch.cat([text, torch.stack(toks, dim=1)], dim=1)
 

@@ -31,7 +31,7 @@ from torch import nn
 from ..config import ConfigBase
 from ..device import resolve_device
 from ..ops.attention import KVCache, attend, cached_attend
-from ..ops.sampling import gumbel_sample
+from ..ops.sampling import gumbel_sample, quiet_spans
 from .transformer import drawn_dropout
 
 
@@ -219,19 +219,20 @@ def make_sampler(model: GPT, steps: int, *, top_k: Optional[int] = None,
         logits, cache, n0 = model.prefill(prompt, model.init_cache(batch))
         vocab = logits.shape[-1]
         toks = []
-        for i in range(steps):
-            lg = logits.float()
-            if vocab_limit is not None:
-                lg = lg.masked_fill(torch.arange(vocab, device=lg.device) >= vocab_limit,
-                                    float("-inf"))
-            if top_k is not None:
-                kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
-                lg = lg.masked_fill(lg < kth, float("-inf"))
-            tok = gumbel_sample(lg, temperature=temperature, generator=generator,
-                                noise=None if noise is None else noise[i])
-            toks.append(tok)
-            if i + 1 < steps:
-                logits, cache = model.decode_one(tok[:, None], n0 + i, cache)
+        with quiet_spans():            # one jitted scan in the JAX package
+            for i in range(steps):
+                lg = logits.float()
+                if vocab_limit is not None:
+                    lg = lg.masked_fill(torch.arange(vocab, device=lg.device) >= vocab_limit,
+                                        float("-inf"))
+                if top_k is not None:
+                    kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+                    lg = lg.masked_fill(lg < kth, float("-inf"))
+                tok = gumbel_sample(lg, temperature=temperature, generator=generator,
+                                    noise=None if noise is None else noise[i])
+                toks.append(tok)
+                if i + 1 < steps:
+                    logits, cache = model.decode_one(tok[:, None], n0 + i, cache)
         return torch.cat([prompt, torch.stack(toks, dim=1).to(prompt.dtype)], dim=1)
 
     return sample

@@ -10,8 +10,18 @@ derived weights, int8w by default as in the JAX package; and
 ``dalle_config_for_vae``. ``generate_images`` primes from pixels through
 the dVAE's encoder (``img=``) and scores its images with a CLIP (``clip=``,
 the rerank); ``attach_rerank`` keeps a CLIP with the wrapper.
-``image_pipeline`` (the serving rerank stage) waits for ``ROADMAP.md``
-Queue 1 item 6.
+``image_pipeline`` builds the post-decode product pipeline
+(``serve/pipeline.py``: pixels, CLIP rerank, top k) from the wrapper's vae
+and CLIP.
+
+With tracing on (``obs.configure()``), ``generate_images`` records the
+JAX package's spans (``decode/vae_encode_prime``,
+``decode/generate_tokens`` with its ``tokens``, ``batch`` and ``precision``,
+``decode/vae_decode``, ``decode/clip_rerank``), the gauge
+``obs.decode_per_token_ms`` and the counter ``obs.decode_tokens_total``.
+``decode/generate_tokens`` then ends in a synchronisation of the card, so
+it times the tokens and not their launches; with tracing off nothing
+waits.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ import numpy as np
 import torch
 
 from ..config import DalleConfig
+from ..obs import counter_add, gauge_set, span
+from ..obs import enabled as _obs_enabled
 from ..ops.quantize_weights import quantize_params_int8
 from .clip import CLIP
 from .dalle import DALLE
@@ -100,6 +112,14 @@ class DalleWithVae:
         self.clip = clip
         return self
 
+    def image_pipeline(self, *, top_k: Optional[int] = None, **kw):
+        """The post-decode product pipeline (``serve/pipeline.py``): batched
+        dVAE pixel decode, batched CLIP rerank and top-k ordering over
+        finished candidate groups, built from this wrapper's vae and
+        attached CLIP. ``kw`` goes to ``ImagePipeline``."""
+        from ..serve.pipeline import ImagePipeline
+        return ImagePipeline(vae=self.vae, clip=self.clip, top_k=top_k, **kw)
+
     def _resolve_precision(self, precision: str):
         """(model, cache_dtype) for a decode precision mode. The derived
         models (a bf16 copy for bfloat16 and bf16_int8kv; an int8-weight,
@@ -155,7 +175,8 @@ class DalleWithVae:
             if not 0 <= n_prime < self.model.cfg.image_seq_len:
                 raise ValueError(f"num_init_img_tokens {n_prime} must be in "
                                  f"[0, {self.model.cfg.image_seq_len})")
-            prime = self.vae.get_codebook_indices(img)[:, :n_prime]
+            with span("decode/vae_encode_prime"):
+                prime = self.vae.get_codebook_indices(img)[:, :n_prime]
         if clip is not None and not isinstance(clip, CLIP):
             raise TypeError(f"clip must be a models.clip.CLIP, got {type(clip).__name__}")
         if speculative > 0 and (cond_scale != 1.0 or prime is not None):
@@ -165,20 +186,33 @@ class DalleWithVae:
                 "image priming (CFG would need a second verified "
                 "window per round)")
         model, cache_dtype = self._resolve_precision(precision)
-        if speculative > 0:
-            ids = model.generate_images_tokens_speculative(
-                text, gamma=speculative, draft=draft, generator=generator, noise=noise,
-                filter_thres=filter_thres, temperature=temperature,
-                cache_dtype=cache_dtype)
-        else:
-            ids = model.generate_images_tokens(
-                text, generator=generator, noise=noise, filter_thres=filter_thres,
-                temperature=temperature, cond_scale=cond_scale, image_prime=prime,
-                cache_dtype=cache_dtype)
-        images = self.vae.decode(ids)
+        n_new = model.cfg.image_seq_len - (prime.shape[1] if prime is not None else 0)
+        with span("decode/generate_tokens", tokens=int(n_new), batch=int(text.shape[0]),
+                  precision=precision) as dec_span:
+            if speculative > 0:
+                ids = model.generate_images_tokens_speculative(
+                    text, gamma=speculative, draft=draft, generator=generator, noise=noise,
+                    filter_thres=filter_thres, temperature=temperature,
+                    cache_dtype=cache_dtype)
+            else:
+                ids = model.generate_images_tokens(
+                    text, generator=generator, noise=noise, filter_thres=filter_thres,
+                    temperature=temperature, cond_scale=cond_scale, image_prime=prime,
+                    cache_dtype=cache_dtype)
+            if _obs_enabled() and ids.is_cuda:
+                # the launches return before the card is done: without the
+                # wait the span would time the launches, not the tokens
+                torch.cuda.synchronize(ids.device)
+        if dec_span.duration is not None and n_new > 0:
+            gauge_set("obs.decode_per_token_ms", dec_span.duration * 1e3 / n_new)
+            counter_add("obs.decode_tokens_total", float(n_new * text.shape[0]))
+        with span("decode/vae_decode"):
+            images = self.vae.decode(ids)
         if clip is None:
             return images
-        return images, rerank_scores(clip, text, images)
+        with span("decode/clip_rerank"):
+            scores = rerank_scores(clip, text, images)
+        return images, scores
 
     def generate_texts(self, text=None, *, batch: int = 1,
                        generator: Optional[torch.Generator] = None,

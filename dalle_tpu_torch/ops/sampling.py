@@ -10,21 +10,59 @@ a sequential run under the request's own generator. The speculative
 sampler (``DALLE.generate_images_tokens_speculative``) takes a whole
 (step, row) table of ``gumbel_noise`` so that a token's draw does not depend
 on the round in which its row reaches it.
+
+With tracing on (``obs.configure()``), a direct call of ``top_k_filter``,
+``top_p_filter`` or ``gumbel_sample`` records a ``sampling/*`` span, as an
+eager call does in the JAX package. Where the JAX package samples inside a
+traced program (the per-token loops of ``generate_images_tokens`` and
+``generate_texts_tokens``, the speculative sampler, the serve engine's
+step, minGPT's sampler) the port records none: those loops run under
+``quiet_spans()``, and ``gumbel_sample_rows`` records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
+
+from ..obs.trace import enabled as _obs_enabled
+from ..obs.trace import span as _span
+
+_QUIET = threading.local()
+
+
+@contextlib.contextmanager
+def quiet_spans():
+    """No ``sampling/*`` span inside the block (nestable, per thread): the
+    loops the JAX package runs as traced programs, whose sampling it never
+    times."""
+    _QUIET.depth = getattr(_QUIET, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _QUIET.depth -= 1
+
+
+def _op_span(name: str):
+    if not _obs_enabled() or getattr(_QUIET, "depth", 0):
+        return contextlib.nullcontext()
+    return _span(name)
+
+
+def _top_k(logits: torch.Tensor, thres: float) -> torch.Tensor:
+    k = max(int((1.0 - thres) * logits.shape[-1]), 1)
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
 
 
 def top_k_filter(logits: torch.Tensor, thres: float = 0.5) -> torch.Tensor:
     """Keep the top max(int((1-thres)·vocab), 1) logits (everything >= the
     k-th largest), set the rest to -inf."""
-    k = max(int((1.0 - thres) * logits.shape[-1]), 1)
-    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
-    return logits.masked_fill(logits < kth, float("-inf"))
+    with _op_span("sampling/top_k_filter"):
+        return _top_k(logits, thres)
 
 
 def top_p_filter(logits: torch.Tensor, top_p: float = 0.9) -> torch.Tensor:
@@ -32,6 +70,11 @@ def top_p_filter(logits: torch.Tensor, top_p: float = 0.9) -> torch.Tensor:
     before each (in descending order) is below ``top_p`` (the first always
     kept), set the rest to -inf. Ties at the cut are kept, as the JAX
     package's threshold comparison keeps them."""
+    with _op_span("sampling/top_p_filter"):
+        return _top_p(logits, top_p)
+
+
+def _top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     sorted_logits = torch.sort(logits, dim=-1, descending=True).values
     cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
     keep = torch.cat([torch.ones_like(cum[..., :1], dtype=torch.bool),
@@ -54,6 +97,11 @@ def gumbel_sample(logits: torch.Tensor, *, temperature: float = 1.0,
                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """argmax(logits/T + g) over the last axis, in f32. ``g`` is ``noise``
     (the logits' shape) when given, else a fresh draw from ``generator``."""
+    with _op_span("sampling/gumbel_sample"):
+        return _gumbel(logits, temperature, generator, noise)
+
+
+def _gumbel(logits, temperature, generator, noise):
     if noise is None:
         noise = gumbel_noise(logits.shape, generator=generator,
                              device=logits.device)
@@ -85,8 +133,7 @@ def gumbel_sample_rows(logits: torch.Tensor, noise: torch.Tensor, *,
     """Per-row filtered gumbel-argmax over (b, V) logits with a (b, V) draw
     (``row_noise``): ``top_k_filter`` + ``gumbel_sample`` row by row, so a
     row sampled here equals that row sampled alone under the same draw."""
-    return gumbel_sample(top_k_filter(logits, thres=thres),
-                         temperature=temperature, noise=noise)
+    return _gumbel(_top_k(logits, thres), temperature, None, noise)
 
 
 def masked_mean(t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -32,10 +32,28 @@ either mode, and in the bf16 modes under ``auto`` up to a near-tie.
 ``noise_fn(seed, t) -> (V,)`` replaces the generators with an injected draw
 for token t (the tests feed the JAX engine's draws through it).
 
-Not ported: ``decode_health`` and ``topk_approx`` (raise
-``NotImplementedError``), the AOT executables (``install_executables``;
-CUDA-graph capture is its counterpart), the obs spans, gauges and events,
-and the chaos step hook.
+Telemetry, as the JAX engine records it (``obs``, off by default and one
+``None`` check a site when off): the spans ``serve/prefill`` (one per
+admitted request, ``mode`` window · row · shared · chunked · paged ·
+paged-partial · paged-hit), ``pipeline/prefill_shared``,
+``serve/prefill_chunk``, ``serve/request_queue_wait``, ``serve/decode_row``,
+``serve/request`` and ``serve/request_ttft``; the ``kv.*`` gauges and
+``serve.queue_depth``, ``serve.slot_occupancy``, ``serve.queue_wait_s``,
+``serve.request_latency_s``; the histograms ``serve.prefill_chunk_seconds``,
+``serve.queue_wait_seconds``, ``serve.decode_row_seconds``,
+``serve.ttft_seconds``; the counters ``kv.prefix_hit_tokens_total``,
+``serve.tokens_emitted_total``, ``serve.requests_completed_total``; the
+flight-recorder events ``request_admitted``, ``request_completed`` and
+(with ``decode_health``) ``decode_quality``; and a state provider while
+``run`` is live. Spans are timed on the host: a dispatch's span ends when
+its launches return. ``decode_health`` computes ``obs.decode_quality`` of
+the (CFG-merged) logits each row samples from, on the card, and reads it
+in the same host read as the tokens; it draws nothing, so the tokens do
+not change. The chaos ``step_hook`` runs before each decode dispatch.
+
+Not ported: ``topk_approx`` (raises ``NotImplementedError``) and the AOT
+executables (``install_executables``; CUDA-graph capture is its
+counterpart, ``ROADMAP.md`` Queue 1 item 2).
 
 ``use_kernel`` is the JAX engine's pin of the attend in every dispatch
 (``serve_refill``, ``serve_refill_window``, ``serve_decode``). None (the
@@ -51,14 +69,20 @@ what every admission path and sequential generation see.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..chaos.faults import step_hook as chaos_step_hook
 from ..device import resolve_device, to_device
 from ..models.dalle import DALLE
+from ..obs import (counter_add, gauge_set, histogram_observe, record_event,
+                   record_span, register_state_provider,
+                   unregister_state_provider)
+from ..obs.health import decode_quality
 from ..ops.sampling import gumbel_sample_rows, row_noise
 from .paged import BlockPool, RadixCache
 from .queue import CompletedRequest, Request, RequestQueue
@@ -99,6 +123,13 @@ class EngineStats:
         self.occupancy_n += 1
 
     @property
+    def progress(self) -> int:
+        """Monotonic engine-iteration counter: every dispatch the host loop
+        completes (decode steps, refill windows, prefill chunks) advances
+        it. A busy engine whose progress stops is wedged."""
+        return self.steps + self.refills + self.prefill_chunks
+
+    @property
     def occupancy_while_queued(self) -> float:
         if not self.occupancy_n:
             return 1.0
@@ -115,6 +146,7 @@ class _ChunkJob:
     n_rows: np.ndarray     # (B,)
     mask: np.ndarray       # (B,) bool
     pairs: list            # [(slot, Request)]
+    t0: float              # admission wall-clock (serve/prefill span start)
     start: int = 0         # next chunk's first position
 
 
@@ -125,9 +157,12 @@ class DecodeEngine:
     or int8); the model's own compute dtype (``DALLE.compute_dtype``) is
     the engine's, int8 weights (``quantize_params_int8``) included. Sampling knobs
     mirror ``generate_images_tokens``. ``use_kernel`` pins the attend of
-    every dispatch (module docstring). ``device``: where the engine runs,
-    the CUDA card unless the caller passes "cpu"; the model must be
-    there."""
+    every dispatch (module docstring). ``decode_health`` adds the per-row
+    entropy and top-k mass of the sampled distribution to each request's
+    ``serve/request`` span (with its ``repeat_ratio``), the
+    ``health.decode_*`` gauges and a ``decode_quality`` event. ``device``:
+    where the engine runs, the CUDA card unless the caller passes "cpu";
+    the model must be there."""
 
     def __init__(self, model: DALLE, *, slots: int, cache_dtype=torch.float32,
                  filter_thres: float = 0.5, temperature: float = 1.0,
@@ -144,8 +179,6 @@ class DecodeEngine:
                 "the serve engine requires full attention and "
                 f"shift_tokens=False (got attn_types={attn_types}, "
                 f"shift_tokens={c.shift_tokens})")
-        if decode_health:
-            raise NotImplementedError("decode_health needs obs/health.py, not ported yet")
         if topk_approx:
             raise NotImplementedError("topk_approx (approx_max_k) is a TPU unit; "
                                       "the port samples with the exact top-k")
@@ -160,6 +193,7 @@ class DecodeEngine:
         self.temperature = temperature
         self.noise_fn = noise_fn
         self.use_kernel = use_kernel
+        self.decode_health = bool(decode_health)
 
         self.text_seq_len = c.text_seq_len
         self.prefix_len = c.text_seq_len + 1          # <bos> + text
@@ -211,6 +245,25 @@ class DecodeEngine:
         self.stats = EngineStats()
         self.block_pool: Optional[BlockPool] = None
         self.radix: Optional[RadixCache] = None
+
+    def chunk_widths(self) -> tuple:
+        """The fixed set of prefill-chunk widths this engine dispatches:
+        every chunked or paged admission decomposes into windows of these
+        widths. A dense engine without chunking returns ()."""
+        if self.paged:
+            bt = self.kv_block_tokens
+            widths = {1}                        # full-hit logits recompute
+            if bt < self.prefix_len:
+                widths.add(bt)                  # miss-suffix body chunks
+                if self.prefix_len % bt:
+                    widths.add(self.prefix_len % bt)   # suffix tail
+            return tuple(sorted(widths))
+        if 0 < self.prefill_chunk < self.prefix_len:
+            widths = {self.prefill_chunk}
+            if self.prefix_len % self.prefill_chunk:
+                widths.add(self.prefix_len % self.prefill_chunk)
+            return tuple(sorted(widths))
+        return ()
 
     # -- device state --------------------------------------------------------
     def _init_state(self) -> None:
@@ -330,7 +383,9 @@ class DecodeEngine:
     @torch.no_grad()
     def _step(self):
         """Sample one token per active slot, then decode the rows that go on.
-        Returns (tokens (B,) on the device, finished (B,) host bool)."""
+        Returns (tokens (B,) on the device, finished (B,) host bool, and
+        with ``decode_health`` the per-row ``decode_quality`` of the
+        distribution sampled from, (B,) f32 each on the device, else {})."""
         B = self.slots
         t_idx, n_row, active = self._t_idx, self._n_row, self._active
         j = np.minimum(t_idx, n_row - 1)
@@ -338,7 +393,12 @@ class DecodeEngine:
         decode_rows = active & ~final
         finished = active & final
         if not active.any():
-            return torch.zeros((B,), dtype=torch.long, device=self.device), finished
+            tok = torch.zeros((B,), dtype=torch.long, device=self.device)
+            stats = {}
+            if self.decode_health:
+                zero = torch.zeros((B,), dtype=torch.float32, device=self.device)
+                stats = {"entropy": zero, "topk_mass": zero}
+            return tok, finished, stats
         offsets = np.where(decode_rows, self.prefix_len + j, self.park)
         sources = [None] * B
         for s in np.flatnonzero(active):
@@ -346,6 +406,9 @@ class DecodeEngine:
             sources[s] = self.noise_fn(src, int(j[s])) if self.noise_fn is not None else src
         noise = row_noise(sources, self.model.cfg.image_vocab_size, self.device)
         img = self._cfg_merge(self.logits[:, self.num_text_tokens:])
+        # the quality of the distribution sampled from (the CFG-merged,
+        # pre-gumbel logits), left on the card for the tokens' read
+        stats = decode_quality(img) if self.decode_health else {}
         tok = gumbel_sample_rows(img, noise, thres=self.filter_thres,
                                  temperature=self.temperature)
         if decode_rows.any():
@@ -356,17 +419,30 @@ class DecodeEngine:
             self.logits[rows] = new_logits[rows]
         self._t_idx = np.where(active, t_idx + 1, t_idx)
         self._active = decode_rows
-        return tok, finished
+        return tok, finished, stats
 
     def _multi_step(self):
         """steps_per_sync × _step, then one host read: (K, B) tokens and
-        finished flags."""
-        toks, fins = [], []
+        finished flags, and with ``decode_health`` (K, B) f32 entropy and
+        top-k mass (else None), read with the tokens: their f32 bits ride
+        as int32 in the tokens' int64 block, so the step waits on the card
+        once either way."""
+        toks, fins, ents, masses = [], [], [], []
         for _ in range(self.steps_per_sync):
-            tok, fin = self._step()
+            tok, fin, stats = self._step()
             toks.append(tok)
             fins.append(fin)
-        return torch.stack(toks).cpu().numpy(), np.stack(fins)
+            if stats:
+                ents.append(stats["entropy"])
+                masses.append(stats["topk_mass"])
+        block = torch.stack(toks)
+        if not self.decode_health:
+            return block.cpu().numpy(), np.stack(fins), None
+        K = len(toks)
+        bits = torch.stack(ents + masses).contiguous().view(torch.int32).to(torch.int64)
+        host = torch.cat([block, bits]).cpu().numpy()
+        q = host[K:].astype(np.int32).view(np.float32)
+        return host[:K], np.stack(fins), {"entropy": q[:K], "topk_mass": q[K:]}
 
     # -- host loop ---------------------------------------------------------
     def _pad_text(self, text: np.ndarray) -> np.ndarray:
@@ -538,6 +614,7 @@ class DecodeEngine:
         suffix: Dict[int, list] = {}
         forks = []
         hit_rows = []
+        all_rows = []
         for pairs_u, plan in placed:
             tmp.extend(plan["tmp"])
             for (slot, req), pr in zip(pairs_u, plan["rows"]):
@@ -547,6 +624,7 @@ class DecodeEngine:
                 self._slot_blocks[slot] = blocks
                 seeds[slot] = req.seed
                 n_rows_arr[slot] = pr["n_tok"]
+                all_rows.append((slot, req, pr))
                 if pr["full"]:
                     forks.append((pr["fork_src"], pr["fork_dst"]))
                     hit_rows.append((slot, pr))
@@ -556,6 +634,7 @@ class DecodeEngine:
                     miss_mask[slot] = True
                     texts[slot] = self._pad_text(req.text)
         self._bind_pages()
+        t0 = time.perf_counter()
         if miss_mask.any():
             self._refill(texts, seeds, n_rows_arr, miss_mask)
             self.stats.refills += 1
@@ -594,8 +673,22 @@ class DecodeEngine:
             self._refill_chunk(ids[:, self.prefix_len - 1:], self.prefix_len - 1,
                                seeds, n_rows_arr, mask, True)
             self.stats.refills += 1
+        t1 = time.perf_counter()
         for bid in tmp:
             pool.release(bid)
+        for slot, req, pr in all_rows:
+            if req.request_id >= 0:
+                mode = ("paged-hit" if pr["full"] else
+                        "paged-partial" if pr["shared"] else "paged")
+                record_span("serve/prefill", t0, t1 - t0, request_id=req.request_id,
+                            trace_id=req.trace_id, mode=mode)
+            self._row_t0[slot] = t1
+        gauge_set("kv.pages_free", float(pool.free_count))
+        gauge_set("kv.pages_used", float(pool.used_count))
+        gauge_set("kv.pages_shared", float(pool.shared_count))
+        gauge_set("kv.pages_cow_copies", float(pool.cow_copies))
+        counter_add("kv.prefix_hit_tokens_total",
+                    float(sum(pr["hit_tok"] for _, _, pr in all_rows)))
 
     def _release_slot_blocks(self, slot: int) -> None:
         """Completion: drop the row's refs on every block it mapped. The
@@ -670,8 +763,35 @@ class DecodeEngine:
         self._overflow: List[List[Request]] = []
         self.stats = EngineStats()
         self._init_state()
-        return self._run(queue, sched, max_steps=max_steps, poll_s=poll_s,
-                         on_complete=on_complete, on_rows=on_rows)
+        self._buffers: Dict[int, List[int]] = {}
+        self._row_t0: Dict[int, float] = {}    # per-slot start of the open grid row
+        # per-slot decode-quality accumulators [Σentropy, Σtopk_mass, n]
+        # (decode_health only; reset at admission, reduced at completion)
+        self._qual: Dict[int, List[float]] = {}
+
+        # the flight recorder's view of the live loop: queue depth, slot
+        # occupancy and in-flight requests, read from other threads (each
+        # value a point-in-time copy)
+        def _engine_state() -> dict:
+            inflight = []
+            for s in sched.active_slots():
+                r = sched.request_at(s)
+                if r is not None:
+                    inflight.append({
+                        "slot": s, "request_id": r.request_id,
+                        "trace_id": r.trace_id,
+                        "tokens_done": len(self._buffers.get(s, ()))})
+            return {"queue_depth": queue.qsize(),
+                    "slot_occupancy": sched.occupancy,
+                    "steps": self.stats.steps, "inflight": inflight}
+
+        provider = register_state_provider(
+            f"serve.engine[{threading.current_thread().name}]", _engine_state)
+        try:
+            return self._run(queue, sched, max_steps=max_steps, poll_s=poll_s,
+                             on_complete=on_complete, on_rows=on_rows)
+        finally:
+            unregister_state_provider(provider)
 
     def _admit_shared(self, members) -> None:
         B = self.slots
@@ -682,11 +802,20 @@ class DecodeEngine:
             seeds[slot] = req.seed
             n_rows[slot] = self._n_tokens(req)
             mask[slot] = True
+        t0 = time.perf_counter()
         self._refill_shared(self._pad_text(members[0][1].text)[None], seeds,
                             n_rows, mask)
+        t1 = time.perf_counter()
         self.stats.refills += 1
         self.stats.shared_refills += 1
         self.stats.shared_prefills_saved += len(members) - 1
+        record_span("pipeline/prefill_shared", t0, t1 - t0,
+                    group_id=members[0][1].group_id, candidates=len(members),
+                    trace_id=members[0][1].trace_id)
+        for slot, req in members:
+            record_span("serve/prefill", t0, t1 - t0, request_id=req.request_id,
+                        trace_id=req.trace_id, mode="shared")
+            self._row_t0[slot] = t1
 
     def _dispatch_chunk(self, chunk_jobs, pending) -> None:
         """Advance the oldest pending chunked prefill by ONE window; on the
@@ -695,15 +824,25 @@ class DecodeEngine:
         prefix = job.ids.shape[1]
         w = min(self.prefill_chunk, prefix - job.start)
         last = job.start + w >= prefix
+        t0 = time.perf_counter()
         self._refill_chunk(job.ids[:, job.start:job.start + w], job.start,
                            job.seeds, job.n_rows, job.mask, last)
+        t1 = time.perf_counter()
         self.stats.prefill_chunks += 1
+        record_span("serve/prefill_chunk", t0, t1 - t0, start=job.start, width=w,
+                    step=self.stats.steps, trace_id=job.pairs[0][1].trace_id)
+        histogram_observe("serve.prefill_chunk_seconds", t1 - t0,
+                          trace_id=job.pairs[0][1].trace_id)
         job.start += w
         if last:
             chunk_jobs.pop(0)
             self.stats.refills += 1
-            for slot, _ in job.pairs:
+            for slot, req in job.pairs:
                 pending.discard(slot)
+                record_span("serve/prefill", job.t0, t1 - job.t0,
+                            request_id=req.request_id, trace_id=req.trace_id,
+                            mode="chunked")
+                self._row_t0[slot] = t1
 
     def _admit_dense(self, pairs, chunk_jobs, pending) -> None:
         """Shared-prefix cohorts first (one prefill per group), then singles:
@@ -728,19 +867,33 @@ class DecodeEngine:
             if chunk_on:
                 chunk_jobs.append(_ChunkJob(
                     ids=self._remap_bos_host(texts), seeds=seeds,
-                    n_rows=n_rows, mask=mask, pairs=list(singles)))
+                    n_rows=n_rows, mask=mask, pairs=list(singles),
+                    t0=time.perf_counter()))
                 pending.update(s for s, _ in singles)
             else:
+                t0 = time.perf_counter()
                 self._refill(texts, seeds, n_rows, mask)
+                t1 = time.perf_counter()
                 self.stats.refills += 1
+                # one window, one span per admitted request
+                for slot, req in singles:
+                    record_span("serve/prefill", t0, t1 - t0,
+                                request_id=req.request_id,
+                                trace_id=req.trace_id, mode="window")
+                    self._row_t0[slot] = t1
         else:
             for slot, req in singles:
+                t0 = time.perf_counter()
                 self._refill_row(self._pad_text(req.text)[None], req.seed,
                                  self._n_tokens(req), slot)
+                t1 = time.perf_counter()
                 self.stats.refills += 1
+                record_span("serve/prefill", t0, t1 - t0, request_id=req.request_id,
+                            trace_id=req.trace_id, mode="row")
+                self._row_t0[slot] = t1
 
     def _run(self, queue, sched, *, max_steps, poll_s, on_complete, on_rows):
-        buffers: Dict[int, List[int]] = {}
+        buffers, row_t0, qual = self._buffers, self._row_t0, self._qual
         completed: List[CompletedRequest] = []
         chunk_jobs: List[_ChunkJob] = []
         pending: set = set()       # slots admitted but mid-chunked-prefill
@@ -775,7 +928,23 @@ class DecodeEngine:
                         for slot, req in pairs_u:
                             req.admitted_at = now
                             buffers[slot] = []
+                            qual[slot] = [0.0, 0.0, 0]
                             pairs.append((slot, req))
+                            if req.request_id < 0:
+                                continue   # synthetic CFG-null row
+                            # queue wait as its own span (TTFT = queue wait +
+                            # prefill + first step), gauge and histogram
+                            record_span("serve/request_queue_wait", req.submitted_at,
+                                        now - req.submitted_at,
+                                        request_id=req.request_id,
+                                        trace_id=req.trace_id)
+                            gauge_set("serve.queue_wait_s", now - req.submitted_at)
+                            histogram_observe("serve.queue_wait_seconds",
+                                              now - req.submitted_at,
+                                              trace_id=req.trace_id)
+                            record_event("request_admitted", slot=slot,
+                                         request_id=req.request_id,
+                                         trace_id=req.trace_id)
                     if self.paged:
                         self._admit_paged(placed)
                     else:
@@ -783,6 +952,8 @@ class DecodeEngine:
             # work conservation is sampled where requests already queued at
             # the take instant went unplaced
             backlog = (pre_q - admitted) > 0
+            gauge_set("serve.queue_depth", float(queue.qsize()))
+            gauge_set("serve.slot_occupancy", sched.occupancy)
 
             if chunk_jobs:
                 self._dispatch_chunk(chunk_jobs, pending)
@@ -798,8 +969,12 @@ class DecodeEngine:
             if backlog:
                 self.stats.sample_occupancy(sched.occupancy)
 
+            # a FaultPlan can kill, hang or slow the loop here, between row
+            # commits; one module-global None check when chaos is off
+            chaos_step_hook(self.stats.steps)
+
             t0 = time.perf_counter()
-            toks, fins = self._multi_step()
+            toks, fins, qstats = self._multi_step()
             now = time.perf_counter()
             self.stats.step_seconds += now - t0
             for k in range(toks.shape[0]):
@@ -812,10 +987,28 @@ class DecodeEngine:
                         req.first_token_at = now
                     buf = buffers[slot]
                     buf.append(int(toks[k, slot]))
-                    if (on_rows is not None and len(buf) % self.row_len == 0
-                            and req.request_id >= 0):
+                    if qstats is not None:
+                        acc = qual.setdefault(slot, [0.0, 0.0, 0])
+                        acc[0] += float(qstats["entropy"][k, slot])
+                        acc[1] += float(qstats["topk_mass"][k, slot])
+                        acc[2] += 1
+                    if len(buf) % self.row_len == 0 and req.request_id >= 0:
                         row = len(buf) // self.row_len - 1
-                        on_rows(req, row, buf[row * self.row_len:])
+                        # one committed grid row, one span (rows finishing in
+                        # one multi-step read share its timestamp)
+                        t0r = row_t0.get(slot, now)
+                        record_span("serve/decode_row", t0r, now - t0r,
+                                    request_id=req.request_id,
+                                    trace_id=req.trace_id, row=row)
+                        histogram_observe("serve.decode_row_seconds", now - t0r,
+                                          trace_id=req.trace_id)
+                        row_t0[slot] = now
+                        if on_rows is not None:
+                            on_rows(req, row, buf[row * self.row_len:])
+                # CFG-null rows emit nothing a caller sees: goodput only
+                counter_add("serve.tokens_emitted_total",
+                            float(sum(1 for s in active
+                                      if sched.request_at(s).request_id >= 0)))
                 for slot in active:
                     if not fins[k, slot]:
                         continue
@@ -825,11 +1018,22 @@ class DecodeEngine:
                     if req.request_id < 0:
                         # synthetic CFG-null row: nothing to surface
                         buffers.pop(slot, None)
+                        qual.pop(slot, None)
+                        row_t0.pop(slot, None)
                         continue
                     tail = len(buffers[slot]) % self.row_len
-                    if tail and on_rows is not None:
-                        on_rows(req, len(buffers[slot]) // self.row_len,
-                                buffers[slot][-tail:])
+                    if tail:
+                        # the trailing partial row of a max_tokens request
+                        t0r = row_t0.get(slot, now)
+                        record_span("serve/decode_row", t0r, now - t0r,
+                                    request_id=req.request_id,
+                                    trace_id=req.trace_id,
+                                    row=len(buffers[slot]) // self.row_len,
+                                    partial=True)
+                        if on_rows is not None:
+                            on_rows(req, len(buffers[slot]) // self.row_len,
+                                    buffers[slot][-tail:])
+                    row_t0.pop(slot, None)
                     cr = CompletedRequest(
                         request_id=req.request_id,
                         tokens=np.asarray(buffers.pop(slot), np.int32),
@@ -840,6 +1044,36 @@ class DecodeEngine:
                         on_complete(cr)
                     else:
                         completed.append(cr)
+                    # per-request decode quality: the means of the taps and
+                    # the host's repeated-token ratio, as span args and
+                    # unlabelled gauges (never as metric labels)
+                    q_args = {}
+                    acc = qual.pop(slot, None)
+                    if acc is not None and acc[2] > 0:
+                        t = cr.tokens
+                        rep = (float(np.mean(t[1:] == t[:-1]))
+                               if t.shape[0] > 1 else 0.0)
+                        q_args = {"entropy": round(acc[0] / acc[2], 4),
+                                  "topk_mass": round(acc[1] / acc[2], 4),
+                                  "repeat_ratio": round(rep, 4)}
+                        gauge_set("health.decode_entropy", acc[0] / acc[2])
+                        gauge_set("health.decode_topk_mass", acc[1] / acc[2])
+                        gauge_set("health.decode_repeat_ratio", rep)
+                        record_event("decode_quality", request_id=req.request_id,
+                                     trace_id=req.trace_id, **q_args)
+                    # after the fact: requests overlap in this thread
+                    record_span("serve/request", req.admitted_at,
+                                now - req.admitted_at, request_id=req.request_id,
+                                trace_id=req.trace_id,
+                                tokens=int(cr.tokens.shape[0]), **q_args)
+                    record_span("serve/request_ttft", req.submitted_at, cr.ttft_s,
+                                request_id=req.request_id, trace_id=req.trace_id)
+                    histogram_observe("serve.ttft_seconds", cr.ttft_s,
+                                      trace_id=req.trace_id)
+                    record_event("request_completed", request_id=req.request_id,
+                                 trace_id=req.trace_id, latency_s=cr.latency_s)
+                    counter_add("serve.requests_completed_total", 1.0)
+                    gauge_set("serve.request_latency_s", cr.latency_s)
                 self.stats.steps += 1
         self.stats.aborted_in_flight = [
             sched.request_at(s).request_id for s in sched.active_slots()

@@ -1,8 +1,8 @@
 """Host-side request queue for the continuous-batching decode engine.
 
 A copy of ``dalle_tpu/serve/queue.py`` (it imports no JAX): the same
-``Request``, ``CompletedRequest``, ``RequestQueue`` and ``QueueFull``, with
-its trace-id helper carried along.
+``Request``, ``CompletedRequest``, ``RequestQueue`` and ``QueueFull``; a
+request without a trace id gets one from ``obs.context.new_trace_id``.
 
 A thread-safe FIFO of generation requests. Producers (an RPC handler, the
 offered-load bench) ``submit`` from any thread; the engine loop ``take``s up
@@ -16,16 +16,10 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-import uuid
 from collections import deque
 from typing import List, Optional
 
 import numpy as np
-
-
-def new_trace_id() -> str:
-    """A fresh trace id: 16 hex characters, unique per request."""
-    return uuid.uuid4().hex[:16]
 
 
 class QueueFull(RuntimeError):
@@ -160,6 +154,7 @@ class RequestQueue:
             # the queue is the CLI/bench edge of the system: a producer
             # that didn't propagate a trace context still gets one identity
             # per request (the gateway mints at the HTTP door and passes it)
+            from ..obs.context import new_trace_id
             trace_id = new_trace_id()
         with self._cond:
             if self._closed:

@@ -49,6 +49,9 @@ it, so the two give the same bits); both end in ``_finish_step``.
   trainer's generator. The metadata carries the model's identity
   (``_meta``) and ``extra_meta``. A checkpoint written before the port's
   own optimizer (a ``torch.optim`` state dict beside ``count``) restores.
+* **Chaos** (``chaos.step_hook``): ``fit`` calls it with the step before
+  each dispatch, where the JAX package's fit does, so an installed
+  ``FaultPlan`` kills, hangs, slows or corrupts there.
 
 Not ported yet (``ROADMAP.md`` Queue 1 items 3 and 12): asynchronous
 checkpoint writes, the preemptive snapshot rung
@@ -68,6 +71,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..chaos.faults import step_hook as chaos_step_hook
 from ..data.device_prefetch import DevicePrefetcher
 from ..device import resolve_device, to_device
 from .checkpoints import CheckpointManager
@@ -409,6 +413,9 @@ class BaseTrainer:
             if steps is not None and self.step >= steps:
                 break
             prev = self.step
+            # chaos injection point: kill/hang/slow/corrupt faults fire here,
+            # before the dispatch, as in the JAX package's fit
+            chaos_step_hook(prev)
             m = (self.train_steps if stacked else self.train_step)(*batch)
             want_save = self.ckpt is not None and _crossed(prev, self.step,
                                                           tc.save_every_steps)

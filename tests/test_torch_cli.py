@@ -34,6 +34,7 @@ from dalle_tpu.models.wrapper import DiscreteVAEAdapter as JAdapter
 from dalle_tpu_torch import (DALLE, DalleConfig, DalleTrainer, DalleWithVae, DiscreteVAE,
                              DiscreteVAEAdapter, DVAEConfig, OptimConfig, TrainConfig,
                              dalle_state_dict, dvae_state_dict)
+from dalle_tpu_torch import obs
 from dalle_tpu_torch.cli import _common, generate, train_dalle
 from dalle_tpu_torch.models.wrapper import dalle_config_for_vae
 from dalle_tpu_torch.text.tokenizer import SimpleTokenizer
@@ -404,9 +405,10 @@ TRAIN_PORTED = {"--shift_tokens": "shift_tokens", "--reversible": "reversible"}
 TRAIN_NEEDS_FILES = (["--taming"], [])
 # --clip_path is ported: its case now gives it a path with a DALL·E checkpoint
 # and no CLIP one, which is refused
+# --trace is ported: its case traces into a directory beside the outputs
 GENERATE_UNPORTED = [["--int8w"], ["--speculative", "2"], ["--clip_path", "DALLE"], ["--gentxt"],
-                     ["--fast_topk"], ["--trace", "d"]]
-GENERATE_PORTED = {"--int8w", "--speculative", "--gentxt"}
+                     ["--fast_topk"], ["--trace", "TRACE"]]
+GENERATE_PORTED = {"--int8w", "--speculative", "--gentxt", "--trace"}
 TINY_TRAIN = ["--image_size", "16", "--untrained_vae_tokens", "48", "--dim", "32", "--depth",
               "1", "--heads", "2", "--dim_head", "16", "--text_seq_len", "8", "--batch_size",
               "2", "--steps", "1"]
@@ -440,7 +442,8 @@ def dalle_ckpt(tmp_path_factory, port_vae):
 
 @pytest.mark.parametrize("flags", GENERATE_UNPORTED, ids=lambda f: f[0])
 def test_generate_unported_flags_raise(dalle_ckpt, tmp_path, flags, capsys):
-    flags = [dalle_ckpt if f == "DALLE" else f for f in flags]
+    trace_dir = str(tmp_path) + "_trace"
+    flags = [{"DALLE": dalle_ckpt, "TRACE": trace_dir}.get(f, f) for f in flags]
     argv = ["--dalle_path", dalle_ckpt, "--text", "a red circle", "--device", "cpu",
             "--outputs_dir", str(tmp_path)] + flags
     if flags[0] in GENERATE_PORTED:
@@ -449,6 +452,10 @@ def test_generate_unported_flags_raise(dalle_ckpt, tmp_path, flags, capsys):
         out = capsys.readouterr().out
         if flags[0] == "--gentxt":
             assert "gentxt: 'a red circle' → " in out
+        if flags[0] == "--trace":
+            obs.disable()
+            assert "[trace] last per-token decode latency: " in out
+            assert sorted(os.listdir(trace_dir)) == ["spans.jsonl", "trace.json"]
         written = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path) for f in fs]
         assert len(written) == 2 and all(f.endswith(".png") for f in written)
         assert all(np.asarray(Image.open(f)).shape == (16, 16, 3) for f in written)
@@ -473,3 +480,58 @@ def test_png_writer_reads_back_in_pil(tmp_path):
 def test_dalle_config_for_vae(port_vae):
     cfg = dalle_config_for_vae(port_vae, num_text_tokens=100, dim=32)
     assert (cfg.image_size, cfg.image_vocab_size, cfg.image_fmap_size) == (16, 48, 4)
+
+
+def _load_script(name):
+    """A module of the JAX package's ``scripts/`` folder."""
+    import importlib.util
+    import sys
+    scripts = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    spec = importlib.util.spec_from_file_location(name, os.path.join(scripts, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_generate_trace_records_the_jax_scripts_spans(jax_models, port_vae, tmp_path,
+                                                      monkeypatch):
+    """``--trace DIR`` at depth 2: the set of span names in ``spans.jsonl``
+    (and in the Perfetto ``trace.json``) equals the JAX ``scripts/generate.py``
+    run's for the same flags. The JAX script gets its model and dVAE from
+    memory (its two loaders replaced), which skips its checkpoint restore
+    and flax init; every span it records comes from its own code and the
+    JAX wrapper's."""
+    from dalle_tpu import obs as jobs
+    *_, jv, jvp = jax_models
+    cfg = dict(TINY, depth=2)
+    jm = JDALLE(JDalleConfig(**cfg))
+    jp = _random_params(jm, (jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 16), jnp.int32)), 3)
+    ckpt = str(tmp_path / "ck")
+    _write_checkpoint(ckpt, dalle_state_dict(jp), DalleConfig(**cfg), port_vae)
+    flags = ["--text", "a red circle|blue square", "--num_images", "2", "--batch_size", "1"]
+    names = {}
+    try:
+        assert generate.main(["--dalle_path", ckpt, "--device", "cpu", "--outputs_dir",
+                              str(tmp_path / "out"), "--trace", str(tmp_path / "t")]
+                             + flags) == 0
+        script = _load_script("generate")
+        monkeypatch.setattr(script, "load_dalle", lambda path, backend: (
+            jm, jp, {"model_class": "DALLE", "vae_class_name": "DiscreteVAEAdapter"}))
+        monkeypatch.setattr(script, "load_vae_sidecar", lambda path: JAdapter(jv, jvp))
+        assert script.main(["--dalle_path", ckpt, "--outputs_dir", str(tmp_path / "jout"),
+                            "--trace", str(tmp_path / "j")] + flags) == 0
+    finally:
+        obs.disable()
+        jobs.disable()
+    for side in ("t", "j"):
+        rows = [json.loads(line) for line in open(tmp_path / side / "spans.jsonl")]
+        chrome = json.load(open(tmp_path / side / "trace.json"))["traceEvents"]
+        names[side] = {r["name"] for r in rows}
+        assert {e["name"] for e in chrome} == names[side]
+        assert sum(r["name"] == "generate/prompt" for r in rows) == 2
+        assert sum(r["name"] == "decode/generate_tokens" for r in rows) == 4
+    assert names["t"] == names["j"]
+    assert {"generate/prompt", "decode/generate_tokens", "decode/vae_decode",
+            "sampling/top_k_filter", "sampling/gumbel_sample"} <= names["t"]

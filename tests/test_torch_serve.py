@@ -348,7 +348,10 @@ def test_scheduler_and_queues_replay_in_step_with_jax():
 # what stays out, and where the engine runs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(decode_health=True), dict(topk_approx=True)])
+# decode_health is ported (tests/test_torch_serve_obs.py): its case now checks
+# that it does not hide topk_approx's refusal
+@pytest.mark.parametrize("kw", [dict(decode_health=True, topk_approx=True),
+                                dict(topk_approx=True)])
 def test_unported_engine_options_raise(models, kw):
     _, _, tm = models
     with pytest.raises(NotImplementedError):
