@@ -387,12 +387,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 and optimizer state: reversible, naive, sequential (phase
                 train's, no remat) and sequential with remat, on the same
                 weights.
+28. train_obs the training path's telemetry and model health at DALL·E-1.4B
+                (24 layers, dim 1792, batch 8, bf16 over f32 masters, Adam,
+                the runtime lr scale armed, K1): fit in turns, taps off,
+                all on, all on, off (all on: trace, health, a 120 s
+                watchdog, the Prometheus textfile with the device gauges
+                every 4 steps, profile_step on a turn's 3rd step,
+                BreachActions attached), 4 steps a turn on
+                the same batches in both trainers; ms a step per turn (the
+                profiled step left out); K1 launched 24 times a step; the
+                fit/* span counts; the health columns (the JAX groups at
+                depth 1); the Prometheus names; no stall; K1's fwd, dq and
+                dkv kernels 24 each in both profiled steps' torch.profiler
+                traces; one synchronising call a step with the taps and
+                without; one step's grad_norm, param_norm and update_ratio
+                a group against a float64 recompute on the card within
+                TAP_TOL; the masters and Adam's moments bitwise equal with
+                and without the taps; the breach rung: an inf written into
+                a transformer gradient through grad_hook gives
+                nonfinite_frac > 0, the nan-precursor breach and its
+                preemptive snapshot (mode, ms, bytes), and a rollback after
+                one more step restores it bit for bit. Then a dVAE step
+                (phase paper's config) and two VQGAN GAN steps (taming's
+                vqgan_imagenet_f16_1024) with health: their codebook and
+                gumbel columns, gen/ and disc/ groups; and cli.train_dalle
+                --trace --health --breach_actions --prometheus_path
+                --watchdog_deadline_s 120 at depth 2 (full width) for 2
+                steps, cli.obs_report over its metrics and its spans (the
+                MODEL-HEALTH verdict), in build/train_obs_smoke/ (removed
+                after).
 
 Phases 11-20 and 23-25 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
 persist_parity and ring_parity after serve_parity; decode_surface and serve_obs
 after serve; recipe and then train_persist after train; train_long and then
-train_ring, then cli, paper, taming and reversible last. Each prints its seconds.
+train_ring, then cli, paper, taming, reversible and train_obs last. Each
+prints its seconds.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -5063,6 +5093,378 @@ def phase_reversible(torch, card, seq_row):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# the training path's telemetry and model health
+# ---------------------------------------------------------------------------
+
+TRAIN_OBS_STEPS = 4          # fit steps a turn; turns: off, on, on, off
+TRAIN_OBS_PROFILE = 3        # the step of an "on" turn that profile_step profiles
+# DALL·E's layer groups at depth 1, the JAX package's (tests/test_torch_health.py)
+TRAIN_OBS_GROUPS = ("final_norm", "image_emb", "text_emb", "to_logits", "transformer")
+# the taps against a float64 recompute of the same step on the card,
+# relative: the taps sum f32 squares a tensor, then a group; the update is
+# the f32 difference of the masters, whose rounding (~6e-8 of |p| an
+# element) is far below 1e-3 of Adam's ~lr·|p| steps
+TAP_TOL = {"grad_norm": 1e-4, "param_norm": 1e-4, "update_ratio": 1e-3}
+
+
+class _StampedWriter:
+    """A fit metrics writer that stamps each record with the host's clock."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, step, metrics):
+        self.records.append((step, time.perf_counter(), metrics))
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Two tensors equal bit for bit, NaN included."""
+    if a.dtype in (torch.float32, torch.bfloat16, torch.float16):
+        view = torch.int32 if a.dtype == torch.float32 else torch.int16
+        return torch.equal(a.view(view), b.to(a.device).view(view))
+    return torch.equal(a, b.to(a.device))
+
+
+def _f64_taps(torch, tr, batch):
+    """One ``train_step`` of ``tr`` with its f64 reference: the gradient's
+    Σg² a group (read before the optimizer, which clips in place), and
+    after the step Σp² and Σ(p_new - p_old)² a group, in float64 on the
+    card. → (metrics, {metric: {group: value}})."""
+    from dalle_tpu_torch.convert import flax_path
+    named = list(tr.model.named_parameters())
+    group = [flax_path(tr.model, n)[0] for n, _ in named]
+    ref = {"grad": {}, "old": None}
+
+    def hook(trainer):
+        for g, (_, p) in zip(group, named):
+            ref["grad"][g] = ref["grad"].get(g, 0.0) + p.grad.double().square().sum()
+        ref["old"] = [p.detach().clone() for _, p in named]
+    tr.grad_hook = hook
+    try:
+        m = tr.train_step(*batch)
+    finally:
+        tr.grad_hook = None
+    psq, usq = {}, {}
+    with torch.no_grad():
+        for g, (_, p), old in zip(group, named, ref["old"]):
+            new = p.detach().double()
+            psq[g] = psq.get(g, 0.0) + new.square().sum()
+            usq[g] = usq.get(g, 0.0) + (new - old.double()).square().sum()
+    want = {"grad_norm": {g: v.sqrt().item() for g, v in ref["grad"].items()},
+            "param_norm": {g: v.sqrt().item() for g, v in psq.items()}}
+    want["update_ratio"] = {g: usq[g].sqrt().item() / (want["param_norm"][g] + 1e-12)
+                            for g in usq}
+    return m, want
+
+
+def phase_train_obs(torch, card):
+    """The training path's telemetry and model health at DALL·E-1.4B (the
+    module docstring, phase 28)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+
+    from dalle_tpu_torch import (DalleTrainer, DVAEConfig, ObsConfig, OptimConfig,
+                                 TrainConfig, VAETrainer, VQGANConfig, VQGANTrainer,
+                                 dalle_1p4b, obs)
+    from dalle_tpu_torch.cli import obs_report, train_dalle
+    from dalle_tpu_torch.data.synthetic import ShapesDataset
+    from dalle_tpu_torch.models.gan import GANLossConfig
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.train.actions import BreachActions
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_obs_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = dalle_1p4b()
+    b = 8
+    base = TrainConfig(batch_size=b, seed=SMOKE_SEED, log_every=1, nan_rollback=False,
+                       runtime_lr_scale=True, checkpoint_dir=work, preflight_checkpoint=False,
+                       save_every_steps=0,
+                       optim=OptimConfig(learning_rate=3e-4, grad_clip_norm=0.5))
+    # the textfile is written at each device poll: every 4 steps, so the last
+    # one carries the health gauges the sentry published since step 1
+    on_obs = ObsConfig(trace=True, trace_dir=os.path.join(work, "obs"), health=True,
+                       watchdog_deadline_s=120.0, device_poll_every=4,
+                       prometheus_path=os.path.join(work, "dalle.prom"))
+    trainers = {False: DalleTrainer(cfg, base),
+                True: DalleTrainer(cfg, dataclasses.replace(base, obs=on_obs))}
+    for tr in trainers.values():
+        # no checkpoints here (one at 1.4B is ~17 GB); profile_step still
+        # writes under checkpoint_dir
+        tr.ckpt = None
+    on_tr = trainers[True]
+    BreachActions(on_tr, log=print).attach()
+    batches = [_train_batch(cfg, b, SMOKE_SEED + 40 + i) for i in range(2 * TRAIN_OBS_STEPS + 4)]
+    out = {"card": card}
+    torch.cuda.synchronize()
+    try:
+        # -- fit in turns: off, on, on, off -------------------------------------
+        turns = []
+        fa.fwd_launches = fa.bwd_launches = 0            # the main path starts here
+        for on in (False, True, True, False):
+            tr = trainers[on]
+            first = tr.step
+            if on:
+                tr.train_cfg = dataclasses.replace(tr.train_cfg,
+                                                   profile_step=first + TRAIN_OBS_PROFILE)
+            w = _StampedWriter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(iter(batches[first:first + TRAIN_OBS_STEPS]), log=lambda *a: None,
+                   metrics_writer=w)
+            wall = time.perf_counter() - t0
+            steps = [s for s, _, _ in w.records]
+            check(steps == list(range(first + 1, first + TRAIN_OBS_STEPS + 1)),
+                  f"train_obs: records of steps {steps}")
+            stamps = [t for _, t, _ in w.records]
+            per = [(z - a) * 1e3 for s, a, z in zip(steps[1:], stamps, stamps[1:])
+                   if not (on and s == first + TRAIN_OBS_PROFILE)]
+            if on:
+                last_on = w.records[-1][2]
+            turns.append({"taps": on, "steps": steps, "ms_per_step": per,
+                          "median_ms": statistics.median(per), "wall_s": wall,
+                          "losses": [m["loss"] for _, _, m in w.records]})
+        launches = {"fused_attention_fwd": fa.fwd_launches,
+                    "fused_attention_bwd": fa.bwd_launches}
+        n_steps = 4 * TRAIN_OBS_STEPS
+        for name, n in launches.items():
+            check(n == n_steps * cfg.depth, f"train_obs: {name} launched {n} times in "
+                                            f"{n_steps} steps")
+        for t in turns:
+            check(all(math.isfinite(x) for x in t["losses"]), f"train_obs: losses {t}")
+        off_ms = [x for t in turns if not t["taps"] for x in t["ms_per_step"]]
+        on_ms = [x for t in turns if t["taps"] for x in t["ms_per_step"]]
+        out["cost"] = {"alloc_retries_after_turns": torch.cuda.memory_stats().get(
+                           "num_alloc_retries"),
+                       "turns": [{k: t[k] for k in ("taps", "median_ms", "ms_per_step",
+                                                     "wall_s")} for t in turns],
+                       "off_median_ms": statistics.median(off_ms),
+                       "on_median_ms": statistics.median(on_ms)}
+
+        # -- what the "on" turns recorded ---------------------------------------
+        spans = [json.loads(line)["name"] for line in open(os.path.join(work, "obs",
+                                                                        "spans.jsonl"))]
+        counts = {n: spans.count(n) for n in sorted(set(spans))
+                  if n.startswith(("fit/", "ckpt/", "dalle/", "data/"))}
+        check(counts.get("fit/dispatch") == 2 * TRAIN_OBS_STEPS
+              and counts.get("fit/sync") == 2 * TRAIN_OBS_STEPS
+              and counts.get("fit/step", 0) >= 2 * TRAIN_OBS_STEPS
+              and counts.get("fit/batch_wait", 0) >= 2 * TRAIN_OBS_STEPS,
+              f"train_obs: span counts {counts}")
+        cols = sorted(k for k in last_on if k.startswith("health/") and k.count("/") == 2)
+        want_cols = sorted(f"health/{m}/{g}" for m in ("grad_norm", "param_norm",
+                                                       "update_ratio", "nonfinite_frac")
+                           for g in TRAIN_OBS_GROUPS)
+        check(cols == want_cols, f"train_obs: health columns {cols}")
+        prom = open(on_obs.prometheus_path).read()
+        check("dalle_t_dispatch_s " in prom
+              and 'dalle_health_grad_norm{layer_group="transformer"}' in prom,
+              "train_obs: the Prometheus textfile lacks the breakdown or the health gauges")
+        wd = on_tr.last_watchdog
+        check(wd is not None and wd.stall_count == 0, "train_obs: the watchdog fired")
+        k1 = {}
+        for step in (TRAIN_OBS_PROFILE, TRAIN_OBS_STEPS + TRAIN_OBS_PROFILE):
+            doc = json.load(open(os.path.join(work, f"profile_step{step}", "trace.json")))
+            names = [e.get("name", "") for e in doc.get("traceEvents", [])
+                     if e.get("cat") == "kernel"]
+            k1[step] = {w_: sum(f"::{w_}_kernel<" in n for n in names)
+                        for w_ in ("fwd", "dq", "dkv")}
+            check(k1[step] == {"fwd": cfg.depth, "dq": cfg.depth, "dkv": cfg.depth},
+                  f"train_obs: K1 kernels in profile_step{step}'s trace: {k1[step]}")
+        out.update(spans=counts, health_columns=cols, k1_in_profiled_step=k1,
+                   watchdog_stalls=wd.stall_count)
+
+        # -- where the "on" step's time goes: one profiled step of each --------
+        text, img = (torch.from_numpy(x).cuda() for x in batches[2 * TRAIN_OBS_STEPS])
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        prof_rows = {}
+        for on in (False, True):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                trainers[on].train_step(text, img)
+                wall = time.perf_counter() - t0
+            dev_us, by_kernel = device_time(torch, prof)
+            host = {e.key: e.self_cpu_time_total for e in prof.key_averages()}
+            prof_rows[on] = (wall * 1e3, dev_us / 1e3, by_kernel, host)
+        kdelta = {k: (prof_rows[True][2].get(k, 0.0) - prof_rows[False][2].get(k, 0.0)) / 1e3
+                  for k in set(prof_rows[True][2]) | set(prof_rows[False][2])}
+        hdelta = {k: (prof_rows[True][3].get(k, 0.0) - prof_rows[False][3].get(k, 0.0)) / 1e3
+                  for k in set(prof_rows[True][3]) | set(prof_rows[False][3])}
+        out["profiled_step"] = {
+            "wall_ms": {"off": prof_rows[False][0], "on": prof_rows[True][0]},
+            "device_ms": {"off": prof_rows[False][1], "on": prof_rows[True][1]},
+            "kernel_ms_grown_most": dict(sorted(kdelta.items(), key=lambda kv: -kv[1])[:8]),
+            "host_self_ms_grown_most": dict(sorted(hdelta.items(), key=lambda kv: -kv[1])[:8]),
+            "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries"),
+            "max_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+
+        # -- synchronising calls a step, off and on -------------------------------
+        syncs = {}
+        for on in (False, True):
+            places, _outside = _sync_calls(
+                torch, lambda tr=trainers[on]: tr.train_step(text, img))
+            syncs[on] = [p for p, _ in places]
+        check(len(syncs[True]) == len(syncs[False]) == 1,
+              f"train_obs: synchronising calls a step {syncs}")
+        out["sync_calls_a_step"] = {"off": syncs[False], "on": syncs[True]}
+
+        # -- the taps against float64, then on ≡ off bit for bit ------------------
+        trainers[False].train_step(*batches[2 * TRAIN_OBS_STEPS + 1])
+        m, want = _f64_taps(torch, on_tr, batches[2 * TRAIN_OBS_STEPS + 1])
+        errs = {}
+        for metric, by_group in want.items():
+            for g, ref in by_group.items():
+                got = m[f"health/{metric}/{g}"]
+                errs[f"{metric}/{g}"] = abs(got - ref) / max(abs(ref), 1e-30)
+                check(errs[f"{metric}/{g}"] <= TAP_TOL[metric],
+                      f"train_obs: {metric}/{g} {got} against float64 {ref}")
+        for (name, a), (_, p) in zip(trainers[False].model.named_parameters(),
+                                     on_tr.model.named_parameters()):
+            check(_bits_equal(torch, a.detach(), p.detach()),
+                  f"train_obs: {name} differs with the taps on")
+        opt_off, opt_on = trainers[False].optimizer.state_dict(), on_tr.optimizer.state_dict()
+        for k, lst in opt_off["core"].items():
+            for i, (a, p) in enumerate(zip(lst, opt_on["core"][k])):
+                check(_bits_equal(torch, a, p), f"train_obs: optimizer {k}[{i}] differs")
+        out["taps_vs_float64"] = {"max_rel_err": {mt: max(v for k, v in errs.items()
+                                                          if k.startswith(mt + "/"))
+                                                  for mt in TAP_TOL},
+                                  "tolerance": TAP_TOL}
+        out["on_equals_off"] = f"bitwise after {on_tr.step} steps"
+        del trainers[False]
+        torch.cuda.empty_cache()
+
+        # -- the breach rung --------------------------------------------------------
+        on_tr.health_sentry = None
+        # the precursor's action alone, once: the inf also trips grad-explosion,
+        # and the next step's NaN spreads to every group
+        rung_actions = BreachActions(on_tr, policy={"nan-precursor": "preemptive_snapshot"},
+                                     cooldown_steps=100, log=print).attach()
+        target = on_tr.model.transformer.attn_0.to_qkv.weight
+
+        def poison(trainer):
+            target.grad[0, 0] = float("inf")
+        on_tr.grad_hook = poison
+        try:
+            m = on_tr.train_step(*batches[2 * TRAIN_OBS_STEPS + 2])
+        finally:
+            on_tr.grad_hook = None
+        breach_step = on_tr.step
+        frac = m["health/nonfinite_frac/transformer"]
+        check(frac > 0, f"train_obs: nonfinite_frac/transformer {frac}")
+        check(rung_actions.fired == [(breach_step, "preemptive_snapshot", "nan-precursor",
+                                      "transformer")],
+              f"train_obs: actions fired {rung_actions.fired}")
+        rung = on_tr._preemptive[2]
+        on_tr.train_step(*batches[2 * TRAIN_OBS_STEPS + 3])
+        restored = on_tr._rollback()
+        check(restored == breach_step, f"train_obs: rolled back to step {restored}")
+        live = on_tr.model.state_dict()
+        for name, t in rung["model"].items():
+            check(_bits_equal(torch, live[name], t), f"train_obs: {name} not restored")
+        check(on_tr._preemptive is None, "train_obs: the rung was not consumed")
+        out["breach"] = {"step": breach_step, "nonfinite_frac_transformer": frac,
+                         "breach_detector": m.get("health/breach_detector"),
+                         "snapshot": on_tr.last_preemptive, "restored_step": restored}
+        del on_tr, trainers, rung, live
+        torch.cuda.empty_cache()
+
+        # -- the dVAE and the VQGAN with their codebook taps -------------------------
+        ds = ShapesDataset(image_size=128)
+        vt = VAETrainer(DVAEConfig(), TrainConfig(batch_size=b, seed=SMOKE_SEED,
+                                                  obs=ObsConfig(health=True)))
+        vm = vt.train_step(ds.as_arrays(limit=b)[0])
+        vae_cols = {k: v for k, v in vm.items() if k.startswith("health/")
+                    and "/" not in k[len("health/"):]}
+        check(set(vae_cols) >= {"health/codebook_perplexity", "health/codebook_dead_frac",
+                                "health/codebook_usage_entropy", "health/gumbel_temp",
+                                "health/st_sharpness", "health/encoder_confidence"}
+              and all(math.isfinite(v) for v in vae_cols.values())
+              and 1.0 <= vae_cols["health/codebook_perplexity"] <= DVAEConfig().num_tokens,
+              f"train_obs: dVAE taps {vae_cols}")
+        del vt
+        torch.cuda.empty_cache()
+        qcfg = VQGANConfig()                      # taming's vqgan_imagenet_f16_1024
+        qt = VQGANTrainer(qcfg, TrainConfig(batch_size=TAMING_BATCH, seed=SMOKE_SEED,
+                                            obs=ObsConfig(health=True),
+                                            optim=OptimConfig(learning_rate=4.5e-6 * TAMING_BATCH,
+                                                              beta1=0.5, beta2=0.9,
+                                                              grad_clip_norm=0.0)),
+                          GANLossConfig(disc_start=0))
+        images = ShapesDataset(qcfg.resolution).as_arrays(limit=TAMING_BATCH)[0] * 2.0 - 1.0
+        for _ in range(2):
+            qm = qt.train_step(images)
+        q_cols = {k: v for k, v in qm.items() if k.startswith("health/")}
+        groups = sorted({k.split("/", 2)[2] for k in q_cols if k.count("/") >= 2})
+        check(all(math.isfinite(v) for v in q_cols.values())
+              and "health/codebook_perplexity" in q_cols
+              and any(g.startswith("gen/") for g in groups)
+              and any(g.startswith("disc/") for g in groups),
+              f"train_obs: VQGAN taps {sorted(q_cols)}")
+        out["other_models"] = {"dvae": vae_cols,
+                               "vqgan": {k: v for k, v in q_cols.items()
+                                         if k.count("/") == 1},
+                               "vqgan_groups": groups}
+        del qt
+        torch.cuda.empty_cache()
+
+        # -- the command line with every telemetry flag, then obs_report -------------
+        cli_dir = os.path.join(work, "cli")
+        argv = ["--synthetic", "--image_size", "128", "--untrained_vae",
+                "--untrained_vae_tokens", "8192", "--untrained_vae_layers", "3",
+                "--dim", "1792", "--depth", str(CLI_DEPTH), "--heads", "14",
+                "--dim_head", "128", "--text_seq_len", "256", "--batch_size", "8",
+                "--output_dir", cli_dir, "--seed", str(SMOKE_SEED), "--steps", "2",
+                "--no_preflight", "--trace", "--health", "--breach_actions",
+                "--prometheus_path", os.path.join(cli_dir, "dalle.prom"),
+                "--watchdog_deadline_s", "120"]
+        fa.fwd_launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        try:
+            rc = train_dalle.main(argv)
+        finally:
+            obs.disable()
+            obs.disable_recorder()
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"train_obs: train_dalle exited {rc}")
+        cli_launches = {"fused_attention_fwd": fa.fwd_launches,
+                        "fused_attention_bwd": fa.bwd_launches}
+        # the entry point keeps the JAX default use_remat=True: the backward
+        # recomputes each layer's forward
+        check(cli_launches == {"fused_attention_fwd": 4 * CLI_DEPTH,
+                               "fused_attention_bwd": 2 * CLI_DEPTH},
+              f"train_obs: K1 in the CLI run {cli_launches}")
+        reports = {}
+        for name, path in (("metrics", cli_dir), ("spans", os.path.join(cli_dir, "obs"))):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = obs_report.main([path, "--top", "5"])
+            check(rc == 0, f"train_obs: obs_report {name} exited {rc}")
+            reports[name] = buf.getvalue()
+        verdict = [line for line in reports["metrics"].splitlines() if "MODEL-HEALTH" in line]
+        check(verdict and "fit/step" in reports["spans"],
+              "train_obs: obs_report lacks the MODEL-HEALTH verdict or the fit spans")
+        out["cli"] = {"seconds": cli_s, "launches": cli_launches, "verdict": verdict[0],
+                      "report_lines": len(reports["metrics"].splitlines())
+                      + len(reports["spans"].splitlines())}
+    finally:
+        obs.disable()
+        obs.disable_recorder()
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("train_obs", **out)
+    print(reports["metrics"], flush=True)
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -5107,6 +5509,7 @@ def main() -> int:
     paper_launches = phase_paper(torch, card)
     taming = phase_taming(torch, card)
     rev_launches, rev_row = phase_reversible(torch, card, k1_row)
+    obs_train_launches, _ = phase_train_obs(torch, card)
 
     f32 = timing["float32"]
     kernels = [{
@@ -5143,6 +5546,7 @@ def main() -> int:
             "launches_cli": cli_launches[name],
             "launches_paper": paper_launches[name],
             "launches_reversible": rev_launches[name],
+            "launches_train_obs": obs_train_launches[name],
             "reversible_profiler_kernels": rev_row["profiler_k1_kernels"],
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

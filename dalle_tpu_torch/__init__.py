@@ -41,12 +41,16 @@ local files as the VAE of ``train_dalle`` and ``generate``
 stage, whose sampling decodes through the decode kernel. ``reversible=True``
 trains DALL·E with reversible blocks (``models/reversible.py``), the fused
 attention kernels running again inside the backward's recompute.
+The trainers' telemetry (``TrainConfig(obs=ObsConfig(...))``: spans, the
+step breakdown, device gauges, the stall watchdog, the health taps and
+their sentries, ``profile_step``) is the JAX package's, in ``obs/`` and
+``train/``; ``python -m dalle_tpu_torch.cli.obs_report`` summarises a run.
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """
 
 from .config import (AnnealConfig, ClipConfig, DalleConfig, DVAEConfig, MeshConfig,
-                     OptimConfig, PrecisionConfig, TrainConfig, TransformerConfig,
+                     ObsConfig, OptimConfig, PrecisionConfig, TrainConfig, TransformerConfig,
                      VQGANConfig, dalle_1p4b)
 from .convert import adam_state_from_optax, clip_state_dict, dalle_state_dict, dvae_state_dict
 from .device import resolve_device
@@ -65,7 +69,7 @@ from .train.trainer_vae import VAETrainer
 from .train.trainer_vqgan import VQGANTrainer
 
 __all__ = ["AnnealConfig", "ClipConfig", "DalleConfig", "DVAEConfig", "MeshConfig",
-           "OptimConfig", "PrecisionConfig", "TrainConfig", "TransformerConfig", "dalle_1p4b",
+           "ObsConfig", "OptimConfig", "PrecisionConfig", "TrainConfig", "TransformerConfig", "dalle_1p4b",
            "adam_state_from_optax", "clip_state_dict", "dalle_state_dict", "dvae_state_dict",
            "resolve_device", "CLIP", "init_clip", "load_clip", "DALLE", "init_dalle",
            "DiscreteVAE", "init_dvae", "DalleWithVae", "DiscreteVAEAdapter",

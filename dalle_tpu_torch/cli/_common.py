@@ -1,5 +1,6 @@
 """What the entry points share: the VAE sidecar, the VAE flags, the
-training flags that every trainer takes (``add_overlap_args``), and writing
+training flags that every trainer takes (``add_overlap_args``,
+``add_telemetry_args``), the on-demand profiler (SIGUSR2), and writing
 PNGs.
 
 Port of ``scripts/_common.py``. The VAE precedence chain is the
@@ -19,13 +20,14 @@ from __future__ import annotations
 
 import os
 import struct
+import time
 import zlib
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..config import SNAPSHOT_MODES, DVAEConfig
+from ..config import SNAPSHOT_MODES, DVAEConfig, ObsConfig
 from ..models.dvae import init_dvae
 from ..models.wrapper import DiscreteVAEAdapter
 from ..train.checkpoints import CheckpointManager, load_model_checkpoint
@@ -139,24 +141,148 @@ def overlap_train_kwargs(args) -> dict:
             "rollback_snapshot": args.rollback_snapshot, "scan_steps": args.scan_steps}
 
 
-def add_unported_train_args(parser):
-    """The JAX trainers' wandb, health, resilience and telemetry flags,
-    which raise (``check_unported_train_args``)."""
-    grp = parser.add_argument_group("wandb, health, resilience and telemetry (not ported yet)")
-    grp.add_argument("--wandb", action="store_true")
-    grp.add_argument("--health", action="store_true")
-    grp.add_argument("--breach_actions", action="store_true")
-    grp.add_argument("--trace", action="store_true")
-    grp.add_argument("--watchdog_deadline_s", type=float, default=0.0)
-    grp.add_argument("--prometheus_path", type=str, default="")
+def add_telemetry_args(parser):
+    """The flags every trainer's entry point takes for its telemetry: the
+    JAX scripts' ``add_health_args``, ``--breach_actions`` and
+    ``--lr_cut_factor`` (``add_resilience_args``), the telemetry group and
+    ``add_profiler_args``, and ``--wandb``, which raises
+    (``check_unported_train_args``)."""
+    grp = parser.add_argument_group("model health")
+    grp.add_argument("--health", action="store_true",
+                     help="per-layer-group grad/param/update/non-finite taps (and the "
+                          "codebook vitals of the VAE trainers) read with the step's "
+                          "metrics, and the anomaly sentries over them")
+    grp.add_argument("--health_group_depth", type=int, default=1,
+                     help="path depth of a layer group (1 = the model's subtrees)")
+    grp.add_argument("--health_loss_z", type=float, default=6.0,
+                     help="loss-spike z-score threshold")
+    grp.add_argument("--health_grad_factor", type=float, default=10.0,
+                     help="grad-norm explosion factor over the EMA")
+    grp.add_argument("--health_perplexity_floor", type=float, default=4.0,
+                     help="codebook-collapse floor (usage perplexity)")
+    grp.add_argument("--health_flight_dir", type=str, default=None,
+                     help="flight recorder directory for the breach bundles "
+                          "(default with --health: <output_dir>/health_bundles)")
+    grp = parser.add_argument_group("breach actions")
+    grp.add_argument("--breach_actions", action="store_true",
+                     help="act on health breaches: nan-precursor → preemptive snapshot, "
+                          "grad-explosion → rollback + lr cut, codebook-collapse → lr cut "
+                          "+ gumbel re-anneal (pair with --health)")
+    grp.add_argument("--lr_cut_factor", type=float, default=0.5,
+                     help="lr scale multiplier of an lr-cut action")
+    grp = parser.add_argument_group("telemetry")
+    grp.add_argument("--trace", action="store_true",
+                     help="collect spans; exports <output_dir>/obs/{trace.json,spans.jsonl}")
+    grp.add_argument("--watchdog_deadline_s", type=float, default=0.0,
+                     help="stall report when no step completes within this many seconds "
+                          "(0 = off; the first call builds the kernels, ~1 min)")
+    grp.add_argument("--prometheus_path", type=str, default="",
+                     help="node-exporter textfile target for the live gauges")
+    grp.add_argument("--profiler_dir", type=str, default=None,
+                     help="where SIGUSR2 writes a bounded torch.profiler capture "
+                          "(default <output_dir>/profile; 'off' disables the handler)")
+    grp.add_argument("--profiler_capture_s", type=float, default=5.0,
+                     help="seconds a capture lasts")
+    grp.add_argument("--wandb", action="store_true",
+                     help="not ported (the card's machine has no wandb and no network)")
     return parser
 
 
 def check_unported_train_args(args):
-    for flag in ("wandb", "health", "breach_actions", "trace", "watchdog_deadline_s",
-                 "prometheus_path"):
-        if getattr(args, flag):
-            raise unported(f"--{flag}", "12")
+    if args.wandb:
+        raise unported("--wandb (no wandb package and no network on the card's machine)",
+                       "12")
+
+
+def obs_config(args) -> ObsConfig:
+    """``ObsConfig`` from ``add_telemetry_args``'s flags."""
+    return ObsConfig(trace=args.trace, watchdog_deadline_s=args.watchdog_deadline_s,
+                     prometheus_path=args.prometheus_path, health=args.health,
+                     health_group_depth=args.health_group_depth,
+                     health_loss_z=args.health_loss_z,
+                     health_grad_factor=args.health_grad_factor,
+                     health_perplexity_floor=args.health_perplexity_floor)
+
+
+def install_telemetry(args, trainer, output_dir: str, log=print):
+    """Arm a built trainer's telemetry per the flags: with ``--health`` a
+    flight recorder for the breach bundles (one already configured wins),
+    with ``--breach_actions`` the ``BreachActions`` on its sentry. Returns
+    the ``MetricsLogger`` writing ``<output_dir>/metrics.jsonl``."""
+    from .. import obs
+    from ..train.metrics import MetricsLogger
+    if args.health and obs.get_recorder() is None:
+        obs.configure_recorder(args.health_flight_dir
+                               or os.path.join(output_dir, "health_bundles"))
+    if args.breach_actions:
+        from ..train.actions import BreachActions
+        BreachActions(trainer, lr_cut_factor=args.lr_cut_factor, log=log).attach()
+        if not args.health:
+            log("[actions] --breach_actions without --health: the detectors see no "
+                "health/* columns and will never fire")
+    os.makedirs(output_dir, exist_ok=True)
+    return MetricsLogger(path=os.path.join(output_dir, "metrics.jsonl"))
+
+
+def install_sigusr2_profiler(default_dir: str, args=None, log=print) -> bool:
+    """SIGUSR2 → one bounded ``torch.profiler`` capture into a timestamped
+    directory under ``--profiler_dir`` (default ``default_dir``), stopped
+    after ``--profiler_capture_s``; a signal during a capture is ignored
+    (one capture at a time). The profiler is started and stopped on the
+    main thread, where the handler runs: when the capture is due a timer
+    thread marks it so and sends SIGUSR2, and that signal stops it. Call
+    from the main thread. Returns False when disabled or not installable."""
+    import signal
+    import threading
+
+    outdir, capture_s = default_dir, 5.0
+    if args is not None:
+        if getattr(args, "profiler_dir", None) == "off":
+            return False
+        outdir = getattr(args, "profiler_dir", None) or default_dir
+        capture_s = float(getattr(args, "profiler_capture_s", 5.0))
+    state = {"prof": None, "stop": False, "path": None}
+
+    def _due():
+        state["stop"] = True
+        os.kill(os.getpid(), signal.SIGUSR2)
+
+    def _start():
+        path = os.path.join(outdir, time.strftime("profile_%Y%m%d_%H%M%S"))
+        os.makedirs(path, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        try:
+            prof.start()
+        except Exception as exc:  # noqa: BLE001 - a profiler that will not start
+            # must not kill the loop the signal interrupted
+            log(f"[graftscope] profiler start failed: {exc!r}")
+            return
+        state.update(prof=prof, path=path)
+        log(f"[graftscope] SIGUSR2: profiling {capture_s:.1f}s → {path}")
+        threading.Timer(capture_s, _due).start()
+
+    def _stop():
+        prof, state["prof"], state["stop"] = state["prof"], None, False
+        try:
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(state["path"], "trace.json"))
+        except Exception as exc:  # noqa: BLE001 - the next capture starts afresh
+            log(f"[graftscope] profiler stop failed: {exc!r}")
+
+    def _handler(_sig, _frame):
+        if state["stop"]:
+            _stop()
+        elif state["prof"] is None:
+            _start()
+
+    try:
+        signal.signal(signal.SIGUSR2, _handler)
+    except (ValueError, AttributeError):   # not the main thread / no SIGUSR2
+        return False
+    return True
 
 
 def add_device_arg(parser):

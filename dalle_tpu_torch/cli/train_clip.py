@@ -10,19 +10,25 @@ cpu``.
         --patch_size 16 --dim 512 --depth 6 --batch_size 8 --steps 100 \\
         --output_dir ./clip_ckpt
 
+``--scan_steps k`` runs k steps a ``train_steps`` call. ``--health``, ``--breach_actions``, ``--trace``, ``--watchdog_deadline_s``
+and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``);
+SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
+every record read goes to ``<output_dir>/metrics.jsonl``, which
+``python -m dalle_tpu_torch.cli.obs_report`` summarises.
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_text_folder`` (the card's machine has no
-image decoder) and the wandb, health, resilience and telemetry flags.
-``--scan_steps k`` runs k steps a ``train_steps`` call.
+image decoder) and ``--wandb``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_unported_train_args,
-                      check_unported_train_args, overlap_train_kwargs, unported)
+from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
+                      check_unported_train_args, install_sigusr2_profiler, install_telemetry,
+                      obs_config, overlap_train_kwargs, unported)
 
 
 def build_parser():
@@ -63,7 +69,7 @@ def build_parser():
     train.add_argument("--scan_steps", type=int, default=1)
     train.add_argument("--no_preflight", action="store_true")
     add_overlap_args(ap)
-    add_unported_train_args(ap)
+    add_telemetry_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -76,6 +82,7 @@ def main(argv=None) -> int:
     if not args.synthetic:
         print("error: provide --synthetic", file=sys.stderr)
         return 2
+    install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
     from ..config import ClipConfig, OptimConfig, TrainConfig
     from ..data.synthetic import ShapesDataset, batch_iterator
@@ -99,6 +106,7 @@ def main(argv=None) -> int:
         batch_size=args.batch_size, seed=args.seed, checkpoint_dir=args.output_dir,
         save_every_steps=args.save_every_n_steps,
         preflight_checkpoint=not args.no_preflight, **overlap_train_kwargs(args),
+        runtime_lr_scale=args.breach_actions, obs=obs_config(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm))
     trainer = CLIPTrainer(model_cfg, train_cfg, device=args.device)
@@ -110,7 +118,10 @@ def main(argv=None) -> int:
     ds = ShapesDataset(image_size=args.image_size)
     raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
     print(f"CLIP: {trainer.num_params / 1e6:.1f}M params on {trainer.device}")
-    trainer.fit((encode_batch(imgs, caps) for imgs, caps in raw), steps=args.steps)
+    writer = install_telemetry(args, trainer, args.output_dir)
+    trainer.fit((encode_batch(imgs, caps) for imgs, caps in raw), steps=args.steps,
+                metrics_writer=writer)
+    writer.close()
     print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
     return 0
 

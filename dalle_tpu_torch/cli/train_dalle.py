@@ -18,18 +18,27 @@ reversible blocks (``models/reversible.py``). The VAE may be a taming VQGAN
 from local files (``--vqgan_model_path`` and ``--vqgan_config_path``) or
 OpenAI's (``--openai_vae_dir``).
 
+``--health``, ``--breach_actions``, ``--trace``, ``--watchdog_deadline_s``
+and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``);
+SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
+every record read goes to ``<output_dir>/metrics.jsonl``, which
+``python -m dalle_tpu_torch.cli.obs_report`` summarises.
+
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_text_folder`` and ``--wds`` (the card's
-machine has no image decoder) and the telemetry flags.
+machine has no image decoder) and ``--wandb``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_vae_args, build_vae_from_args,
-                      load_vae_sidecar, overlap_train_kwargs, save_vae_sidecar, unported)
+from ._common import (add_device_arg, add_overlap_args, add_telemetry_args, add_vae_args,
+                      build_vae_from_args, check_unported_train_args,
+                      install_sigusr2_profiler, install_telemetry, load_vae_sidecar,
+                      obs_config, overlap_train_kwargs, save_vae_sidecar, unported)
 
 
 def build_parser():
@@ -87,11 +96,7 @@ def build_parser():
     train.add_argument("--scan_steps", type=int, default=1)
     train.add_argument("--no_preflight", action="store_true")
     add_overlap_args(ap)
-
-    tel = ap.add_argument_group("telemetry (not ported yet)")
-    tel.add_argument("--trace", action="store_true")
-    tel.add_argument("--watchdog_deadline_s", type=float, default=0.0)
-    tel.add_argument("--prometheus_path", type=str, default="")
+    add_telemetry_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -100,9 +105,7 @@ def _check_ported(args):
     if args.image_text_folder or args.wds:
         raise unported("--image_text_folder / --wds (no image decoder on the card's "
                        "machine)", "3")
-    if args.trace or args.watchdog_deadline_s or args.prometheus_path:
-        raise unported("the telemetry flags (--trace, --watchdog_deadline_s, "
-                       "--prometheus_path)", "12")
+    check_unported_train_args(args)
 
 
 def main(argv=None) -> int:
@@ -111,6 +114,7 @@ def main(argv=None) -> int:
     if not args.synthetic:
         print("error: provide --synthetic", file=sys.stderr)
         return 2
+    install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
     from ..config import OptimConfig, TrainConfig
     from ..data.synthetic import ShapesDataset, batch_iterator
@@ -146,6 +150,7 @@ def main(argv=None) -> int:
         checkpoint_dir=args.output_dir, save_every_steps=args.save_every_n_steps,
         keep_n_checkpoints=args.keep_n_checkpoints,
         preflight_checkpoint=not args.no_preflight, **overlap_train_kwargs(args),
+        runtime_lr_scale=args.breach_actions, obs=obs_config(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm,
                           grad_accum_steps=args.ga_steps,
@@ -170,7 +175,9 @@ def main(argv=None) -> int:
     batches = (encode_batch(imgs, caps) for imgs, caps in raw)
     print(f"DALLE: {trainer.num_params / 1e6:.1f}M params on {device}; "
           f"vae {type(vae).__name__}")
-    trainer.fit(batches, steps=args.steps)
+    writer = install_telemetry(args, trainer, args.output_dir)
+    trainer.fit(batches, steps=args.steps, metrics_writer=writer)
+    writer.close()
     print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
     return 0
 

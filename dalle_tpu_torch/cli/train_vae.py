@@ -12,10 +12,14 @@ Runs on the CUDA card unless ``--device cpu``.
         --num_layers 2 --hidden_dim 32 --num_tokens 256 --batch_size 8 \\
         --steps 100 --output_dir ./vae_ckpt
 
+``--scan_steps k`` runs k steps a ``train_steps`` call. ``--health``, ``--breach_actions``, ``--trace``, ``--watchdog_deadline_s``
+and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``);
+SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
+every record read goes to ``<output_dir>/metrics.jsonl``, which
+``python -m dalle_tpu_torch.cli.obs_report`` summarises.
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``--image_folder`` (the card's machine has no image
-decoder) and the wandb, health, resilience and telemetry flags.
-``--scan_steps k`` runs k steps a ``train_steps`` call.
+decoder) and ``--wandb``.
 """
 
 from __future__ import annotations
@@ -24,9 +28,9 @@ import argparse
 import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_unported_train_args,
-                      check_unported_train_args, overlap_train_kwargs, to_uint8, unported,
-                      write_png)
+from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
+                      check_unported_train_args, install_sigusr2_profiler, install_telemetry,
+                      obs_config, overlap_train_kwargs, to_uint8, unported, write_png)
 
 
 def build_parser():
@@ -71,7 +75,7 @@ def build_parser():
                             "every N steps")
     train.add_argument("--sample_dir", type=str, default="./vae_samples")
     add_overlap_args(ap)
-    add_unported_train_args(ap)
+    add_telemetry_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -84,6 +88,7 @@ def main(argv=None) -> int:
     if not args.synthetic:
         print("error: provide --synthetic", file=sys.stderr)
         return 2
+    install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
     import numpy as np
 
@@ -103,6 +108,7 @@ def main(argv=None) -> int:
         keep_n_checkpoints=args.keep_n_checkpoints,
         preflight_checkpoint=not args.no_preflight,
         sample_every_steps=args.sample_every_steps, **overlap_train_kwargs(args),
+        runtime_lr_scale=args.breach_actions, obs=obs_config(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm,
                           lr_scheduler="exponential", lr_decay_rate=args.lr_decay_rate))
@@ -129,8 +135,10 @@ def main(argv=None) -> int:
             print(f"[step {step}] recon grid → {args.sample_dir}; codebook codes used: "
                   f"{used}/{model_cfg.num_tokens}")
 
+    writer = install_telemetry(args, trainer, args.output_dir)
     trainer.fit(((images,) for images, _captions in raw), steps=args.steps,
-                sample_fn=sample_fn)
+                sample_fn=sample_fn, metrics_writer=writer)
+    writer.close()
     print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
     return 0
 

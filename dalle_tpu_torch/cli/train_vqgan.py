@@ -13,9 +13,14 @@ convention. Runs on the CUDA card unless ``--device cpu``.
         --disc_start 50 --output_dir ./vqgan_ckpt
 
 ``--gumbel`` trains taming's GumbelVQ, ``--scan_steps k`` runs k steps a
-``train_steps`` call. Not ported yet, and raising ``NotImplementedError``
-with their ``ROADMAP.md`` item: ``--image_folder`` (the card's machine has
-no image decoder) and the wandb, health, resilience and telemetry flags.
+``train_steps`` call. ``--health``, ``--breach_actions``, ``--trace``, ``--watchdog_deadline_s``
+and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``);
+SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
+every record read goes to ``<output_dir>/metrics.jsonl``, which
+``python -m dalle_tpu_torch.cli.obs_report`` summarises.
+Not ported yet, and raising ``NotImplementedError`` with their
+``ROADMAP.md`` item: ``--image_folder`` (the card's machine has no image
+decoder) and ``--wandb``.
 """
 
 from __future__ import annotations
@@ -24,9 +29,9 @@ import argparse
 import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_unported_train_args,
-                      check_unported_train_args, overlap_train_kwargs, to_uint8, unported,
-                      write_png)
+from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
+                      check_unported_train_args, install_sigusr2_profiler, install_telemetry,
+                      obs_config, overlap_train_kwargs, to_uint8, unported, write_png)
 
 
 def build_parser():
@@ -79,7 +84,7 @@ def build_parser():
                        help="write an original/reconstruction grid every N steps")
     train.add_argument("--sample_dir", type=str, default="./vqgan_samples")
     add_overlap_args(ap)
-    add_unported_train_args(ap)
+    add_telemetry_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -96,6 +101,7 @@ def main(argv=None) -> int:
     if not args.synthetic:
         print("error: provide --synthetic", file=sys.stderr)
         return 2
+    install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
     import numpy as np
 
@@ -120,6 +126,7 @@ def main(argv=None) -> int:
         save_every_steps=args.save_every_steps, keep_n_checkpoints=args.keep_n_checkpoints,
         preflight_checkpoint=not args.no_preflight,
         sample_every_steps=args.sample_every_steps, **overlap_train_kwargs(args),
+        runtime_lr_scale=args.breach_actions, obs=obs_config(args),
         optim=OptimConfig(learning_rate=lr, beta1=0.5, beta2=0.9, grad_clip_norm=0.0))
     trainer = VQGANTrainer(model_cfg, train_cfg, loss_cfg, device=args.device)
     if args.resume:
@@ -142,8 +149,10 @@ def main(argv=None) -> int:
                       to_uint8((grid[None] + 1.0) * 0.5)[0])
             print(f"[step {step}] recon grid → {args.sample_dir}")
 
+    writer = install_telemetry(args, trainer, args.output_dir)
     trainer.fit(((images * 2.0 - 1.0,) for images, _captions in raw), steps=args.steps,
-                sample_fn=sample_fn)
+                sample_fn=sample_fn, metrics_writer=writer)
+    writer.close()
     print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
     return 0
 

@@ -1,8 +1,8 @@
 """Model and training configuration for the PyTorch port.
 
 A copy of ``DVAEConfig``, ``VQGANConfig``, ``TransformerConfig``,
-``DalleConfig``, ``ClipConfig``, ``MeshConfig``, ``PrecisionConfig``, ``OptimConfig`` and
-``AnnealConfig`` from the JAX package (``dalle_tpu/config.py``): same
+``DalleConfig``, ``ClipConfig``, ``MeshConfig``, ``PrecisionConfig``, ``OptimConfig``,
+``ObsConfig`` and ``AnnealConfig`` from the JAX package (``dalle_tpu/config.py``): same
 fields, same defaults, same derived properties, so a config built for one
 package builds the same model and optimizer in the other. ``TrainConfig``
 carries only the fields the port's trainers read. ``to_dict``/``from_dict``
@@ -324,13 +324,44 @@ SNAPSHOT_MODES = ("auto", "device", "host")
 
 
 @dataclass(frozen=True)
+class ObsConfig(ConfigBase):
+    """The training loop's telemetry (``obs/``), the JAX package's fields and
+    defaults. The step breakdown is always computed (host ``perf_counter``
+    arithmetic); spans, the watchdog, the Prometheus textfile and the health
+    taps each need their switch."""
+    trace: bool = False            # collect spans into the ring
+    trace_dir: str = ""            # export dir ("" → <checkpoint_dir>/obs)
+    ring_capacity: int = 65536     # spans kept; overflow is counted
+    # no completed step within this many seconds → a stall report (open
+    # spans, thread stacks); 0 disables
+    watchdog_deadline_s: float = 0.0
+    watchdog_dump_stacks: bool = True
+    # poll the memory and compile gauges every N steps (at metrics
+    # boundaries); 0 disables
+    device_poll_every: int = 10
+    prometheus_path: str = ""      # node-exporter textfile ("" = off)
+    # per-layer-group grad/param/update/non-finite taps (and the codebook
+    # vitals of the VAE trainers), read with the step's other metrics
+    health: bool = False
+    # path depth of a layer group, "params" levels dropped: 1 = the model's
+    # subtrees (transformer, encoder, decoder, ...)
+    health_group_depth: int = 1
+    # the anomaly sentry's thresholds (obs/anomaly.py) and its warm-up
+    health_loss_z: float = 6.0
+    health_grad_factor: float = 10.0
+    health_perplexity_floor: float = 4.0
+    health_min_samples: int = 5
+
+
+@dataclass(frozen=True)
 class TrainConfig(ConfigBase):
     """The fields of the JAX package's ``TrainConfig`` that the port's
     trainers read (``train/base_trainer.py``): checkpoints, NaN rollback, the
-    runtime lr scale, and the host overlap of the training loop (scanned
-    steps, the metrics cadence, deferred metrics, device prefetch), with the
-    JAX defaults. Observability and asynchronous checkpoint writes come with
-    their own slices, and their fields with them.
+    runtime lr scale, the host overlap of the training loop (scanned
+    steps, the metrics cadence, deferred metrics, device prefetch),
+    ``profile_step`` and the telemetry (``obs``), with the JAX defaults.
+    Asynchronous checkpoint writes come with their own slice, and their
+    fields with them.
 
     One default differs: ``checkpoint_dir`` is None, and then the trainer
     keeps no checkpoints (the JAX package writes to ``./checkpoints``).
@@ -362,9 +393,13 @@ class TrainConfig(ConfigBase):
     defer_metrics: bool = False
     # k optimizer steps per train_steps call from k stacked batches
     scan_steps: int = 1
+    # > 0: profile the step that contains this step with torch.profiler
+    # into <checkpoint_dir>/profile_step<N>
+    profile_step: int = 0
     optim: OptimConfig = field(default_factory=OptimConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def __post_init__(self):
         if self.rollback_snapshot not in SNAPSHOT_MODES:

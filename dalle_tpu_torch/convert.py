@@ -70,6 +70,24 @@ def _convert_leaf(path: Tuple[str, ...], x: np.ndarray):
     return name, x
 
 
+def flax_path(module: torch.nn.Module, name: str) -> Tuple[str, ...]:
+    """The flax path (the ``params`` level dropped) of the parameter
+    ``name`` of ``module``: ``_convert_leaf``'s renaming undone. A
+    ``weight`` is an ``Embed``'s ``embedding`` under an ``nn.Embedding``, a
+    norm's ``scale`` when 1-D, and a ``kernel`` otherwise; every other name
+    maps across as it is."""
+    *owner, leaf = name.split(".")
+    if leaf == "weight":
+        sub = module.get_submodule(".".join(owner))
+        if isinstance(sub, torch.nn.Embedding):
+            leaf = "embedding"
+        elif sub.weight.dim() == 1:
+            leaf = "scale"
+        else:
+            leaf = "kernel"
+    return (*owner, leaf)
+
+
 def _tensor(x: np.ndarray) -> torch.Tensor:
     """A host tensor of ``x``; numpy's bfloat16 (``ml_dtypes``, which torch
     does not take) goes across through f32, exactly."""

@@ -17,15 +17,20 @@ batches come out in the source's order; buffered batches drain before
 ``StopIteration``; an error from the source or from ``put`` is raised only
 after the good batches ahead of it. On the CPU ``put`` is the plain
 conversion. The source is pulled on the consumer's thread: a slow source
-still blocks ``__next__`` during the refill.
+still blocks ``__next__`` during the refill. Each put is a ``data/h2d``
+span, and ``last_put_s`` is the host seconds the consumed item's put took
+(the step breakdown's ``t_h2d_s``).
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Callable, Iterable, Iterator, List, Optional
 
 import torch
+
+from ..obs.trace import span
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -49,18 +54,22 @@ class DevicePrefetcher:
         self.depth = max(int(depth), 1)
         device = torch.device(device) if device is not None else torch.device("cpu")
         self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        self._buf: deque = deque()   # (put(item), its copies' event or None)
+        self._buf: deque = deque()   # (put(item), its copies' event or None, put seconds)
         self._err: Optional[Exception] = None
         self._done = False
+        self.last_put_s = 0.0
 
     def _put_one(self, item):
-        if self._stream is None or any(t.is_cuda for t in _tensors(item)):
-            return self._put(item), None
-        with torch.cuda.stream(self._stream):
-            placed = self._put(item)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        return placed, event
+        t0 = time.perf_counter()
+        with span("data/h2d"):
+            if self._stream is None or any(t.is_cuda for t in _tensors(item)):
+                placed, event = self._put(item), None
+            else:
+                with torch.cuda.stream(self._stream):
+                    placed = self._put(item)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+        return placed, event, time.perf_counter() - t0
 
     def _fill(self):
         while not self._done and self._err is None and len(self._buf) < self.depth:
@@ -89,7 +98,7 @@ class DevicePrefetcher:
                 self._done = True
                 raise err
             raise StopIteration
-        item, event = self._buf.popleft()
+        item, event, self.last_put_s = self._buf.popleft()
         if event is not None:
             consumer = torch.cuda.current_stream(self._stream.device)
             consumer.wait_event(event)

@@ -185,10 +185,13 @@ class DiscreteVAE(nn.Module):
         draws nothing. The codebook mix is the product of that (b, h, w, n)
         sample with the codebook. The loss, in f32, is the reconstruction
         error against the *normalized* image (MSE, or smooth-L1 at β = 1)
-        plus ``kl_div_loss_weight`` × the batchmean KL to uniform."""
-        if return_health:
-            raise NotImplementedError("return_health (the health taps) is not ported "
-                                      "yet (ROADMAP.md Queue 1 item 12)")
+        plus ``kl_div_loss_weight`` × the batchmean KL to uniform.
+
+        ``return_health`` appends the health taps (``obs/health.py``) as the
+        last element of every return: the codebook vitals of the encoder's
+        argmax, and ``gumbel_health`` of the logits, the sample the decoder
+        took and the temperature; device scalars from tensors the forward
+        holds."""
         c = self.cfg
         img_n = self._normed(img)
         logits = self._logits(img_n)
@@ -200,8 +203,14 @@ class DiscreteVAE(nn.Module):
                                      generator=generator)
         sampled = torch.einsum("bhwn,nd->bhwd", one_hot, self.codebook.weight)
         out = self.decoder(sampled.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+        health = None
+        if return_health:
+            from ..obs.health import codebook_health, gumbel_health
+            with torch.no_grad():
+                health = codebook_health(torch.argmax(logits, dim=-1), c.num_tokens)
+                health.update(gumbel_health(logits, one_hot, temp))
         if not return_loss:
-            return out
+            return (out, health) if return_health else out
         diff = img_n.float() - out.float()
         if c.smooth_l1_loss:
             a = diff.abs()
@@ -211,7 +220,9 @@ class DiscreteVAE(nn.Module):
         b, h, w, n = logits.shape
         kl = kl_to_uniform(logits.reshape(b, h * w, n).float())
         loss = recon + kl * c.kl_div_loss_weight
-        return (loss, out) if return_recons else loss
+        if not return_recons:
+            return (loss, health) if return_health else loss
+        return (loss, out, health) if return_health else (loss, out)
 
 
 def init_dvae(cfg: DVAEConfig, *, seed: int = 0, device=None) -> DiscreteVAE:

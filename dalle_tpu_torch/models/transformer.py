@@ -66,7 +66,6 @@ follow the flax tree (``attn_{i}``, ``ff_{i}``, ``layer_attn_{i}``,
   cache; text-position steps do not write the image rings. Layer sharing
   shares functions, not shift state. ``decode_window`` refuses shift, as
   the JAX package does: the rings are one token at a time.
-* Reversible blocks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

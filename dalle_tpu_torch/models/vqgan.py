@@ -19,14 +19,13 @@ the convolutions run NCHW. Module names follow the flax tree
 * Dropout (``cfg.dropout``) acts only in a training pass
   (``deterministic=False``), its keep mask drawn from the caller's
   generator.
-
-Not ported yet: ``health_taps`` (``ROADMAP.md`` Queue 1 item 12).
+* ``health_taps`` gives the codebook vitals of an encode (``obs/health.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -298,9 +297,20 @@ class VQModel(nn.Module):
         ids = ids.clamp(0, self.cfg.n_embed - 1)
         return self.decode(self.codebook(ids).reshape(b, hw, hw, self.cfg.embed_dim))
 
-    def health_taps(self, *args, **kw):
-        raise NotImplementedError("health_taps (the codebook health) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 12)")
+    def health_taps(self, q: VQOutput, temp: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        """The health taps of one encode's ``VQOutput`` (``obs/health.py``):
+        codebook usage perplexity, dead fraction and entropy from its
+        indices and, on the gumbel path (``q.probs``), the temperature and
+        the encoder's mean argmax confidence; f32 device scalars."""
+        from ..obs.health import HEALTH_PREFIX, codebook_health
+        with torch.no_grad():
+            out = codebook_health(q.indices, self.cfg.n_embed)
+            if q.probs is not None:
+                out[f"{HEALTH_PREFIX}gumbel_temp"] = q.probs.new_full(
+                    (), 1.0 if temp is None else float(temp), dtype=torch.float32)
+                out[f"{HEALTH_PREFIX}encoder_confidence"] = torch.mean(
+                    torch.amax(q.probs.float(), dim=-1))
+        return out
 
     def forward(self, img, temp: Optional[float] = None, deterministic: bool = True, *,
                 noise=None, generator=None):

@@ -1,20 +1,30 @@
-"""Spans, metrics, the flight recorder and the decode-quality taps.
+"""Spans, metrics, the flight recorder, device gauges, the stall watchdog,
+the model-health taps and their sentries, and run reports.
 
-Port of the serving path's part of ``dalle_tpu/obs`` under the same names:
-``span`` timing regions into a ring (Perfetto and JSONL exports), counters,
-gauges and native histograms (one metrics dict, a Prometheus textfile),
-the trace context, the flight recorder with its state providers, and
-``decode_quality``. Everything is off by default and one global ``None``
-check when off: ``configure()`` turns tracing on, ``configure_recorder``
-the recorder.
+Port of ``dalle_tpu/obs`` under the same names: ``span`` timing regions
+into a ring (Perfetto and JSONL exports), counters, gauges and native
+histograms (one metrics dict, a Prometheus textfile), the trace context,
+the flight recorder with its state providers, ``decode_quality``, the
+training taps (``tree_health``, ``codebook_health``, ``gumbel_health``,
+``layer_groups``) and the anomaly detectors over them (``HealthSentry``),
+the device gauges (``DeviceTelemetry``), the stall watchdog and the run
+report (``summarize_run``). Everything is off by default and one global
+``None`` check when off: ``configure()`` turns tracing on, ``configure_recorder``
+the recorder; the trainers turn the rest on from ``TrainConfig.obs``.
 
-Not ported yet (``ROADMAP.md`` Queue 1 item 12): the training taps and the
-anomaly detectors, ``obs/device.py``, the stall watchdog, the SLO sentry,
-the report and the fleet collector.
+Left with ``ROADMAP.md`` Queue 1 item 11: the SLO sentry (``slo.py``), the
+fleet collector (``collect.py``), ``lockorder.py`` and ``wiretap.py``.
 """
 
+from .anomaly import (HEALTH_PREFIX, Breach, CodebookCollapseDetector,
+                      GradExplosionDetector, HealthSentry, LossSpikeDetector,
+                      NaNPrecursorDetector, split_health_key)
 from .context import current_trace_id, new_trace_id, trace_context
-from .health import HEALTH_PREFIX, decode_quality, split_health_key
+from .device import (CompileCounter, DeviceTelemetry, device_memory_headroom,
+                     device_memory_stats, install_compile_counter)
+from .health import (GroupTaps, codebook_health, decode_quality, group_norms,
+                     gumbel_health, layer_groups, module_tree,
+                     nonfinite_fractions, tree_health)
 from .prometheus import render_textfile, sanitize_metric_name, write_textfile
 from .recorder import (FlightRecorder, collect_state, configure_recorder,
                        disable_recorder, dump_recorder, get_recorder,
@@ -26,10 +36,20 @@ from .trace import (DEFAULT_BUCKETS, MAX_HISTOGRAM_BUCKETS, Tracer,
                     export_spans_jsonl, gauge_set, get_tracer,
                     histogram_observe, labeled_name, metrics_snapshot,
                     open_spans, record_span, span)
+from .report import (format_request_timeline, request_timeline,
+                     span_overhead_s, summarize_run)
+from .watchdog import StallReport, StallWatchdog
 
 __all__ = [
+    "HEALTH_PREFIX", "Breach", "CodebookCollapseDetector",
+    "GradExplosionDetector", "HealthSentry", "LossSpikeDetector",
+    "NaNPrecursorDetector", "split_health_key",
     "current_trace_id", "new_trace_id", "trace_context",
-    "HEALTH_PREFIX", "decode_quality", "split_health_key",
+    "CompileCounter", "DeviceTelemetry", "device_memory_headroom",
+    "device_memory_stats", "install_compile_counter",
+    "GroupTaps", "codebook_health", "decode_quality", "group_norms",
+    "gumbel_health", "layer_groups", "module_tree", "nonfinite_fractions",
+    "tree_health",
     "render_textfile", "sanitize_metric_name", "write_textfile",
     "FlightRecorder", "collect_state", "configure_recorder",
     "disable_recorder", "dump_recorder", "get_recorder",
@@ -40,4 +60,6 @@ __all__ = [
     "export_chrome_trace", "export_spans_jsonl", "gauge_set",
     "get_tracer", "histogram_observe", "labeled_name", "metrics_snapshot",
     "open_spans", "record_span", "span",
+    "format_request_timeline", "request_timeline", "span_overhead_s",
+    "summarize_run", "StallReport", "StallWatchdog",
 ]

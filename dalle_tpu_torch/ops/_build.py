@@ -33,6 +33,9 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report (registers, spills) per source built
 build_logs: Dict[str, str] = {}
+# what this process compiled and loaded at run time: nvcc runs started and
+# libraries loaded (obs/device.CompileCounter reads them)
+compile_events: Dict[str, int] = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -82,6 +85,7 @@ def build_all() -> Dict[str, Path]:
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
+        compile_events["builds"] += 1
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -104,4 +108,5 @@ def library(name: str) -> ctypes.CDLL:
             if name not in paths:
                 raise FileNotFoundError(f"no kernel source csrc/{name}.cu")
             lib = _libs[name] = ctypes.CDLL(str(paths[name]))
+            compile_events["loads"] += 1
         return lib

@@ -52,17 +52,44 @@ it, so the two give the same bits); both end in ``_finish_step``.
 * **Chaos** (``chaos.step_hook``): ``fit`` calls it with the step before
   each dispatch, where the JAX package's fit does, so an installed
   ``FaultPlan`` kills, hangs, slows or corrupts there.
+* **Telemetry** (``train_cfg.obs``, the JAX package's names): every
+  iteration of ``fit`` is a ``fit/step`` span nesting ``fit/batch_wait``
+  (blocked on the batch stream), ``fit/dispatch`` (the step's host work and
+  launches) and ``fit/sync`` (the metrics read); saves are
+  ``fit/checkpoint``, snapshots ``ckpt/snapshot_good`` and
+  ``ckpt/preemptive_snapshot``, rollbacks ``ckpt/rollback``. The same
+  splits land in each record read inside ``fit`` as ``t_batch_wait_s``,
+  ``t_dispatch_s``, ``t_sync_s``, ``t_h2d_s`` (the prefetcher's host time
+  for the batch), ``t_ckpt_s`` (the previous save, one record late) and
+  ``data_starvation`` (the share of the wall since the last record spent
+  waiting on data), with the device gauges every ``device_poll_every``
+  steps and a Prometheus textfile mirror (``prometheus_path``). A
+  ``ThroughputMeter`` adds samples/s, tokens/s and MFU every ``log_every``
+  steps. ``obs.trace`` exports ``trace.json`` and ``spans.jsonl`` to
+  ``trace_dir`` (or ``<checkpoint_dir>/obs``) when ``fit`` ends;
+  ``obs.watchdog_deadline_s`` runs the stall watchdog, fed a beat a step;
+  ``profile_step`` = N profiles the real step that contains step N with
+  ``torch.profiler`` into ``<checkpoint_dir>/profile_stepN``.
+* **Health** (``obs.health``): the optimizer leaves its per-parameter
+  reductions (``train_state.StepTaps``) and ``GroupTaps`` sums them into
+  the JAX package's ``health/*`` columns, added to the step's device
+  metrics, so they ride its one read. ``fit`` builds a ``HealthSentry``
+  (``obs/anomaly.py``) that sees every record read once;
+  ``train/actions.BreachActions`` acts on its breaches, through
+  ``take_preemptive_snapshot`` (a one-shot rung that ``_rollback``
+  prefers over the save's snapshot), ``_rollback`` and ``set_lr_scale``.
+  ``grad_hook(trainer)``, when set, runs between the backward and the
+  optimizer: tests write into a gradient there.
 
-Not ported yet (``ROADMAP.md`` Queue 1 items 3 and 12): asynchronous
-checkpoint writes, the preemptive snapshot rung
-(``take_preemptive_snapshot``), the signal and preemption handlers, and the
-obs and health taps.
+Not ported yet (``ROADMAP.md`` Queue 1 item 3): asynchronous checkpoint
+writes and the signal and preemption handlers.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional
@@ -74,8 +101,12 @@ from torch.func import functional_call
 from ..chaos.faults import step_hook as chaos_step_hook
 from ..data.device_prefetch import DevicePrefetcher
 from ..device import resolve_device, to_device
+from ..obs import (DeviceTelemetry, GroupTaps, StallWatchdog, device_memory_headroom,
+                   export_chrome_trace, export_spans_jsonl, metrics_snapshot, span,
+                   write_textfile)
+from ..obs import configure as obs_configure
 from .checkpoints import CheckpointManager
-from .metrics import count_params
+from .metrics import ThroughputMeter, count_params, profiled
 from .train_state import cast_floating, compute_dtype, make_optimizer
 
 SNAPSHOT_HEADROOM = 1.15    # "auto" keeps the snapshot on the card below this share of free
@@ -110,9 +141,21 @@ def _crossed(prev: int, cur: int, every: int) -> bool:
 
 
 def _line(m: Dict[str, Any]) -> str:
-    """A metrics record as fit logs it, under the step it belongs to."""
-    return f"[step {m.get('metrics_step', m['step'])}] " + " ".join(
-        f"{k}={v:.5g}" for k, v in m.items() if k not in ("step", "metrics_step"))
+    """A metrics record as fit logs it, under the step it belongs to:
+    numbers as %.5g, the breach columns (detector and group names) as they
+    are."""
+    return f"[step {_record_step(m)}] " + " ".join(
+        f"{k}={v:.5g}" if isinstance(v, (int, float)) and not isinstance(v, bool)
+        else f"{k}={v}" for k, v in m.items() if k not in ("step", "metrics_step"))
+
+
+def _record_step(m: Dict[str, Any]) -> int:
+    return m.get("metrics_step", m["step"])
+
+
+def _record(m: Dict[str, Any]) -> Dict[str, Any]:
+    """A metrics record as a writer takes it: without its step keys."""
+    return {k: v for k, v in m.items() if k not in ("step", "metrics_step")}
 
 
 def _shape(x):
@@ -181,6 +224,8 @@ class BaseTrainer:
     model_class = "Model"
     generator: Optional[torch.Generator] = None   # the step's draws, checkpointed
     tokens_per_sample = 0                          # for the logged tokens/s
+    flops_per_step = 0.0                           # for the logged MFU
+    grad_hook: Optional[Callable[["BaseTrainer"], None]] = None
 
     def __init__(self, train_cfg, device=None):
         self.train_cfg = train_cfg
@@ -191,21 +236,58 @@ class BaseTrainer:
         self.extra_meta: Dict[str, Any] = {}
         self.step = 0
         self.last_snapshot: Optional[Dict[str, Any]] = None
+        self.last_preemptive: Optional[Dict[str, Any]] = None
         self._good = None   # (mode, step, copies of the model and optimizer state)
-        # (step, device metrics, host metrics): the latest step's, until read
-        # or NaN-checked, and under defer_metrics the parked boundary's
+        self._preemptive = None   # the one-shot rung, as _good
+        # (step, device metrics, host metrics, partial breakdown): the latest
+        # step's, until read or NaN-checked, and under defer_metrics the
+        # parked boundary's
         self._pending = None
         self._deferred = None
+        # the step breakdown's state (set by fit; a dispatch start of None
+        # is a bare train_step, which gets no breakdown)
+        self._obs_dispatch_t0 = None
+        self._obs_last_wait = 0.0
+        self._obs_last_h2d = 0.0
+        self._obs_last_ckpt = 0.0
+        self._obs_wait_accum = 0.0
+        self._obs_window_t0 = None
+        self._obs_poll_bucket = -1
+        self._telemetry = None
+        self.meter: Optional[ThroughputMeter] = None
+        self.last_watchdog: Optional[StallWatchdog] = None
+        self.last_profile: Optional[str] = None
+        self.health_sentry = None     # built by fit (or BreachActions) under obs.health
+        self._health_last_step = -1
+        self._taps: Optional[GroupTaps] = None
 
-    def _setup_training(self, loss_fn: Callable):
+    def _setup_training(self, loss_fn: Callable, health_prefix: str = ""):
         """After ``self.model`` is built: the optimizer over its parameters,
-        the compute dtype, the loss (see ``_LossBackward``) and the counts."""
+        the compute dtype, the loss (see ``_LossBackward``), the counts and,
+        under ``obs.health``, the group taps (groups namespaced by
+        ``health_prefix``)."""
         self.names = [n for n, _ in self.model.named_parameters()]
         self._loss_backward = _LossBackward(self.model, loss_fn)
-        self.optimizer = make_optimizer(self.train_cfg.optim, list(self.model.parameters()),
-                                        lr_scale=self.train_cfg.runtime_lr_scale)
+        params = list(self.model.parameters())
+        self.optimizer = make_optimizer(self.train_cfg.optim, params,
+                                        lr_scale=self.train_cfg.runtime_lr_scale,
+                                        health=self.health)
+        if self.health:
+            self._taps = GroupTaps(self.model, self.names, params,
+                                   self.train_cfg.obs.health_group_depth, health_prefix)
         self.dtype = compute_dtype(self.train_cfg.precision)
         self.num_params = count_params(self.model)
+
+    @property
+    def health(self) -> bool:
+        return bool(self.train_cfg.obs.health)
+
+    def _health_columns(self) -> Dict[str, torch.Tensor]:
+        """The last step's ``health/*`` tree columns (device scalars); {}
+        with health off."""
+        if self._taps is None:
+            return {}
+        return self._taps.columns(self.optimizer.taps)
 
     def set_lr_scale(self, value: float):
         """The runtime learning-rate scale (``runtime_lr_scale``): multiplies
@@ -227,6 +309,8 @@ class BaseTrainer:
         device."""
         self.optimizer.zero_grad()
         loss, aux = self._backward(*args, **kw)
+        if self.grad_hook is not None:
+            self.grad_hook(self)
         grad_norm = self.optimizer.step(loss)
         self.step += 1
         return loss, aux, grad_norm
@@ -262,10 +346,12 @@ class BaseTrainer:
         host numbers ``host``) → host floats with ``step``, or ``{}``
         between boundaries; see the module's docstring."""
         tc = self.train_cfg
-        self._pending = (self.step, values, host or {})
+        host = host or {}
+        self._pending = (self.step, values, host, None)
         if self.step % max(tc.metrics_every, 1):
             return {}
-        entry = self._pending
+        self._pending = entry = (self.step, values, host,
+                                 self._partial_breakdown(time.perf_counter()))
         if tc.defer_metrics:
             entry, self._deferred = self._deferred, self._pending
             if entry is None:
@@ -274,14 +360,79 @@ class BaseTrainer:
             self._pending = None
         return self._read(entry)
 
-    def _read(self, entry) -> Dict[str, Any]:
-        step, values, host = entry
-        nums = torch.stack([v.detach().float() for v in values.values()]).tolist()
+    def _read(self, entry, **span_args) -> Dict[str, Any]:
+        """An entry's metrics on the host (the one synchronisation), with the
+        throughput report, the step breakdown when it has one, and the
+        health sentry's breach columns."""
+        step, values, host, part = entry
+        sync0 = time.perf_counter()
+        with span("fit/sync", **span_args):
+            nums = torch.stack([v.detach().float() for v in values.values()]).tolist()
+        now = time.perf_counter()
         out: Dict[str, Any] = dict(zip(values, nums))
         out.update(host)
+        if self.meter is None:
+            self.meter = self._new_meter()
+        rep = self.meter.step(self.step)
+        if rep:
+            out.update(rep)
+        if part is not None:
+            out.update(self._finish_breakdown(dict(part, t_sync_s=now - sync0), now))
         out["step"] = self.step
         if step != self.step:
             out["metrics_step"] = step
+        return self._health_observe(step, out)
+
+    def _new_meter(self) -> ThroughputMeter:
+        tc = self.train_cfg
+        return ThroughputMeter(tc.batch_size, max(tc.log_every, 1),
+                               tokens_per_sample=self.tokens_per_sample,
+                               flops_per_step=self.flops_per_step, device=self.device)
+
+    def _health_observe(self, step: int, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """Run the health sentry over one record read, once per step (every
+        path that reads a record comes here). Adds the breach columns."""
+        sentry = self.health_sentry
+        if sentry is None or not metrics or step == self._health_last_step:
+            return metrics
+        self._health_last_step = step
+        sentry.observe(step, metrics)
+        return metrics
+
+    # -- the step breakdown -------------------------------------------------
+    def _partial_breakdown(self, dispatch_end: float) -> Optional[Dict[str, float]]:
+        """The splits known when the step's dispatch ends: the batch wait,
+        the dispatch, the prefetcher's host time for the batch, and the
+        previous save's cost. None outside fit."""
+        t0 = self._obs_dispatch_t0
+        if t0 is None:
+            return None
+        out = {"t_batch_wait_s": self._obs_last_wait, "t_dispatch_s": dispatch_end - t0,
+               "t_h2d_s": self._obs_last_h2d}
+        if self._obs_last_ckpt:
+            out["t_ckpt_s"] = self._obs_last_ckpt
+            self._obs_last_ckpt = 0.0
+        return out
+
+    def _finish_breakdown(self, out: Dict[str, float], now: float) -> Dict[str, float]:
+        """The starvation ratio over the window since the last record, the
+        device gauges every ``device_poll_every`` steps and the Prometheus
+        mirror, merged into ``out``."""
+        if self._obs_window_t0 is not None and now > self._obs_window_t0:
+            out["data_starvation"] = min(self._obs_wait_accum / (now - self._obs_window_t0), 1.0)
+        self._obs_window_t0 = now
+        self._obs_wait_accum = 0.0
+        oc = self.train_cfg.obs
+        if oc.device_poll_every > 0:
+            bucket = self.step // oc.device_poll_every
+            if bucket != self._obs_poll_bucket:
+                self._obs_poll_bucket = bucket
+                if self._telemetry is None:
+                    self._telemetry = DeviceTelemetry(self.device)
+                out.update(self._telemetry.poll(self.step))
+                if oc.prometheus_path:
+                    write_textfile(oc.prometheus_path,
+                                   {**out, **metrics_snapshot(), "host_step": self.step})
         return out
 
     def fetch_metrics(self) -> Dict[str, Any]:
@@ -294,7 +445,7 @@ class BaseTrainer:
         entry, self._pending = self._pending, None
         if self._deferred is not None and self._deferred[0] == entry[0]:
             self._deferred = None
-        return self._read(entry)
+        return self._read(entry, on_demand=True)
 
     # -- checkpoints -------------------------------------------------------
     def _meta(self) -> Dict[str, Any]:
@@ -339,31 +490,55 @@ class BaseTrainer:
         if self.device.type != "cuda":
             return "host"
         if mode == "auto":
-            free, _total = torch.cuda.mem_get_info(self.device)
-            return "device" if nbytes * SNAPSHOT_HEADROOM < free else "host"
+            headroom = device_memory_headroom(self.device)
+            return "device" if nbytes * SNAPSHOT_HEADROOM < headroom else "host"
         return mode
 
-    def _snapshot_good(self):
-        """Keep a copy of the masters and the optimizer state (and count)."""
-        self._good = None    # freed first: "auto" gauges the memory without it
+    def _take_snapshot(self, name: str):
+        """(mode, step, copies) of the masters and the optimizer state (and
+        count), timed into a ``name`` span; → (snapshot, its mode/bytes/ms)."""
         live = self._rollback_state()
         nbytes = _tree_bytes(live)
         mode = self._snapshot_mode(nbytes)
         t0 = time.perf_counter()
-        copies = _copy_tree(live, None if mode == "device" else "cpu")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._good = (mode, self.step, copies)
-        self.last_snapshot = {"mode": mode, "bytes": nbytes,
-                              "ms": (time.perf_counter() - t0) * 1e3}
+        with span(name, mode=mode):
+            copies = _copy_tree(live, None if mode == "device" else "cpu")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return (mode, self.step, copies), {"mode": mode, "bytes": nbytes,
+                                           "ms": (time.perf_counter() - t0) * 1e3}
 
-    def _rollback(self):
-        """Put the snapshot back (both loads copy into the live tensors, so
-        the snapshot outlives another NaN); metrics of the poisoned steps
-        die with them."""
-        _mode, _step, good = self._good
-        self._load_rollback_state(good)
+    def _snapshot_good(self):
+        """Keep a copy of the masters and the optimizer state (and count). A
+        fresh snapshot supersedes a parked preemptive rung, which is older."""
+        self._good = self._preemptive = None   # freed first: "auto" gauges without them
+        self._good, self.last_snapshot = self._take_snapshot("ckpt/snapshot_good")
+
+    def take_preemptive_snapshot(self):
+        """Copy the current state into a one-shot rung above the save's
+        snapshot (the nan-precursor breach action, ``train/actions.py``):
+        the next rollback restores it and consumes it, so a rollback loses
+        the steps since the breach rather than since the save; a rollback
+        after that falls through to the save's snapshot. Placed as
+        ``_snapshot_good`` places its copy."""
+        self._preemptive = None
+        self._preemptive, self.last_preemptive = self._take_snapshot("ckpt/preemptive_snapshot")
+
+    def _rollback(self) -> Optional[int]:
+        """Put back the preemptive rung (consumed) or else the save's snapshot
+        (both loads copy into the live tensors, so the save's snapshot
+        outlives another NaN); metrics of the poisoned steps die with them.
+        Returns the step whose state was restored (None: no snapshot)."""
         self._pending = self._deferred = None
+        with span("ckpt/rollback"):
+            if self._preemptive is not None:
+                (_mode, step, good), self._preemptive = self._preemptive, None
+            elif self._good is not None:
+                _mode, step, good = self._good
+            else:
+                return None
+            self._load_rollback_state(good)
+        return step
 
     def _rollback_state(self) -> Dict[str, Any]:
         """What a rollback snapshot copies: the masters and the optimizer's
@@ -378,90 +553,182 @@ class BaseTrainer:
     # -- the loop ------------------------------------------------------------
     def _batches(self, batches: Iterable):
         """fit's stream of (stacked, batch): grouped by ``scan_steps``,
-        through the prefetcher when ``device_prefetch`` > 0."""
+        through the prefetcher when ``device_prefetch`` > 0 (then returned
+        second, for its ``last_put_s``; else None)."""
         tc = self.train_cfg
         if tc.scan_steps > 1:
             items = stack_batches(batches, tc.scan_steps)
         else:
             items = ((False, b) for b in batches)
         if tc.device_prefetch > 0:
-            items = DevicePrefetcher(
+            pf = DevicePrefetcher(
                 items, lambda item: (item[0], self._put_batch(item[1], stacked=item[0])),
                 depth=tc.device_prefetch, device=self.device)
-        return items
+            return pf, pf
+        return items, None
+
+    def _obs_dir(self, what: str) -> str:
+        if not self.train_cfg.checkpoint_dir:
+            raise ValueError(f"{what} needs train_cfg.checkpoint_dir (or obs.trace_dir "
+                             "for the trace)")
+        return self.train_cfg.checkpoint_dir
 
     def fit(self, batches: Iterable, *, steps: Optional[int] = None, log=print,
-            sample_fn: Optional[Callable[[int], Any]] = None):
+            sample_fn: Optional[Callable[[int], Any]] = None, metrics_writer=None):
         """Train on ``batches`` until the step reaches ``steps`` (a resumed
         run continues from its step): a batch at a time through
         ``train_step``, or k at a time through ``train_steps`` with
         ``scan_steps`` = k. Logs at every ``train_cfg.log_every`` boundary
-        that has metrics, with the samples and tokens per second since the
-        last log, calls ``sample_fn(step)`` every ``sample_every_steps``,
-        checkpoints and rolls back as the module's docstring says. With
+        that has metrics, hands every record read to ``metrics_writer``
+        (``.log(step, record)``, e.g. a ``MetricsLogger``), calls
+        ``sample_fn(step)`` every ``sample_every_steps``, checkpoints, rolls
+        back and records its telemetry as the module's docstring says. With
         device prefetch the lookahead takes up to ``device_prefetch``
         batches more from ``batches`` than the steps use. Returns the last
         finite metrics read."""
         tc = self.train_cfg
+        oc = tc.obs
+        trace_dir = None
+        if oc.trace:
+            trace_dir = oc.trace_dir or os.path.join(self._obs_dir("obs.trace"), "obs")
+            obs_configure(oc.ring_capacity)
+        if tc.profile_step:
+            self._obs_dir("profile_step")
+        watchdog = None
+        if oc.watchdog_deadline_s > 0:
+            watchdog = self.last_watchdog = StallWatchdog(
+                oc.watchdog_deadline_s, log=log, dump_stacks=oc.watchdog_dump_stacks).start()
+        if oc.health and self.health_sentry is None:
+            # kept across fit calls, so the baselines survive a resume
+            from ..obs.anomaly import HealthSentry
+            self.health_sentry = HealthSentry.from_obs_config(oc)
         if self.ckpt is not None and tc.preflight_checkpoint:
             self.ckpt.preflight(self.step, self.state_dict(), self._meta())
         if tc.nan_rollback:
             self._snapshot_good()
+        self.meter = self._new_meter()
         metrics: Dict[str, Any] = {}
-        t0, last = time.perf_counter(), self.step
-        for stacked, batch in self._batches(batches):
-            if steps is not None and self.step >= steps:
-                break
-            prev = self.step
-            # chaos injection point: kill/hang/slow/corrupt faults fire here,
-            # before the dispatch, as in the JAX package's fit
-            chaos_step_hook(prev)
-            m = (self.train_steps if stacked else self.train_step)(*batch)
-            want_save = self.ckpt is not None and _crossed(prev, self.step,
-                                                          tc.save_every_steps)
-            if want_save and m.get("metrics_step", self.step) != self.step:
-                # a deferred record is older than the state to be saved: log
-                # it, then read the current step's for the save's NaN check
-                log(_line(m))
-                m = {}
-            if want_save and not m:
-                m = self.fetch_metrics()
-            if self._rolled_back(m, log):
-                continue
-            if m:
-                metrics = m
-                if _crossed(prev, self.step, max(tc.log_every, 1)):
-                    now = time.perf_counter()
-                    b = len(batch[0][0]) if stacked else len(batch[0])
-                    sps = b * (self.step - last) / (now - t0)
-                    metrics.update(sample_per_sec=sps,
-                                   tokens_per_sec=sps * self.tokens_per_sample)
-                    t0, last = now, self.step
-                    log(_line(metrics))
-            if want_save:
-                self.save()
-                if tc.nan_rollback:
-                    self._snapshot_good()
-            if sample_fn is not None and _crossed(prev, self.step, tc.sample_every_steps):
-                sample_fn(self.step)
-        # the end: log a parked record older than the last step, then read
-        # and NaN-check the last step's before it is saved
+        items, prefetcher = self._batches(batches)
+        it = iter(items)
+        self._obs_wait_accum = 0.0
+        self._obs_window_t0 = time.perf_counter()
+        end = object()
+        try:
+            while True:
+                with span("fit/step") as step_span:
+                    t_wait0 = time.perf_counter()
+                    with span("fit/batch_wait"):
+                        item = next(it, end)
+                    if item is end or (steps is not None and self.step >= steps):
+                        break
+                    self._obs_last_wait = time.perf_counter() - t_wait0
+                    self._obs_wait_accum += self._obs_last_wait
+                    self._obs_last_h2d = prefetcher.last_put_s if prefetcher is not None else 0.0
+                    stacked, batch = item
+                    prev = self.step
+                    step_span.set(step=prev)
+                    # chaos injection point: kill/hang/slow/corrupt faults fire
+                    # here, before the dispatch, as in the JAX package's fit
+                    chaos_step_hook(prev)
+                    m = self._dispatch(stacked, batch, log)
+                    if watchdog is not None:
+                        watchdog.beat(self.step)
+                    metrics = self._after_step(prev, m, metrics, log, metrics_writer, sample_fn)
+            metrics = self._fit_end(metrics, log, metrics_writer)
+        finally:
+            self._obs_dispatch_t0 = None   # a bare train_step gets no breakdown
+            if watchdog is not None:
+                watchdog.stop()
+            if trace_dir is not None:
+                os.makedirs(trace_dir, exist_ok=True)
+                export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+                export_spans_jsonl(os.path.join(trace_dir, "spans.jsonl"))
+        return metrics
+
+    def _fit_end(self, metrics: Dict[str, Any], log, metrics_writer) -> Dict[str, Any]:
+        """The end of fit: log a parked record older than the last step, then
+        read and NaN-check the last step's before it is saved."""
         if self._deferred is not None and (self._pending is None
                                            or self._deferred[0] != self._pending[0]):
-            log(_line(self._read(self._deferred)))
+            m = self._read(self._deferred, flush=True)
             self._deferred = None
+            log(_line(m))
+            if metrics_writer is not None:
+                metrics_writer.log(_record_step(m), _record(m))
         m = self.fetch_metrics()
         if not self._rolled_back(m, log) and m:
             metrics = m
+            if metrics_writer is not None:
+                metrics_writer.log(_record_step(m), _record(m))
         if self.ckpt is not None and self.ckpt.latest_step() != self.step:
-            self.save()
+            self._save_timed()
         return metrics
+
+    def _dispatch(self, stacked: bool, batch, log) -> Dict[str, Any]:
+        """One ``train_step`` (or ``train_steps`` on a stacked group) in a
+        ``fit/dispatch`` span; under ``torch.profiler`` when the call holds
+        ``profile_step``."""
+        tc = self.train_cfg
+        call = self.train_steps if stacked else self.train_step
+        k = len(batch[0]) if stacked else 1
+        prev = self.step
+        self._obs_dispatch_t0 = time.perf_counter()
+        if tc.profile_step and prev < tc.profile_step <= prev + k:
+            # the real step that contains profile_step: no extra update
+            logdir = os.path.join(tc.checkpoint_dir, f"profile_step{tc.profile_step}")
+            with profiled(logdir):
+                with span("fit/dispatch", profiled=True):
+                    m = call(*batch)
+            self.last_profile = logdir
+            log(f"[profile] step {self.step}: trace → {logdir}")
+            return m
+        with span("fit/dispatch"):
+            return call(*batch)
+
+    def _after_step(self, prev: int, m: Dict[str, Any], metrics: Dict[str, Any], log,
+                    metrics_writer, sample_fn) -> Dict[str, Any]:
+        """A step's events in fit: the save's NaN check, rollback, log and
+        writer, save and sample. Returns the latest finite metrics."""
+        tc = self.train_cfg
+        want_save = self.ckpt is not None and _crossed(prev, self.step, tc.save_every_steps)
+        if want_save and m.get("metrics_step", self.step) != self.step:
+            # a deferred record is older than the state to be saved: log it,
+            # then read the current step's for the save's NaN check
+            log(_line(m))
+            if metrics_writer is not None:
+                metrics_writer.log(_record_step(m), _record(m))
+            m = {}
+        if want_save and not m:
+            m = self.fetch_metrics()
+        if self._rolled_back(m, log):
+            return metrics
+        if m:
+            metrics = m
+            if _crossed(prev, self.step, max(tc.log_every, 1)):
+                log(_line(m))
+            if metrics_writer is not None:
+                metrics_writer.log(_record_step(m), _record(m))
+        if want_save:
+            self._save_timed()
+            if tc.nan_rollback:
+                self._snapshot_good()
+        if sample_fn is not None and _crossed(prev, self.step, tc.sample_every_steps):
+            sample_fn(self.step)
+        return metrics
+
+    def _save_timed(self):
+        """``save`` in a ``fit/checkpoint`` span; its seconds go into the
+        next record's ``t_ckpt_s``."""
+        t0 = time.perf_counter()
+        with span("fit/checkpoint", step=self.step):
+            self.save()
+        self._obs_last_ckpt = time.perf_counter() - t0
 
     def _rolled_back(self, m: Dict[str, Any], log) -> bool:
         """Roll back when the metrics ``m`` read a loss that is not finite."""
         if not (m and self.train_cfg.nan_rollback and not math.isfinite(m["loss"])):
             return False
-        self._rollback()
-        log(f"[step {m.get('metrics_step', m['step'])}] non-finite loss: rolled back to "
-            f"the state of step {self._good[1]}")
+        step = self._rollback()
+        log(f"[step {_record_step(m)}] non-finite loss: rolled back to the state of "
+            f"step {step}")
         return True

@@ -48,6 +48,7 @@ import torch
 from ..config import ClipConfig
 from ..device import resolve_device
 from ..models.clip import CLIP, init_clip
+from ..obs.trace import span
 
 STATE_FILE = "state.pt"
 META_FILE = "metadata.json"
@@ -136,9 +137,10 @@ class CheckpointManager:
         if os.path.exists(final):
             raise FileExistsError(f"checkpoint step {step} already exists in "
                                   f"{self.directory}")
-        tmp = self._write(step, state, metadata)
-        os.replace(tmp, final)
-        _fsync(self.directory)
+        with span("ckpt/snapshot", step=step, asynchronous=False):
+            tmp = self._write(step, state, metadata)
+            os.replace(tmp, final)
+            _fsync(self.directory)
         if self.keep_n is not None:
             for old in self.all_steps()[:-self.keep_n]:
                 shutil.rmtree(self.step_dir(old), ignore_errors=True)

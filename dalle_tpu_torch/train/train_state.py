@@ -20,6 +20,16 @@ this order:
 5. With ``lr_scale`` armed (``TrainConfig.runtime_lr_scale``), the runtime
    scale ``set_lr_scale`` writes, as ``TrainState.lr_scale``.
 
+With ``health`` (``ObsConfig.health``), each call also leaves ``taps``
+(``StepTaps``): per parameter, Σg² and the non-finite elements of the
+gradient it was given (before any clipping or averaging, as the JAX step's
+taps read ``grads``), Σp² after the call, and Σu² of the update it applied
+(optax's ``updates``, after every scale; 0 on an accumulation step, where
+``MultiSteps`` emits zeros). Each core takes ‖u‖ where it forms u, as one
+more reduction beside its arithmetic: the parameters' bits are the same with
+and without, and no parameter is copied (Adam's ‖u‖ takes one temporary the
+size of a foreach group).
+
 Nothing in a step is read back to the host: the scales are device scalars,
 the counts host integers that the host advances itself. Adam, AdamW and
 SGD use ``torch.optim``'s foreach arithmetic; each core works through the
@@ -30,7 +40,7 @@ its temporaries.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,11 +92,19 @@ def make_lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
     return warmed
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def tensor_norms(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor's L2 norm, accumulated in f32 (0-d f32 tensors)."""
+    return torch._foreach_norm([t.float() if t.dtype != torch.float32 else t
+                                for t in tensors])
+
+
+def global_norm(tensors: Sequence[torch.Tensor],
+                norms: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``),
-    as an f32 scalar tensor on the tensors' device."""
-    norms = torch._foreach_norm([t.float() if t.dtype != torch.float32 else t
-                                 for t in tensors])
+    as an f32 scalar tensor on the tensors' device; ``norms`` are the
+    tensors' own (``tensor_norms``) when the caller has them."""
+    if norms is None:
+        norms = tensor_norms(tensors)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -133,12 +151,29 @@ def factored_dims(shape) -> Optional[tuple]:
     return int(order[-2]), int(order[-1])
 
 
+class StepTaps(NamedTuple):
+    """One ``Optimizer.step``'s per-parameter reductions (``health``), each
+    (P,) f32 in the parameters' order."""
+    grad_sq: torch.Tensor     # Σ g², before clipping or averaging
+    nonfinite: torch.Tensor   # the count of inf/nan elements of g
+    param_sq: torch.Tensor    # Σ p², after the call
+    update_sq: torch.Tensor   # Σ u², u the update applied (0 where none)
+
+
+def _put_norms(unorm, idx, norms):
+    for i, n in zip(idx, norms):
+        unorm[i] = n
+
+
 class _Core:
     """One optimizer's per-parameter state, named by ``STATE`` (lists in
     the parameters' order, None where a parameter holds none), and its
-    update: ``apply(params, grads, lr, count, scale)`` moves the parameters
-    by ``scale`` (a device scalar, or None for 1) times the update at
-    learning rate ``lr``, ``count`` updates after the first."""
+    update: ``apply(params, grads, lr, count, scale, unorm)`` moves the
+    parameters by ``scale`` (a device scalar, or None for 1) times the
+    update at learning rate ``lr``, ``count`` updates after the first. When
+    ``unorm`` (a list, one slot a parameter) is given, it puts ‖u‖ of each
+    parameter's update there, reading what the update reads and writing no
+    parameter."""
     STATE: tuple = ()
 
     def state_dict(self) -> Dict[str, list]:
@@ -163,11 +198,15 @@ class _Sgd(_Core):
     def __init__(self, cfg: OptimConfig, params):
         self.groups = _groups(params)
 
-    def apply(self, params, grads, lr, count, scale):
+    def apply(self, params, grads, lr, count, scale, unorm=None):
         for idx in self.groups:
             ps, gs = [params[i] for i in idx], [grads[i] for i in idx]
             if scale is not None:
                 gs = torch._foreach_mul(gs, scale)
+            if unorm is not None:
+                norms = torch._foreach_norm(gs)
+                torch._foreach_mul_(norms, lr)
+                _put_norms(unorm, idx, norms)
             torch._foreach_add_(ps, gs, alpha=-lr)
 
 
@@ -185,7 +224,7 @@ class _Adam(_Core):
         self.nu = [torch.zeros_like(p) for p in params]
         self.groups = _groups(params)
 
-    def apply(self, params, grads, lr, count, scale):
+    def apply(self, params, grads, lr, count, scale, unorm=None):
         t = count + 1
         bc1 = 1.0 - self.b1 ** t
         bc2_sqrt = math.sqrt(1.0 - self.b2 ** t)
@@ -195,17 +234,33 @@ class _Adam(_Core):
             torch._foreach_lerp_(mus, gs, 1.0 - self.b1)
             torch._foreach_mul_(nus, self.b2)
             torch._foreach_addcmul_(nus, gs, gs, value=1.0 - self.b2)
-            if self.wd:
-                torch._foreach_mul_(ps, 1.0 - lr * self.wd if scale is None
-                                    else 1.0 - scale * (lr * self.wd))
             denom = torch._foreach_sqrt(nus)
             torch._foreach_div_(denom, bc2_sqrt)
             torch._foreach_add_(denom, self.eps)
+            if scale is not None:
+                torch._foreach_reciprocal_(denom)
+                torch._foreach_mul_(denom, scale)      # scale / denom
+            if unorm is not None:
+                # -u = lr/bc1 · mu/denom (+ lr·wd · p), scaled; p before the update
+                u = (torch._foreach_div(mus, denom) if scale is None
+                     else torch._foreach_mul(mus, denom))
+                if self.wd:
+                    torch._foreach_mul_(u, lr / bc1)
+                    torch._foreach_add_(u, ps if scale is None
+                                        else torch._foreach_mul(ps, scale),
+                                        alpha=lr * self.wd)
+                    norms = torch._foreach_norm(u)
+                else:
+                    norms = torch._foreach_norm(u)
+                    torch._foreach_mul_(norms, lr / bc1)
+                _put_norms(unorm, idx, norms)
+                del u
+            if self.wd:
+                torch._foreach_mul_(ps, 1.0 - lr * self.wd if scale is None
+                                    else 1.0 - scale * (lr * self.wd))
             if scale is None:
                 torch._foreach_addcdiv_(ps, mus, denom, value=-lr / bc1)
             else:
-                torch._foreach_reciprocal_(denom)
-                torch._foreach_mul_(denom, scale)
                 torch._foreach_addcmul_(ps, mus, denom, value=-lr / bc1)
 
 
@@ -265,10 +320,11 @@ class _Adafactor(_Core):
         u = torch.mul(g, row.unsqueeze(d0), out=g2)
         return u.mul_(v_col.rsqrt().unsqueeze(d1))
 
-    def _finish(self, us, ps, lr, scale):
+    def _finish(self, us, ps, lr, scale, idx, unorm):
         """Block-rms clip, learning rate, parameter scale, decay, apply."""
         roots = [math.sqrt(u.numel()) for u in us]
-        u_rms = torch._foreach_div(torch._foreach_norm(us), roots)
+        norms = torch._foreach_norm(us)
+        u_rms = torch._foreach_div(norms, roots)
         p_rms = torch._foreach_div(torch._foreach_norm(ps), roots)
         torch._foreach_clamp_min_(u_rms, ADAFACTOR_CLIP)
         torch._foreach_clamp_min_(p_rms, ADAFACTOR_MIN_PARAM_RMS)
@@ -278,6 +334,8 @@ class _Adafactor(_Core):
             # one pass: p − (factor · scale) · u
             if scale is not None:
                 torch._foreach_mul_(factors, scale)
+            if unorm is not None:
+                _put_norms(unorm, idx, torch._foreach_mul(norms, factors))
             for p, u, f in zip(ps, us, factors):
                 p.addcmul_(u, f, value=-1.0)
             return
@@ -286,12 +344,15 @@ class _Adafactor(_Core):
         torch._foreach_add_(us, ps, alpha=self.wd)
         if scale is not None:
             torch._foreach_mul_(us, scale)
+        if unorm is not None:
+            _put_norms(unorm, idx, torch._foreach_norm(us))
         torch._foreach_sub_(ps, us)
 
-    def apply(self, params, grads, lr, count, scale):
+    def apply(self, params, grads, lr, count, scale, unorm=None):
         beta = self.decay(count)
         for i in self.factored:
-            self._finish([self._factored_update(i, grads[i], beta)], [params[i]], lr, scale)
+            self._finish([self._factored_update(i, grads[i], beta)], [params[i]], lr, scale,
+                         [i], unorm)
         for idx in self.unfactored:
             gs, vs = [grads[i] for i in idx], [self.v[i] for i in idx]
             g2 = torch._foreach_mul(gs, gs)
@@ -301,7 +362,7 @@ class _Adafactor(_Core):
             del g2
             us = torch._foreach_rsqrt(vs)
             torch._foreach_mul_(us, gs)
-            self._finish(us, [params[i] for i in idx], lr, scale)
+            self._finish(us, [params[i] for i in idx], lr, scale, idx, unorm)
 
 
 _CORES = {"adam": _Adam, "adamw": _Adam, "sgd": _Sgd, "adafactor": _Adafactor}
@@ -365,10 +426,11 @@ class Optimizer:
     ``params``. ``count`` is the number of updates the core has applied
     (the schedule reads it); with accumulation, ``mini_step`` counts the
     calls since the last update. ``lr_scale`` arms the runtime scale at
-    1.0."""
+    1.0; ``health`` makes every call leave its ``taps`` (the module's
+    docstring)."""
 
     def __init__(self, cfg: OptimConfig, params: Sequence[torch.nn.Parameter],
-                 lr_scale: bool = False):
+                 lr_scale: bool = False, health: bool = False):
         if cfg.optimizer not in _CORES:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.cfg = cfg
@@ -384,6 +446,8 @@ class Optimizer:
         self.plateau = _Plateau(cfg, device) if cfg.lr_scheduler == "plateau" else None
         self.lr_scale = (torch.ones((), dtype=torch.float32, device=device)
                          if lr_scale else None)
+        self.health = health
+        self.taps: Optional[StepTaps] = None
 
     def zero_grad(self):
         for p in self.params:
@@ -419,7 +483,18 @@ class Optimizer:
         averaging (a device scalar)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
-        norm = global_norm(grads)
+        norms = tensor_norms(grads)
+        norm = global_norm(grads, norms)
+        unorm = None
+        if self.health:
+            # non-finite elements a tensor, counted in f32 as the JAX tap sums
+            # them: g - g is 0 where g is finite and NaN where it is not, and
+            # its ord-0 norm counts the NaNs (two passes; isfinite(g).sum()
+            # makes five and an int64 copy of g)
+            bad = torch.stack([torch.linalg.vector_norm(torch.sub(g, g), ord=0)
+                               for g in grads])
+            grad_taps = (torch.stack(norms).square(), bad)
+            unorm = [None] * len(self.params)
         if self.plateau is not None:
             if loss is None:
                 raise ValueError("lr_scheduler='plateau' needs the step's loss")
@@ -429,17 +504,31 @@ class Optimizer:
             self._accumulate(grads)
             self.mini_step = (self.mini_step + 1) % self.accum
             if self.mini_step:
+                if self.health:
+                    self._tap(grad_taps, None)
                 return norm
             grads, inner_norm = self.acc, None
         with torch.no_grad():
             if self.cfg.grad_clip_norm and self.cfg.grad_clip_norm > 0:
                 clip_by_global_norm_(grads, self.cfg.grad_clip_norm, inner_norm)
             self.core.apply(self.params, grads, self.schedule(self.count), self.count,
-                            self._scale())
+                            self._scale(), unorm)
         self.count += 1
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
+        if self.health:
+            self._tap(grad_taps, unorm)
         return norm
+
+    def _tap(self, grad_taps, unorm):
+        """This call's ``taps``: the gradient's, then the parameters' and the
+        update's (None: no update, zeros)."""
+        grad_sq, nonfinite = grad_taps
+        with torch.no_grad():
+            param_sq = torch.stack(tensor_norms(self.params)).square()
+        self.taps = StepTaps(grad_sq, nonfinite, param_sq,
+                             torch.zeros_like(param_sq) if unorm is None
+                             else torch.stack(unorm).square())
 
     # -- state ---------------------------------------------------------------
     def state_dict(self) -> Dict:
@@ -495,8 +584,8 @@ class Optimizer:
 
 
 def make_optimizer(cfg: OptimConfig, params: Sequence[torch.nn.Parameter],
-                   lr_scale: bool = False) -> Optimizer:
-    return Optimizer(cfg, params, lr_scale)
+                   lr_scale: bool = False, health: bool = False) -> Optimizer:
+    return Optimizer(cfg, params, lr_scale, health)
 
 
 def compute_dtype(precision) -> Optional[torch.dtype]:

@@ -5,9 +5,9 @@ Port of ``dalle_tpu/train/trainer_clip.py``: the symmetric cross-entropy of
 masters, clipping and the optimizer's update. The step draws nothing. A
 checkpoint's ``model`` is the ``CLIP`` state dict and its ``hparams`` the
 ``ClipConfig``: what ``generate --clip_path`` reads. ``train_steps`` runs
-k stacked batches with no host read between them.
-
-Not ported yet: the health taps (``ROADMAP.md`` Queue 1 item 12).
+k stacked batches with no host read between them. Under ``obs.health`` a
+step's metrics carry the per-layer-group ``health/*`` columns, as the JAX
+trainer's do.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from ..config import ClipConfig, TrainConfig
 from ..models.clip import init_clip
+from ..obs import span
 from .base_trainer import BaseTrainer
 from .metrics import transformer_train_flops
 
@@ -54,23 +55,31 @@ class CLIPTrainer(BaseTrainer):
         """One optimizer step → {"loss", "grad_norm" (before clipping),
         "step" (after the update)}, or {} between ``metrics_every``
         boundaries."""
-        loss, _, grad_norm = self._optimize(*self._put_batch((text, images)))
-        return self._finish_step({"loss": loss, "grad_norm": grad_norm})
+        with span("clip/shard_batch"):
+            batch = self._put_batch((text, images))
+        with span("clip/step"):
+            loss, _, grad_norm = self._optimize(*batch)
+            return self._finish_step({"loss": loss, "grad_norm": grad_norm,
+                                      **self._health_columns()})
 
     def train_steps(self, texts, images) -> Dict[str, float]:
         """k steps on stacked (k, b, seq) texts and (k, b, H, W, C) images,
         with no host read between them → the last step's metrics plus
         ``loss_mean``."""
-        texts, images = self._put_batch((texts, images), stacked=True)
+        k = len(texts)
+        with span("clip/shard_batch", k=k):
+            texts, images = self._put_batch((texts, images), stacked=True)
         if texts.dim() != 3 or images.dim() != 5:
             raise ValueError("train_steps takes stacked (k, b, seq) texts and "
                              "(k, b, H, W, C) images")
-        losses = []
-        for i in range(texts.shape[0]):
-            loss, _, grad_norm = self._optimize(texts[i], images[i])
-            losses.append(loss)
-        return self._finish_step({"loss": loss, "grad_norm": grad_norm,
-                                  "loss_mean": torch.stack(losses).float().mean()})
+        with span("clip/steps", k=k):
+            losses = []
+            for i in range(texts.shape[0]):
+                loss, _, grad_norm = self._optimize(texts[i], images[i])
+                losses.append(loss)
+            return self._finish_step({"loss": loss, "grad_norm": grad_norm,
+                                      **self._health_columns(),
+                                      "loss_mean": torch.stack(losses).float().mean()})
 
     @torch.no_grad()
     def similarity(self, text, images) -> torch.Tensor:

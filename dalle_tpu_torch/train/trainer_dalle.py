@@ -11,7 +11,10 @@ with no host read between them; every draw (CFG nulls, dropout masks) comes
 from the trainer's generator in ``train_step``'s order, so k ``train_step``
 calls give the same bits. PyTorch runs a step eagerly; the JAX package jits
 it (``lax.scan`` for the k steps). The loop, checkpoints, the metrics
-cadence and NaN rollback are the shell's (``train/base_trainer.py``).
+cadence, NaN rollback and the telemetry are the shell's
+(``train/base_trainer.py``); under ``obs.health`` a step's metrics carry
+the per-layer-group ``health/*`` columns (``transformer``, ``text_emb``,
+``image_emb``, ... at depth 1), device scalars read with the loss.
 
 ``train_cfg.mesh.sp`` > 1 trains sequence parallel: the model's attention
 runs as ring attention over sp ranks in this process
@@ -29,6 +32,7 @@ import torch
 from ..config import DalleConfig, TrainConfig
 from ..convert import dalle_state_dict, optimizer_state_from_optax
 from ..models.dalle import init_dalle
+from ..obs import span
 from .base_trainer import BaseTrainer
 from .metrics import transformer_train_flops
 
@@ -90,7 +94,7 @@ class DalleTrainer(BaseTrainer):
 
     def _metrics(self, loss, aux, grad_norm) -> Dict[str, torch.Tensor]:
         return {"loss": loss, "loss_text": aux["loss_text"], "loss_img": aux["loss_img"],
-                "grad_norm": grad_norm}
+                "grad_norm": grad_norm, **self._health_columns()}
 
     def train_step(self, text, image_ids, null_mask=None) -> Dict[str, float]:
         """One optimizer step on a batch → {"loss", "loss_text", "loss_img",
@@ -98,29 +102,34 @@ class DalleTrainer(BaseTrainer):
         or {} between ``metrics_every`` boundaries. ``null_mask`` ((b,)
         bool) fixes which rows get null text, in place of drawing them with
         ``null_cond_prob``."""
-        text, image_ids, null_mask = self._put_batch((text, image_ids, null_mask))
-        loss, aux, grad_norm = self._optimize(text, image_ids, **self._loss_kw(null_mask))
-        return self._finish_step(self._metrics(loss, aux, grad_norm))
+        with span("dalle/shard_batch"):
+            text, image_ids, null_mask = self._put_batch((text, image_ids, null_mask))
+        with span("dalle/step"):
+            loss, aux, grad_norm = self._optimize(text, image_ids, **self._loss_kw(null_mask))
+            return self._finish_step(self._metrics(loss, aux, grad_norm))
 
     def train_steps(self, texts, image_ids, null_masks=None) -> Dict[str, float]:
         """k = ``texts.shape[0]`` optimizer steps on stacked (k, b, …)
         batches, with no host read between them → the last step's metrics
         plus ``loss_mean`` over the k, at the cadence of ``train_step``; the
         step advances by k."""
-        texts, image_ids, null_masks = self._put_batch((texts, image_ids, null_masks),
-                                                       stacked=True)
+        k = len(texts)
+        with span("dalle/shard_batch", k=k):
+            texts, image_ids, null_masks = self._put_batch((texts, image_ids, null_masks),
+                                                           stacked=True)
         if texts.dim() != 3:
             raise ValueError(f"train_steps takes stacked (k, b, seq) batches, got "
                              f"{tuple(texts.shape)}")
-        losses = []
-        for i in range(texts.shape[0]):
-            loss, aux, grad_norm = self._optimize(
-                texts[i], image_ids[i],
-                **self._loss_kw(None if null_masks is None else null_masks[i]))
-            losses.append(loss)
-        m = self._metrics(loss, aux, grad_norm)
-        m["loss_mean"] = torch.stack(losses).float().mean()
-        return self._finish_step(m)
+        with span("dalle/steps", k=k):
+            losses = []
+            for i in range(texts.shape[0]):
+                loss, aux, grad_norm = self._optimize(
+                    texts[i], image_ids[i],
+                    **self._loss_kw(None if null_masks is None else null_masks[i]))
+                losses.append(loss)
+            m = self._metrics(loss, aux, grad_norm)
+            m["loss_mean"] = torch.stack(losses).float().mean()
+            return self._finish_step(m)
 
     def load_jax_state(self, params: Mapping[str, Any], opt_state=None,
                        lr_scale: Optional[float] = None):

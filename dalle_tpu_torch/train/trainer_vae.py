@@ -11,9 +11,11 @@ checkpoint (the JAX package folds the step into its key). A checkpoint's
 ``model`` is the ``DiscreteVAE`` state dict and its ``hparams`` the
 ``DVAEConfig``: what ``train_dalle --vae_path`` reads. ``train_steps`` runs
 k stacked batches with each step's temperature and gumbel draws as k
-``train_step`` calls would take them.
-
-Not ported yet: the health taps (``ROADMAP.md`` Queue 1 item 12).
+``train_step`` calls would take them. Under ``obs.health`` a step's
+metrics carry the forward's codebook and gumbel vitals
+(``DiscreteVAE(return_health=True)``) and the per-layer-group tree columns,
+as the JAX trainer's do; ``reanneal_gumbel`` is the codebook-collapse
+breach action's re-warm (``train/actions.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..config import AnnealConfig, DVAEConfig, TrainConfig
 from ..models.dvae import init_dvae
+from ..obs import span
 from .base_trainer import BaseTrainer
 
 
@@ -33,8 +36,10 @@ def anneal_temperature(cfg: AnnealConfig, global_step: int) -> float:
     return max(cfg.starting_temp * math.exp(-cfg.anneal_rate * global_step), cfg.temp_min)
 
 
-def _vae_loss(model, images, temp, noise, generator):
-    return model(images, temp=temp, return_loss=True, noise=noise, generator=generator), {}
+def _vae_loss(model, images, temp, noise, generator, health=False):
+    out = model(images, temp=temp, return_loss=True, noise=noise, generator=generator,
+                return_health=health)
+    return out if health else (out, {})
 
 
 class VAETrainer(BaseTrainer):
@@ -54,6 +59,7 @@ class VAETrainer(BaseTrainer):
         self._setup_training(_vae_loss)
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
         self.tokens_per_sample = model_cfg.image_seq_len
+        self.flops_per_step = 6.0 * self.num_params * train_cfg.batch_size * model_cfg.image_seq_len
 
     def _temp_at(self, step: int) -> float:
         """The anneal at ``step - _anneal_step0``."""
@@ -85,30 +91,37 @@ class VAETrainer(BaseTrainer):
 
     def _step(self, images, noise):
         temp = self._temp_at(self.step)
-        loss, _, grad_norm = self._optimize(images, temp, noise, self.generator)
-        return {"loss": loss, "grad_norm": grad_norm}, {"temperature": temp}
+        loss, aux, grad_norm = self._optimize(images, temp, noise, self.generator, self.health)
+        return ({"loss": loss, "grad_norm": grad_norm, **aux, **self._health_columns()},
+                {"temperature": temp})
 
     def train_step(self, images, noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """One optimizer step → {"loss", "grad_norm" (before clipping),
         "temperature", "step" (after the update)}, or {} between
         ``metrics_every`` boundaries. ``noise`` ((b, h, w, num_tokens),
         standard Gumbel) replaces the generator's draw."""
-        return self._finish_step(*self._step(*self._put_batch((images, noise))))
+        with span("vae/shard_batch"):
+            batch = self._put_batch((images, noise))
+        with span("vae/step"):
+            return self._finish_step(*self._step(*batch))
 
     def train_steps(self, images, noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """k steps on stacked (k, b, H, W, C) images (and optional stacked
         noise), with no host read between them → the last step's metrics
         plus ``loss_mean``; each step reads the temperature at its own step."""
-        images, noise = self._put_batch((images, noise), stacked=True)
+        k = len(images)
+        with span("vae/shard_batch", k=k):
+            images, noise = self._put_batch((images, noise), stacked=True)
         if images.dim() != 5:
             raise ValueError(f"train_steps takes stacked (k, b, H, W, C) images, got "
                              f"{tuple(images.shape)}")
-        losses = []
-        for i in range(images.shape[0]):
-            m, host = self._step(images[i], None if noise is None else noise[i])
-            losses.append(m["loss"])
-        m["loss_mean"] = torch.stack(losses).float().mean()
-        return self._finish_step(m, host)
+        with span("vae/steps", k=k):
+            losses = []
+            for i in range(images.shape[0]):
+                m, host = self._step(images[i], None if noise is None else noise[i])
+                losses.append(m["loss"])
+            m["loss_mean"] = torch.stack(losses).float().mean()
+            return self._finish_step(m, host)
 
     # -- evaluation ----------------------------------------------------------
     @torch.no_grad()

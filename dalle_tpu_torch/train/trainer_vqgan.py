@@ -22,9 +22,11 @@ temperature follows ``LambdaWarmUpCosineScheduler`` by default; its draws
 and dropout's come from the trainer's generator, whose state the
 checkpoint carries. A checkpoint's ``model`` is the ``VQModel`` state dict
 and its ``hparams`` the ``VQGANConfig``; the discriminator and its
-optimizer travel beside them, and roll back with them on a NaN.
-
-Not ported yet: the health taps (``ROADMAP.md`` Queue 1 item 12).
+optimizer travel beside them, and roll back with them on a NaN. Under
+``obs.health`` a step's metrics carry the quantizer's codebook vitals
+(``VQModel.health_taps`` of the encode's own ``VQOutput``) and the tree
+columns of both optimizers, the generator's groups under ``gen/`` and the
+discriminator's under ``disc/``, as the JAX trainer's do.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from ..models.gan import (GANLossConfig, NLayerDiscriminator, adaptive_disc_weig
                           adopt_weight, bce_with_quant_loss, hinge_d_loss, vanilla_d_loss)
 from ..models.lpips import init_lpips, load_tiny_perceptual
 from ..models.vqgan import init_vqgan
+from ..obs import GroupTaps, span
+from ..obs.health import codebook_health
 from .base_trainer import BaseTrainer
 from .train_state import make_optimizer
 
@@ -82,21 +86,27 @@ def _ae_loss(model, images, temp, step, noise, generator, trainer):
     d_weight = adaptive_disc_weight(nll, g_loss, model.decoder.conv_out.weight, lc.disc_weight)
     disc_factor = adopt_weight(lc.disc_factor, step, lc.disc_start)
     loss = nll + d_weight * disc_factor * g_loss + lc.codebook_weight * q.loss
+    health = model.health_taps(q, temp) if trainer.health else {}
     return loss, {"recon": recon, "nll_loss": nll, "g_loss": g_loss,
-                  "quant_loss": q.loss.float(), "d_weight": d_weight}
+                  "quant_loss": q.loss.float(), "d_weight": d_weight, **health}
 
 
 def _simple_loss(model, images, targets, temp, noise, generator, trainer):
     """``nodisc`` / ``segmentation`` → (loss, aux)."""
     lc = trainer.loss_cfg
-    recon, qloss, _ = model(trainer._to_compute(images), temp, deterministic=False,
-                            noise=noise, generator=generator)
+    recon, qloss, indices = model(trainer._to_compute(images), temp, deterministic=False,
+                                  noise=noise, generator=generator)
     recon32 = recon.float()
+    health = {}
+    if trainer.health:
+        with torch.no_grad():
+            health = codebook_health(indices, model.cfg.n_embed)
     if trainer.loss_mode == "segmentation":
         loss, parts = bce_with_quant_loss(recon32, targets, qloss, lc.codebook_weight)
-        return loss, {"nll_loss": parts["bce_loss"], "quant_loss": qloss.float()}
+        return loss, {"nll_loss": parts["bce_loss"], "quant_loss": qloss.float(), **health}
     rec = torch.mean(torch.abs(targets - recon32)) * lc.pixelloss_weight
-    return rec + lc.codebook_weight * qloss, {"nll_loss": rec, "quant_loss": qloss.float()}
+    return rec + lc.codebook_weight * qloss, {"nll_loss": rec, "quant_loss": qloss.float(),
+                                              **health}
 
 
 class VQGANTrainer(BaseTrainer):
@@ -143,9 +153,15 @@ class VQGANTrainer(BaseTrainer):
                 self.lpips = (load_tiny_perceptual(device=self.device)
                               if lc.perceptual_net == "tiny"
                               else init_lpips(seed=train_cfg.seed + 2, device=self.device))
-            self._setup_training(_ae_loss)
+            self._setup_training(_ae_loss, health_prefix="gen")
             self.disc_optim = disc_optim or train_cfg.optim
-            self.disc_optimizer = make_optimizer(self.disc_optim, list(self.disc.parameters()))
+            disc_params = list(self.disc.parameters())
+            self.disc_optimizer = make_optimizer(self.disc_optim, disc_params,
+                                                 health=self.health)
+            if self.health:
+                self._disc_taps = GroupTaps(
+                    self.disc, [n for n, _ in self.disc.named_parameters()], disc_params,
+                    train_cfg.obs.health_group_depth, "disc")
         self.temp_scheduler = temp_scheduler
         if temp_scheduler is None and model_cfg.quantizer == "gumbel":
             self.temp_scheduler = LambdaWarmUpCosineScheduler(
@@ -165,7 +181,7 @@ class VQGANTrainer(BaseTrainer):
         if self.loss_mode != "gan":
             t = images if targets is None else targets
             loss, aux, _ = self._optimize(images, t, temp, noise, self.generator, self)
-            return {"loss": loss, **aux}, host
+            return {"loss": loss, **aux, **self._health_columns()}, host
         lc = self.loss_cfg
         step = self.step
         self.disc.requires_grad_(False)
@@ -182,9 +198,12 @@ class VQGANTrainer(BaseTrainer):
                                                                               logits_fake)
         d_loss.backward()
         self.disc_optimizer.step(d_loss.detach())
-        return {"loss": loss, "disc_loss": d_loss.detach(), **aux,
-                "logits_real": logits_real.detach().mean(),
-                "logits_fake": logits_fake.detach().mean()}, host
+        m = {"loss": loss, "disc_loss": d_loss.detach(), **aux,
+             "logits_real": logits_real.detach().mean(),
+             "logits_fake": logits_fake.detach().mean(), **self._health_columns()}
+        if self.health:
+            m.update(self._disc_taps.columns(self.disc_optimizer.taps))
+        return m, host
 
     def train_step(self, images, targets=None, noise=None) -> Dict[str, Any]:
         """One step (both updates in ``gan`` mode) → {"loss", "nll_loss",
@@ -194,23 +213,29 @@ class VQGANTrainer(BaseTrainer):
         ``targets`` are the segmentation one-hots (default: the images);
         ``noise`` ((b, h, w, n_embed)) replaces the gumbel quantizer's
         draw."""
-        return self._finish_step(*self._step(*self._put_batch((images, targets, noise))))
+        with span("vqgan/shard_batch"):
+            batch = self._put_batch((images, targets, noise))
+        with span("vqgan/step"):
+            return self._finish_step(*self._step(*batch))
 
     def train_steps(self, images, targets=None, noise=None) -> Dict[str, Any]:
         """k steps on stacked (k, b, H, W, C) images, each with its own
         temperature and draws as k ``train_step`` calls take them → the last
         step's metrics plus ``loss_mean``."""
-        images, targets, noise = self._put_batch((images, targets, noise), stacked=True)
+        k = len(images)
+        with span("vqgan/shard_batch", k=k):
+            images, targets, noise = self._put_batch((images, targets, noise), stacked=True)
         if images.dim() != 5:
             raise ValueError(f"train_steps takes stacked (k, b, H, W, C) images, got "
                              f"{tuple(images.shape)}")
-        losses = []
-        for i in range(images.shape[0]):
-            m, host = self._step(images[i], None if targets is None else targets[i],
-                                 None if noise is None else noise[i])
-            losses.append(m["loss"])
-        m["loss_mean"] = torch.stack(losses).float().mean()
-        return self._finish_step(m, host)
+        with span("vqgan/steps", k=k):
+            losses = []
+            for i in range(images.shape[0]):
+                m, host = self._step(images[i], None if targets is None else targets[i],
+                                     None if noise is None else noise[i])
+                losses.append(m["loss"])
+            m["loss_mean"] = torch.stack(losses).float().mean()
+            return self._finish_step(m, host)
 
     # -- state ---------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:

@@ -352,7 +352,8 @@ def test_train_resume_generate_cli_on_cpu(tmp_path):
             "--output_dir", ckpt, "--device", "cpu", "--save_every_n_steps", "2"]
     assert train_dalle.main(argv + ["--steps", "3"]) == 0
     mgr = CheckpointManager(ckpt)
-    assert sorted(os.listdir(ckpt)) == ["3", "vae"]
+    # the run's records beside its steps, as the JAX script writes them
+    assert sorted(os.listdir(ckpt)) == ["3", "metrics.jsonl", "vae"]
     meta = mgr.load_metadata()
     assert meta["vae_class_name"] == "DiscreteVAEAdapter"
     assert meta["vae_hparams"]["num_tokens"] == 48 and meta["hparams"]["num_text_tokens"] == 49408
@@ -400,6 +401,10 @@ TRAIN_UNPORTED = [["--image_text_folder", "x"], ["--wds", "x"], ["--reversible"]
 # ported since these cases were written: each case now runs its flag end to end,
 # its hparam recorded in the checkpoint
 TRAIN_PORTED = {"--shift_tokens": "shift_tokens", "--reversible": "reversible"}
+# the telemetry flags, ported since too: each case runs and leaves its file
+# (a relative path in a case is taken under the test's directory)
+TRAIN_TELEMETRY = {"--trace": os.path.join("obs", "spans.jsonl"),
+                   "--watchdog_deadline_s": "metrics.jsonl", "--prometheus_path": "p"}
 # the pretrained VAEs load local files only: without them the chain raises
 # naming the flags that take them (the JAX package would download)
 TRAIN_NEEDS_FILES = (["--taming"], [])
@@ -423,6 +428,14 @@ def test_train_unported_flags_raise(tmp_path, flags):
         assert train_dalle.main(argv + TINY_TRAIN + flags) == 0
         meta = CheckpointManager(str(tmp_path)).load_metadata()
         assert meta["hparams"][TRAIN_PORTED[flags[0]]] is True
+        return
+    if flags[0:1] and flags[0] in TRAIN_TELEMETRY:
+        flags = [flags[0]] + [str(tmp_path / f) if f == "p" else f for f in flags[1:]]
+        try:
+            assert train_dalle.main(argv + TINY_TRAIN + flags) == 0
+        finally:
+            obs.disable()       # --trace leaves tracing on, as the JAX script does
+        assert os.path.isfile(tmp_path / TRAIN_TELEMETRY[flags[0]])
         return
     if flags in TRAIN_NEEDS_FILES:
         with pytest.raises(FileNotFoundError, match="--vqgan_model_path.*--openai_vae_dir"):

@@ -39,6 +39,7 @@ from dalle_tpu_torch import (CLIP, AnnealConfig, CLIPTrainer, ClipConfig, DALLE,
                              DiscreteVAE, DiscreteVAEAdapter, DVAEConfig, OptimConfig,
                              PrecisionConfig, TrainConfig, clip_state_dict, dalle_state_dict,
                              dvae_state_dict, init_clip, load_clip)
+from dalle_tpu_torch import obs
 from dalle_tpu_torch.cli import _common, generate, train_clip
 from dalle_tpu_torch.models.wrapper import rerank_scores
 from dalle_tpu_torch.text.tokenizer import SimpleTokenizer
@@ -369,10 +370,24 @@ def test_train_clip_cli_writes_what_load_clip_reads(tmp_path):
 
 CLIP_UNPORTED = [["--image_text_folder", "x"], ["--trace"],
                  ["--watchdog_deadline_s", "5"], ["--prometheus_path", "p"]]
+# ported since these cases were written: the telemetry flags run, each leaving
+# its file (the relative path under the test's directory)
+CLIP_TELEMETRY = {"--trace": os.path.join("obs", "spans.jsonl"),
+                  "--watchdog_deadline_s": "metrics.jsonl", "--prometheus_path": "p"}
 
 
 @pytest.mark.parametrize("flags", CLIP_UNPORTED, ids=lambda f: f[0])
 def test_train_clip_unported_flags_raise(tmp_path, flags):
+    argv = ["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
+    if flags[0] in CLIP_TELEMETRY:
+        flags = [flags[0]] + [str(tmp_path / f) if f == "p" else f for f in flags[1:]]
+        tiny = ["--image_size", "16", "--patch_size", "8", "--dim", "32", "--depth", "1",
+                "--heads", "2", "--text_seq_len", "8", "--batch_size", "2", "--steps", "1"]
+        try:
+            assert train_clip.main(argv + tiny + flags) == 0
+        finally:
+            obs.disable()
+        assert os.path.isfile(tmp_path / CLIP_TELEMETRY[flags[0]])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        train_clip.main(["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
-                        + flags)
+        train_clip.main(argv + flags)

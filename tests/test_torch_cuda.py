@@ -1214,3 +1214,51 @@ def _naive_forward(transformer):
     def forward(x, key_mask=None, dropout_masks=None):
         return cls_forward(transformer, x, key_mask, dropout_masks, reversible_naive=True)
     return forward
+
+
+def _sync_warnings(fn):
+    """The synchronising calls ``fn`` makes, as set_sync_debug_mode("warn")
+    reports them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [w for w in caught if "synchroniz" in str(w.message)]
+
+
+def test_health_taps_leave_the_1p4b_width_step_bitwise_and_add_no_sync():
+    """DALL·E-1.4B's widths at depth 2 (bf16 over f32 masters, Adam with
+    clipping, K1): three steps with the health taps and three without give
+    the same masters and moments bit for bit, and the second and third step
+    synchronise once (the metrics read) either way; a process's first step
+    may make one-time calls of its own."""
+    from dalle_tpu_torch.config import ObsConfig, dalle_1p4b
+    cfg = dalle_1p4b(depth=2)
+    rng = np.random.RandomState(0)
+    batches = [(torch.from_numpy(rng.randint(1, cfg.num_text_tokens, (8, cfg.text_seq_len))).cuda(),
+                torch.from_numpy(rng.randint(0, cfg.image_vocab_size, (8, cfg.image_seq_len))).cuda())
+               for _ in range(3)]
+    trainers, syncs = [], []
+    for on in (False, True):
+        tr = DalleTrainer(cfg, TrainConfig(batch_size=8, optim=OptimConfig(learning_rate=3e-4,
+                                                                           grad_clip_norm=0.5),
+                                           obs=ObsConfig(health=on)))
+        counts = []
+        for text, img in batches:
+            out = {}
+            counts.append(len(_sync_warnings(lambda: out.update(tr.train_step(text, img)))))
+            assert any(k.startswith("health/") for k in out) == on
+            assert all(np.isfinite(v) for k, v in out.items() if k.startswith("health/"))
+        syncs.append(counts)
+        trainers.append(tr)
+    assert syncs[0][1:] == syncs[1][1:] == [1, 1], syncs
+    off, on = trainers
+    for (name, a), (_, b) in zip(off.model.named_parameters(), on.model.named_parameters()):
+        assert torch.equal(a.detach().view(torch.int32), b.detach().view(torch.int32)), name
+    for k in ("mu", "nu"):
+        for a, b in zip(off.optimizer.core.state_dict()[k], on.optimizer.core.state_dict()[k]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k

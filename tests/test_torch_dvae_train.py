@@ -13,6 +13,7 @@ Tolerances, with their reasons at the asserts: f32 values 1e-5 (summation
 order only), gradients 1e-5 plus 1e-4 relative.
 """
 
+import json
 import math
 import os
 
@@ -31,6 +32,7 @@ from dalle_tpu.train import train_state as jts
 from dalle_tpu.train.trainer_vae import anneal_temperature as janneal
 from dalle_tpu_torch import (AnnealConfig, DiscreteVAE, DVAEConfig, OptimConfig,
                              PrecisionConfig, TrainConfig, VAETrainer, dvae_state_dict)
+from dalle_tpu_torch import obs
 from dalle_tpu_torch.cli import train_dalle, train_vae
 from dalle_tpu_torch.config import SNAPSHOT_MODES
 from dalle_tpu_torch.ops.quantize import gumbel_softmax, kl_to_uniform
@@ -196,8 +198,12 @@ def test_hard_recons_loss_matches_jax(hard_recons_jax, smooth_l1):
     assert math.isclose(loss.item(), float(want_loss), rel_tol=1e-5, abs_tol=1e-5)
     recons = tv(torch.from_numpy(img), hard_recons=True)
     assert torch.equal(recons, out)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tv(torch.from_numpy(img), return_health=True)
+    # the health taps (ported since): the same reconstruction, then the taps
+    recons, taps = tv(torch.from_numpy(img), hard_recons=True, return_health=True)
+    assert torch.equal(recons, out)
+    assert taps["health/st_sharpness"].item() == 1.0       # the argmax's one-hot
+    assert {"health/codebook_perplexity", "health/gumbel_temp",
+            "health/encoder_confidence"} <= set(taps)
 
 
 GUMBEL = dict(VAE, kl_div_loss_weight=0.5)
@@ -451,10 +457,31 @@ def test_train_vae_then_train_dalle_on_its_checkpoint(tmp_path):
 
 VAE_UNPORTED = [["--image_folder", "x"], ["--wandb"], ["--health"],
                 ["--breach_actions"], ["--trace"], ["--prometheus_path", "p"]]
+# ported since these cases were written: the health and telemetry flags run,
+# each leaving its file or its columns (a relative path under the test's
+# directory)
+VAE_TELEMETRY = {"--health": "metrics.jsonl", "--breach_actions": "metrics.jsonl",
+                 "--trace": os.path.join("obs", "spans.jsonl"), "--prometheus_path": "p"}
 
 
 @pytest.mark.parametrize("flags", VAE_UNPORTED, ids=lambda f: f[0])
 def test_train_vae_unported_flags_raise(tmp_path, flags):
+    argv = ["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
+    if flags[0] in VAE_TELEMETRY:
+        flags = [flags[0]] + [str(tmp_path / f) if f == "p" else f for f in flags[1:]]
+        tiny = ["--image_size", "16", "--num_layers", "2", "--num_tokens", "32",
+                "--codebook_dim", "16", "--hidden_dim", "8", "--batch_size", "2",
+                "--steps", "2"]
+        try:
+            assert train_vae.main(argv + tiny + flags) == 0
+        finally:
+            obs.disable()
+            obs.disable_recorder()
+        assert os.path.isfile(tmp_path / VAE_TELEMETRY[flags[0]])
+        if flags[0] == "--health":
+            with open(tmp_path / "metrics.jsonl") as f:
+                rec = json.loads(f.readline())
+            assert "health/codebook_perplexity" in rec and "health/grad_norm/encoder" in rec
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        train_vae.main(["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
-                       + flags)
+        train_vae.main(argv + flags)

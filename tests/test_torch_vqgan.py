@@ -427,5 +427,14 @@ def test_nan_rollback_restores_the_discriminator_too():
 
 
 def test_health_taps_raise_until_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        VQModel(VQGANConfig(**TINY)).health_taps()
+    """Ported since: the taps of an encode's VQOutput, codebook vitals from
+    its indices and, on the gumbel path, the temperature and confidence."""
+    x = _t(_images(15))
+    for quantizer in ("vq", "gumbel"):
+        model = VQModel(VQGANConfig(**TINY, quantizer=quantizer))
+        q = model.encode(x, 0.5)
+        taps = model.health_taps(q, 0.5)
+        assert 1.0 <= taps["health/codebook_perplexity"].item() <= TINY["n_embed"]
+        assert ("health/gumbel_temp" in taps) == (quantizer == "gumbel")
+        if quantizer == "gumbel":
+            assert taps["health/gumbel_temp"].item() == 0.5
