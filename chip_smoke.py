@@ -2,8 +2,12 @@
 """Build and drive the PyTorch/CUDA port (dalle_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases train,train_data    # env and these phases only
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each; any failure raises and exits non-zero. With
+``--phases`` only env and the named ones run (a phase that compares with
+another's row takes that row's recorded numbers when it did not run), the
+kernels line is left out and the last line is the same:
 
 1. env          card name and power limit (nvidia-smi), torch/CUDA versions,
                 TF32 off for every comparison, the kernels' build (one nvcc
@@ -337,6 +341,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 without; decode_quality within DQ_TOL of float64 on the same
                 logits; ms/step off and on, TTFT p50/p95 from the
                 serve.ttft_seconds histogram beside the wall clock's. (b)
+                and (c) at depth 2 (full width, to keep the script's time:
+                neither measures the depth). (b)
                 The paged engine on phase serve's paged traffic: every
                 chunk width dispatched in chunk_widths(), the kv.* gauges
                 equal to kv_stats() after each admission pass. (c)
@@ -416,13 +422,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 steps, cli.obs_report over its metrics and its spans (the
                 MODEL-HEALTH verdict), in build/train_obs_smoke/ (removed
                 after).
+29. train_data training from real data, in build/train_data_smoke/ (removed
+                after): the image codec's native core built from its
+                source and every committed JPEG fixture
+                (tests/torch_fixtures) held to PIL's decode within the CPU
+                tests' bound; a folder of 64 captioned images of mixed
+                sizes around 256 px (PNG and BMP from the port's writers,
+                the JPEG fixtures copied in) and two tar shards of them;
+                the loader's ms a batch of 8 at 128 px; then DALL·E-1.4B
+                (batch 8, bf16, Adam) trained 6 fit steps from the folder,
+                each batch encoded by the 1.4B dVAE on the card: losses
+                finite, K1's forward and backward 24 times a step, ms a
+                step beside phase train's, the step breakdown, the
+                synchronising calls of a step with its data;
+                DalleWithVae.loss from the pixels of one batch against
+                the step's loss on it (WITH_VAE_LOSS_TOL); an asynchronous
+                checkpoint of the 1.4B train state (depth 24, or
+                CKPT_SMALL_DEPTH at full width when the write would pass
+                CKPT_MAX_WRITE_S at phase cli's synced rate or the disk is
+                short):
+                the pinned snapshot timed (first and reused), the save's
+                blocking time, the write and its GB/s, steps taken while
+                it is in flight, the restore bit for bit; and the command
+                line at depth 2, full width: train_dalle on the folder and
+                on the shards, a train_dalle process given SIGUSR1 after
+                its first step (a durable checkpoint) then SIGTERM (exit 0,
+                a complete checkpoint at the step it reached) and
+                --resume from that step, and train_vae, train_vqgan and
+                train_clip for 2 steps each on the folder.
 
 Phases 11-20 and 23-25 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
 persist_parity and ring_parity after serve_parity; decode_surface and serve_obs
 after serve; recipe and then train_persist after train; train_long and then
-train_ring, then cli, paper, taming, reversible and train_obs last. Each
-prints its seconds.
+train_ring, then cli, paper, taming, reversible, train_obs and train_data
+last.
 
 Then the card line (nvidia-smi), the kernels line, and last
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -2631,6 +2665,13 @@ def phase_serve_obs(torch, card):
                launches_off=launches["engine_off"], launches_on=launches["engine_on"]))
     emit("serve_obs_engine", **row["a"], card=card)
 
+    # (b) and (c) at depth 2, full width: they check widths, gauges and the
+    # pipeline's stages, which do not depend on the depth
+    del wrapper
+    torch.cuda.empty_cache()
+    wrapper = DalleWithVae(init_dalle(dalle_1p4b(depth=CLI_DEPTH), seed=SMOKE_SEED), vae, clip)
+    wrapper._resolve_precision("int8w")
+
     # (b) the paged engine: every dispatched width in chunk_widths(), the kv
     # gauges equal kv_stats() after every admission pass
     peng = wrapper.serve_engine(slots=8, kv_block_tokens=16)
@@ -4177,7 +4218,8 @@ def phase_cli(torch, card):
     import shutil
 
     from dalle_tpu_torch.cli import generate, train_dalle
-    from dalle_tpu_torch.cli._common import load_vae_sidecar, read_png, to_uint8
+    from dalle_tpu_torch.cli._common import load_vae_sidecar, to_uint8
+    from dalle_tpu_torch.data.image_codec import read_png
     from dalle_tpu_torch.config import DalleConfig, TrainConfig
     from dalle_tpu_torch.data.synthetic import ShapesDataset
     from dalle_tpu_torch.models.dalle import DALLE
@@ -4420,6 +4462,7 @@ def _nan_rollback(torch, card, work):
         def batches():
             yield imgs[0], noise[0]
             yield imgs[1], noise[1]
+            tr.ckpt.wait_until_finished()          # step 1's save is written on a thread
             saved = torch.load(os.path.join(CheckpointManager(ckpt).step_dir(1), STATE_FILE),
                                map_location="cuda", weights_only=True)
             _same_train_state(torch, tr, saved, "after the NaN step")
@@ -4467,7 +4510,8 @@ def phase_paper(torch, card):
     import numpy as np
 
     from dalle_tpu_torch.cli import generate, train_clip, train_dalle, train_vae
-    from dalle_tpu_torch.cli._common import load_vae_sidecar, read_png, to_uint8
+    from dalle_tpu_torch.cli._common import load_vae_sidecar, to_uint8
+    from dalle_tpu_torch.data.image_codec import read_png
     from dalle_tpu_torch.config import ClipConfig, DVAEConfig, OptimConfig, TrainConfig
     from dalle_tpu_torch.data.synthetic import ShapesDataset, batch_iterator
     from dalle_tpu_torch.models.wrapper import DalleWithVae, rerank_scores
@@ -4731,7 +4775,7 @@ def phase_taming(torch, card):
     import shutil
 
     from dalle_tpu_torch.cli import generate, train_dalle, train_vqgan
-    from dalle_tpu_torch.cli._common import read_png
+    from dalle_tpu_torch.data.image_codec import read_png
     from dalle_tpu_torch.config import OptimConfig, TrainConfig, VQGANConfig
     from dalle_tpu_torch.data.synthetic import ShapesDataset
     from dalle_tpu_torch.models.cond_transformer import CoordStage, Net2NetTransformer
@@ -5465,7 +5509,363 @@ def phase_train_obs(torch, card):
     return launches, out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# training from real data: the image codec, the loaders, async checkpoints,
+# the signal handlers
+# ---------------------------------------------------------------------------
+
+DATA_IMAGES = 64                 # captioned images in the phase's folder
+JPEG_MAX, JPEG_MEAN = 3, 0.5     # levels: the CPU tests' bound on the codec against PIL
+WITH_VAE_LOSS_TOL = 2e-2         # DalleWithVae.loss (f32) against the bf16 step's, relative
+CKPT_MAX_WRITE_S = 40.0          # a depth-24 write predicted slower drops to CKPT_SMALL_DEPTH
+CKPT_SMALL_DEPTH = 6
+CKPT_PRIOR_GB_PER_S = 0.55       # a synced save's rate, phase cli (PERF.md §5)
+
+
+def _pairs_folder(np, folder, fixtures, n, seed):
+    """``n`` captioned images of mixed sizes around 256 px in ``folder``:
+    PNGs and BMPs from the port's writers, and the committed JPEG
+    fixtures copied in. → rows (key, ext, bytes, caption)."""
+    import os
+    from dalle_tpu_torch.data import image_codec as ic
+    jpegs = sorted(f for f in os.listdir(fixtures) if f.endswith(".jpg"))
+    rng = np.random.RandomState(seed)
+    words = ["red", "blue", "green", "yellow", "circle", "square", "ring", "small", "large"]
+    os.makedirs(folder)
+    rows = []
+    for i in range(n):
+        if i % 6 == 5:
+            ext = "jpg"
+            with open(os.path.join(fixtures, jpegs[(i // 6) % len(jpegs)]), "rb") as f:
+                data = f.read()
+        else:
+            h, w = (int(v) for v in rng.randint(200, 312, 2))
+            y, x = np.mgrid[0:h, 0:w]
+            c = rng.randint(0, 256, 3)
+            img = np.stack([(x * 255 // w + c[0]) % 256, (y * 255 // h + c[1]) % 256,
+                            ((x + y) // 4 + c[2]) % 256], -1)
+            img = np.clip(img + rng.randint(-12, 13, img.shape), 0, 255).astype(np.uint8)
+            ext = "png" if i % 2 == 0 else "bmp"
+            data = ic.encode_png(img) if ext == "png" else ic.encode_bmp(img)
+        caption = " ".join(rng.choice(words, 3))
+        with open(os.path.join(folder, f"img{i:03d}.{ext}"), "wb") as f:
+            f.write(data)
+        with open(os.path.join(folder, f"img{i:03d}.txt"), "w") as f:
+            f.write(f"a {caption}\n{caption} picture\n")
+        rows.append((f"img{i:03d}", ext, data, f"a {caption}"))
+    return rows
+
+
+def phase_train_data(torch, card, k1_row):
+    """Training from real data at DALL·E-1.4B (see the module's docstring,
+    phase 29). ``k1_row``: phase train's row, beside which the step is
+    reported."""
+    import contextlib
+    import io
+    import itertools
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+
+    from dalle_tpu_torch import (DalleTrainer, DalleWithVae, DiscreteVAEAdapter, DVAEConfig,
+                                 OptimConfig, TrainConfig, dalle_1p4b)
+    from dalle_tpu_torch.cli import train_clip, train_dalle, train_vae, train_vqgan
+    from dalle_tpu_torch.cli._common import upload_images
+    from dalle_tpu_torch.data import image_codec as ic
+    from dalle_tpu_torch.data.text_image import TextImageDataset
+    from dalle_tpu_torch.data.webdataset import write_shards
+    from dalle_tpu_torch.models.dvae import init_dvae
+    from dalle_tpu_torch.ops import fused_attention as fa
+    from dalle_tpu_torch.text.tokenizer import SimpleTokenizer
+    from dalle_tpu_torch.train import checkpoints as ck
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    fixtures = os.path.join(root, "tests", "torch_fixtures")
+    work = os.path.join(root, "build", "train_data_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGUSR1)}
+    try:
+        # -- the codec: built here from its source, held to PIL's decodes ----
+        t0 = time.perf_counter()
+        lib = ic.build()
+        build_s = time.perf_counter() - t0
+        errs = {}
+        for name in sorted(f[:-4] for f in os.listdir(fixtures) if f.endswith(".jpg")):
+            with open(os.path.join(fixtures, name + ".jpg"), "rb") as f:
+                got = ic.decode(f.read(), name).astype(np.int64)
+            d = np.abs(got - np.load(os.path.join(fixtures, name + ".npy")))
+            errs[name] = {"max": int(d.max()), "mean": float(d.mean())}
+            check(d.max() <= JPEG_MAX and d.mean() <= JPEG_MEAN,
+                  f"{name}: decode off PIL's by {errs[name]}")
+        folder, shard_dir = os.path.join(work, "pairs"), os.path.join(work, "shards")
+        rows = _pairs_folder(np, folder, fixtures, DATA_IMAGES, SMOKE_SEED)
+        os.makedirs(shard_dir)
+        shards = write_shards(
+            ({"__key__": k, ("jpg" if e == "jpg" else "png"):
+              d if e != "bmp" else ic.encode_png(ic.decode(d)), "txt": c}
+             for k, e, d, c in rows), os.path.join(shard_dir, "pairs-{:02d}.tar"),
+            samples_per_shard=DATA_IMAGES // 2)
+        ds = TextImageDataset(folder, image_size=128, shuffle=True, seed=SMOKE_SEED)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in itertools.islice(ds.batches(8), 8))
+        loader_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+        emit("train_data_codec", library=os.path.basename(str(lib)), build_s=build_s,
+             fixtures=errs, bound={"max": JPEG_MAX, "mean": JPEG_MEAN},
+             images={e: sum(r[1] == e for r in rows) for e in ("png", "bmp", "jpg")},
+             shards=len(shards), loader_ms_per_batch_of_8=loader_ms, card=card)
+
+        # -- DALL·E-1.4B from the folder through fit --------------------------
+        cfg = dalle_1p4b()
+        vae = DiscreteVAEAdapter(init_dvae(DVAEConfig(), seed=SMOKE_SEED))
+        tok = SimpleTokenizer()
+        tc = TrainConfig(batch_size=8, seed=SMOKE_SEED, log_every=1,
+                         optim=OptimConfig(optimizer="adam", learning_rate=3e-4,
+                                           grad_clip_norm=0.5))
+        tr = DalleTrainer(cfg, tc)
+        ds = TextImageDataset(folder, image_size=128, shuffle=True, seed=SMOKE_SEED)
+
+        def encoded():
+            for imgs, caps in ds.batches(8):
+                yield (tok.tokenize(caps, cfg.text_seq_len, truncate_text=True),
+                       vae.get_codebook_indices(upload_images(imgs, "cuda")))
+        writer = _StampedWriter()
+        fa.fwd_launches = fa.bwd_launches = 0          # the real-data training path
+        t0 = time.perf_counter()
+        tr.fit(encoded(), steps=6, log=lambda *a: None, metrics_writer=writer)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {"fused_attention_fwd": fa.fwd_launches,
+                    "fused_attention_bwd": fa.bwd_launches}
+        for name, n in launches.items():
+            check(n == 6 * cfg.depth, f"{name} launched {n} times in 6 fit steps")
+        recs = [m for _, _, m in writer.records]
+        stamps = [t for _, t, _ in writer.records]
+        losses = [m["loss"] for m in recs]
+        check(len(recs) == 6 and all(math.isfinite(x) for x in losses), f"losses {losses}")
+        ms = statistics.median(np.diff(stamps)[1:]) * 1e3
+        cols = {k: statistics.median(m[k] for m in recs[1:] if k in m)
+                for k in ("t_batch_wait_s", "t_dispatch_s", "t_sync_s", "t_h2d_s",
+                          "data_starvation")}
+        more = encoded()
+        places, outside = _sync_calls(torch, lambda: tr.train_step(*next(more)))
+        row = dict(steps=6, batch=8, losses=losses, ms_per_step=ms,
+                   ms_per_step_phase_train=k1_row["ms_per_step"], fit_s=fit_s,
+                   breakdown_median=cols, launches=launches,
+                   sync_calls_per_step=len(places), sync_places=places,
+                   sync_outside=outside, card=card)
+        emit("train_data_fit", **row)
+
+        # -- DalleWithVae.loss from pixels on one batch, against the step ------
+        imgs, caps = next(ds.batches(8))
+        text = tok.tokenize(caps, cfg.text_seq_len, truncate_text=True)
+        with torch.no_grad():
+            wl, _ = DalleWithVae(tr.model, vae).loss(text, upload_images(imgs, "cuda"))
+        step_loss = tr.train_step(text, vae.get_codebook_indices(upload_images(imgs, "cuda")))
+        rel = abs(wl.item() - step_loss["loss"]) / abs(step_loss["loss"])
+        check(rel <= WITH_VAE_LOSS_TOL, f"DalleWithVae.loss {wl.item()} against the step's "
+                                        f"{step_loss['loss']}")
+        emit("train_data_with_vae_loss", loss_f32=wl.item(), step_loss_bf16=step_loss["loss"],
+             rel=rel, tol=WITH_VAE_LOSS_TOL, card=card)
+
+        # -- an asynchronous checkpoint: the snapshot, the write, the restore ---
+        state = tr.state_dict()
+        nbytes = sum(t.numel() * t.element_size() for t in _tensors(torch, state))
+        free = shutil.disk_usage(work).free
+        depth = cfg.depth
+        if nbytes / (CKPT_PRIOR_GB_PER_S * 1e9) > CKPT_MAX_WRITE_S or free < 2.5 * nbytes:
+            depth = CKPT_SMALL_DEPTH
+            del tr, state
+            torch.cuda.empty_cache()
+            tr = DalleTrainer(dataclasses.replace(cfg, depth=depth), tc)
+            state = tr.state_dict()
+            nbytes = sum(t.numel() * t.element_size() for t in _tensors(torch, state))
+        # steps on one encoded batch, before the save and while its write is
+        # in flight: does the writer thread hold the loop back?
+        batch = next(more)
+
+        def timed_step():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.train_step(*batch)
+            return (time.perf_counter() - t1) * 1e3
+        before = [timed_step() for _ in range(3)]
+        # the host snapshot, timed: the manager's pinned staging area, whose
+        # first take allocates and page-locks it (pageable memory, the
+        # alternative it was chosen over, took 8.0-11.9 s; PERF.md §6)
+        mgr = ck.CheckpointManager(os.path.join(work, "ckpt"), async_save=True)
+        saved_step = tr.step
+        state = tr.state_dict()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = mgr._snapshot.take(state)     # the save below refills these buffers
+        snap_s = {"pinned_first": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        mgr.save(saved_step, state, tr._meta())
+        block_s = time.perf_counter() - t0
+        snap_s["pinned_reused"] = mgr.last_save["snapshot_s"]
+        during = []
+        while mgr._thread is not None and mgr._thread.is_alive() and len(during) < 8:
+            during.append(timed_step())
+        mgr.wait_until_finished()
+        durable_s = mgr.last_save["write_s"]          # from the save's call to the rename
+        write_s = durable_s - mgr.last_save["snapshot_s"]
+        size = os.path.getsize(os.path.join(mgr.step_dir(saved_step), ck.STATE_FILE))
+        del state
+        t0 = time.perf_counter()
+        saved, meta = mgr.restore(map_location="cpu", mmap=True)
+        check_same_tree(torch, ref, saved, "the restored checkpoint")   # the staged copy
+        restore_check_s = time.perf_counter() - t0
+        check(meta["model_class"] == "DALLE" and meta["hparams"]["depth"] == depth,
+              "the checkpoint's metadata")
+        emit("train_data_checkpoint", depth=depth, bytes_state=nbytes, bytes_file=size,
+             disk_free_bytes=free, snapshot_s=snap_s, save_blocked_s=block_s,
+             save_to_durable_s=durable_s, write_s=write_s, write_gb_per_s=size / write_s / 1e9,
+             synced_save_gb_per_s=CKPT_PRIOR_GB_PER_S,
+             ms_per_step_before_write=before, ms_per_step_during_write=during,
+             restore_and_compare_s=restore_check_s,
+             bit_for_bit=True, card=card)
+        del saved, ref, mgr, tr, vae
+        torch.cuda.empty_cache()
+
+        # -- the command line at depth 2, full width ---------------------------
+        cli = os.path.join(work, "cli")
+        base = ["--image_size", "128", "--untrained_vae", "--untrained_vae_tokens", "8192",
+                "--untrained_vae_layers", "3", "--dim", "1792", "--depth", str(CLI_DEPTH),
+                "--heads", "14", "--dim_head", "128", "--text_seq_len", "256",
+                "--batch_size", "8", "--keep_n_checkpoints", "1", "--seed", str(SMOKE_SEED),
+                "--no_preflight"]
+        walls, cli_launches = {}, {}
+
+        def run(name, main, argv, steps):
+            out = os.path.join(cli, name)
+            fa.fwd_launches = fa.bwd_launches = 0
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main(argv + ["--output_dir", out, "--no_preemption_handler"])
+            walls[name] = time.perf_counter() - t0
+            cli_launches[name] = fa.fwd_launches + fa.bwd_launches
+            check(rc == 0, f"{name} returned {rc}: {buf.getvalue()[-2000:]}")
+            check(ck.CheckpointManager(out).latest_step() == steps,
+                  f"{name}: checkpoint steps {ck.CheckpointManager(out).all_steps()}")
+            return buf.getvalue()
+        run("train_dalle_folder", train_dalle.main,
+            base + ["--image_text_folder", folder, "--steps", "2"], 2)
+        run("train_dalle_wds", train_dalle.main, base + ["--wds", shard_dir, "--steps", "2"], 2)
+        check(cli_launches["train_dalle_folder"] >= 4 * CLI_DEPTH
+              and cli_launches["train_dalle_wds"] >= 4 * CLI_DEPTH,
+              f"K1 launches in the CLI runs: {cli_launches}")
+
+        # SIGUSR1, then SIGTERM, to a train_dalle process; then --resume
+        sig_dir = os.path.join(cli, "signals")
+        log_path = os.path.join(work, "signals.log")
+        cmd = [sys.executable, "-m", "dalle_tpu_torch.cli.train_dalle"] + base + [
+            "--image_text_folder", folder, "--steps", "100000", "--output_dir", sig_dir,
+            "--save_every_n_steps", "100000"]
+        sig = {}
+        with open(log_path, "w") as logf:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=root, stdout=logf, stderr=subprocess.STDOUT)
+            try:
+                metrics = os.path.join(sig_dir, "metrics.jsonl")
+                mgr = ck.CheckpointManager(sig_dir)
+                deadline = time.time() + 300
+                while not (os.path.exists(metrics) and os.path.getsize(metrics) > 0):
+                    check(proc.poll() is None and time.time() < deadline,
+                          f"train_dalle ended or stalled before its first step: "
+                          f"{open(log_path).read()[-2000:]}")
+                    time.sleep(0.1)
+                sig["first_step_s"] = time.perf_counter() - t0
+                proc.send_signal(signal.SIGUSR1)
+                t1 = time.perf_counter()
+                while not mgr.all_steps():
+                    check(proc.poll() is None and time.time() < deadline,
+                          f"no SIGUSR1 checkpoint: {open(log_path).read()[-2000:]}")
+                    time.sleep(0.05)
+                sig["usr1_step"] = mgr.all_steps()[0]
+                sig["usr1_durable_s"] = time.perf_counter() - t1
+                proc.send_signal(signal.SIGTERM)
+                t1 = time.perf_counter()
+                rc = proc.wait(timeout=300)
+                sig["term_exit_s"] = time.perf_counter() - t1
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        text = open(log_path).read()
+        check(rc == 0, f"train_dalle exited {rc} on SIGTERM: {text[-2000:]}")
+        step = mgr.latest_step()
+        names = os.listdir(sig_dir)
+        check(step is not None and step >= sig["usr1_step"]
+              and f"preempted at step {step}" in text
+              and not any(".tmp-" in n for n in names), f"after SIGTERM: {names} {text[-2000:]}")
+        sig["term_step"] = step
+        out = run("signals", train_dalle.main,
+                  base + ["--image_text_folder", folder, "--steps", str(step + 1), "--resume"],
+                  step + 1)
+        check(f"resumed at step {step}" in out, f"--resume: {out[-2000:]}")
+        emit("train_data_signals", **sig, card=card)
+
+        # the other trainers, 2 steps each at their small CLI sizes
+        run("train_vae", train_vae.main, ["--image_folder", folder, "--batch_size", "8",
+                                          "--steps", "2", "--no_preflight"], 2)
+        run("train_vqgan", train_vqgan.main,
+            ["--image_folder", folder, "--resolution", "64", "--ch", "32",
+             "--ch_mult", "1,2", "--n_embed", "256", "--batch_size", "8", "--steps", "2",
+             "--disc_start", "0", "--no_preflight"], 2)
+        run("train_clip", train_clip.main,
+            ["--image_text_folder", folder, "--image_size", "128", "--patch_size", "16",
+             "--dim", "512", "--depth", "6", "--batch_size", "8", "--steps", "2",
+             "--no_preflight"], 2)
+        emit("train_data_cli", depth=CLI_DEPTH, wall_s=walls, k1_launches=cli_launches,
+             card=card)
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+        shutil.rmtree(work, ignore_errors=True)
+    emit("train_data_phase", seconds=time.perf_counter() - t_phase, card=card)
+    return launches, row
+
+
+def _tensors(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(torch, v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(torch, v)
+
+
+
+# phase name → (its function, the results it takes from earlier phases and
+# the stand-ins used when those did not run: phase train's Adam row as
+# PERF.md §5 records it; phase generate's rows)
+K1_ROW = {"peak_gib": 28.4, "ms_per_step": 166.7, "tokens_per_s": None, "losses": [None]}
+PHASES = ("kernel", "train_kernel", "serve_kernel", "flash_kernel", "persist_kernel",
+          "chunked_kernel", "ring_kernel", "decode_vs_forward", "train_parity",
+          "serve_parity", "flash_parity", "persist_parity", "ring_parity", "generate", "serve",
+          "decode_surface", "serve_obs", "train", "recipe", "train_persist", "train_long",
+          "train_ring", "cli", "paper", "taming", "reversible", "train_obs", "train_data")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Build and drive the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--phases", type=str, default=None,
+                    help="comma-separated phases to run after env (default: all, in order; "
+                         f"of {', '.join(PHASES)})")
+    args = ap.parse_args(argv)
+    want = None if args.phases is None else [p for p in args.phases.split(",") if p]
+    if want is not None and set(want) - set(PHASES):
+        print(f"chip_smoke: unknown phases {sorted(set(want) - set(PHASES))}", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -5482,34 +5882,94 @@ def main() -> int:
               "repository root", file=sys.stderr)
         return 2
 
+    def on(name):
+        return want is None or name in want
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        emit("phase_seconds", name=name, seconds=time.perf_counter() - t0)
+        return out
+
+    t_script = time.perf_counter()
     card = phase_env(torch)
-    errs, timing = phase_kernel(torch, card)
-    k1_errs, k1_timing = phase_train_kernel(torch, card)
-    w_errs, w_timing = phase_serve_kernel(torch, card)
-    k4_errs, k4_timing = phase_flash_kernel(torch, card)
-    k8_errs, k8_timing = phase_persist_kernel(torch, card)
-    k7_errs, k7_timing = phase_chunked_kernel(torch, card)
-    k6_errs, k6_timing = phase_ring_kernel(torch, card)
-    phase_decode_vs_forward(torch)
-    phase_train_parity(torch)
-    phase_serve_parity(torch)
-    phase_flash_parity(torch)
-    phase_persist_parity(torch)
-    phase_ring_parity(torch)
-    launches, gen_rows = phase_generate(torch, card)
-    serve_launches, _ = phase_serve(torch, card)
-    surface = phase_decode_surface(torch, card, gen_rows)
-    obs_launches, obs_row = phase_serve_obs(torch, card)
-    k1_launches, k1_row = phase_train(torch, card)
-    recipe_launches, _ = phase_recipe(torch, card, k1_row)
-    k8_launches, _ = phase_train_persist(torch, card, k1_row)
-    k4_launches, k4_row = phase_train_long(torch, card)
-    k6_launches, k6_row = phase_train_ring(torch, card, k4_row)
-    cli_launches = phase_cli(torch, card)
-    paper_launches = phase_paper(torch, card)
-    taming = phase_taming(torch, card)
-    rev_launches, rev_row = phase_reversible(torch, card, k1_row)
-    obs_train_launches, _ = phase_train_obs(torch, card)
+    r = {}
+    for name, fn in (("kernel", phase_kernel), ("train_kernel", phase_train_kernel),
+                     ("serve_kernel", phase_serve_kernel), ("flash_kernel", phase_flash_kernel),
+                     ("persist_kernel", phase_persist_kernel),
+                     ("chunked_kernel", phase_chunked_kernel), ("ring_kernel", phase_ring_kernel)):
+        if on(name):
+            r[name] = timed(name, fn, torch, card)
+    for name, fn in (("decode_vs_forward", phase_decode_vs_forward),
+                     ("train_parity", phase_train_parity), ("serve_parity", phase_serve_parity),
+                     ("flash_parity", phase_flash_parity),
+                     ("persist_parity", phase_persist_parity), ("ring_parity", phase_ring_parity)):
+        if on(name):
+            timed(name, fn, torch)
+    if on("generate"):
+        r["generate"] = timed("generate", phase_generate, torch, card)
+    if on("serve"):
+        r["serve"] = timed("serve", phase_serve, torch, card)
+    gen_rows = r["generate"][1] if "generate" in r else [
+        {"precision": "bf16_int8kv", "ms_per_token": None}]
+    if on("decode_surface"):
+        r["decode_surface"] = timed("decode_surface", phase_decode_surface, torch, card, gen_rows)
+    if on("serve_obs"):
+        r["serve_obs"] = timed("serve_obs", phase_serve_obs, torch, card)
+    if on("train"):
+        r["train"] = timed("train", phase_train, torch, card)
+    k1_row = r["train"][1] if "train" in r else K1_ROW
+    if on("recipe"):
+        r["recipe"] = timed("recipe", phase_recipe, torch, card, k1_row)
+    if on("train_persist"):
+        r["train_persist"] = timed("train_persist", phase_train_persist, torch, card, k1_row)
+    if on("train_long"):
+        r["train_long"] = timed("train_long", phase_train_long, torch, card)
+    if on("train_ring"):
+        check("train_long" in r, "phase train_ring compares with phase train_long: run both")
+        r["train_ring"] = timed("train_ring", phase_train_ring, torch, card, r["train_long"][1])
+    for name, fn in (("cli", phase_cli), ("paper", phase_paper), ("taming", phase_taming)):
+        if on(name):
+            r[name] = timed(name, fn, torch, card)
+    if on("reversible"):
+        r["reversible"] = timed("reversible", phase_reversible, torch, card, k1_row)
+    if on("train_obs"):
+        r["train_obs"] = timed("train_obs", phase_train_obs, torch, card)
+    if on("train_data"):
+        r["train_data"] = timed("train_data", phase_train_data, torch, card, k1_row)
+    emit("script_seconds", seconds=time.perf_counter() - t_script, phases=want or "all")
+
+    if want is not None:
+        # a selection prints what it ran; the kernels line needs every phase
+        print(card, flush=True)
+        print(json.dumps({"phases_run": [p for p in PHASES if p in want]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    errs, timing = r["kernel"]
+    k1_errs, k1_timing = r["train_kernel"]
+    w_errs, w_timing = r["serve_kernel"]
+    k4_errs, k4_timing = r["flash_kernel"]
+    k8_errs, k8_timing = r["persist_kernel"]
+    k7_errs, k7_timing = r["chunked_kernel"]
+    k6_errs, k6_timing = r["ring_kernel"]
+    launches, gen_rows = r["generate"]
+    serve_launches, _ = r["serve"]
+    surface = r["decode_surface"]
+    obs_launches, obs_row = r["serve_obs"]
+    k1_launches, k1_row = r["train"]
+    recipe_launches, _ = r["recipe"]
+    k8_launches, _ = r["train_persist"]
+    k4_launches, k4_row = r["train_long"]
+    k6_launches, k6_row = r["train_ring"]
+    cli_launches = r["cli"]
+    paper_launches = r["paper"]
+    taming = r["taming"]
+    rev_launches, rev_row = r["reversible"]
+    obs_train_launches, _ = r["train_obs"]
+    data_launches, _ = r["train_data"]
 
     f32 = timing["float32"]
     kernels = [{
@@ -5547,6 +6007,7 @@ def main() -> int:
             "launches_paper": paper_launches[name],
             "launches_reversible": rev_launches[name],
             "launches_train_obs": obs_train_launches[name],
+            "launches_train_data": data_launches[name],
             "reversible_profiler_kernels": rev_row["profiler_k1_kernels"],
             "max_abs_err": max(mine.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -1,7 +1,8 @@
 """What the entry points share: the VAE sidecar, the VAE flags, the
 training flags that every trainer takes (``add_overlap_args``,
-``add_telemetry_args``), the on-demand profiler (SIGUSR2), and writing
-PNGs.
+``add_telemetry_args``), the signal handlers (``install_resilience``:
+SIGTERM's graceful preemption and SIGUSR1's checkpoint; the on-demand
+profiler on SIGUSR2), uploading a batch of images, and writing PNGs.
 
 Port of ``scripts/_common.py``. The VAE precedence chain is the
 reference's: the VAE embedded in a checkpoint directory (``vae/``), then
@@ -12,22 +13,22 @@ reference's: the VAE embedded in a checkpoint directory (``vae/``), then
 (``models/pretrained.py``); without them the chain raises where the JAX
 package downloads.
 
-PNGs are written by a small stdlib writer (``zlib`` + ``struct``): the
-card's machine has no PIL.
+PNGs are written by the port's codec (``data/image_codec.py``): the card's
+machine has no PIL.
 """
 
 from __future__ import annotations
 
 import os
-import struct
 import time
-import zlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import SNAPSHOT_MODES, DVAEConfig, ObsConfig
+from ..data.image_codec import write_png
+from ..device import to_device
 from ..models.dvae import init_dvae
 from ..models.wrapper import DiscreteVAEAdapter
 from ..train.checkpoints import CheckpointManager, load_model_checkpoint
@@ -118,9 +119,11 @@ def add_vae_args(parser):
 
 def add_overlap_args(parser):
     """The host-overlap flags every trainer's entry point takes, as the JAX
-    scripts' ``add_overlap_args`` (``--sync_checkpointing`` aside: the
-    port's saves are synchronous)."""
+    scripts' ``add_overlap_args``."""
     grp = parser.add_argument_group("host overlap")
+    grp.add_argument("--sync_checkpointing", action="store_true",
+                     help="write checkpoints on the loop's thread (default: a save "
+                          "blocks only for the host snapshot and a thread writes it)")
     grp.add_argument("--device_prefetch", type=int, default=2,
                      help="batches kept on the card ahead of the step loop (0 disables)")
     grp.add_argument("--defer_metrics", action="store_true",
@@ -138,7 +141,8 @@ def overlap_train_kwargs(args) -> dict:
     """``TrainConfig`` keywords from ``add_overlap_args``'s flags and
     ``--scan_steps``."""
     return {"device_prefetch": args.device_prefetch, "defer_metrics": args.defer_metrics,
-            "rollback_snapshot": args.rollback_snapshot, "scan_steps": args.scan_steps}
+            "rollback_snapshot": args.rollback_snapshot, "scan_steps": args.scan_steps,
+            "async_checkpointing": not args.sync_checkpointing}
 
 
 def add_telemetry_args(parser):
@@ -163,7 +167,11 @@ def add_telemetry_args(parser):
     grp.add_argument("--health_flight_dir", type=str, default=None,
                      help="flight recorder directory for the breach bundles "
                           "(default with --health: <output_dir>/health_bundles)")
-    grp = parser.add_argument_group("breach actions")
+    grp = parser.add_argument_group("resilience")
+    grp.add_argument("--no_preemption_handler", action="store_true",
+                     help="install no SIGTERM handler (default: SIGTERM finishes the step "
+                          "in flight, saves and drains a checkpoint, and exits 0) and no "
+                          "SIGUSR1 handler (a drained checkpoint at the next step)")
     grp.add_argument("--breach_actions", action="store_true",
                      help="act on health breaches: nan-precursor → preemptive snapshot, "
                           "grad-explosion → rollback + lr cut, codebook-collapse → lr cut "
@@ -222,6 +230,23 @@ def install_telemetry(args, trainer, output_dir: str, log=print):
                 "health/* columns and will never fire")
     os.makedirs(output_dir, exist_ok=True)
     return MetricsLogger(path=os.path.join(output_dir, "metrics.jsonl"))
+
+
+def install_resilience(args, trainer, log=print):
+    """Arm the signal handlers on a built trainer unless
+    ``--no_preemption_handler``: SIGTERM's graceful preemption and
+    SIGUSR1's checkpoint at the next step boundary."""
+    if not args.no_preemption_handler:
+        trainer.install_preemption_handler(log=log)
+        trainer.install_signal_checkpoint(log=log)
+
+
+def upload_images(images, device) -> torch.Tensor:
+    """A host batch of images as f32 on ``device`` (pinned, without
+    blocking the host, on a card), for the VAE's encode there."""
+    if isinstance(images, torch.Tensor):
+        return images.to(device, torch.float32)
+    return to_device(np.asarray(images, np.float32), device)
 
 
 def install_sigusr2_profiler(default_dir: str, args=None, log=print) -> bool:
@@ -298,47 +323,6 @@ def to_uint8(images) -> np.ndarray:
     if isinstance(images, torch.Tensor):
         images = images.detach().float().cpu().numpy()
     return (np.asarray(images) * 255).clip(0, 255).astype(np.uint8)
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def write_png(path: str, image: np.ndarray):
-    """One (H, W, 3) uint8 image as an 8-bit RGB PNG (no filtering)."""
-    h, w, c = image.shape
-    if c != 3 or image.dtype != np.uint8:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got {image.shape} {image.dtype}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _chunk(b"IEND", b""))
-
-
-def read_png(path: str) -> np.ndarray:
-    """An image ``write_png`` wrote → (H, W, 3) uint8."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path} is not a PNG")
-    pos, idat, (w, h) = 8, b"", (0, 0)
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            w, h, depth, color = struct.unpack(">IIBB", body[:10])
-            if (depth, color) != (8, 2):
-                raise ValueError(f"{path}: only 8-bit RGB is read")
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: filtered rows are not read")
-    return rows[:, 1:].reshape(h, w, 3).copy()
 
 
 def save_image_grid(images, path: str):

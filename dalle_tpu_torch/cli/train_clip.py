@@ -6,18 +6,24 @@ the end). Its checkpoints are what ``generate --clip_path`` reads; the
 image size must be the dVAE's. Runs on the CUDA card unless ``--device
 cpu``.
 
-    python -m dalle_tpu_torch.cli.train_clip --synthetic --image_size 128 \\
-        --patch_size 16 --dim 512 --depth 6 --batch_size 8 --steps 100 \\
-        --output_dir ./clip_ckpt
+    python -m dalle_tpu_torch.cli.train_clip --image_text_folder ./pairs \\
+        --image_size 128 --patch_size 16 --dim 512 --depth 6 --batch_size 8 \\
+        --steps 100 --output_dir ./clip_ckpt
+
+The (caption, image) pairs come from a folder (``--image_text_folder``,
+captions from ``.txt`` files or ``--text_from_filename``;
+``data/text_image.py``) or the synthetic shapes.
 
 ``--scan_steps k`` runs k steps a ``train_steps`` call. ``--health``, ``--breach_actions``, ``--trace``, ``--watchdog_deadline_s``
 and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``);
 SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
 every record read goes to ``<output_dir>/metrics.jsonl``, which
 ``python -m dalle_tpu_torch.cli.obs_report`` summarises.
-Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``--image_text_folder`` (the card's machine has no
-image decoder) and ``--wandb``.
+Checkpoints are written on a thread (``--sync_checkpointing`` writes them
+in the loop). SIGTERM finishes the step in flight, saves, and exits 0;
+SIGUSR1 saves at the next step (``--no_preemption_handler`` installs
+neither). Not ported, and raising ``NotImplementedError`` with its
+``ROADMAP.md`` item: ``--wandb``.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ import os
 import sys
 
 from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
-                      check_unported_train_args, install_sigusr2_profiler, install_telemetry,
-                      obs_config, overlap_train_kwargs, unported)
+                      check_unported_train_args, install_resilience, install_sigusr2_profiler,
+                      install_telemetry, obs_config, overlap_train_kwargs)
 
 
 def build_parser():
@@ -36,9 +42,11 @@ def build_parser():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     data = ap.add_argument_group("data")
     data.add_argument("--image_text_folder", type=str, default=None,
-                      help="folder of images with .txt captions (not ported yet)")
+                      help="folder pairing images with .txt captions (or filename "
+                           "captions with --text_from_filename)")
     data.add_argument("--synthetic", action="store_true",
                       help="the synthetic shapes dataset")
+    data.add_argument("--text_from_filename", action="store_true")
     data.add_argument("--image_size", type=int, default=256)
 
     tok = ap.add_argument_group("tokenizer")
@@ -76,16 +84,15 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.image_text_folder:
-        raise unported("--image_text_folder (no image decoder on the card's machine)", "3")
     check_unported_train_args(args)
-    if not args.synthetic:
-        print("error: provide --synthetic", file=sys.stderr)
+    if not (args.image_text_folder or args.synthetic):
+        print("error: provide --image_text_folder or --synthetic", file=sys.stderr)
         return 2
     install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
+    import numpy as np
+
     from ..config import ClipConfig, OptimConfig, TrainConfig
-    from ..data.synthetic import ShapesDataset, batch_iterator
     from ..text.tokenizer import get_tokenizer
     from ..train.trainer_clip import CLIPTrainer
 
@@ -103,7 +110,8 @@ def main(argv=None) -> int:
         visual_enc_depth=args.depth, visual_heads=args.heads,
         visual_image_size=args.image_size, visual_patch_size=args.patch_size)
     train_cfg = TrainConfig(
-        batch_size=args.batch_size, seed=args.seed, checkpoint_dir=args.output_dir,
+        batch_size=args.batch_size, epochs=args.epochs, seed=args.seed,
+        checkpoint_dir=args.output_dir,
         save_every_steps=args.save_every_n_steps,
         preflight_checkpoint=not args.no_preflight, **overlap_train_kwargs(args),
         runtime_lr_scale=args.breach_actions, obs=obs_config(args),
@@ -113,12 +121,21 @@ def main(argv=None) -> int:
 
     def encode_batch(images, captions):
         text = tokenizer.tokenize(list(captions), args.text_seq_len, truncate_text=True)
-        return text, images
+        return text, np.asarray(images, np.float32)
 
-    ds = ShapesDataset(image_size=args.image_size)
-    raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
+    if args.synthetic:
+        from ..data.synthetic import ShapesDataset, batch_iterator
+        ds = ShapesDataset(image_size=args.image_size)
+        raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
+    else:
+        from ..data.text_image import TextImageDataset
+        ds = TextImageDataset(args.image_text_folder, image_size=args.image_size,
+                              shuffle=True, seed=args.seed,
+                              text_from_filename=args.text_from_filename)
+        raw = ds.batches(args.batch_size, epochs=args.epochs)
     print(f"CLIP: {trainer.num_params / 1e6:.1f}M params on {trainer.device}")
     writer = install_telemetry(args, trainer, args.output_dir)
+    install_resilience(args, trainer)
     trainer.fit((encode_batch(imgs, caps) for imgs, caps in raw), steps=args.steps,
                 metrics_writer=writer)
     writer.close()

@@ -1,12 +1,15 @@
 """Train DALL·E on the card from the command line.
 
 Port of ``scripts/train_dalle.py``: tokenizer selection, the VAE chain,
-synthetic (caption, image) data encoded by the dVAE, resume, checkpoint
-rotation. Runs on the CUDA card unless ``--device cpu``.
+(caption, image) data from a folder (``--image_text_folder``, captions
+from ``.txt`` files or ``--text_from_filename``), from tar shards
+(``--wds``: a directory, glob, brace range or ``pipe:`` command) or the
+synthetic shapes, each batch encoded by the VAE on the card; resume,
+checkpoint rotation. Runs on the CUDA card unless ``--device cpu``.
 
-    python -m dalle_tpu_torch.cli.train_dalle --synthetic --untrained_vae \\
-        --image_size 64 --dim 128 --depth 2 --batch_size 8 --steps 20 \\
-        --text_seq_len 32 --output_dir ./dalle_ckpt
+    python -m dalle_tpu_torch.cli.train_dalle --image_text_folder ./pairs \\
+        --untrained_vae --image_size 64 --dim 128 --depth 2 --batch_size 8 \\
+        --steps 20 --text_seq_len 32 --output_dir ./dalle_ckpt
 
 ``--scan_steps k`` runs k steps a ``DalleTrainer.train_steps`` call,
 ``--ga_steps k`` averages k batches' gradients into each update,
@@ -22,11 +25,13 @@ OpenAI's (``--openai_vae_dir``).
 and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``);
 SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
 every record read goes to ``<output_dir>/metrics.jsonl``, which
-``python -m dalle_tpu_torch.cli.obs_report`` summarises.
+``python -m dalle_tpu_torch.cli.obs_report`` summarises. Checkpoints are
+written on a thread (``--sync_checkpointing`` writes them in the loop).
+SIGTERM finishes the step in flight, saves, and exits 0; SIGUSR1 saves at
+the next step (``--no_preemption_handler`` installs neither).
 
-Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``--image_text_folder`` and ``--wds`` (the card's
-machine has no image decoder) and ``--wandb``.
+Not ported, and raising ``NotImplementedError`` with its ``ROADMAP.md``
+item: ``--wandb`` and ``--log_artifacts``.
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ import os
 import sys
 
 from ._common import (add_device_arg, add_overlap_args, add_telemetry_args, add_vae_args,
-                      build_vae_from_args, check_unported_train_args,
+                      build_vae_from_args, check_unported_train_args, install_resilience,
                       install_sigusr2_profiler, install_telemetry, load_vae_sidecar,
-                      obs_config, overlap_train_kwargs, save_vae_sidecar, unported)
+                      obs_config, overlap_train_kwargs, save_vae_sidecar, upload_images)
 
 
 def build_parser():
@@ -46,11 +51,13 @@ def build_parser():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     data = ap.add_argument_group("data")
     data.add_argument("--image_text_folder", type=str, default=None,
-                      help="folder of images with .txt captions (not ported yet)")
+                      help="folder pairing images with .txt captions (or filename "
+                           "captions with --text_from_filename)")
     data.add_argument("--wds", type=str, default=None,
-                      help="WebDataset shards (not ported yet)")
+                      help="tar shards: a directory, glob, brace range or pipe:")
     data.add_argument("--synthetic", action="store_true",
                       help="the synthetic shapes dataset")
+    data.add_argument("--text_from_filename", action="store_true")
     data.add_argument("--image_size", type=int, default=128)
 
     tok = ap.add_argument_group("tokenizer")
@@ -95,29 +102,25 @@ def build_parser():
                        help="stop when the step count reaches this")
     train.add_argument("--scan_steps", type=int, default=1)
     train.add_argument("--no_preflight", action="store_true")
+    train.add_argument("--log_artifacts", action="store_true",
+                       help="not ported (uploads to wandb)")
     add_overlap_args(ap)
     add_telemetry_args(ap)
     add_device_arg(ap)
     return ap
 
 
-def _check_ported(args):
-    if args.image_text_folder or args.wds:
-        raise unported("--image_text_folder / --wds (no image decoder on the card's "
-                       "machine)", "3")
-    check_unported_train_args(args)
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_ported(args)
-    if not args.synthetic:
-        print("error: provide --synthetic", file=sys.stderr)
+    check_unported_train_args(args)
+    if not (args.image_text_folder or args.wds or args.synthetic):
+        print("error: provide --image_text_folder, --wds or --synthetic", file=sys.stderr)
         return 2
     install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
+    import numpy as np
+
     from ..config import OptimConfig, TrainConfig
-    from ..data.synthetic import ShapesDataset, batch_iterator
     from ..device import resolve_device
     from ..models.wrapper import dalle_config_for_vae
     from ..text.tokenizer import get_tokenizer
@@ -146,11 +149,12 @@ def main(argv=None) -> int:
         loss_img_weight=args.loss_img_weight,
         attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout)
     train_cfg = TrainConfig(
-        batch_size=args.batch_size, seed=args.seed,
+        batch_size=args.batch_size, epochs=args.epochs, seed=args.seed,
         checkpoint_dir=args.output_dir, save_every_steps=args.save_every_n_steps,
         keep_n_checkpoints=args.keep_n_checkpoints,
-        preflight_checkpoint=not args.no_preflight, **overlap_train_kwargs(args),
-        runtime_lr_scale=args.breach_actions, obs=obs_config(args),
+        preflight_checkpoint=not args.no_preflight, log_artifacts=args.log_artifacts,
+        **overlap_train_kwargs(args), runtime_lr_scale=args.breach_actions,
+        obs=obs_config(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm,
                           grad_accum_steps=args.ga_steps,
@@ -166,18 +170,40 @@ def main(argv=None) -> int:
         print(f"resumed at step {trainer.step} "
               f"(ckpt model_class={meta and meta.get('model_class')})")
 
+    # -- data → (text ids, image ids) batches; the ids stay on the card
     def encode_batch(images, captions):
         text = tokenizer.tokenize(list(captions), args.text_seq_len, truncate_text=True)
-        return text, vae.get_codebook_indices(images)
+        return text, vae.get_codebook_indices(upload_images(images, device))
 
-    ds = ShapesDataset(image_size=args.image_size)
-    raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
-    batches = (encode_batch(imgs, caps) for imgs, caps in raw)
+    if args.synthetic:
+        from ..data.synthetic import ShapesDataset, batch_iterator
+        ds = ShapesDataset(image_size=args.image_size)
+        raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
+        batches = (encode_batch(imgs, caps) for imgs, caps in raw)
+    elif args.wds:
+        from ..data.webdataset import WebDataset
+        wds = (WebDataset(args.wds, shuffle_shards=True, repeat=args.epochs, seed=args.seed)
+               .decode(image_size=args.image_size)
+               .map(lambda s: (next(s[k] for k in ("jpg", "jpeg", "png") if k in s),
+                               next(s[k] for k in ("txt", "text", "caption") if k in s)))
+               .shuffle(256)
+               .batched(args.batch_size))
+        batches = (encode_batch(np.stack(imgs), caps) for imgs, caps in wds.prefetch())
+    else:
+        from ..data.text_image import TextImageDataset
+        ds = TextImageDataset(args.image_text_folder, image_size=args.image_size,
+                              shuffle=True, seed=args.seed,
+                              text_from_filename=args.text_from_filename)
+        raw = ds.batches(args.batch_size, epochs=args.epochs)
+        batches = (encode_batch(imgs, caps) for imgs, caps in raw)
     print(f"DALLE: {trainer.num_params / 1e6:.1f}M params on {device}; "
           f"vae {type(vae).__name__}")
     writer = install_telemetry(args, trainer, args.output_dir)
+    install_resilience(args, trainer)
     trainer.fit(batches, steps=args.steps, metrics_writer=writer)
     writer.close()
+    if trainer.preempted:
+        print(f"preempted at step {trainer.step}; checkpoint durable")
     print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
     return 0
 

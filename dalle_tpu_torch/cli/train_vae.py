@@ -8,18 +8,23 @@ reconstructions (``<sample_dir>/step{N}_recon.png``) and the number of codes
 the probe uses. Its checkpoints are what ``train_dalle --vae_path`` reads.
 Runs on the CUDA card unless ``--device cpu``.
 
-    python -m dalle_tpu_torch.cli.train_vae --synthetic --image_size 64 \\
-        --num_layers 2 --hidden_dim 32 --num_tokens 256 --batch_size 8 \\
-        --steps 100 --output_dir ./vae_ckpt
+    python -m dalle_tpu_torch.cli.train_vae --image_folder ./images \\
+        --image_size 64 --num_layers 2 --hidden_dim 32 --num_tokens 256 \\
+        --batch_size 8 --steps 100 --output_dir ./vae_ckpt
+
+The images come from a folder (``--image_folder``: random square crops,
+``data/text_image.py``) or the synthetic shapes (``--synthetic``).
 
 ``--scan_steps k`` runs k steps a ``train_steps`` call. ``--health``, ``--breach_actions``, ``--trace``, ``--watchdog_deadline_s``
 and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``);
 SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
 every record read goes to ``<output_dir>/metrics.jsonl``, which
 ``python -m dalle_tpu_torch.cli.obs_report`` summarises.
-Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``--image_folder`` (the card's machine has no image
-decoder) and ``--wandb``.
+Checkpoints are written on a thread (``--sync_checkpointing`` writes them
+in the loop). SIGTERM finishes the step in flight, saves, and exits 0;
+SIGUSR1 saves at the next step (``--no_preemption_handler`` installs
+neither). Not ported, and raising ``NotImplementedError`` with its
+``ROADMAP.md`` item: ``--wandb``.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ import os
 import sys
 
 from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
-                      check_unported_train_args, install_sigusr2_profiler, install_telemetry,
-                      obs_config, overlap_train_kwargs, to_uint8, unported, write_png)
+                      check_unported_train_args, install_resilience, install_sigusr2_profiler,
+                      install_telemetry, obs_config, overlap_train_kwargs, to_uint8)
+from ..data.image_codec import write_png
 
 
 def build_parser():
@@ -38,7 +44,7 @@ def build_parser():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     data = ap.add_argument_group("data")
     data.add_argument("--image_folder", type=str, default=None,
-                      help="folder of images (not ported yet)")
+                      help="folder of images")
     data.add_argument("--synthetic", action="store_true",
                       help="the synthetic shapes dataset")
 
@@ -82,18 +88,15 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.image_folder:
-        raise unported("--image_folder (no image decoder on the card's machine)", "3")
     check_unported_train_args(args)
-    if not args.synthetic:
-        print("error: provide --synthetic", file=sys.stderr)
+    if not (args.image_folder or args.synthetic):
+        print("error: provide --image_folder or --synthetic", file=sys.stderr)
         return 2
     install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
     import numpy as np
 
     from ..config import AnnealConfig, DVAEConfig, OptimConfig, TrainConfig
-    from ..data.synthetic import ShapesDataset, batch_iterator
     from ..train.trainer_vae import VAETrainer
 
     model_cfg = DVAEConfig(
@@ -103,7 +106,8 @@ def main(argv=None) -> int:
         smooth_l1_loss=args.smooth_l1_loss, kl_div_loss_weight=args.kl_loss_weight,
         straight_through=args.straight_through)
     train_cfg = TrainConfig(
-        batch_size=args.batch_size, seed=args.seed, checkpoint_dir=args.output_dir,
+        batch_size=args.batch_size, epochs=args.epochs, seed=args.seed,
+        checkpoint_dir=args.output_dir,
         save_every_steps=args.save_every_steps,
         keep_n_checkpoints=args.keep_n_checkpoints,
         preflight_checkpoint=not args.no_preflight,
@@ -114,8 +118,15 @@ def main(argv=None) -> int:
                           lr_scheduler="exponential", lr_decay_rate=args.lr_decay_rate))
     anneal = AnnealConfig(starting_temp=args.starting_temp, temp_min=args.temp_min,
                           anneal_rate=args.anneal_rate)
-    ds = ShapesDataset(image_size=args.image_size)
-    raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
+    if args.synthetic:
+        from ..data.synthetic import ShapesDataset, batch_iterator
+        ds = ShapesDataset(image_size=args.image_size)
+        raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
+    else:
+        from ..data.text_image import TextImageDataset
+        ds = TextImageDataset(args.image_folder, image_size=args.image_size, shuffle=True,
+                              seed=args.seed, text_from_filename=True)
+        raw = ds.batches(args.batch_size, epochs=args.epochs)
     trainer = VAETrainer(model_cfg, train_cfg, anneal, device=args.device)
     print(f"dVAE: {trainer.num_params / 1e6:.2f}M params on {trainer.device}; "
           f"dataset: {len(ds)} samples")
@@ -123,7 +134,10 @@ def main(argv=None) -> int:
     sample_fn = None
     if args.sample_every_steps:
         os.makedirs(args.sample_dir, exist_ok=True)
-        probe = ds.as_arrays(limit=8)[0]
+        # the JAX script's probe: a folder's first shuffled batch, drawn from
+        # the dataset's generator before training
+        probe = (ds.as_arrays(limit=8)[0] if args.synthetic
+                 else next(iter(ds.batches(min(args.batch_size, 8), epochs=1)))[0])
 
         def sample_fn(step):
             recons = trainer.reconstruct(probe, hard=True).float().cpu().numpy()
@@ -136,6 +150,7 @@ def main(argv=None) -> int:
                   f"{used}/{model_cfg.num_tokens}")
 
     writer = install_telemetry(args, trainer, args.output_dir)
+    install_resilience(args, trainer)
     trainer.fit(((images,) for images, _captions in raw), steps=args.steps,
                 sample_fn=sample_fn, metrics_writer=writer)
     writer.close()

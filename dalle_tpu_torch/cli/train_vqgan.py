@@ -8,9 +8,13 @@ clipping, checkpoints (the last step is saved at the end), and with
 (``<sample_dir>/step{N}_recon.png``). Images are in [-1, 1], taming's
 convention. Runs on the CUDA card unless ``--device cpu``.
 
-    python -m dalle_tpu_torch.cli.train_vqgan --synthetic --resolution 64 \\
-        --ch 32 --ch_mult 1,2 --n_embed 256 --batch_size 8 --steps 100 \\
-        --disc_start 50 --output_dir ./vqgan_ckpt
+    python -m dalle_tpu_torch.cli.train_vqgan --image_folder ./images \\
+        --resolution 64 --ch 32 --ch_mult 1,2 --n_embed 256 --batch_size 8 \\
+        --steps 100 --disc_start 50 --output_dir ./vqgan_ckpt
+
+The images come from a folder (``--image_folder``: an ImageFolder,
+resized and centre-cropped, in an order drawn per epoch from
+``--seed``; ``data/loaders.py``) or the synthetic shapes.
 
 ``--gumbel`` trains taming's GumbelVQ, ``--scan_steps k`` runs k steps a
 ``train_steps`` call. ``--health``, ``--breach_actions``, ``--trace``, ``--watchdog_deadline_s``
@@ -18,9 +22,11 @@ and ``--prometheus_path`` arm the trainer's telemetry (``train/base_trainer.py``
 SIGUSR2 takes a bounded ``torch.profiler`` capture (``--profiler_dir``);
 every record read goes to ``<output_dir>/metrics.jsonl``, which
 ``python -m dalle_tpu_torch.cli.obs_report`` summarises.
-Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``--image_folder`` (the card's machine has no image
-decoder) and ``--wandb``.
+Checkpoints are written on a thread (``--sync_checkpointing`` writes them
+in the loop). SIGTERM finishes the step in flight, saves, and exits 0;
+SIGUSR1 saves at the next step (``--no_preemption_handler`` installs
+neither). Not ported, and raising ``NotImplementedError`` with its
+``ROADMAP.md`` item: ``--wandb``.
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ import os
 import sys
 
 from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
-                      check_unported_train_args, install_sigusr2_profiler, install_telemetry,
-                      obs_config, overlap_train_kwargs, to_uint8, unported, write_png)
+                      check_unported_train_args, install_resilience, install_sigusr2_profiler,
+                      install_telemetry, obs_config, overlap_train_kwargs, to_uint8)
+from ..data.image_codec import write_png
 
 
 def build_parser():
@@ -95,18 +102,15 @@ def _ints(s: str):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.image_folder:
-        raise unported("--image_folder (no image decoder on the card's machine)", "3")
     check_unported_train_args(args)
-    if not args.synthetic:
-        print("error: provide --synthetic", file=sys.stderr)
+    if not (args.image_folder or args.synthetic):
+        print("error: provide --image_folder or --synthetic", file=sys.stderr)
         return 2
     install_sigusr2_profiler(os.path.join(args.output_dir, "profile"), args)
 
     import numpy as np
 
     from ..config import OptimConfig, TrainConfig, VQGANConfig
-    from ..data.synthetic import ShapesDataset, batch_iterator
     from ..models.gan import GANLossConfig
     from ..train.trainer_vqgan import VQGANTrainer
 
@@ -122,7 +126,8 @@ def main(argv=None) -> int:
         disc_loss=args.disc_loss, codebook_weight=args.codebook_weight,
         perceptual_weight=args.perceptual_weight, use_actnorm=args.use_actnorm)
     train_cfg = TrainConfig(
-        batch_size=args.batch_size, seed=args.seed, checkpoint_dir=args.output_dir,
+        batch_size=args.batch_size, epochs=args.epochs, seed=args.seed,
+        checkpoint_dir=args.output_dir,
         save_every_steps=args.save_every_steps, keep_n_checkpoints=args.keep_n_checkpoints,
         preflight_checkpoint=not args.no_preflight,
         sample_every_steps=args.sample_every_steps, **overlap_train_kwargs(args),
@@ -131,15 +136,34 @@ def main(argv=None) -> int:
     trainer = VQGANTrainer(model_cfg, train_cfg, loss_cfg, device=args.device)
     if args.resume:
         trainer.restore()
-    ds = ShapesDataset(image_size=args.resolution)
-    raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
+    # images in [-1, 1], taming's convention
+    if args.synthetic:
+        from ..data.synthetic import ShapesDataset, batch_iterator
+        ds = ShapesDataset(image_size=args.resolution)
+        raw = batch_iterator(ds, args.batch_size, seed=args.seed, epochs=args.epochs)
+        batches = ((imgs * 2.0 - 1.0,) for imgs, _caps in raw)
+    else:
+        from ..data.loaders import ImageFolderDataset, batch_arrays
+        ds = ImageFolderDataset(args.image_folder, image_size=args.resolution)
+        rng = np.random.RandomState(args.seed)
+
+        def folder_batches():
+            for _ in range(args.epochs):
+                order = rng.permutation(len(ds))
+                for s in range(0, len(order) - args.batch_size + 1, args.batch_size):
+                    imgs, _ = batch_arrays(ds, order[s:s + args.batch_size])
+                    yield (imgs * 2.0 - 1.0,)
+        batches = folder_batches()
     print(f"VQGAN {model_cfg.quantizer}: {trainer.num_params / 1e6:.2f}M params on "
           f"{trainer.device}; dataset: {len(ds)} samples")
 
     sample_fn = None
     if args.sample_every_steps:
         os.makedirs(args.sample_dir, exist_ok=True)
-        probe = ds.as_arrays(limit=4)[0] * 2.0 - 1.0
+        if args.synthetic:
+            probe = ds.as_arrays(limit=4)[0] * 2.0 - 1.0
+        else:
+            probe = batch_arrays(ds, list(range(min(4, len(ds)))))[0] * 2.0 - 1.0
 
         def sample_fn(step):
             recon = trainer.reconstruct(probe).float().cpu().numpy()
@@ -150,7 +174,8 @@ def main(argv=None) -> int:
             print(f"[step {step}] recon grid → {args.sample_dir}")
 
     writer = install_telemetry(args, trainer, args.output_dir)
-    trainer.fit(((images * 2.0 - 1.0,) for images, _captions in raw), steps=args.steps,
+    install_resilience(args, trainer)
+    trainer.fit(batches, steps=args.steps,
                 sample_fn=sample_fn, metrics_writer=writer)
     writer.close()
     print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")

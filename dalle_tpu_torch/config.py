@@ -359,19 +359,27 @@ class TrainConfig(ConfigBase):
     trainers read (``train/base_trainer.py``): checkpoints, NaN rollback, the
     runtime lr scale, the host overlap of the training loop (scanned
     steps, the metrics cadence, deferred metrics, device prefetch),
-    ``profile_step`` and the telemetry (``obs``), with the JAX defaults.
-    Asynchronous checkpoint writes come with their own slice, and their
-    fields with them.
+    ``profile_step``, the telemetry (``obs``), ``epochs``, ``resume``,
+    asynchronous checkpoint writes (``async_checkpointing``) and
+    ``log_artifacts``, with the JAX defaults. ``log_artifacts=True``
+    uploads to wandb in the JAX package; the port's trainers refuse it
+    (``ROADMAP.md`` Queue 1 item 12).
 
     One default differs: ``checkpoint_dir`` is None, and then the trainer
     keeps no checkpoints (the JAX package writes to ``./checkpoints``).
     Nothing is written unless the caller names a directory."""
     batch_size: int = 64                 # global batch
+    epochs: int = 20
     seed: int = 42
     log_every: int = 10
     save_every_steps: int = 1000
     keep_n_checkpoints: Optional[int] = None
     checkpoint_dir: Optional[str] = None
+    resume: bool = False
+    # a save blocks only for the copy of the state to the host; the write
+    # runs on a thread, drained at restore, at a SIGUSR1/SIGTERM save, at
+    # fit's end and at close
+    async_checkpointing: bool = True
     preflight_checkpoint: bool = True    # save before the first step
     # on a non-finite loss, put back the masters and the optimizer state of
     # the last save (or of fit's start)
@@ -396,6 +404,8 @@ class TrainConfig(ConfigBase):
     # > 0: profile the step that contains this step with torch.profiler
     # into <checkpoint_dir>/profile_step<N>
     profile_step: int = 0
+    # upload each checkpoint as a wandb artifact (refused by the port)
+    log_artifacts: bool = False
     optim: OptimConfig = field(default_factory=OptimConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)

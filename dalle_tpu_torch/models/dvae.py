@@ -133,11 +133,17 @@ class DiscreteVAE(nn.Module):
         return self
 
     def norm(self, images):
-        """Per-channel (x - mean) / std with the config's normalization."""
+        """Per-channel (x - mean) / std with the config's normalization. The
+        constants are uploaded once per dtype and device: an upload from a
+        Python list is a synchronising copy, and the encode runs every step."""
         if self.cfg.normalization is None:
             return images
-        means, stds = (torch.tensor(v, dtype=images.dtype, device=images.device)
-                       for v in self.cfg.normalization)
+        key = (images.dtype, images.device)
+        cache = self.__dict__.setdefault("_norm_consts", {})
+        if key not in cache:
+            cache[key] = tuple(torch.tensor(v, dtype=images.dtype, device=images.device)
+                               for v in self.cfg.normalization)
+        means, stds = cache[key]
         return (images - means) / stds
 
     def _normed(self, img):

@@ -6,7 +6,8 @@ Port of ``DiscreteVAEAdapter`` and ``DalleWithVae.generate_images`` from
 int8w (int8 weights through the W8 kernel, int8 KV cache), with the
 speculative sampler (``speculative=γ``); ``generate_texts``;
 ``DalleWithVae.serve_engine``, the continuous-batching engine over the same
-derived weights, int8w by default as in the JAX package; and
+derived weights, int8w by default as in the JAX package;
+``DalleWithVae.loss``, the training loss from pixels; and
 ``dalle_config_for_vae``. ``generate_images`` primes from pixels through
 the dVAE's encoder (``img=``) and scores its images with a CLIP (``clip=``,
 the rerank); ``attach_rerank`` keeps a CLIP with the wrapper.
@@ -119,6 +120,20 @@ class DalleWithVae:
         attached CLIP. ``kw`` goes to ``ImagePipeline``."""
         from ..serve.pipeline import ImagePipeline
         return ImagePipeline(vae=self.vae, clip=self.clip, top_k=top_k, **kw)
+
+    def loss(self, text, images, generator: Optional[torch.Generator] = None,
+             null_cond_prob: float = 0.0, null_mask: Optional[torch.Tensor] = None,
+             dropout: bool = False):
+        """The training loss from raw pixels: ``images`` ((b, H, W, C) in
+        [0, 1]) through the VAE's ``get_codebook_indices``, then the model's
+        loss with ``text`` → (loss, {"loss_text", "loss_img"}). The
+        classifier-free-guidance nulls are ``null_mask`` or drawn with
+        ``null_cond_prob`` from ``generator``; ``dropout`` trains with the
+        model's dropout, its masks from ``generator``."""
+        ids = self.vae.get_codebook_indices(images)
+        text = torch.as_tensor(text).to(ids.device, torch.long)
+        return self.model(text, ids, True, null_cond_prob=null_cond_prob,
+                          null_mask=null_mask, generator=generator, dropout=dropout)
 
     def _resolve_precision(self, precision: str):
         """(model, cache_dtype) for a decode precision mode. The derived

@@ -1,55 +1,36 @@
 """The native BPE merge core (``bpe_core.cpp``) behind ``ctypes``.
 
 Built with ``g++`` at first use into ``build/native/`` at the repository
-root, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one reused. A failed build or load raises with the
-compiler's output; nothing falls back to the Python merge loop.
+root (``utils/native_build.py``), named by a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one reused. A
+failed build or load raises with the compiler's output; nothing falls back
+to the Python merge loop.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional
 
+from ...utils import native_build
+
 SRC = Path(__file__).resolve().parent / "bpe_core.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "native"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+BUILD_DIR = native_build.BUILD_DIR
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def _target() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + SRC.read_bytes())
-    return BUILD_DIR / f"libbpe_core-{h.hexdigest()[:16]}.so"
+    return native_build.target(SRC, BUILD_DIR, "libbpe_core")
 
 
 def build() -> Path:
     """Compile the core unless an up-to-date library is there; returns its
     path. Raises ``RuntimeError`` with the compiler's output on failure."""
-    out = _target()
-    if out.exists():
-        return out
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the native BPE core is built at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a private temp name, renamed into place: a process building at the
-    # same time never loads a half-written library
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building the native BPE core failed (g++ exited "
-                           f"{proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return native_build.build(SRC, BUILD_DIR, "libbpe_core", "BPE core")
 
 
 def load() -> ctypes.CDLL:

@@ -44,6 +44,9 @@ it, so the two give the same bits); both end in ``_finish_step``.
 * **Checkpoints** (``train/checkpoints.py``, with ``checkpoint_dir``):
   ``fit`` saves before its first step (``preflight_checkpoint``), whenever
   the step crosses a multiple of ``save_every_steps``, and at its end;
+  with ``async_checkpointing`` (the default) a save blocks only for the
+  host snapshot and the write runs on a thread, which ``fit`` drains
+  (``ckpt/drain``) whenever it returns or raises;
   ``restore`` brings back the masters, the optimizer's state (moments,
   counts, accumulator, plateau state, runtime lr scale), the step and the
   trainer's generator. The metadata carries the model's identity
@@ -80,9 +83,12 @@ it, so the two give the same bits); both end in ``_finish_step``.
   prefers over the save's snapshot), ``_rollback`` and ``set_lr_scale``.
   ``grad_hook(trainer)``, when set, runs between the backward and the
   optimizer: tests write into a gradient there.
-
-Not ported yet (``ROADMAP.md`` Queue 1 item 3): asynchronous checkpoint
-writes and the signal and preemption handlers.
+* **Signals** (``install_signal_checkpoint``, ``install_preemption_handler``):
+  the handlers only latch flags. SIGUSR1 saves at the next step boundary
+  and drains that save, so the latch means "durable now". SIGTERM does the
+  same and then leaves ``fit`` with ``preempted`` set; a second SIGTERM
+  changes nothing. A boundary whose loss is not finite rolls back and
+  skips the save, and the latch waits for the next finite boundary.
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ from __future__ import annotations
 import itertools
 import math
 import os
+import signal
 import time
 import warnings
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional
@@ -223,15 +230,23 @@ class BaseTrainer:
 
     model_class = "Model"
     generator: Optional[torch.Generator] = None   # the step's draws, checkpointed
+    # the signal latches (see the module's "Signals")
+    _signal_save = False
+    _preempt = False
+    preempted = False
     tokens_per_sample = 0                          # for the logged tokens/s
     flops_per_step = 0.0                           # for the logged MFU
     grad_hook: Optional[Callable[["BaseTrainer"], None]] = None
 
     def __init__(self, train_cfg, device=None):
+        if train_cfg.log_artifacts:
+            raise NotImplementedError("log_artifacts uploads to wandb, which is not ported "
+                                      "(ROADMAP.md Queue 1 item 12)")
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
         self.ckpt = (CheckpointManager(train_cfg.checkpoint_dir,
-                                       keep_n=train_cfg.keep_n_checkpoints)
+                                       keep_n=train_cfg.keep_n_checkpoints,
+                                       async_save=train_cfg.async_checkpointing)
                      if train_cfg.checkpoint_dir else None)
         self.extra_meta: Dict[str, Any] = {}
         self.step = 0
@@ -471,9 +486,44 @@ class BaseTrainer:
         if self.generator is not None:
             self.generator.set_state(state["generator"].cpu())
 
-    def save(self):
-        """Checkpoint the current step (needs ``checkpoint_dir``)."""
-        self.ckpt.save(self.step, self.state_dict(), self._meta())
+    def save(self, wait: bool = True):
+        """Checkpoint the current step (needs ``checkpoint_dir``). With
+        ``wait`` (the default) the checkpoint is on disk when this returns;
+        ``fit``'s periodic saves pass False and leave the write in flight."""
+        self.ckpt.save(self.step, self.state_dict(), self._meta(), wait=wait)
+
+    def _ckpt_wait(self):
+        """Drain the checkpoint write in flight, if any."""
+        if self.ckpt is not None:
+            with span("ckpt/drain"):
+                self.ckpt.wait_until_finished()
+
+    def install_signal_checkpoint(self, log=print):
+        """SIGUSR1 → a drained checkpoint at the next step boundary (taming's
+        "melk" handler): the handler only sets a flag, and the save happens
+        between steps, where the state is whole. Call from the main thread."""
+        def handler(_sig, _frame):
+            self._signal_save = True
+            log("SIGUSR1: will checkpoint at the next step boundary")
+
+        self._signal_save = False
+        signal.signal(signal.SIGUSR1, handler)
+
+    def install_preemption_handler(self, log=print):
+        """SIGTERM → graceful preemption: ``fit`` finishes the step in
+        flight, saves through the SIGUSR1 latch (drained) and returns with
+        ``preempted`` set, so the entry point exits 0 with the state on
+        disk. A second SIGTERM during the wind-down changes nothing. Call
+        from the main thread; calling again re-arms."""
+        def handler(_sig, _frame):
+            self._signal_save = True
+            self._preempt = True
+            log("SIGTERM: graceful preemption: will checkpoint at the next step "
+                "boundary and exit")
+
+        self._preempt = False
+        self.preempted = False
+        signal.signal(signal.SIGTERM, handler)
 
     def restore(self, step: Optional[int] = None):
         """Resume from the checkpoint directory: ``step``, or the newest that
@@ -634,9 +684,13 @@ class BaseTrainer:
                     if watchdog is not None:
                         watchdog.beat(self.step)
                     metrics = self._after_step(prev, m, metrics, log, metrics_writer, sample_fn)
+                if self.preempted:
+                    break
             metrics = self._fit_end(metrics, log, metrics_writer)
         finally:
             self._obs_dispatch_t0 = None   # a bare train_step gets no breakdown
+            # a fit that returned leaves its checkpoints durable
+            self._ckpt_wait()
             if watchdog is not None:
                 watchdog.stop()
             if trace_dir is not None:
@@ -690,7 +744,10 @@ class BaseTrainer:
         """A step's events in fit: the save's NaN check, rollback, log and
         writer, save and sample. Returns the latest finite metrics."""
         tc = self.train_cfg
-        want_save = self.ckpt is not None and _crossed(prev, self.step, tc.save_every_steps)
+        # the latch is read once: the save and the metrics read see one value
+        signal_save = self._signal_save
+        want_save = self.ckpt is not None and (
+            signal_save or _crossed(prev, self.step, tc.save_every_steps))
         if want_save and m.get("metrics_step", self.step) != self.step:
             # a deferred record is older than the state to be saved: log it,
             # then read the current step's for the save's NaN check
@@ -709,19 +766,26 @@ class BaseTrainer:
             if metrics_writer is not None:
                 metrics_writer.log(_record_step(m), _record(m))
         if want_save:
-            self._save_timed()
+            self._save_timed(wait=signal_save)
+            if signal_save:
+                self._signal_save = False
             if tc.nan_rollback:
                 self._snapshot_good()
+        if self._preempt and (want_save or self.ckpt is None):
+            # the save above was drained: the state is durable, so leave fit
+            self.preempted = True
+            self._preempt = False
+            log(f"[step {self.step}] graceful preemption: checkpoint durable; exiting fit")
         if sample_fn is not None and _crossed(prev, self.step, tc.sample_every_steps):
             sample_fn(self.step)
         return metrics
 
-    def _save_timed(self):
+    def _save_timed(self, wait: bool = False):
         """``save`` in a ``fit/checkpoint`` span; its seconds go into the
         next record's ``t_ckpt_s``."""
         t0 = time.perf_counter()
         with span("fit/checkpoint", step=self.step):
-            self.save()
+            self.save(wait=wait)
         self._obs_last_ckpt = time.perf_counter() - t0
 
     def _rolled_back(self, m: Dict[str, Any], log) -> bool:

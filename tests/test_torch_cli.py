@@ -36,6 +36,7 @@ from dalle_tpu_torch import (DALLE, DalleConfig, DalleTrainer, DalleWithVae, Dis
                              dalle_state_dict, dvae_state_dict)
 from dalle_tpu_torch import obs
 from dalle_tpu_torch.cli import _common, generate, train_dalle
+from dalle_tpu_torch.data import image_codec
 from dalle_tpu_torch.models.wrapper import dalle_config_for_vae
 from dalle_tpu_torch.text.tokenizer import SimpleTokenizer
 from dalle_tpu_torch.train.checkpoints import STATE_FILE, CheckpointManager
@@ -405,6 +406,9 @@ TRAIN_PORTED = {"--shift_tokens": "shift_tokens", "--reversible": "reversible"}
 # (a relative path in a case is taken under the test's directory)
 TRAIN_TELEMETRY = {"--trace": os.path.join("obs", "spans.jsonl"),
                    "--watchdog_deadline_s": "metrics.jsonl", "--prometheus_path": "p"}
+# the data flags, ported since too: each case trains on a folder of captioned
+# images, or on tar shards of them, that the test writes ("x")
+TRAIN_DATA = ("--image_text_folder", "--wds")
 # the pretrained VAEs load local files only: without them the chain raises
 # naming the flags that take them (the JAX package would download)
 TRAIN_NEEDS_FILES = (["--taming"], [])
@@ -419,9 +423,44 @@ TINY_TRAIN = ["--image_size", "16", "--untrained_vae_tokens", "48", "--dim", "32
               "2", "--steps", "1"]
 
 
+def _pairs_folder(root, n=4, size=20):
+    """``n`` captioned images (PNG, BMP, JPEG fixture bytes aside) under
+    ``root``; returns their (key, ext, bytes, caption) rows."""
+    from dalle_tpu_torch.data.image_codec import encode_bmp, encode_png
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(5)
+    rows = []
+    for i in range(n):
+        img = rng.randint(0, 256, (size, size + i, 3)).astype(np.uint8)
+        ext, data = ("png", encode_png(img)) if i % 2 == 0 else ("bmp", encode_bmp(img))
+        caption = ["a red circle", "blue square", "a green ring", "red square"][i % 4]
+        with open(os.path.join(root, f"im{i}.{ext}"), "wb") as f:
+            f.write(data)
+        with open(os.path.join(root, f"im{i}.txt"), "w") as f:
+            f.write(caption + "\n")
+        rows.append((f"im{i}", ext, data, caption))
+    return rows
+
+
 @pytest.mark.parametrize("flags", TRAIN_UNPORTED, ids=lambda f: " ".join(f) or "openai_vae")
 def test_train_unported_flags_raise(tmp_path, flags):
     argv = ["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
+    if flags[0:1] and flags[0] in TRAIN_DATA:
+        from dalle_tpu_torch.data.webdataset import write_shards
+        rows = _pairs_folder(str(tmp_path / "data"))
+        data = str(tmp_path / "data")
+        if flags[0] == "--wds":
+            os.makedirs(tmp_path / "shards")
+            # the shards carry PNGs: the chain reads jpg, jpeg or png members
+            write_shards(({"__key__": k, "png": d if e == "png" else
+                           image_codec.encode_png(image_codec.decode(d)), "txt": c}
+                          for k, e, d, c in rows), str(tmp_path / "shards" / "s-{:02d}.tar"),
+                         samples_per_shard=2)
+            data = str(tmp_path / "shards")
+        argv = [a for a in argv if a != "--synthetic"] + ["--untrained_vae"]
+        assert train_dalle.main(argv + TINY_TRAIN + [flags[0], data]) == 0
+        assert CheckpointManager(str(tmp_path)).all_steps() == [0, 1]
+        return
     if flags[:1] not in (["--taming"], []):
         argv.append("--untrained_vae")
     if flags[0:1] and flags[0] in TRAIN_PORTED:
@@ -486,7 +525,7 @@ def test_png_writer_reads_back_in_pil(tmp_path):
         path = str(tmp_path / f"im_{i}.png")
         assert np.array_equal(np.asarray(Image.open(path).convert("RGB")),
                               _common.to_uint8(img)[i])
-        assert np.array_equal(_common.read_png(path), _common.to_uint8(img)[i])
+        assert np.array_equal(image_codec.read_png(path), _common.to_uint8(img)[i])
     shutil.rmtree(tmp_path)
 
 
@@ -548,3 +587,95 @@ def test_generate_trace_records_the_jax_scripts_spans(jax_models, port_vae, tmp_
     assert names["t"] == names["j"]
     assert {"generate/prompt", "decode/generate_tokens", "decode/vae_decode",
             "sampling/top_k_filter", "sampling/gumbel_sample"} <= names["t"]
+
+
+# ---------------------------------------------------------------------------
+# training from pixels: DalleWithVae.loss and the folder data flow
+# ---------------------------------------------------------------------------
+
+def test_dalle_with_vae_loss_matches_jax(jax_models, port_vae):
+    """``DalleWithVae.loss`` from pixels: the dVAE's ids, then the loss,
+    within 1e-5 of the JAX wrapper's in f32. The CFG drop is injected (the
+    rows JAX would null are nulled in its text), and a draw at probability
+    1 nulls every row on both sides."""
+    jm, jp, jv, jvp = jax_models
+    tm = DALLE(DalleConfig(**TINY))
+    tm.load_state_dict(dalle_state_dict(jp))
+    jw = JDalleWithVae(jm, jp, JAdapter(jv, jvp))
+    tw = DalleWithVae(tm.eval(), port_vae)
+    text = _text(["a red circle", "blue square", "green"]).numpy()
+    images = _images(3, seed=4)
+    null = np.array([True, False, True])
+    jloss = jax.jit(lambda t, im, k, p: jw.loss(t, im, key=k, null_cond_prob=p),
+                    static_argnums=3)
+    key = jax.random.PRNGKey(0)
+    cases = [(jloss(jnp.asarray(np.where(null[:, None], 0, text)), images, key, 0.0),
+              tw.loss(torch.from_numpy(text), images, null_mask=torch.from_numpy(null))),
+             (jloss(jnp.asarray(text), images, key, 1.0),
+              tw.loss(text, torch.from_numpy(images), null_cond_prob=1.0,
+                      generator=torch.Generator().manual_seed(0)))]
+    for (ref, ref_aux), (got, aux) in cases:
+        for g, w in ((got, ref), (aux["loss_text"], ref_aux["loss_text"]),
+                     (aux["loss_img"], ref_aux["loss_img"])):
+            np.testing.assert_allclose(g.item(), float(w), rtol=1e-5, atol=1e-5)
+
+
+def test_train_dalle_folder_batches_equal_the_jax_scripts(jax_models, port_vae, tmp_path,
+                                                          monkeypatch):
+    """``train_dalle --image_text_folder`` and ``scripts/train_dalle.py``
+    on one folder with one seed: the same first text batch and the same
+    first image-id batch (the same dVAE), and so the same first loss under
+    one DALL·E (within 1e-5, f32). The images are solid colours, which
+    PIL's resize and the port's give alike; both trainers are replaced by a
+    capture of the first batch."""
+    jm, jp, jv, jvp = jax_models
+    folder = tmp_path / "pairs"
+    folder.mkdir()
+    rng = np.random.RandomState(3)
+    for i in range(6):
+        colour = rng.randint(0, 256, 3).astype(np.uint8)
+        image_codec.write_png(str(folder / f"im{i}.png"),
+                              np.broadcast_to(colour, (18 + i, 21, 3)).copy())
+        (folder / f"im{i}.txt").write_text(f"a red circle {i}\nblue square {i}\n")
+    vae_dir = str(tmp_path / "vae")
+    CheckpointManager(vae_dir).save(0, {"model": port_vae.model.state_dict()},
+                                    {"model_class": "DiscreteVAE",
+                                     "hparams": port_vae.model.cfg.to_dict()})
+    flags = ["--image_text_folder", str(folder), "--image_size", "16", "--dim", "32",
+             "--depth", "1", "--heads", "2", "--dim_head", "16", "--text_seq_len", "8",
+             "--batch_size", "4", "--seed", "11", "--no_preemption_handler"]
+    first = {}
+
+    def capture_port(self, batches, **kw):
+        first["t"] = next(iter(batches))
+        return {}
+    monkeypatch.setattr(DalleTrainer, "fit", capture_port)
+    assert train_dalle.main(flags + ["--vae_path", vae_dir, "--device", "cpu",
+                                     "--output_dir", str(tmp_path / "t")]) == 0
+
+    class Capture:
+        def __init__(self, model_cfg, train_cfg, backend=None, null_cond_prob=0.0):
+            self.num_params, self.extra_meta = 0, {}
+            self.mesh = type("Mesh", (), {"shape": {}})()
+            self.state = type("State", (), {"step": 0})()
+            self.ckpt = type("Ckpt", (), {"latest_step": lambda s: 0,
+                                          "wait_until_finished": lambda s: None})()
+
+        def fit(self, batches, **kw):
+            first["j"] = next(iter(batches))
+    import dalle_tpu.train.trainer_dalle as jtrainer
+    script = _load_script("train_dalle")
+    monkeypatch.setattr(jtrainer, "DalleTrainer", Capture)
+    monkeypatch.setattr(script, "build_vae_from_args", lambda args, backend: JAdapter(jv, jvp))
+    monkeypatch.setattr(script, "save_vae_sidecar", lambda *a: None)
+    (tmp_path / "j").mkdir()          # the JAX trainer's checkpoint manager makes it
+    assert script.main(flags + ["--untrained_vae", "--no_compile_cache",
+                                "--output_dir", str(tmp_path / "j")]) == 0
+    (ttext, tids), (jtext, jids) = first["t"], first["j"]
+    np.testing.assert_array_equal(np.asarray(ttext), np.asarray(jtext))
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    tm = DALLE(DalleConfig(**TINY))
+    tm.load_state_dict(dalle_state_dict(jp))
+    ref, _ = jax.jit(lambda t, i: jm.apply(jp, t, i, return_loss=True))(jtext, jids)
+    got, _ = tm.eval()(torch.as_tensor(np.asarray(ttext)).long(), tids.long(), True)
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5, atol=1e-5)

@@ -41,6 +41,7 @@ from dalle_tpu_torch import (CLIP, AnnealConfig, CLIPTrainer, ClipConfig, DALLE,
                              dvae_state_dict, init_clip, load_clip)
 from dalle_tpu_torch import obs
 from dalle_tpu_torch.cli import _common, generate, train_clip
+from dalle_tpu_torch.data import image_codec
 from dalle_tpu_torch.models.wrapper import rerank_scores
 from dalle_tpu_torch.text.tokenizer import SimpleTokenizer
 from dalle_tpu_torch.train.checkpoints import CheckpointManager
@@ -308,7 +309,7 @@ def test_generate_cli_reranks_like_jax(flow, tmp_path):
     np.testing.assert_allclose(written, jscores, rtol=0, atol=1e-4)
     want = _common.to_uint8(jimg[0])
     for i in range(2):
-        png = _common.read_png(os.path.join(outdir, f"img_{i}.png"))
+        png = image_codec.read_png(os.path.join(outdir, f"img_{i}.png"))
         assert np.abs(png.astype(int) - want.astype(int)).max() <= 1
     # a path that holds no CLIP checkpoint is refused
     with pytest.raises(ValueError, match="not a CLIP checkpoint"):
@@ -345,7 +346,7 @@ def test_generate_cli_writes_distinct_scores_best_first(flow, tmp_path):
         assert json.load(f) == [float(scores[i]) for i in order]
     want = _common.to_uint8(images[torch.from_numpy(order)])
     for i in range(4):
-        np.testing.assert_array_equal(_common.read_png(os.path.join(outdir, f"img_{i}.png")),
+        np.testing.assert_array_equal(image_codec.read_png(os.path.join(outdir, f"img_{i}.png")),
                                       want[i])
 
 
@@ -371,7 +372,8 @@ def test_train_clip_cli_writes_what_load_clip_reads(tmp_path):
 CLIP_UNPORTED = [["--image_text_folder", "x"], ["--trace"],
                  ["--watchdog_deadline_s", "5"], ["--prometheus_path", "p"]]
 # ported since these cases were written: the telemetry flags run, each leaving
-# its file (the relative path under the test's directory)
+# its file (the relative path under the test's directory), and
+# --image_text_folder trains on a folder of captioned images the test writes
 CLIP_TELEMETRY = {"--trace": os.path.join("obs", "spans.jsonl"),
                   "--watchdog_deadline_s": "metrics.jsonl", "--prometheus_path": "p"}
 
@@ -379,10 +381,21 @@ CLIP_TELEMETRY = {"--trace": os.path.join("obs", "spans.jsonl"),
 @pytest.mark.parametrize("flags", CLIP_UNPORTED, ids=lambda f: f[0])
 def test_train_clip_unported_flags_raise(tmp_path, flags):
     argv = ["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
+    tiny = ["--image_size", "16", "--patch_size", "8", "--dim", "32", "--depth", "1",
+            "--heads", "2", "--text_seq_len", "8", "--batch_size", "2", "--steps", "1"]
+    if flags[0] == "--image_text_folder":
+        folder = tmp_path / "data"
+        folder.mkdir()
+        rng = np.random.RandomState(0)
+        for i in range(3):
+            image_codec.write_png(str(folder / f"im{i}.png"),
+                                  rng.randint(0, 256, (18, 20, 3)).astype(np.uint8))
+            (folder / f"im{i}.txt").write_text(f"a red circle {i}\n")
+        assert train_clip.main(argv[1:] + tiny + [flags[0], str(folder)]) == 0
+        assert CheckpointManager(str(tmp_path)).latest_step() == 1
+        return
     if flags[0] in CLIP_TELEMETRY:
         flags = [flags[0]] + [str(tmp_path / f) if f == "p" else f for f in flags[1:]]
-        tiny = ["--image_size", "16", "--patch_size", "8", "--dim", "32", "--depth", "1",
-                "--heads", "2", "--text_seq_len", "8", "--batch_size", "2", "--steps", "1"]
         try:
             assert train_clip.main(argv + tiny + flags) == 0
         finally:

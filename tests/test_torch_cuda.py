@@ -1035,7 +1035,8 @@ def test_cli_flow_on_the_card(tmp_path, monkeypatch):
     the CPU's (TF32 off) and its tokens equal wherever the top two differ by
     more than 2e-5."""
     from dalle_tpu_torch.cli import generate, train_dalle
-    from dalle_tpu_torch.cli._common import load_vae_sidecar, read_png
+    from dalle_tpu_torch.cli._common import load_vae_sidecar
+    from dalle_tpu_torch.data.image_codec import read_png
     from dalle_tpu_torch.train.checkpoints import CheckpointManager
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     ckpt, out = str(tmp_path / "ck"), str(tmp_path / "out")
@@ -1262,3 +1263,32 @@ def test_health_taps_leave_the_1p4b_width_step_bitwise_and_add_no_sync():
     for k in ("mu", "nu"):
         for a, b in zip(off.optimizer.core.state_dict()[k], on.optimizer.core.state_dict()[k]):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
+
+
+def test_async_checkpoint_stages_through_reused_pinned_buffers(tmp_path):
+    """A save's host snapshot of card tensors: page-locked buffers, reused
+    by the next snapshot in the same order (each tensor its own buffer),
+    untouched by updates after the save; the written step loads bit for
+    bit what was staged."""
+    from dalle_tpu_torch.train import checkpoints as ck
+    gen = torch.Generator("cuda").manual_seed(0)
+    state = {"a": torch.randn(64, 32, device="cuda", generator=gen),
+             "b": torch.randn(64, 32, device="cuda", generator=gen),
+             "c": torch.randn(7, device="cuda", generator=gen), "step": 3}
+    snap = ck._Snapshot()
+    first = snap.take(state)
+    for k in "abc":
+        state[k].add_(1.0)
+    second = snap.take(state)
+    for k in "abc":
+        assert second[k] is first[k] and second[k].is_pinned(), k
+        assert torch.equal(second[k], state[k].cpu()), k
+    mgr = ck.CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, state)
+    staged = {k: state[k].cpu() for k in "abc"}
+    state["a"].zero_()                               # the next step's in-place update
+    mgr.wait_until_finished()
+    got, _ = mgr.restore(map_location="cpu")
+    for k in "abc":
+        assert torch.equal(got[k], staged[k]), k
+    assert got["step"] == 3

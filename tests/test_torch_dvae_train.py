@@ -459,7 +459,7 @@ VAE_UNPORTED = [["--image_folder", "x"], ["--wandb"], ["--health"],
                 ["--breach_actions"], ["--trace"], ["--prometheus_path", "p"]]
 # ported since these cases were written: the health and telemetry flags run,
 # each leaving its file or its columns (a relative path under the test's
-# directory)
+# directory), and --image_folder trains on a folder of images the test writes
 VAE_TELEMETRY = {"--health": "metrics.jsonl", "--breach_actions": "metrics.jsonl",
                  "--trace": os.path.join("obs", "spans.jsonl"), "--prometheus_path": "p"}
 
@@ -467,11 +467,25 @@ VAE_TELEMETRY = {"--health": "metrics.jsonl", "--breach_actions": "metrics.jsonl
 @pytest.mark.parametrize("flags", VAE_UNPORTED, ids=lambda f: f[0])
 def test_train_vae_unported_flags_raise(tmp_path, flags):
     argv = ["--synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
+    tiny = ["--image_size", "16", "--num_layers", "2", "--num_tokens", "32",
+            "--codebook_dim", "16", "--hidden_dim", "8", "--batch_size", "2",
+            "--steps", "2"]
+    if flags[0] == "--image_folder":
+        from dalle_tpu_torch.data.image_codec import encode_bmp, write_png
+        folder = tmp_path / "data"
+        folder.mkdir()
+        rng = np.random.RandomState(0)
+        for i in range(3):
+            img = rng.randint(0, 256, (20, 17 + i, 3)).astype(np.uint8)
+            if i % 2:
+                (folder / f"shape_{i}.bmp").write_bytes(encode_bmp(img))
+            else:
+                write_png(str(folder / f"shape_{i}.png"), img)
+        assert train_vae.main(argv[1:] + tiny + [flags[0], str(folder)]) == 0
+        assert CheckpointManager(str(tmp_path)).latest_step() == 2
+        return
     if flags[0] in VAE_TELEMETRY:
         flags = [flags[0]] + [str(tmp_path / f) if f == "p" else f for f in flags[1:]]
-        tiny = ["--image_size", "16", "--num_layers", "2", "--num_tokens", "32",
-                "--codebook_dim", "16", "--hidden_dim", "8", "--batch_size", "2",
-                "--steps", "2"]
         try:
             assert train_vae.main(argv + tiny + flags) == 0
         finally:

@@ -23,6 +23,7 @@ from dalle_tpu.config import VQGANConfig as JVQGANConfig
 from dalle_tpu.models import pretrained as jpre
 from dalle_tpu.models.vqgan import VQModel as JVQModel
 from dalle_tpu_torch.cli import _common, generate, train_dalle
+from dalle_tpu_torch.data import image_codec
 from dalle_tpu_torch.config import VQGANConfig
 from dalle_tpu_torch.convert import state_dict_to_flax
 from dalle_tpu_torch.models import pretrained as pre
@@ -298,7 +299,7 @@ def test_dalle_over_a_taming_vqgan_from_the_command_line(taming_files, tmp_path)
                           "--batch_size", "2", "--outputs_dir", gen_dir] + vq) == 0
     written = sorted(os.path.join(d, f) for d, _, fs in os.walk(gen_dir) for f in fs)
     assert len(written) == 2
-    assert _common.read_png(written[0]).shape == (32, 32, 3)
+    assert image_codec.read_png(written[0]).shape == (32, 32, 3)
     with pytest.raises(ValueError, match="trained with VQGanVAE"):
         generate.main(["--dalle_path", out, "--text", "x", "--untrained_vae", "--image_size",
                        "32", "--device", "cpu", "--outputs_dir", gen_dir])

@@ -411,8 +411,17 @@ def test_train_vqgan_cli_trains_saves_and_resumes(tmp_path):
     assert {"model", "disc", "disc_optimizer", "optimizer", "generator"} <= set(state)
     assert train_vqgan.main(argv + ["--steps", "3", "--resume"]) == 0
     assert mgr.latest_step() == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        train_vqgan.main(argv + ["--image_folder", "x"])
+    # ported since: --image_folder trains on a folder of images the test writes
+    from dalle_tpu_torch.data.image_codec import write_png
+    folder = tmp_path / "data" / "shapes"
+    folder.mkdir(parents=True)
+    for i in range(2):
+        write_png(str(folder / f"im{i}.png"),
+                  np.random.RandomState(i).randint(0, 256, (40, 36, 3)).astype(np.uint8))
+    argv = [a for a in argv if a != "--synthetic"] + ["--output_dir", str(tmp_path / "f")]
+    assert train_vqgan.main(argv + ["--steps", "1", "--image_folder",
+                                    str(tmp_path / "data")]) == 0
+    assert CheckpointManager(str(tmp_path / "f")).latest_step() == 1
 
 
 def test_nan_rollback_restores_the_discriminator_too():
