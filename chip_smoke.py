@@ -91,12 +91,13 @@ kernels line is left out and the last line is the same:
                 repeated prompts that hit the radix cache) gives the dense
                 engine's tokens.
 10. serve       the serving engine: DalleWithVae.serve_engine on DALL·E-1.4B,
-                8 slots, bf16_int8kv, dense then paged, 16 requests (10 full,
+                8 slots, bf16_int8kv, dense, then paged at depth 2 (full
+                width, for the script's time), 16 requests (10 full,
                 3 ragged, 1 CFG, a 2-member shared-prefix cohort; half of
                 them from a producer thread while the engine runs), the paged
                 run with 4 repeated prompts and one that shares 128 text
                 tokens with another. Every request completes with in-range
-                tokens of its length; K3 launches 24 times per attending
+                tokens of its length; K3 launches depth times per attending
                 dispatch in the dense run and never in the paged one, K5 the
                 other way round; the refill windows run on the tensor-core
                 route and the decode steps on the cluster split, none on
@@ -451,10 +452,48 @@ kernels line is left out and the last line is the same:
                 --resume from that step, and train_vae, train_vqgan and
                 train_clip for 2 steps each on the folder.
 
+30. serve_gateway the serving plane, in build/serve_gateway_smoke/
+                (removed after): (a) the HTTP/SSE gateway (gateway.Gateway
+                on 127.0.0.1:0) over 2 in-process replicas of 8 slots,
+                steps_per_sync 4, FIFO, at DALL·E-1.4B in int8w, with a
+                random dVAE and CLIP for /v1/images; 16 /v1/generate (8
+                streamed, 2 of them with pixel previews, 8 blocking) and 2
+                /v1/images (4 candidates, top 2), every sequence a whole
+                grid, sent at once from client threads, then one request
+                over its tenant's quota (429), a malformed one (400),
+                /healthz and /metrics; any other status fails the phase.
+                Each stream's rows concatenated equal its done tokens; K3
+                and W8 launched (counts zeroed just before the traffic),
+                K5 not. TTFT and latency p50/p95, image tokens/s, the
+                pipeline's decode and rerank ms. Every sequence against
+                one lone engine of the same configuration: under
+                use_kernel None the replicas admit other batch mixes, so
+                each sequence that parts is replayed to its first
+                divergence, whose score gap must lie within 2^-5 of the
+                row's largest logit (as decode_surface holds its engine),
+                and the whole check reruns pinned (use_kernel=False), at
+                depth 2 and full width as decode_surface's pinned check,
+                and must be equal. One replica's engine's ms a step with
+                pixel previews off and on (off, on, on, off; 8 requests
+                of 64 tokens), and the same 8 requests on an engine
+                driven directly on the main thread (the HTTP/SSE cost).
+                Then, with the lock-order tracker on (off above, where
+                the times are read): a replica failing after 2 rows
+                (fail_after_rows) fails over mid-stream bit for bit; (b)
+                the fleet at depth 2, full width: FleetManager spawns 2
+                serve_replica processes from a checkpoint, a gateway routes
+                over their RemoteReplicas under a FleetController
+                (min_replicas 2); one process is SIGKILLed by a chaos
+                FaultPlan at engine step 40 mid-stream, its stream fails
+                over (conn_reset) bit for bit, the controller replaces
+                it, and the replacement fleet serves again; every frame
+                meets contracts/wire.json (wiretap) and the lock graph
+                has no cycle. Spawn to handshake, kill to replacement.
+
 Phases 11-20 and 23-25 run beside their kin: flash_kernel, persist_kernel,
 chunked_kernel and ring_kernel after serve_kernel; flash_parity,
-persist_parity and ring_parity after serve_parity; decode_surface and serve_obs
-after serve; recipe and then train_persist after train; train_long and then
+persist_parity and ring_parity after serve_parity; decode_surface, serve_obs
+and serve_gateway after serve; recipe and then train_persist after train; train_long and then
 train_ring, then cli, paper, taming, reversible, train_obs and train_data
 last.
 
@@ -1773,11 +1812,15 @@ def phase_serve(torch, card):
     model = init_dalle(cfg, seed=SMOKE_SEED)
     wrapper = DalleWithVae(model, None)
     wrapper._resolve_precision("bf16_int8kv")          # the one-time bf16 cast
+    # the paged engine at depth 2, full width (for the script's time): its
+    # radix, COW and K5 paths do not depend on the depth
+    cfg2 = dalle_1p4b(depth=CLI_DEPTH)
+    wrapper2 = DalleWithVae(init_dalle(cfg2, seed=SMOKE_SEED), None)
     launches, rows = {}, {}
-    for mode in ("dense", "paged"):
+    for mode, wr, c in (("dense", wrapper, cfg), ("paged", wrapper2, cfg2)):
         kw = dict(kv_block_tokens=16) if mode == "paged" else {}
-        eng = wrapper.serve_engine(slots=8, precision="bf16_int8kv", **kw)
-        subs = _serve_traffic(cfg, mode == "paged")
+        eng = wr.serve_engine(slots=8, precision="bf16_int8kv", **kw)
+        subs = _serve_traffic(c, mode == "paged")
         torch.cuda.reset_peak_memory_stats()
         window_set_counts(dec, dict.fromkeys(WINDOW_COUNTERS, 0))   # the main path starts here
         done, wall = _run_served(torch, eng, subs)
@@ -1786,12 +1829,12 @@ def phase_serve(torch, card):
         st = eng.stats
         check(sorted(c.request_id for c in done) == list(range(len(subs))),
               f"serve {mode}: {len(done)} of {len(subs)} requests completed")
-        for c in done:
-            n = subs[c.request_id].get("max_tokens") or cfg.image_seq_len
-            check(c.tokens.shape == (n,) and c.tokens.min() >= 0
-                  and c.tokens.max() < cfg.image_vocab_size,
-                  f"serve {mode}: request {c.request_id} tokens {c.tokens.shape}")
-        want = cfg.depth * st.window_dispatches
+        for cr in done:
+            n = subs[cr.request_id].get("max_tokens") or c.image_seq_len
+            check(cr.tokens.shape == (n,) and cr.tokens.min() >= 0
+                  and cr.tokens.max() < c.image_vocab_size,
+                  f"serve {mode}: request {cr.request_id} tokens {cr.tokens.shape}")
+        want = c.depth * st.window_dispatches
         mine, other = (k3, k5) if mode == "dense" else (k5, k3)
         check(mine == want and other == 0,
               f"serve {mode}: K3 launched {k3}, K5 {k5}, expected {want} for "
@@ -1808,10 +1851,10 @@ def phase_serve(torch, card):
                   f"{st.radix_partial_hits} partial")
         launches[mode] = {"decode_attend_window": k3, "decode_attend_window_paged": k5,
                           **routes}
-        ttft = sorted(c.ttft_s for c in done)
-        tokens = sum(int(c.tokens.shape[0]) for c in done)
+        ttft = sorted(cr.ttft_s for cr in done)
+        tokens = sum(int(cr.tokens.shape[0]) for cr in done)
         rows[mode] = dict(
-            mode=mode, slots=8, precision="bf16_int8kv", requests=len(done),
+            mode=mode, depth=c.depth, slots=8, precision="bf16_int8kv", requests=len(done),
             wall_s=wall, requests_per_s=len(done) / wall, image_tokens_per_s=tokens / wall,
             ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p95_s=float(np.percentile(ttft, 95)),
             ms_per_step=st.step_seconds * 1e3 / max(st.steps, 1), steps=st.steps,
@@ -1853,7 +1896,7 @@ def phase_serve(torch, card):
          device_ms_per_step=dev_us / 1e3 / steps if dev_us else "not measured",
          device_busy_share=(dev_us / 1e6) / bare if dev_us else "not measured",
          top_device_ms_per_step={k: v / 1e3 / steps for k, v in top}, card=card)
-    del model, wrapper, eng
+    del model, wrapper, wrapper2, eng
     torch.cuda.empty_cache()
     return launches, rows
 
@@ -5844,6 +5887,586 @@ def _tensors(torch, tree):
 
 
 
+# ---------------------------------------------------------------------------
+# the serving plane: the HTTP/SSE gateway over in-process replicas, and the
+# replica fleet over its wire protocol
+# ---------------------------------------------------------------------------
+
+GW_SLOTS = 8                 # slots a replica
+GW_STEPS_PER_SYNC = 4
+# the burst asks for whole grids (the default max_tokens), as the users of
+# /v1/generate and /v1/images do; the preview and direct turns, which read
+# the engine's ms a step, and the failover check's request decode 4 grid rows
+GW_PREVIEW_TOKENS = 64
+GW_FAILOVER_TOKENS = 64      # failed after 2 rows
+FLEET_KILL_STEP = 40         # the chaos SIGKILL's engine step (rows 0-1 sent)
+FLEET_SPAWN_TIMEOUT_S = 240.0
+
+
+def _gw_request(addr, method, path, body=None):
+    """One HTTP exchange with the gateway on the caller's thread: the status,
+    the JSON body or the SSE events, and the client's clock (start, first
+    row, end)."""
+    import http.client
+    from dalle_tpu_torch.gateway import iter_sse
+    host, port = addr
+    out = {"path": path, "body": body, "t0": time.perf_counter(), "t_first_row": None}
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        if resp.getheader("Content-Type") == "text/event-stream":
+            events = []
+            for kind, data in iter_sse(resp):
+                if kind == "row" and out["t_first_row"] is None:
+                    out["t_first_row"] = time.perf_counter()
+                events.append((kind, data))
+            out["events"] = events
+        else:
+            raw = resp.read()
+            if resp.getheader("Content-Type") == "application/json":
+                out["json"] = json.loads(raw)
+            else:
+                out["text"] = raw.decode()
+    finally:
+        conn.close()
+    out["t_end"] = time.perf_counter()
+    return out
+
+
+def _gw_burst(addr, calls):
+    """``calls`` [(method, path, body)] sent at once, one client thread each."""
+    import threading
+    results = [None] * len(calls)
+
+    def one(i):
+        results[i] = _gw_request(addr, *calls[i])
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(calls))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def _gw_done(res):
+    """The ``done`` payload of a /v1/generate result (stream or blocking)."""
+    if "events" in res:
+        done = [d for k, d in res["events"] if k == "done"]
+        rows = [d for k, d in res["events"] if k == "row"]
+        check(len(done) == 1, f"serve_gateway: stream ended without one done: "
+                              f"{[k for k, _ in res['events']]}")
+        check([r["row"] for r in rows] == list(range(len(rows)))
+              and [t for r in rows for t in r["tokens"]] == done[0]["tokens"],
+              "serve_gateway: the SSE rows concatenated differ from done's tokens")
+        return done[0], rows
+    return res["json"], None
+
+
+def _gw_traffic(cfg):
+    """16 /v1/generate (8 streamed, the first 2 with pixel previews, 8
+    blocking; the last one of tenant "capped", whose quota is one request)
+    and 2 /v1/images of 4 candidates, top 2; every sequence a whole grid."""
+    texts = _serve_text(cfg, 18, SMOKE_SEED + 23)
+    calls = []
+    for i in range(16):
+        body = {"text": texts[i].tolist(), "seed": 5000 + i, "stream": i < 8,
+                "pixels": i < 2}
+        if i == 15:
+            body["tenant"] = "capped"
+        calls.append(("POST", "/v1/generate", body))
+    for j in range(2):
+        calls.append(("POST", "/v1/images", {"text": texts[16 + j].tolist(),
+                                             "seed": 6000 + 100 * j,
+                                             "n_candidates": 4, "top_k": 2}))
+    return texts, calls
+
+
+def _gw_lone(torch, wrapper, calls, use_kernel):
+    """The traffic's sequences on one lone engine of the replicas'
+    configuration, the candidates of a group admitted as a group:
+    {("gen", i) or ("img", j, c): tokens}, wall seconds."""
+    import numpy as np
+    from dalle_tpu_torch.serve import RequestQueue
+    eng = wrapper.serve_engine(slots=GW_SLOTS, steps_per_sync=GW_STEPS_PER_SYNC,
+                               use_kernel=use_kernel)
+    q, keys = RequestQueue(), []
+    for i, (_, path, body) in enumerate(calls):
+        text = np.asarray(body["text"], np.int32)
+        if path == "/v1/generate":
+            q.submit(text, body["seed"], request_id=len(keys),
+                     max_tokens=body.get("max_tokens"))
+            keys.append(("gen", i))
+            continue
+        for c in range(body["n_candidates"]):
+            q.submit(text, body["seed"] + c, request_id=len(keys), group_id=i,
+                     group_size=body["n_candidates"], group_index=c)
+            keys.append(("img", i - 16, c))
+    q.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {keys[c.request_id]: c.tokens.tolist() for c in done}, wall
+
+
+def _gw_plane(wrapper, vae, clip, use_kernel, replicas=2):
+    from dalle_tpu_torch.gateway import (AdmissionController, Gateway, Replica,
+                                         ReplicaRouter, SloEstimator, TenantQuotas)
+    reps = [Replica(wrapper.serve_engine(slots=GW_SLOTS, steps_per_sync=GW_STEPS_PER_SYNC,
+                                         use_kernel=use_kernel),
+                    replica_id=f"replica-{i}", maxsize=64).start() for i in range(replicas)]
+    admission = AdmissionController(
+        TenantQuotas(100.0, 100.0, overrides={"capped": (0.001, 1.0)}),
+        SloEstimator(parallelism=GW_SLOTS * replicas))
+    gw = Gateway(ReplicaRouter(reps), admission, vae=vae, clip=clip).start()
+    return reps, gw
+
+
+def _gw_serve(torch, cfg, gw, calls):
+    """The burst through the gateway, every answer 200: ({("gen", i) or
+    ("img", j, c): tokens}, results, wall seconds)."""
+    results, wall = _gw_burst(gw.httpd.server_address[:2], calls)
+    tokens = {}
+    for i, res in enumerate(results):
+        check(res["status"] == 200, f"serve_gateway: {res['path']} #{i} answered "
+                                    f"{res['status']}: {res.get('json')}")
+        if res["path"] == "/v1/generate":
+            done, _ = _gw_done(res)
+            want = res["body"].get("max_tokens") or cfg.image_seq_len
+            check(len(done["tokens"]) == want,
+                  f"serve_gateway: request {i} returned {len(done['tokens'])} tokens")
+            tokens[("gen", i)] = done["tokens"]
+        else:
+            doc, j = res["json"], i - 16
+            check(doc["n_candidates"] == 4 and len(doc["top_k"]) == 2 and doc["reranked"]
+                  and all(math.isfinite(s) for s in doc["scores"])
+                  and [e["candidate"] for e in doc["top_k"]] == doc["order"][:2]
+                  and all(e["pixels_shape"] == [cfg.image_size, cfg.image_size, 3]
+                          and e["tokens"] == doc["candidates"][e["candidate"]]
+                          for e in doc["top_k"]),
+                  f"serve_gateway: /v1/images #{j}: {({k: v for k, v in doc.items() if k != 'top_k'})}")
+            for c, toks in enumerate(doc["candidates"]):
+                tokens[("img", j, c)] = toks
+    return tokens, results, wall
+
+
+def _gw_partings(got, want):
+    """The keys of the sequences that differ."""
+    return [k for k, w in want.items() if got[k] != w]
+
+
+def _gw_part_gaps(torch, wrapper, cfg, calls, parted, got, want):
+    """Each parted sequence's first divergence from the lone engine's, as
+    phase decode_surface holds its engine: replayed teacher-forced on the
+    int8w model over its int8 cache from the lone engine's prefix, under the
+    request's generator (one (1, V) draw a token, as the engine takes them):
+    {"gen/i" or "img/j/c": row, step, the two tokens, their score gap and
+    its share of 2^-5 of the row's largest logit}."""
+    import numpy as np
+    from dalle_tpu_torch.ops.sampling import gumbel_noise
+    model, cache_dtype = wrapper._resolve_precision("int8w")
+    out = {}
+    for key in parted:
+        body = calls[key[1] if key[0] == "gen" else 16 + key[1]][2]
+        seed = body["seed"] + (key[2] if key[0] == "img" else 0)
+        g = torch.Generator("cuda").manual_seed(seed)
+        noise = torch.stack([gumbel_noise((1, cfg.image_vocab_size), generator=g,
+                                          device="cuda") for _ in range(cfg.image_seq_len)])
+        text = torch.from_numpy(np.asarray(body["text"], np.int32)[None]).cuda()
+        base = torch.as_tensor(want[key], device="cuda")[None]
+        seq = torch.as_tensor(got[key], device="cuda")[None]
+        out["/".join(map(str, key))] = _first_divergence(torch, model, text, base, seq, noise,
+                                                         1.0, 0.5, cache_dtype)
+    return out
+
+
+def _gw_preview_calls(texts, pixels):
+    return [("POST", "/v1/generate", {"text": texts[i].tolist(), "seed": 7100 + i,
+                                      "stream": True, "pixels": pixels,
+                                      "max_tokens": GW_PREVIEW_TOKENS})
+            for i in range(GW_SLOTS)]
+
+
+def _gw_preview_steps(torch, wrapper, vae, clip, texts):
+    """The engine's ms a step while 8 streams are served without and with
+    pixel previews, in turns (off, on, on, off), on one replica behind its
+    own gateway; the preview decodes run on the handlers' threads on their
+    own CUDA streams."""
+    reps, gw = _gw_plane(wrapper, vae, clip, None, replicas=1)
+    eng, out = reps[0].engine, {False: [], True: []}
+    try:
+        for pixels in (False, True, True, False):
+            steps0, secs0 = eng.stats.steps, eng.stats.step_seconds
+            results, wall = _gw_burst(gw.httpd.server_address[:2],
+                                      _gw_preview_calls(texts, pixels))
+            for res in results:
+                check(res["status"] == 200, f"serve_gateway previews: {res['status']}")
+                _, rows = _gw_done(res)
+                check(all(("pixels_b64" in r) == pixels for r in rows),
+                      f"serve_gateway previews: pixels={pixels} rows carry "
+                      f"{[('pixels_b64' in r) for r in rows]}")
+            steps = eng.stats.steps - steps0
+            out[pixels].append({"ms_per_step": (eng.stats.step_seconds - secs0) * 1e3
+                                / max(steps, 1), "steps": steps, "wall_s": wall,
+                                "image_tokens_per_s": GW_SLOTS * GW_PREVIEW_TOKENS / wall})
+    finally:
+        gw.shutdown(drain=True, timeout=120)
+    return out
+
+
+def _gw_direct_steps(torch, wrapper, texts):
+    """The preview turns' 8 requests on a fresh engine driven directly on
+    the calling thread and its default stream (all queued, no HTTP): {ms a
+    step, wall, image tokens/s}."""
+    import numpy as np
+    from dalle_tpu_torch.serve import RequestQueue
+    eng = wrapper.serve_engine(slots=GW_SLOTS, steps_per_sync=GW_STEPS_PER_SYNC)
+    q = RequestQueue()
+    for _, _, body in _gw_preview_calls(texts, False):
+        q.submit(np.asarray(body["text"], np.int32), body["seed"],
+                 max_tokens=body["max_tokens"])
+    q.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(done) == GW_SLOTS, f"serve_gateway direct: {len(done)} done")
+    return {"ms_per_step": eng.stats.step_seconds * 1e3 / max(eng.stats.steps, 1),
+            "steps": eng.stats.steps, "wall_s": wall,
+            "image_tokens_per_s": GW_SLOTS * GW_PREVIEW_TOKENS / wall}
+
+
+def _gw_fleet(card, ckpt, ftexts, ref_tokens):
+    """The fleet at depth 2, full width, from the checkpoint ``ckpt``: 2
+    serve_replica processes under a FleetController, one SIGKILLed by a
+    chaos FaultPlan mid-stream; the stream fails over bit for bit to
+    ``ref_tokens``, the controller replaces the process, and every frame
+    meets contracts/wire.json. {spawn to handshake, kill to replacement}."""
+    import os
+    import signal
+    import threading
+
+    from dalle_tpu_torch import chaos, obs
+    from dalle_tpu_torch.fleet import FleetController, FleetManager
+    from dalle_tpu_torch.gateway import Gateway, ReplicaRouter
+    from dalle_tpu_torch.obs import wiretap
+    wiretap.install()
+    wiretap.reset()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mgr = FleetManager([sys.executable, "-m", "dalle_tpu_torch.cli.serve_replica",
+                        "--dalle_path", ckpt, "--slots", str(GW_SLOTS),
+                        "--steps_per_sync", str(GW_STEPS_PER_SYNC),
+                        "--flight_dir", "off", "--profiler_dir", "off"],
+                       spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S, heartbeat_s=0.25,
+                       max_missed=3, env={"PYTHONPATH": root})
+    ctl = fgw = None
+    try:
+        plan = chaos.FaultPlan([chaos.Fault(kind="kill", step=FLEET_KILL_STEP)])
+        spawned, spawn_s = {}, {}
+
+        def spawn(name, extra_env):
+            t0 = time.perf_counter()
+            spawned[name] = mgr.spawn(extra_env=extra_env)
+            spawn_s[name] = time.perf_counter() - t0
+        threads = [threading.Thread(target=spawn, args=("victim", plan.env())),
+                   threading.Thread(target=spawn, args=("survivor", None))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(set(spawned) == {"victim", "survivor"}, f"fleet: spawned {sorted(spawned)}")
+        victim, survivor = spawned["victim"], spawned["survivor"]
+        router = ReplicaRouter([victim.remote, survivor.remote])
+        fgw = Gateway(router).start()
+        ctl = FleetController(router, mgr, min_replicas=2, max_replicas=2,
+                              slots_per_replica=GW_SLOTS)
+        for rp in (victim, survivor):
+            ctl.adopt(rp)
+        ctl.start(interval_s=0.25)
+        killed_at = {}
+
+        def watch():
+            while victim.proc.poll() is None:
+                time.sleep(0.005)
+            killed_at["t"] = time.time()
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        faddr = fgw.httpd.server_address[:2]
+        body = {"text": ftexts[0].tolist(), "seed": 8000, "stream": True}
+        res = _gw_request(faddr, "POST", "/v1/generate", body)
+        check(res["status"] == 200, f"fleet: {res['status']}")
+        done, rows_ = _gw_done(res)
+        watcher.join(timeout=30)
+        check(victim.proc.returncode == -signal.SIGKILL,
+              f"fleet: the victim exited {victim.proc.returncode}")
+        resets = obs.metrics_snapshot().get('gateway.failover_total{reason="conn_reset"}')
+        check(done["tokens"] == ref_tokens and done["failovers"] == 1
+              and done["replica"] == survivor.replica_id and resets == 1.0,
+              f"fleet: failovers {done['failovers']} on {done['replica']}, tokens equal "
+              f"{done['tokens'] == ref_tokens}, conn_reset failovers {resets}")
+        deadline = time.time() + FLEET_SPAWN_TIMEOUT_S + 30
+        while not any(d["action"] == "replace" and d.get("pid") for d in ctl.decisions):
+            check(time.time() < deadline, f"fleet: no replacement: {ctl.decisions}")
+            time.sleep(0.1)
+        repl = next(d for d in ctl.decisions if d["action"] == "replace" and d.get("pid"))
+        check(len(router.replicas) == 2 and victim.remote not in router.replicas,
+              f"fleet: {len(router.replicas)} replicas after the replacement")
+        again = _gw_request(faddr, "POST", "/v1/generate", {**body, "stream": False})
+        check(again["status"] == 200 and again["json"]["tokens"] == ref_tokens,
+              f"fleet: after the replacement {again['status']}")
+        health = _gw_request(faddr, "GET", "/healthz")
+        check(health["status"] == 200, f"fleet: healthz {health['status']}")
+        violations = [str(v) for v in wiretap.conformance(wiretap.golden())]
+        check(not violations and wiretap.observed(), f"fleet: wire violations {violations}")
+        emit("serve_gateway_fleet", depth=CLI_DEPTH, slots=GW_SLOTS, replicas=2,
+             spawn_to_handshake_s=spawn_s,
+             kill_to_replacement_s=repl["t"] - killed_at["t"],
+             replacement=repl["replica"], decisions=[
+                 {k: d.get(k) for k in ("action", "reason", "replica")}
+                 for d in ctl.decisions],
+             failover_reason="conn_reset", rows=len(rows_),
+             frame_shapes=len(wiretap.observed()), wire_violations=0,
+             served_after=again["json"]["replica"], card=card)
+        out = dict(spawn_to_handshake_s=spawn_s,
+                   kill_to_replacement_s=repl["t"] - killed_at["t"])
+    finally:
+        if ctl is not None:
+            ctl.stop()
+        if fgw is not None:
+            fgw.shutdown(drain=True, timeout=60)
+        mgr.shutdown()
+        wiretap.uninstall()
+    return out
+
+
+def phase_serve_gateway(torch, card):
+    """The serving plane on the card (see the module docstring, phase 30):
+    (a) the HTTP/SSE gateway over 2 in-process replicas at DALL·E-1.4B,
+    int8w; (b) the fleet at depth 2, full width, of serve_replica
+    processes under a FleetController, one SIGKILLed mid-stream."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from dalle_tpu_torch import (ClipConfig, DalleWithVae, DiscreteVAEAdapter, DVAEConfig,
+                                 dalle_1p4b, init_clip, init_dalle, init_dvae, obs)
+    from dalle_tpu_torch.obs import lockorder
+    from dalle_tpu_torch.ops import _build
+    from dalle_tpu_torch.ops import decode_attention as dec
+    from dalle_tpu_torch.ops import int8w_linear as w8
+    from dalle_tpu_torch.serve import RequestQueue
+    from dalle_tpu_torch.train.checkpoints import CheckpointManager
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "serve_gateway_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    row = {"card": card}
+    obs.configure()
+    try:
+        # (a) the in-process plane at DALL·E-1.4B, int8w
+        cfg = dalle_1p4b()
+        vae = DiscreteVAEAdapter(init_dvae(DVAEConfig(), seed=SMOKE_SEED))
+        clip = init_clip(ClipConfig(num_text_tokens=49408, visual_image_size=128,
+                                    visual_patch_size=16), seed=SMOKE_SEED)
+        wrapper = DalleWithVae(init_dalle(cfg, seed=SMOKE_SEED), vae, clip)
+        wrapper._resolve_precision("int8w")            # the one-time quantization
+        torch.cuda.synchronize()
+        texts, calls = _gw_traffic(cfg)
+
+        reps, gw = _gw_plane(wrapper, vae, clip, None)
+        addr = gw.httpd.server_address[:2]
+        _zero_engine_counts(dec, w8)                   # the main path starts here
+        tokens, results, gw_wall = _gw_serve(torch, cfg, gw, calls)
+        launches = _engine_counts(dec, w8)
+        check(launches["decode_attend_window"] > 0 and launches["w8"] > 0
+              and launches["decode_attend_window_paged"] == 0,
+              f"serve_gateway: launches {launches}")
+        # the asked-for refusals, then health and metrics
+        extra = {
+            "over_quota": _gw_request(addr, "POST", "/v1/generate",
+                                      {"text": texts[0].tolist(), "seed": 1,
+                                       "tenant": "capped"}),
+            "malformed": _gw_request(addr, "POST", "/v1/generate", {"text": "x", "seed": 1}),
+            "healthz": _gw_request(addr, "GET", "/healthz"),
+            "metrics": _gw_request(addr, "GET", "/metrics")}
+        check(extra["over_quota"]["status"] == 429
+              and extra["over_quota"]["json"]["error"] == "quota",
+              f"serve_gateway: over quota {extra['over_quota']}")
+        check(extra["malformed"]["status"] == 400
+              and extra["malformed"]["json"]["error"] == "bad_request",
+              f"serve_gateway: malformed {extra['malformed']}")
+        check(extra["healthz"]["status"] == 200 and extra["healthz"]["json"]["status"] == "ok"
+              and all(r["healthy"] for r in extra["healthz"]["json"]["replicas"]),
+              f"serve_gateway: healthz {extra['healthz']}")
+        check(extra["metrics"]["status"] == 200
+              and "dalle_gateway_completed_total" in extra["metrics"]["text"]
+              and "dalle_gateway_rejected_total" in extra["metrics"]["text"],
+              "serve_gateway: /metrics lacks the gateway counters")
+        snap = obs.metrics_snapshot()
+        spans = obs.get_tracer().snapshot_spans()
+        served_by = {}
+        gen_done = []
+        for i, res in enumerate(results[:16]):
+            done, _ = _gw_done(res)
+            served_by[done["replica"]] = served_by.get(done["replica"], 0) + 1
+            gen_done.append((res, done))
+        lat = [d["latency_s"] for _, d in gen_done]
+        ttft = [d["ttft_s"] for _, d in gen_done]
+        first_row = [r["t_first_row"] - r["t0"] for r, _ in gen_done if r["t_first_row"]]
+        client = [r["t_end"] - r["t0"] for r in results]
+        n_tokens = sum(len(t) for t in tokens.values())
+        pipe = {name: [dur * 1e3 for n, _rel, dur, *_ in spans if n == name]
+                for name in ("pipeline/decode_pixels", "pipeline/rerank")}
+        row.update(
+            replicas=2, slots=GW_SLOTS, precision="int8w", steps_per_sync=GW_STEPS_PER_SYNC,
+            requests=len(calls), sequences=len(tokens), tokens_a_sequence=cfg.image_seq_len,
+            served_by=served_by,
+            wall_s=gw_wall, image_tokens_per_s=n_tokens / gw_wall,
+            ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p95_s=float(np.percentile(ttft, 95)),
+            latency_p50_s=float(np.percentile(lat, 50)),
+            latency_p95_s=float(np.percentile(lat, 95)),
+            client_first_row_p50_s=float(np.percentile(first_row, 50)),
+            client_first_row_p95_s=float(np.percentile(first_row, 95)),
+            client_latency_p50_s=float(np.percentile(client, 50)),
+            client_latency_p95_s=float(np.percentile(client, 95)),
+            ttft_p50_s_hist=_hist_quantile(snap, "gateway.ttft_seconds", 0.5),
+            images_decode_ms=pipe["pipeline/decode_pixels"],
+            images_rerank_ms=pipe["pipeline/rerank"],
+            engine_ms_per_step={r.replica_id: r.engine.stats.step_seconds * 1e3
+                                / max(r.engine.stats.steps, 1) for r in reps},
+            launches=launches,
+            completed_total=snap.get("gateway.completed_total"))
+        check(len(pipe["pipeline/decode_pixels"]) == len(pipe["pipeline/rerank"]) == 2,
+              f"serve_gateway: pipeline spans {({k: len(v) for k, v in pipe.items()})}")
+        gw.shutdown(drain=True, timeout=300)
+        del reps, gw
+
+        # every sequence against a lone engine of the same configuration;
+        # under use_kernel None each that parts must part at a near-tie
+        lone, lone_wall = _gw_lone(torch, wrapper, calls, None)
+        row["lone_wall_s"] = lone_wall
+        row["lone_image_tokens_per_s"] = n_tokens / lone_wall
+        parted = _gw_partings(tokens, lone)
+        gaps = _gw_part_gaps(torch, wrapper, cfg, calls, parted, tokens, lone)
+        row["unpinned_parted"] = gaps
+        check(all(d["gap_share"] <= 1.0 for d in gaps.values()),
+              f"serve_gateway: a sequence parts from the lone engine's away from a "
+              f"near-tie: {gaps}")
+        row["tokens_equal"] = "pinned" if parted else "unpinned"
+
+        # the engine's ms a step with pixel previews off and on, then the
+        # same requests on an engine driven directly (the HTTP/SSE cost)
+        previews = _gw_preview_steps(torch, wrapper, vae, clip, texts)
+        direct = _gw_direct_steps(torch, wrapper, texts)
+        row.update(preview_steps={str(k): v for k, v in previews.items()},
+                   direct_steps=direct,
+                   gateway_over_direct_tokens_per_s=statistics.mean(
+                       r["image_tokens_per_s"] for r in previews[False])
+                   / direct["image_tokens_per_s"])
+        gw_launches = launches
+
+        # the depth-2, full-width model: the pinned rerun and the fleet
+        fcfg = dalle_1p4b(depth=CLI_DEPTH)
+        fmodel = init_dalle(fcfg, seed=SMOKE_SEED)
+        fwrap = DalleWithVae(fmodel, vae, clip)
+        if parted:
+            # the replicas admit other batch mixes than the lone engine, and
+            # under use_kernel None the admission paths round at other
+            # points; pinned, every path runs the JAX package's formula. The
+            # rerun is at depth 2, full width, as phase decode_surface's
+            # pinned check: the depth-24 pinned engine is ~2.5x slower
+            preps, pgw = _gw_plane(fwrap, vae, clip, False)
+            try:
+                ptokens, _, pwall = _gw_serve(torch, fcfg, pgw, calls)
+            finally:
+                pgw.shutdown(drain=True, timeout=600)
+            plone, plone_wall = _gw_lone(torch, fwrap, calls, False)
+            pparted = _gw_partings(ptokens, plone)
+            check(not pparted and len(plone) == len(tokens),
+                  f"serve_gateway: pinned tokens part from the lone engine's: {pparted}")
+            row.update(pinned_depth=CLI_DEPTH, pinned_wall_s=pwall,
+                       pinned_lone_wall_s=plone_wall, pinned_sequences_equal=len(plone))
+            del preps, pgw
+
+        # from here on the lock-order tracker sees every lock the plane
+        # creates: the failover plane's and the fleet's (off above, where
+        # the plane's times are read)
+        lockorder.install()
+        try:
+            # mid-stream failover: one request alone, unfailed, then with its
+            # replica failing after 2 rows; the client's tokens equal bit for bit
+            freps, fgw = _gw_plane(wrapper, vae, clip, None)
+            faddr = fgw.httpd.server_address[:2]
+            body = {"text": texts[3].tolist(), "seed": 7003, "stream": True,
+                    "max_tokens": GW_FAILOVER_TOKENS}
+            unfailed = _gw_request(faddr, "POST", "/v1/generate", body)
+            check(unfailed["status"] == 200, f"serve_gateway failover: {unfailed['status']}")
+            u_done, _ = _gw_done(unfailed)
+            victim = next(r for r in freps if r.replica_id == u_done["replica"])
+            victim.fail_after_rows(2)
+            fo_key = 'gateway.failover_total{reason="worker_death"}'
+            fo0 = obs.metrics_snapshot().get(fo_key, 0.0)
+            t0 = time.perf_counter()
+            failed = _gw_request(faddr, "POST", "/v1/generate", body)
+            check(failed["status"] == 200, f"serve_gateway failover: {failed['status']}")
+            f_done, f_rows = _gw_done(failed)
+            check(f_done["tokens"] == u_done["tokens"] and f_done["failovers"] == 1
+                  and f_done["replica"] != victim.replica_id and not victim.healthy
+                  and [r["row"] for r in f_rows]
+                  == list(range(GW_FAILOVER_TOKENS // cfg.image_fmap_size)),
+                  f"serve_gateway failover: {f_done['failovers']} failovers on "
+                  f"{f_done['replica']}, rows {[r['row'] for r in f_rows]}, tokens equal "
+                  f"{f_done['tokens'] == u_done['tokens']}")
+            fo1 = obs.metrics_snapshot().get(fo_key, 0.0)
+            check(fo1 == fo0 + 1, f"serve_gateway failover: {fo_key} {fo0} → {fo1}")
+            row.update(failover=dict(unfailed_latency_s=unfailed["t_end"] - unfailed["t0"],
+                                     failed_latency_s=failed["t_end"] - t0,
+                                     tokens=len(f_done["tokens"]), reason="worker_death"))
+            fgw.shutdown(drain=True, timeout=120)
+            del freps, fgw, wrapper
+            torch.cuda.empty_cache()
+            emit("serve_gateway_plane", **row)
+
+            # (b) the fleet at depth 2, full width: serve_replica processes,
+            # which load the kernels built here (build/kernels) and compile
+            # none
+            _build.build_all()
+            ckpt = os.path.join(work, "dalle")
+            CheckpointManager(ckpt).save(0, {"model": fmodel.state_dict()},
+                                         {"model_class": "DALLE", "hparams": fcfg.to_dict()},
+                                         wait=True)
+            ftexts = _serve_text(fcfg, 2, SMOKE_SEED + 29)
+            q = RequestQueue()
+            q.submit(ftexts[0], 8000, request_id=0)
+            q.close()
+            ref = fwrap.serve_engine(slots=GW_SLOTS, steps_per_sync=GW_STEPS_PER_SYNC).run(q)
+            ref_tokens = ref[0].tokens.tolist()
+            del fwrap, fmodel, ref
+            torch.cuda.empty_cache()
+            row["fleet"] = _gw_fleet(card, ckpt, ftexts, ref_tokens)
+            cycles = lockorder.cycles()
+            check(not cycles, "serve_gateway: lock cycles "
+                              + "; ".join(lockorder.format_edge(e) for c in cycles for e in c))
+            edges = len(lockorder.observed_edges())
+        finally:
+            lockorder.uninstall()
+    finally:
+        obs.disable()
+        shutil.rmtree(work, ignore_errors=True)
+    emit("serve_gateway_phase", seconds=time.perf_counter() - t_phase, lock_edges=edges,
+         lock_cycles=0, card=card)
+    return gw_launches, row
+
+
 # phase name → (its function, the results it takes from earlier phases and
 # the stand-ins used when those did not run: phase train's Adam row as
 # PERF.md §5 records it; phase generate's rows)
@@ -5851,7 +6474,7 @@ K1_ROW = {"peak_gib": 28.4, "ms_per_step": 166.7, "tokens_per_s": None, "losses"
 PHASES = ("kernel", "train_kernel", "serve_kernel", "flash_kernel", "persist_kernel",
           "chunked_kernel", "ring_kernel", "decode_vs_forward", "train_parity",
           "serve_parity", "flash_parity", "persist_parity", "ring_parity", "generate", "serve",
-          "decode_surface", "serve_obs", "train", "recipe", "train_persist", "train_long",
+          "decode_surface", "serve_obs", "serve_gateway", "train", "recipe", "train_persist", "train_long",
           "train_ring", "cli", "paper", "taming", "reversible", "train_obs", "train_data")
 
 
@@ -5916,6 +6539,8 @@ def main(argv=None) -> int:
         r["decode_surface"] = timed("decode_surface", phase_decode_surface, torch, card, gen_rows)
     if on("serve_obs"):
         r["serve_obs"] = timed("serve_obs", phase_serve_obs, torch, card)
+    if on("serve_gateway"):
+        r["serve_gateway"] = timed("serve_gateway", phase_serve_gateway, torch, card)
     if on("train"):
         r["train"] = timed("train", phase_train, torch, card)
     k1_row = r["train"][1] if "train" in r else K1_ROW
@@ -5959,6 +6584,7 @@ def main(argv=None) -> int:
     serve_launches, _ = r["serve"]
     surface = r["decode_surface"]
     obs_launches, obs_row = r["serve_obs"]
+    gw_launches, _ = r["serve_gateway"]
     k1_launches, k1_row = r["train"]
     recipe_launches, _ = r["recipe"]
     k8_launches, _ = r["train_persist"]
@@ -6033,6 +6659,7 @@ def main(argv=None) -> int:
             "launches_int8w_engine": surface["engine"][mode][name],
             "launches_serve_obs": sum(v[name] for k, v in obs_launches.items()
                                       if k != "generate_trace"),
+            "launches_serve_gateway": gw_launches[name],
             "launches_speculative": (sum(v["k3_launches"] for v in surface["spec"].values())
                                      if kname == "K3" else 0),
             "max_abs_err": max(mine.values()),
@@ -6171,6 +6798,7 @@ def main(argv=None) -> int:
         "launches_by_route": surface["launches"]["w8"],
         "launches_serve_obs": sum(v["w8"] for k, v in obs_launches.items()
                                   if k != "generate_trace"),
+        "launches_serve_gateway": gw_launches["w8"],
         "max_abs_err": surface["w8_err"], "worst_share_of_tolerance": surface["w8_share"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],

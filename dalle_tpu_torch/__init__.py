@@ -45,6 +45,14 @@ The trainers' telemetry (``TrainConfig(obs=ObsConfig(...))``: spans, the
 step breakdown, device gauges, the stall watchdog, the health taps and
 their sentries, ``profile_step``) is the JAX package's, in ``obs/`` and
 ``train/``; ``python -m dalle_tpu_torch.cli.obs_report`` summarises a run.
+The serving plane is the JAX package's too: ``python -m
+dalle_tpu_torch.cli.serve_gateway`` serves ``/v1/generate`` (blocking or
+SSE rows) and ``/v1/images`` over HTTP from in-process replicas of the
+engine (``gateway/``: admission, routing with mid-stream failover, the SLO
+sentry), and ``python -m dalle_tpu_torch.cli.serve_replica`` serves one
+engine over the fleet's frame protocol, which ``fleet/`` spawns, routes,
+scales and heals (``FleetManager``, ``RemoteReplica``,
+``FleetController``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing; kernels are compiled at first use.
 """

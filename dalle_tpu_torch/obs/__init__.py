@@ -12,13 +12,20 @@ report (``summarize_run``). Everything is off by default and one global
 ``None`` check when off: ``configure()`` turns tracing on, ``configure_recorder``
 the recorder; the trainers turn the rest on from ``TrainConfig.obs``.
 
-Left with ``ROADMAP.md`` Queue 1 item 11: the SLO sentry (``slo.py``), the
-fleet collector (``collect.py``), ``lockorder.py`` and ``wiretap.py``.
+The serving plane's halves: the SLO sentry (``BurnRateSentry``) and the
+fleet telemetry plane (``collect.py``: ``TelemetryExporter``,
+``TelemetryCollector``, ``ClockOffsetEstimator``, ``UsageLedger``). Two
+submodules are imported explicitly, never re-exported, as in the JAX
+package: ``obs.lockorder`` records the lock-acquisition order one process
+exhibits, ``obs.wiretap`` the wire-frame shapes it sends and receives
+(checked against ``contracts/wire.json``).
 """
 
 from .anomaly import (HEALTH_PREFIX, Breach, CodebookCollapseDetector,
                       GradExplosionDetector, HealthSentry, LossSpikeDetector,
                       NaNPrecursorDetector, split_health_key)
+from .collect import (ClockOffsetEstimator, TelemetryCollector, TelemetryExporter,
+                      UsageLedger, read_telemetry_dir, telemetry_payload)
 from .context import current_trace_id, new_trace_id, trace_context
 from .device import (CompileCounter, DeviceTelemetry, device_memory_headroom,
                      device_memory_stats, install_compile_counter)
@@ -38,12 +45,15 @@ from .trace import (DEFAULT_BUCKETS, MAX_HISTOGRAM_BUCKETS, Tracer,
                     open_spans, record_span, span)
 from .report import (format_request_timeline, request_timeline,
                      span_overhead_s, summarize_run)
+from .slo import BurnRateSentry
 from .watchdog import StallReport, StallWatchdog
 
 __all__ = [
     "HEALTH_PREFIX", "Breach", "CodebookCollapseDetector",
     "GradExplosionDetector", "HealthSentry", "LossSpikeDetector",
     "NaNPrecursorDetector", "split_health_key",
+    "ClockOffsetEstimator", "TelemetryCollector", "TelemetryExporter",
+    "UsageLedger", "read_telemetry_dir", "telemetry_payload", "BurnRateSentry",
     "current_trace_id", "new_trace_id", "trace_context",
     "CompileCounter", "DeviceTelemetry", "device_memory_headroom",
     "device_memory_stats", "install_compile_counter",

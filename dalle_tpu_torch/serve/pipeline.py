@@ -17,7 +17,9 @@ Each stage runs on its own thread behind a bounded queue, so a slow stage
 pushes back instead of buffering without bound, and the stages of
 different groups overlap. A worker runs its stage on the device of the
 model it calls (the vae's, CLIP's), whatever the thread's current CUDA
-device. Spans ``pipeline/decode_pixels`` and ``pipeline/rerank`` and the
+device, and on the card on a CUDA stream of its own (``side_stream``): a
+stage's host read then waits for the stage's kernels only, never for a
+decode engine's queued work. Spans ``pipeline/decode_pixels`` and ``pipeline/rerank`` and the
 gauges ``pipeline.queue_depth{stage=...}`` go to ``obs``.
 """
 
@@ -78,11 +80,21 @@ def _device_of(obj) -> torch.device:
     return torch.device("cpu")
 
 
-def _on(device: torch.device):
-    """The thread's current CUDA device set to ``device`` for the block."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
+@contextlib.contextmanager
+def side_stream(device: torch.device):
+    """On the card: the thread's current device set to ``device`` and its
+    current stream a side stream that first waits for the work already
+    queued on the device's current stream (the weights' writes, an upload
+    the caller made); a host read inside waits for this stream's kernels
+    only. On the CPU: nothing."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device):
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            yield
 
 
 @dataclasses.dataclass
@@ -250,7 +262,7 @@ class ImagePipeline:
             return None
         t0 = time.perf_counter()
         dev = _device_of(self.vae)
-        with _on(dev):
+        with side_stream(dev):
             ids = torch.as_tensor(np.asarray(group.tokens), dtype=torch.long, device=dev)
             images = self.vae.decode(ids).float().cpu().numpy()
         record_span("pipeline/decode_pixels", t0, time.perf_counter() - t0,
@@ -267,7 +279,7 @@ class ImagePipeline:
         t0 = time.perf_counter()
         cfg = self.clip.cfg
         dev = _device_of(self.clip)
-        with _on(dev):
+        with side_stream(dev):
             text = torch.from_numpy(prepare_clip_text(group.text, cfg)).to(dev)
             x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(dev)
             vs = cfg.visual_image_size
