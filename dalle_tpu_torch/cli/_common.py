@@ -310,6 +310,32 @@ def install_sigusr2_profiler(default_dir: str, args=None, log=print) -> bool:
     return True
 
 
+def add_distributed_args(parser):
+    """``--distributed_backend`` (torch, dummy, and the JAX CLI's names) and
+    the multi-process flags ``--coordinator_address``, ``--num_processes``,
+    ``--process_id`` (``parallel.backend.wrap_arg_parser``; torch's launcher
+    env stands in for them)."""
+    from ..parallel.backend import wrap_arg_parser
+    return wrap_arg_parser(parser)
+
+
+def start_backend(args, batch_size: int):
+    """The backend the flags name (the dummy one by default), initialized
+    over the default mesh (dp absorbs the world), the batch size checked
+    against the world."""
+    from ..parallel.backend import set_backend_from_args
+    backend = set_backend_from_args(args).initialize()
+    backend.check_batch_size(batch_size)
+    return backend
+
+
+def leave_backend(backend):
+    """Every rank done: meet at a barrier, then close the process group."""
+    if backend.get_world_size() > 1:
+        backend.local_barrier()
+        backend.shutdown()
+
+
 def add_device_arg(parser):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs "

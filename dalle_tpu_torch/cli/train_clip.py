@@ -32,9 +32,10 @@ import argparse
 import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
+from ._common import (add_device_arg, add_distributed_args, add_overlap_args, add_telemetry_args,
                       check_unported_train_args, install_resilience, install_sigusr2_profiler,
-                      install_telemetry, obs_config, overlap_train_kwargs)
+                      install_telemetry, leave_backend, obs_config, overlap_train_kwargs,
+                      start_backend)
 
 
 def build_parser():
@@ -78,6 +79,7 @@ def build_parser():
     train.add_argument("--no_preflight", action="store_true")
     add_overlap_args(ap)
     add_telemetry_args(ap)
+    add_distributed_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -117,7 +119,9 @@ def main(argv=None) -> int:
         runtime_lr_scale=args.breach_actions, obs=obs_config(args),
         optim=OptimConfig(learning_rate=args.learning_rate,
                           grad_clip_norm=args.clip_grad_norm))
-    trainer = CLIPTrainer(model_cfg, train_cfg, device=args.device)
+    backend = start_backend(args, args.batch_size)
+    root = backend.is_root_worker()
+    trainer = CLIPTrainer(model_cfg, train_cfg, device=args.device, backend=backend)
 
     def encode_batch(images, captions):
         text = tokenizer.tokenize(list(captions), args.text_seq_len, truncate_text=True)
@@ -139,7 +143,9 @@ def main(argv=None) -> int:
     trainer.fit((encode_batch(imgs, caps) for imgs, caps in raw), steps=args.steps,
                 metrics_writer=writer)
     writer.close()
-    print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    if root:
+        print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    leave_backend(backend)
     return 0
 
 

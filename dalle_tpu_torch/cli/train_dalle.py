@@ -40,10 +40,11 @@ import argparse
 import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_telemetry_args, add_vae_args,
-                      build_vae_from_args, check_unported_train_args, install_resilience,
-                      install_sigusr2_profiler, install_telemetry, load_vae_sidecar,
-                      obs_config, overlap_train_kwargs, save_vae_sidecar, upload_images)
+from ._common import (add_device_arg, add_distributed_args, add_overlap_args, add_telemetry_args,
+                      add_vae_args, build_vae_from_args, check_unported_train_args,
+                      install_resilience, install_sigusr2_profiler, install_telemetry,
+                      leave_backend, load_vae_sidecar, obs_config, overlap_train_kwargs,
+                      save_vae_sidecar, start_backend, upload_images)
 
 
 def build_parser():
@@ -106,6 +107,7 @@ def build_parser():
                        help="not ported (uploads to wandb)")
     add_overlap_args(ap)
     add_telemetry_args(ap)
+    add_distributed_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -159,12 +161,15 @@ def main(argv=None) -> int:
                           grad_clip_norm=args.clip_grad_norm,
                           grad_accum_steps=args.ga_steps,
                           lr_scheduler=args.lr_scheduler))
+    backend = start_backend(args, args.batch_size)
+    root = backend.is_root_worker()
     trainer = DalleTrainer(model_cfg, train_cfg, device=device,
-                           null_cond_prob=args.null_cond_prob)
+                           null_cond_prob=args.null_cond_prob, backend=backend)
     vae_cfg = getattr(getattr(vae, "model", None), "cfg", None)
     trainer.extra_meta = {"vae_class_name": type(vae).__name__,
                           "vae_hparams": None if vae_cfg is None else vae_cfg.to_dict()}
-    save_vae_sidecar(args.output_dir, vae)
+    if root:
+        save_vae_sidecar(args.output_dir, vae)
     if args.resume:
         meta = trainer.restore()
         print(f"resumed at step {trainer.step} "
@@ -196,15 +201,18 @@ def main(argv=None) -> int:
                               text_from_filename=args.text_from_filename)
         raw = ds.batches(args.batch_size, epochs=args.epochs)
         batches = (encode_batch(imgs, caps) for imgs, caps in raw)
-    print(f"DALLE: {trainer.num_params / 1e6:.1f}M params on {device}; "
-          f"vae {type(vae).__name__}")
+    if root:
+        print(f"DALLE: {trainer.num_params / 1e6:.1f}M params on {device}; "
+              f"vae {type(vae).__name__}; mesh {trainer.mesh.shape}")
     writer = install_telemetry(args, trainer, args.output_dir)
     install_resilience(args, trainer)
     trainer.fit(batches, steps=args.steps, metrics_writer=writer)
     writer.close()
     if trainer.preempted:
         print(f"preempted at step {trainer.step}; checkpoint durable")
-    print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    if root:
+        print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    leave_backend(backend)
     return 0
 
 

@@ -33,9 +33,10 @@ import argparse
 import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
+from ._common import (add_device_arg, add_distributed_args, add_overlap_args, add_telemetry_args,
                       check_unported_train_args, install_resilience, install_sigusr2_profiler,
-                      install_telemetry, obs_config, overlap_train_kwargs, to_uint8)
+                      install_telemetry, leave_backend, obs_config, overlap_train_kwargs,
+                      start_backend, to_uint8)
 from ..data.image_codec import write_png
 
 
@@ -82,6 +83,7 @@ def build_parser():
     train.add_argument("--sample_dir", type=str, default="./vae_samples")
     add_overlap_args(ap)
     add_telemetry_args(ap)
+    add_distributed_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -127,7 +129,9 @@ def main(argv=None) -> int:
         ds = TextImageDataset(args.image_folder, image_size=args.image_size, shuffle=True,
                               seed=args.seed, text_from_filename=True)
         raw = ds.batches(args.batch_size, epochs=args.epochs)
-    trainer = VAETrainer(model_cfg, train_cfg, anneal, device=args.device)
+    backend = start_backend(args, args.batch_size)
+    root = backend.is_root_worker()
+    trainer = VAETrainer(model_cfg, train_cfg, anneal, device=args.device, backend=backend)
     print(f"dVAE: {trainer.num_params / 1e6:.2f}M params on {trainer.device}; "
           f"dataset: {len(ds)} samples")
 
@@ -140,6 +144,8 @@ def main(argv=None) -> int:
                  else next(iter(ds.batches(min(args.batch_size, 8), epochs=1)))[0])
 
         def sample_fn(step):
+            if not root:          # every rank samples alike; rank 0 writes
+                return
             recons = trainer.reconstruct(probe, hard=True).float().cpu().numpy()
             grid = np.concatenate([np.concatenate(list(probe), 1),
                                    np.concatenate(list(recons), 1)], 0)
@@ -154,7 +160,9 @@ def main(argv=None) -> int:
     trainer.fit(((images,) for images, _captions in raw), steps=args.steps,
                 sample_fn=sample_fn, metrics_writer=writer)
     writer.close()
-    print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    if root:
+        print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    leave_backend(backend)
     return 0
 
 

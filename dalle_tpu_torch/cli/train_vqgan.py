@@ -35,9 +35,10 @@ import argparse
 import os
 import sys
 
-from ._common import (add_device_arg, add_overlap_args, add_telemetry_args,
+from ._common import (add_device_arg, add_distributed_args, add_overlap_args, add_telemetry_args,
                       check_unported_train_args, install_resilience, install_sigusr2_profiler,
-                      install_telemetry, obs_config, overlap_train_kwargs, to_uint8)
+                      install_telemetry, leave_backend, obs_config, overlap_train_kwargs,
+                      start_backend, to_uint8)
 from ..data.image_codec import write_png
 
 
@@ -92,6 +93,7 @@ def build_parser():
     train.add_argument("--sample_dir", type=str, default="./vqgan_samples")
     add_overlap_args(ap)
     add_telemetry_args(ap)
+    add_distributed_args(ap)
     add_device_arg(ap)
     return ap
 
@@ -133,7 +135,9 @@ def main(argv=None) -> int:
         sample_every_steps=args.sample_every_steps, **overlap_train_kwargs(args),
         runtime_lr_scale=args.breach_actions, obs=obs_config(args),
         optim=OptimConfig(learning_rate=lr, beta1=0.5, beta2=0.9, grad_clip_norm=0.0))
-    trainer = VQGANTrainer(model_cfg, train_cfg, loss_cfg, device=args.device)
+    backend = start_backend(args, args.batch_size)
+    root = backend.is_root_worker()
+    trainer = VQGANTrainer(model_cfg, train_cfg, loss_cfg, device=args.device, backend=backend)
     if args.resume:
         trainer.restore()
     # images in [-1, 1], taming's convention
@@ -166,6 +170,8 @@ def main(argv=None) -> int:
             probe = batch_arrays(ds, list(range(min(4, len(ds)))))[0] * 2.0 - 1.0
 
         def sample_fn(step):
+            if not root:          # every rank samples alike; rank 0 writes
+                return
             recon = trainer.reconstruct(probe).float().cpu().numpy()
             grid = np.concatenate([np.concatenate(list(probe), 1),
                                    np.concatenate(list(recon), 1)], 0)
@@ -178,7 +184,9 @@ def main(argv=None) -> int:
     trainer.fit(batches, steps=args.steps,
                 sample_fn=sample_fn, metrics_writer=writer)
     writer.close()
-    print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    if root:
+        print(f"done at step {trainer.step}; checkpoints in {args.output_dir}")
+    leave_backend(backend)
     return 0
 
 

@@ -264,9 +264,11 @@ def dalle_1p4b(**overrides) -> DalleConfig:
 @dataclass(frozen=True)
 class MeshConfig(ConfigBase):
     """Logical device mesh. Axes: dp (data), fsdp (param/opt-state sharding),
-    tp (tensor), sp (sequence, for ring attention). The port's trainer takes
-    ``sp`` only: its ranks run in one process on one card
-    (``parallel/ring_attention.LocalRing``)."""
+    tp (tensor), sp (sequence, for ring attention). The port lays one
+    process a rank over it (``parallel/mesh.ProcessMesh``): dp and fsdp
+    train across processes, sp across processes (``GroupRing``) or, in one
+    process, with its ranks there (``parallel/ring_attention.LocalRing``);
+    tp > 1 raises (ROADMAP.md Queue 1 item 11c)."""
     dp: int = 1
     fsdp: int = 1
     tp: int = 1

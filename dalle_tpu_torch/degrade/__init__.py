@@ -7,16 +7,20 @@ Port of ``dalle_tpu/degrade`` (it imports no JAX), under the same names:
     interval (EWMA-smoothed, hysteresis-guarded, edge-triggered);
     ``frozen_progress`` is the fresh-but-frozen core the fleet transport's
     outside-in replica check shares.
+  * :class:`~.ladder.DegradeMonitor` is the page → drain response ladder
+    the elastic training agent (``parallel/elastic.ElasticAgent``) runs
+    each poll over the fleet's heartbeat files (straggler verdicts and
+    health-page markers); ``install_breach_pager`` chains a health
+    sentry's breaches into a worker's heartbeat page.
   * :class:`~.wedge.WedgeWatchdog` is the engine-iteration liveness probe a
     replica process runs on its own decode loop: busy with frozen progress
     past a timeout is a wedge, self-reported through the health verb so
     the fleet controller drains the replica.
-
-``ladder.py`` (``DegradeMonitor``, the page → drain ladder of the elastic
-training agent) waits for ``parallel/elastic.py``, its only caller.
 """
 
 from .detector import StragglerDetector, StragglerVerdict, frozen_progress
+from .ladder import DegradeAction, DegradeMonitor, install_breach_pager
 from .wedge import WedgeWatchdog
 
-__all__ = ["StragglerDetector", "StragglerVerdict", "WedgeWatchdog", "frozen_progress"]
+__all__ = ["DegradeAction", "DegradeMonitor", "StragglerDetector", "StragglerVerdict",
+           "WedgeWatchdog", "frozen_progress", "install_breach_pager"]

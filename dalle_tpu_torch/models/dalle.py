@@ -43,6 +43,7 @@ from ..ops.int8w_linear import int8w_linear
 from ..ops.quantize_weights import QLinear
 from ..ops.sampling import (gumbel_noise, gumbel_sample, gumbel_sample_rows, quiet_spans,
                             top_k_filter)
+from ..parallel.ring_attention import seq_shard
 from .transformer import LN_EPS, DivideMax, Transformer
 
 MASK_VALUE = -1e9  # fill for the logits mask
@@ -65,8 +66,10 @@ class AxialPositionalEmbedding(nn.Module):
 
 class DALLE(nn.Module):
     """``sp`` > 1 runs the full-sequence forward's attention as ring
-    attention over that many ranks (``Transformer``); generation is
-    unchanged."""
+    attention over that many ranks (``Transformer``): all in this process,
+    or, after ``set_seq_group(group)``, one rank a process of ``group``,
+    each holding its zigzag slice of the sequence (the loss only:
+    ``forward(..., return_loss=True)``). Generation is unchanged."""
 
     def __init__(self, cfg: DalleConfig, sp: int = 1):
         super().__init__()
@@ -90,6 +93,7 @@ class DALLE(nn.Module):
                 c.dim, (c.image_fmap_size, c.image_fmap_size))
         self.final_norm = nn.LayerNorm(c.dim, eps=LN_EPS)
         self.norm_by_max = DivideMax(dim=-1)
+        self.seq_group = None
         # static (seq, total_tokens) allow-mask: text positions predict text
         # tokens, image positions image tokens (True = allowed)
         seq = torch.arange(c.total_seq_len)[:, None]
@@ -97,6 +101,15 @@ class DALLE(nn.Module):
         self.register_buffer(
             "logits_allow", (seq >= c.text_seq_len) == (tok >= self.num_text_tokens),
             persistent=False)
+
+    def set_seq_group(self, group) -> "DALLE":
+        """Train sequence parallel across the processes of ``group`` (sp of
+        them, ``GroupRing``): the loss of each rank is its share of the
+        global loss, over its slice of the sequence."""
+        if self.transformer.sp < 2:
+            raise ValueError("set_seq_group needs a model built with sp > 1")
+        self.seq_group = group
+        return self
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -219,13 +232,14 @@ class DALLE(nn.Module):
             tokens = tokens * alpha + tokens.detach() * (1 - alpha)
         return tokens
 
-    def _finish(self, x, start: int, n: int):
+    def _finish(self, x, start, n: int):
         """transformer output → logits masked by rows start..start+n of the
-        allow-mask."""
+        allow-mask (``start`` a tensor of positions: those rows)."""
         if self.cfg.stable:
             x = self.norm_by_max(x)
         logits = self._logits(x)
-        allow = self.logits_allow[start:start + n]
+        allow = (self.logits_allow[start] if isinstance(start, torch.Tensor)
+                 else self.logits_allow[start:start + n])
         return torch.where(allow[None], logits, MASK_VALUE)
 
     def _device(self):
@@ -274,11 +288,15 @@ class DALLE(nn.Module):
         if dropout and dropout_masks is None:
             dropout_masks = self.transformer.dropout_masks(tokens.shape[0], n, generator,
                                                            tokens.device)
+        labels = torch.cat([text_b[:, 1:], image_ids + self.num_text_tokens], dim=1)
+        if self.seq_group is not None:
+            if not return_loss:
+                raise ValueError("a sequence-sharded DALLE computes the loss only")
+            return self._sharded_loss(tokens, labels, dropout_masks)
         out = self.transformer(tokens, dropout_masks=dropout_masks)
         if not return_loss:
             return self._finish(out, 0, n)
 
-        labels = torch.cat([text_b[:, 1:], image_ids + self.num_text_tokens], dim=1)
         if c.loss_chunk > 0 and n % c.loss_chunk != 0:
             raise ValueError(
                 f"loss_chunk={c.loss_chunk} must divide the sequence length "
@@ -298,6 +316,33 @@ class DALLE(nn.Module):
             ce = self._ce_chunk(out, labels, 0)
         loss_text = ce[:, :c.text_seq_len].mean()
         loss_img = ce[:, c.text_seq_len:].mean()
+        w = c.loss_img_weight
+        loss = (loss_text + w * loss_img) / (w + 1)
+        return loss, {"loss_text": loss_text, "loss_img": loss_img}
+
+    def _sharded_loss(self, tokens, labels, dropout_masks):
+        """This rank's share of the loss over its zigzag slice of the
+        sequence (``SeqShard``): its text and image cross-entropy sums over
+        the global counts, so the ranks' shares add up to the loss. The
+        dropout masks (drawn for the whole sequence) are cut to its rows."""
+        c = self.cfg
+        b, n = labels.shape
+        shard = seq_shard(self.seq_group, n, tokens.device)
+        rows = shard.rows
+        if dropout_masks is not None:
+            dropout_masks = [tuple(None if m is None else m[:, rows] for m in pair)
+                             for pair in dropout_masks]
+        out = self.transformer(tokens[:, rows], dropout_masks=dropout_masks, shard=shard)
+        logits = self._finish(out, rows, len(rows)).float()
+        vocab = logits.shape[-1]
+        ce = F.cross_entropy(logits.reshape(-1, vocab), labels[:, rows].reshape(-1),
+                             reduction="none").reshape(b, -1)
+        pos = torch.from_numpy(shard.positions).to(tokens.device)
+        zero = ce.new_zeros(())
+        is_text = shard.valid & (pos < c.text_seq_len)
+        is_img = shard.valid & (pos >= c.text_seq_len)
+        loss_text = torch.where(is_text[None], ce, zero).sum() / (b * c.text_seq_len)
+        loss_img = torch.where(is_img[None], ce, zero).sum() / (b * (n - c.text_seq_len))
         w = c.loss_img_weight
         loss = (loss_text + w * loss_img) / (w + 1)
         return loss, {"loss_text": loss_text, "loss_img": loss_img}

@@ -89,7 +89,7 @@ from ..ops.paged_kv import PagedKVCache
 from ..ops.persistent_attention import persistent_attention
 from ..ops.quantize_weights import QLinear
 from ..ops.rotary import apply_rotary, dalle_pos_emb
-from ..parallel.ring_attention import ring_attention
+from ..parallel.ring_attention import ring_attention, ring_attention_local
 from .reversible import run_reversible
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
@@ -183,9 +183,12 @@ class Attention(nn.Module):
                 fused: bool = False, persist: bool = False,
                 table: Optional[MaskTable] = None,
                 flash: Optional[FlashSchedule] = None,
-                ring: int = 1, ring_spec=None):
+                ring: int = 1, ring_spec=None, shard=None):
         """``ring`` > 1 sends the layer through ring attention over that many
-        ranks, with the structured spec ``ring_spec`` of its static mask;
+        ranks, with the structured spec ``ring_spec`` of its static mask: in
+        this process (``LocalRing``), or, with ``shard`` (a ``SeqShard``: x
+        is this rank's slice of the sequence), over its process group
+        (``GroupRing``);
         ``fused`` sends a causal, non-stable layer without a key mask
         through K1, ``persist`` through K8, both with visibility ``table``
         (None = plain causal); ``flash`` (a schedule) sends a layer without a
@@ -213,8 +216,13 @@ class Attention(nn.Module):
                                             or ring_spec[0] not in ("axial", "conv")):
                 raise ValueError("sequence parallelism supports full/axial/conv "
                                  "attention only")
-            out = ring_attention(q, k, v, nper=ring, causal=True, zigzag=True,
-                                 mask_spec=ring_spec if static_mask is not None else None)
+            spec = ring_spec if static_mask is not None else None
+            if shard is not None:
+                out = ring_attention_local(q, k, v, n_valid=shard.n, group=shard.group,
+                                           causal=True, zigzag=True, mask_spec=spec)
+            else:
+                out = ring_attention(q, k, v, nper=ring, causal=True, zigzag=True,
+                                     mask_spec=spec)
             return self._merge(out.to(x.dtype))
         if persist and key_mask is None and self.causal and not self.stable:
             out = persistent_attention(q, k, v, table)
@@ -539,30 +547,34 @@ class Transformer(nn.Module):
                 self.cfg.causal, device)
         return self._schedules[key]
 
-    def _attn_branch(self, x, ind: int, key_mask, mode, drop=None):
+    def _attn_branch(self, x, ind: int, key_mask, mode, drop=None, shard=None):
         """Layer ``ind``'s attention residual branch on ``x``; ``drop`` its
-        keep mask, or None."""
+        keep mask, or None; ``shard`` a ``SeqShard`` when x is this rank's
+        slice of the sequence (rotary rows at its global positions)."""
         la, attn, _, _, mask = self._layer(ind)
         n = x.shape[1]
+        rotary = self.rotary
+        if shard is not None and rotary is not None:
+            rotary = rotary[shard.rows]
         table = (self.fused_table(ind, n, x.device) if mode in ("fused", "persist")
                  else None)
         sched = self.flash_schedule(ind, n, x.device) if mode == "flash" else None
         ring = self.sp if mode == "ring" else 1
-        return la(x, attn, key_mask=key_mask, rotary=self.rotary, static_mask=mask,
+        return la(x, attn, key_mask=key_mask, rotary=rotary, static_mask=mask,
                   fused=mode == "fused", persist=mode == "persist", table=table,
                   flash=sched, ring=ring, ring_spec=self._mask_specs[self.mask_keys[ind]],
-                  drop=drop)
+                  drop=drop, shard=shard)
 
     def _ff_branch(self, x, ind: int, drop=None):
         return getattr(self, f"layer_ff_{ind}")(x, getattr(self, self.ff_names[ind]), drop=drop)
 
-    def _block(self, x, ind: int, key_mask, mode, drop=(None, None)):
+    def _block(self, x, ind: int, key_mask, mode, drop=(None, None), shard=None):
         """One attn + ff residual pair (the unit ``use_remat`` recomputes);
         ``drop`` holds its two keep masks, or None."""
-        x = x + self._attn_branch(x, ind, key_mask, mode, drop[0])
+        x = x + self._attn_branch(x, ind, key_mask, mode, drop[0], shard)
         return x + self._ff_branch(x, ind, drop[1])
 
-    def reversible_blocks(self, key_mask=None, dropout_masks=None, mode=False):
+    def reversible_blocks(self, key_mask=None, dropout_masks=None, mode=False, shard=None):
         """The (f, g) pairs and their parameter tuples of the reversible
         coupling (``models/reversible.py``): f the attention branch and g
         the feed-forward branch of each layer, each closed over its dropout
@@ -573,7 +585,7 @@ class Transformer(nn.Module):
             drop = (None, None) if dropout_masks is None else dropout_masks[ind]
 
             def f(_p, h, _ind=ind, _drop=drop[0]):
-                return self._attn_branch(h, _ind, key_mask, mode, _drop)
+                return self._attn_branch(h, _ind, key_mask, mode, _drop, shard)
 
             def g(_p, h, _ind=ind, _drop=drop[1]):
                 return self._ff_branch(h, _ind, _drop)
@@ -617,25 +629,30 @@ class Transformer(nn.Module):
         return [(keep(c.attn_dropout, c.dim), keep(c.ff_dropout, c.dim * c.ff_mult))
                 for _ in range(c.depth)]
 
-    def forward(self, x, key_mask=None, dropout_masks=None, reversible_naive: bool = False):
+    def forward(self, x, key_mask=None, dropout_masks=None, reversible_naive: bool = False,
+                shard=None):
         """The full-sequence forward; ``dropout_masks`` (``dropout_masks``'s
         form) switches dropout on. A ``reversible`` model runs the coupling
         of ``models/reversible.py`` (``reversible_naive``: through
         autograd's stored activations, the oracle) and ignores
-        ``use_remat``, as the JAX package does."""
+        ``use_remat``, as the JAX package does. ``shard`` (a
+        ``parallel.ring_attention.SeqShard``): x is this rank's slice of the
+        sequence, and every layer's attention is the ring over its group."""
         c = self.cfg
         mode = self.attention_mode(x.device, key_mask)
+        if shard is not None and (mode != "ring" or c.shift_tokens):
+            raise ValueError("a sequence shard needs sp > 1 and no token shift")
         if c.reversible:
-            fns, params = self.reversible_blocks(key_mask, dropout_masks, mode)
+            fns, params = self.reversible_blocks(key_mask, dropout_masks, mode, shard)
             return run_reversible(fns, params, x, naive=reversible_naive)
         remat = c.use_remat and torch.is_grad_enabled()
         for ind in range(c.depth):
             drop = (None, None) if dropout_masks is None else dropout_masks[ind]
             if remat:
-                x = checkpoint(self._block, x, ind, key_mask, mode, drop,
+                x = checkpoint(self._block, x, ind, key_mask, mode, drop, shard,
                                use_reentrant=False)
             else:
-                x = self._block(x, ind, key_mask, mode, drop)
+                x = self._block(x, ind, key_mask, mode, drop, shard)
         return x
 
     # -- cached decode -----------------------------------------------------

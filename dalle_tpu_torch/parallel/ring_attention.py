@@ -18,7 +18,8 @@ value to the next rank.
   offsets; it saves no memory (the whole sequence lives on the one card).
 * ``GroupRing(group)``: one rank per process of a ``torch.distributed``
   group; ``shift`` sends to rank + 1 and receives from rank - 1
-  (``batch_isend_irecv``). It is a ``torch.autograd.Function`` whose
+  (``batch_isend_irecv``; under gloo through pinned host memory, so two
+  ranks that share one card exchange their CUDA chunks). It is a ``torch.autograd.Function`` whose
   backward shifts the gradient the other way (the transpose JAX applies to
   ``ppermute``), so the dense body differentiates under a group too.
 
@@ -59,6 +60,7 @@ import torch.nn.functional as F
 from ..ops.chunk_attention import (chunk_flash_dkv, chunk_flash_dq, chunk_flash_fwd,
                                    merge_chunk, pick_block)
 from ..ops.flash_attention import elem_fn_from_spec
+from .comm import send_recv
 
 NEG_INF = -1e9
 
@@ -98,18 +100,12 @@ class GroupRing:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
     def exchange(self, tensors: Sequence[torch.Tensor], step: int) -> Tuple[torch.Tensor, ...]:
-        """Send each tensor to rank + step, receive as many from rank - step."""
-        import torch.distributed as dist
+        """Send each tensor to rank + step, receive as many from rank - step
+        (``comm.send_recv``: under gloo a CUDA tensor goes through pinned
+        host memory)."""
         me = self.ranks[0]
-        out = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
-                    for t in tensors)
-        ops = []
-        for t, buf in zip(tensors, out):
-            ops.append(dist.P2POp(dist.isend, t.contiguous(), self._peer(me + step), self.group))
-            ops.append(dist.P2POp(dist.irecv, buf, self._peer(me - step), self.group))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return out
+        return tuple(send_recv(tensors, self._peer(me + step), self._peer(me - step),
+                               self.group))
 
     def shift(self, xs: Sequence[Tuple[torch.Tensor, ...]]) -> List[Tuple[torch.Tensor, ...]]:
         (x,) = xs
@@ -339,6 +335,36 @@ class _KernelRing(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SeqShard:
+    """This process's slice of an ``n``-long sequence sharded over the
+    processes of ``group``: the sequence zero-padded to 2P equal
+    sub-chunks and laid out by ``zigzag_perm``. ``positions`` are the
+    global positions of this rank's rows (padded ones ≥ n); ``rows`` the
+    same on the device, clamped to n - 1 (a padded row repeats the last
+    token: as a key it is masked by ``n``, as a query its output is
+    dropped)."""
+    group: object
+    n: int
+    positions: np.ndarray
+    rows: torch.Tensor
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return torch.from_numpy(self.positions < self.n).to(self.rows.device)
+
+
+def seq_shard(group, n: int, device) -> SeqShard:
+    """The ``SeqShard`` of this process's rank in ``group`` for length n."""
+    import torch.distributed as dist
+    nper, rank = dist.get_world_size(group), dist.get_rank(group)
+    chunk = -(-n // (2 * nper))
+    n_local = 2 * chunk
+    pos = zigzag_perm(nper, chunk)[rank * n_local:(rank + 1) * n_local]
+    rows = torch.from_numpy(np.minimum(pos, n - 1)).to(device)
+    return SeqShard(group, n, pos, rows)
+
 
 def zigzag_perm(nper: int, m: int) -> np.ndarray:
     """Sequence permutation placing sub-chunks (i, 2P-1-i) on rank i."""

@@ -9,7 +9,9 @@ Port of ``dalle_tpu/train/base_trainer.py`` for the port's four trainers
 stacked)`` (a batch as ``train_step`` takes it, on the device),
 ``train_step(*batch)`` (one optimizer step) and ``train_steps(*stacked)``
 (k steps from (k, b, …) batches, each draw as k ``train_step`` calls make
-it, so the two give the same bits); both end in ``_finish_step``.
+it, so the two give the same bits). Each places its batch once
+(``_place``: this rank's rows, then ``_put_batch``) and hands it to
+``_step_placed`` / ``_steps_placed``, which end in ``_finish_step``.
 
 * **Two counters.** ``step`` counts the steps taken, NaN steps included:
   it bounds ``fit`` and names checkpoints. ``optimizer.count`` counts the
@@ -29,8 +31,8 @@ it, so the two give the same bits); both end in ``_finish_step``.
   checkpoint, sample) then come a group at a time, each at the first group
   that crosses its boundary.
 * **Device prefetch** (``device_prefetch`` = depth > 0): ``fit`` keeps
-  ``depth`` batches already on the card (``data/device_prefetch.py``,
-  through ``_put_batch``).
+  ``depth`` batches already placed on the card (``data/device_prefetch.py``,
+  through ``_place``) and steps them with ``_step_placed``.
 * **NaN rollback** (``train_cfg.nan_rollback``, on by default as in the JAX
   package): ``fit`` snapshots the masters and the optimizer state, its
   count included, at its start and after every save, and puts the snapshot
@@ -83,6 +85,25 @@ it, so the two give the same bits); both end in ``_finish_step``.
   prefers over the save's snapshot), ``_rollback`` and ``set_lr_scale``.
   ``grad_hook(trainer)``, when set, runs between the backward and the
   optimizer: tests write into a gradient there.
+* **Across processes** (``backend=`` a ``parallel.TorchBackend`` or
+  ``mesh=`` a ``parallel.ProcessMesh``; by default the mesh of
+  ``train_cfg.mesh`` over the initialized process group): each rank is fed
+  the global batch and keeps its rows (``mesh.shard_batch``). Under dp the
+  loss and backward run on those rows and the masters' gradients are
+  summed over the ranks in flat buckets of one dtype and scaled by
+  1/(dp·fsdp) before the optimizer, so its clip sees the global gradient
+  (the JAX step's in-graph psum). Under fsdp each rank holds its slice of
+  every master and optimizer moment along the dimension
+  ``parallel/partition.py`` gives to fsdp (leaves that do not divide stay
+  whole); a step all-gathers the compute-dtype copies, runs the loss and
+  backward on them, reduces the gradients and keeps its slice, and the
+  optimizer sums what crosses a slice (``train_state.ShardLayout``). The
+  reported loss and auxiliary scalars are the global ones. A checkpoint
+  holds the gathered state (rank 0 writes it; every rank reads it and cuts
+  its slice), so it restores at any world size. Only rank 0 logs and hands
+  records to the metrics writer; the signal latches are agreed over the
+  ranks at every step boundary, so all of them save and leave together.
+  tp > 1 raises (ROADMAP.md Queue 1 item 11c).
 * **Signals** (``install_signal_checkpoint``, ``install_preemption_handler``):
   the handlers only latch flags. SIGUSR1 saves at the next step boundary
   and drains that save, so the latch means "durable now". SIGTERM does the
@@ -93,6 +114,8 @@ it, so the two give the same bits); both end in ``_finish_step``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import math
 import os
@@ -112,9 +135,13 @@ from ..obs import (DeviceTelemetry, GroupTaps, StallWatchdog, device_memory_head
                    export_chrome_trace, export_spans_jsonl, metrics_snapshot, span,
                    write_textfile)
 from ..obs import configure as obs_configure
+from ..parallel.comm import (agree, all_gather_dim, all_reduce_, all_reduce_many_,
+                             reduce_scatter_many, shard_of, world_group)
+from ..parallel.mesh import (AXES, build_mesh, shard_batch, shard_stacked_batch,
+                             single_device_mesh)
 from .checkpoints import CheckpointManager
 from .metrics import ThroughputMeter, count_params, profiled
-from .train_state import cast_floating, compute_dtype, make_optimizer
+from .train_state import ShardLayout, cast_floating, compute_dtype, make_optimizer
 
 SNAPSHOT_HEADROOM = 1.15    # "auto" keeps the snapshot on the card below this share of free
 _NUMPY = {torch.int64: np.int64, torch.float32: np.float32, torch.bool: np.bool_}
@@ -237,12 +264,44 @@ class BaseTrainer:
     tokens_per_sample = 0                          # for the logged tokens/s
     flops_per_step = 0.0                           # for the logged MFU
     grad_hook: Optional[Callable[["BaseTrainer"], None]] = None
+    # why a trainer cannot train across processes (None: it can)
+    single_process_only: Optional[str] = None
+    span_name = "train"                            # its spans' prefix ("dalle", ...)
 
-    def __init__(self, train_cfg, device=None):
+    def __init__(self, train_cfg, device=None, *, backend=None, mesh=None):
         if train_cfg.log_artifacts:
             raise NotImplementedError("log_artifacts uploads to wandb, which is not ported "
                                       "(ROADMAP.md Queue 1 item 12)")
         self.train_cfg = train_cfg
+        if mesh is None and backend is not None:
+            mesh = backend.mesh
+        mc = train_cfg.mesh
+        if mc.tp > 1 or (mesh is not None and mesh.shape["tp"] > 1):
+            raise NotImplementedError(
+                "tp > 1 (Megatron-style heads and feed-forward hidden, with "
+                "GEGLUFeedForward's w1 split into matching halves of x and gate) is not "
+                "ported: ROADMAP.md Queue 1 item 11c")
+        if mesh is None and world_group() is not None:
+            mesh = build_mesh(mc)
+        elif mesh is None:
+            if max(mc.dp, mc.fsdp) > 1:
+                raise NotImplementedError(
+                    f"dp={mc.dp}, fsdp={mc.fsdp} train across processes: start one "
+                    "process a rank (parallel.TorchBackend, or torch's launcher env); "
+                    "one process runs only sp (its ranks in this process)")
+            mesh = single_device_mesh()
+        if mesh.size > 1 and self.single_process_only:
+            raise NotImplementedError(self.single_process_only)
+        self.backend, self.mesh = backend, mesh
+        self.is_root = mesh.rank == 0
+        # every rank when it has peers (tp is 1, so (dp, fsdp, sp) is the
+        # world), on the wire the step's tensors take
+        self._world = mesh.group(*AXES) if mesh.size > 1 else None
+        self._shard_dims = None     # fsdp: each parameter's sliced dimension
+        if backend is not None:
+            backend.check_batch_size(train_cfg.batch_size)
+        if device is None:
+            device = getattr(backend, "device", None)
         self.device = resolve_device(device)
         self.ckpt = (CheckpointManager(train_cfg.checkpoint_dir,
                                        keep_n=train_cfg.keep_n_checkpoints,
@@ -275,6 +334,7 @@ class BaseTrainer:
         self.health_sentry = None     # built by fit (or BreachActions) under obs.health
         self._health_last_step = -1
         self._taps: Optional[GroupTaps] = None
+        self._saved_step: Optional[int] = None   # the newest step this run made durable
 
     def _setup_training(self, loss_fn: Callable, health_prefix: str = ""):
         """After ``self.model`` is built: the optimizer over its parameters,
@@ -284,14 +344,34 @@ class BaseTrainer:
         self.names = [n for n, _ in self.model.named_parameters()]
         self._loss_backward = _LossBackward(self.model, loss_fn)
         params = list(self.model.parameters())
+        self.num_params = count_params(self.model)
+        shards = self._shard_masters(params) if self.mesh.shape["fsdp"] > 1 else None
         self.optimizer = make_optimizer(self.train_cfg.optim, params,
                                         lr_scale=self.train_cfg.runtime_lr_scale,
-                                        health=self.health)
+                                        health=self.health, shards=shards)
         if self.health:
             self._taps = GroupTaps(self.model, self.names, params,
                                    self.train_cfg.obs.health_group_depth, health_prefix)
         self.dtype = compute_dtype(self.train_cfg.precision)
-        self.num_params = count_params(self.model)
+
+    def _shard_masters(self, params) -> ShardLayout:
+        """fsdp: keep this rank's slice of every master the rules split
+        (``parallel/partition.py``) → the optimizer's ``ShardLayout``."""
+        from ..parallel.partition import make_param_shardings
+        mesh = self.mesh
+        parts, index = mesh.shape["fsdp"], mesh.coords["fsdp"]
+        dims = make_param_shardings(mesh, self.model)
+        self._shard_dims = [dims[n] for n in self.names]
+        by_id = {id(p): d for p, d in zip(params, self._shard_dims)}
+        # every name a sliced tensor goes by in state_dict (shared layers too)
+        self._shard_keys = {n: by_id[id(p)] for n, p in
+                            self.model.named_parameters(remove_duplicate=False)
+                            if by_id.get(id(p)) is not None}
+        with torch.no_grad():
+            for p, d in zip(params, self._shard_dims):
+                if d is not None:
+                    p.data = shard_of(p.data, d, index, parts).clone()
+        return ShardLayout(self._shard_dims, mesh.group("fsdp"), parts)
 
     @property
     def health(self) -> bool:
@@ -311,11 +391,103 @@ class BaseTrainer:
 
     def _backward(self, *args, **kw):
         """The loss on the compute-dtype copies of the masters, and its
-        backward into the masters' ``.grad`` → (loss, aux), detached."""
-        if self.dtype is None:
-            return self._loss_backward(*args, **kw)
-        params = cast_floating(dict(self._loss_backward.named_parameters()), self.dtype)
-        return functional_call(self._loss_backward, params, args, kw)
+        backward into the masters' ``.grad`` → (loss, aux), detached. Across
+        processes the gradients and the returned values are the global
+        ones (the module's "Across processes")."""
+        if self._shard_dims is not None:
+            loss, aux = self._backward_fsdp(args, kw)
+        else:
+            if self.dtype is None:
+                loss, aux = self._loss_backward(*args, **kw)
+            else:
+                params = cast_floating(dict(self._loss_backward.named_parameters()),
+                                       self.dtype)
+                loss, aux = functional_call(self._loss_backward, params, args, kw)
+            if self._world is not None:
+                self._sync_grads(list(self.model.parameters()))
+        if self._world is None:
+            return loss, aux
+        return self._global_values(loss, aux)
+
+    def _data_scale(self) -> float:
+        return 1.0 / self.mesh.count("dp", "fsdp")
+
+    def _sync_grads(self, params):
+        """dp (and sp): every parameter's gradient summed over the ranks and
+        scaled by 1/(dp·fsdp), in flat buckets; a missing one is zero."""
+        grads = []
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        all_reduce_many_(grads, self._world)
+        if self._data_scale() != 1.0:
+            torch._foreach_mul_(grads, self._data_scale())
+
+    def _global_values(self, loss, aux):
+        """The loss and the auxiliary scalars summed over the ranks and
+        scaled as the gradients: the global batch's (under sp each rank
+        returns its share of the sequence's)."""
+        keys = list(aux)
+        vals = torch.stack([loss.float()] + [aux[k].float() for k in keys])
+        all_reduce_(vals, self._world)
+        vals.mul_(self._data_scale())
+        return vals[0].to(loss.dtype), {k: vals[i + 1].to(aux[k].dtype)
+                                        for i, k in enumerate(keys)}
+
+    def _backward_fsdp(self, args, kw):
+        """fsdp: all-gather every sliced master's compute-dtype copy, run
+        the loss and backward on the whole copies, then reduce their
+        gradients in f32: a sliced master's reduce-scattered over the fsdp
+        ranks into this rank's slice, then summed over the ranks that hold
+        the same slice; a whole master's summed over every rank."""
+        group = self.mesh.group("fsdp")
+        leaves = {}
+        for (name, p), d in zip(self._loss_backward.named_parameters(), self._shard_dims):
+            x = p.detach()
+            if self.dtype is not None and x.is_floating_point():
+                x = x.to(self.dtype)
+            if d is not None:
+                x = all_gather_dim(x, d, group)
+            leaves[name] = x.requires_grad_(p.requires_grad)
+        loss, aux = functional_call(self._loss_backward, leaves, args, kw)
+        grads = [x.grad if x.grad is not None else torch.zeros_like(x)
+                 for x in leaves.values()]
+        del leaves
+        dims = self._shard_dims
+        sliced = [i for i, d in enumerate(dims) if d is not None]
+        whole = [i for i, d in enumerate(dims) if d is None]
+        mine = reduce_scatter_many([grads[i] for i in sliced], [dims[i] for i in sliced],
+                                   self.mesh.group("fsdp"), torch.float32)
+        all_reduce_many_(mine, self.mesh.group("dp", "sp", "tp"))
+        rest = [grads[i].float() for i in whole]
+        del grads
+        all_reduce_many_(rest, self._world)
+        params = list(self.model.parameters())
+        for i, g in zip(sliced + whole, mine + rest):
+            params[i].grad = g.mul_(self._data_scale())
+        return loss, aux
+
+    @contextlib.contextmanager
+    def full_params(self):
+        """fsdp: the whole masters in the model for the scope (a sample, an
+        export), this rank's slices again after; collective. Nothing to do
+        otherwise."""
+        if self._shard_dims is None:
+            yield self.model
+            return
+        group = self.mesh.group("fsdp")
+        params = list(self.model.parameters())
+        slices = [p.data for p in params]
+        with torch.no_grad():
+            for p, d in zip(params, self._shard_dims):
+                if d is not None:
+                    p.data = all_gather_dim(p.data, d, group)
+        try:
+            yield self.model
+        finally:
+            for p, x in zip(params, slices):
+                p.data = x
 
     def _optimize(self, *args, **kw):
         """One optimizer step: the loss and its backward (``_backward``'s
@@ -349,10 +521,22 @@ class BaseTrainer:
         return x if self.dtype is None else x.to(self.dtype)
 
     def _put_batch(self, batch, stacked: bool = False):
-        """A batch as ``train_step`` (or, ``stacked``, ``train_steps``) takes
-        it, on the device: what the step does to it first. The prefetcher
-        calls it ahead of the step."""
+        """This rank's rows of a batch as ``train_step`` (or, ``stacked``,
+        ``train_steps``) takes it → as the step takes them, on the
+        device."""
         return batch
+
+    def _place(self, batch, stacked: bool = False):
+        """A global batch → this rank's rows (``mesh.shard_batch``; the
+        whole batch on one process) through ``_put_batch``, in the
+        trainer's ``<span_name>/shard_batch`` span. ``train_step`` and
+        ``train_steps`` call it once; fit's prefetcher calls it ahead of
+        the step and hands the placed batch to ``_step_placed``."""
+        batch = tuple(batch)
+        with span(f"{self.span_name}/shard_batch", **({"k": len(batch[0])} if stacked else {})):
+            if self.mesh.count("dp", "fsdp") > 1:
+                batch = (shard_stacked_batch if stacked else shard_batch)(self.mesh, batch)
+            return self._put_batch(batch, stacked)
 
     # -- metrics -------------------------------------------------------------
     def _finish_step(self, values: Dict[str, torch.Tensor],
@@ -473,11 +657,53 @@ class BaseTrainer:
         one."""
         state = {"model": self.model.state_dict(),
                  "optimizer": self.optimizer.state_dict(), "step": self.step}
+        if self._shard_dims is not None:
+            state = self._resliced(state, lambda t, d: all_gather_dim(
+                t, d, self.mesh.group("fsdp")))
         if self.generator is not None:
             state["generator"] = self.generator.get_state()
         return state
 
+    def _resliced(self, state, fn):
+        """``state`` (the model's and the optimizer's) with ``fn(tensor,
+        dim)`` applied to every fsdp-sliced tensor: a new tree, the live
+        lists untouched."""
+        out = dict(state, model=self._resliced_model(state["model"], fn))
+        if "optimizer" in state:
+            out["optimizer"] = self._resliced_optimizer(state["optimizer"], fn)
+        return out
+
+    def _resliced_model(self, sd, fn):
+        return {k: (fn(v, self._shard_keys[k]) if k in self._shard_keys else v)
+                for k, v in sd.items()}
+
+    def _resliced_optimizer(self, osd, fn):
+        if "core" not in osd:      # a torch.optim state dict
+            raise ValueError("fsdp restores the port optimizer's own state only")
+        osd = dict(osd)
+        dims = self.optimizer.state_dims()
+        osd["core"] = {k: [v if v is None or d is None else fn(v, d)
+                           for v, d in zip(vs, dims["core"][k])]
+                       for k, vs in osd["core"].items()}
+        if osd.get("acc") is not None:
+            osd["acc"] = [v if d is None else fn(v, d) for v, d in zip(osd["acc"], dims["acc"])]
+        return osd
+
+    def _cut(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's fsdp slice of a whole tensor."""
+        return shard_of(t, dim, self.mesh.coords["fsdp"], self.mesh.shape["fsdp"])
+
+    def load_masters(self, sd: Mapping[str, torch.Tensor]):
+        """Copy whole masters (a ``state_dict``) into the model: under fsdp
+        this rank's slices."""
+        if self._shard_dims is not None:
+            sd = self._resliced_model(sd, self._cut)
+        with torch.no_grad():
+            self.model.load_state_dict(sd)
+
     def load_state_dict(self, state: Mapping[str, Any]):
+        if self._shard_dims is not None:
+            state = self._resliced(state, self._cut)
         with torch.no_grad():
             self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"], count=state.get("count"))
@@ -489,8 +715,13 @@ class BaseTrainer:
     def save(self, wait: bool = True):
         """Checkpoint the current step (needs ``checkpoint_dir``). With
         ``wait`` (the default) the checkpoint is on disk when this returns;
-        ``fit``'s periodic saves pass False and leave the write in flight."""
-        self.ckpt.save(self.step, self.state_dict(), self._meta(), wait=wait)
+        ``fit``'s periodic saves pass False and leave the write in flight.
+        Across processes every rank calls it (the gather is collective) and
+        rank 0 writes."""
+        state = self.state_dict()
+        if self.is_root:
+            self.ckpt.save(self.step, state, self._meta(), wait=wait)
+        self._saved_step = self.step
 
     def _ckpt_wait(self):
         """Drain the checkpoint write in flight, if any."""
@@ -530,7 +761,8 @@ class BaseTrainer:
         loads. Returns its metadata."""
         if self.ckpt is None:
             raise ValueError("restore needs train_cfg.checkpoint_dir")
-        state, meta = self.ckpt.restore(step, map_location=self.device)
+        state, meta = self.ckpt.restore(
+            step, map_location="cpu" if self._shard_dims is not None else self.device)
         self.load_state_dict(state)
         return meta
 
@@ -612,7 +844,7 @@ class BaseTrainer:
             items = ((False, b) for b in batches)
         if tc.device_prefetch > 0:
             pf = DevicePrefetcher(
-                items, lambda item: (item[0], self._put_batch(item[1], stacked=item[0])),
+                items, lambda item: (item[0], self._place(item[1], stacked=item[0])),
                 depth=tc.device_prefetch, device=self.device)
             return pf, pf
         return items, None
@@ -624,7 +856,8 @@ class BaseTrainer:
         return self.train_cfg.checkpoint_dir
 
     def fit(self, batches: Iterable, *, steps: Optional[int] = None, log=print,
-            sample_fn: Optional[Callable[[int], Any]] = None, metrics_writer=None):
+            sample_fn: Optional[Callable[[int], Any]] = None, metrics_writer=None,
+            on_step: Optional[Callable[[int], Any]] = None):
         """Train on ``batches`` until the step reaches ``steps`` (a resumed
         run continues from its step): a batch at a time through
         ``train_step``, or k at a time through ``train_steps`` with
@@ -634,9 +867,14 @@ class BaseTrainer:
         ``sample_fn(step)`` every ``sample_every_steps``, checkpoints, rolls
         back and records its telemetry as the module's docstring says. With
         device prefetch the lookahead takes up to ``device_prefetch``
-        batches more from ``batches`` than the steps use. Returns the last
-        finite metrics read."""
+        batches more from ``batches`` than the steps use. ``on_step(step)``
+        runs after each completed step (the elastic worker's heartbeat; what
+        it raises leaves fit). Across processes only rank 0 logs and writes
+        records, and ``sample_fn`` runs on every rank with the whole masters
+        (``full_params``). Returns the last finite metrics read."""
         tc = self.train_cfg
+        if not self.is_root:
+            log, metrics_writer = (lambda *a, **k: None), None
         oc = tc.obs
         trace_dir = None
         if oc.trace:
@@ -652,8 +890,13 @@ class BaseTrainer:
             # kept across fit calls, so the baselines survive a resume
             from ..obs.anomaly import HealthSentry
             self.health_sentry = HealthSentry.from_obs_config(oc)
-        if self.ckpt is not None and tc.preflight_checkpoint:
-            self.ckpt.preflight(self.step, self.state_dict(), self._meta())
+        if self.ckpt is not None:
+            self._saved_step = self.ckpt.latest_step()
+            if tc.preflight_checkpoint:
+                state = self.state_dict()
+                if self.is_root:
+                    self.ckpt.preflight(self.step, state, self._meta())
+                self._saved_step = self.step
         if tc.nan_rollback:
             self._snapshot_good()
         self.meter = self._new_meter()
@@ -680,9 +923,11 @@ class BaseTrainer:
                     # chaos injection point: kill/hang/slow/corrupt faults fire
                     # here, before the dispatch, as in the JAX package's fit
                     chaos_step_hook(prev)
-                    m = self._dispatch(stacked, batch, log)
+                    m = self._dispatch(stacked, batch, log, placed=prefetcher is not None)
                     if watchdog is not None:
                         watchdog.beat(self.step)
+                    if on_step is not None:
+                        on_step(self.step)
                     metrics = self._after_step(prev, m, metrics, log, metrics_writer, sample_fn)
                 if self.preempted:
                     break
@@ -714,16 +959,22 @@ class BaseTrainer:
             metrics = m
             if metrics_writer is not None:
                 metrics_writer.log(_record_step(m), _record(m))
-        if self.ckpt is not None and self.ckpt.latest_step() != self.step:
+        if self.ckpt is not None and self._saved_step != self.step:
             self._save_timed()
         return metrics
 
-    def _dispatch(self, stacked: bool, batch, log) -> Dict[str, Any]:
-        """One ``train_step`` (or ``train_steps`` on a stacked group) in a
-        ``fit/dispatch`` span; under ``torch.profiler`` when the call holds
-        ``profile_step``."""
+    def _dispatch(self, stacked: bool, batch, log, placed: bool) -> Dict[str, Any]:
+        """One ``train_step`` (or ``train_steps`` on a stacked group; the
+        prefetcher's ``placed`` batch straight to ``_step_placed`` /
+        ``_steps_placed``) in a ``fit/dispatch`` span; under
+        ``torch.profiler`` when the call holds ``profile_step``."""
         tc = self.train_cfg
-        call = self.train_steps if stacked else self.train_step
+        if placed:
+            call = functools.partial(self._steps_placed if stacked else self._step_placed,
+                                     batch)
+        else:
+            call = functools.partial(self.train_steps if stacked else self.train_step,
+                                     *batch)
         k = len(batch[0]) if stacked else 1
         prev = self.step
         self._obs_dispatch_t0 = time.perf_counter()
@@ -732,18 +983,24 @@ class BaseTrainer:
             logdir = os.path.join(tc.checkpoint_dir, f"profile_step{tc.profile_step}")
             with profiled(logdir):
                 with span("fit/dispatch", profiled=True):
-                    m = call(*batch)
+                    m = call()
             self.last_profile = logdir
             log(f"[profile] step {self.step}: trace → {logdir}")
             return m
         with span("fit/dispatch"):
-            return call(*batch)
+            return call()
 
     def _after_step(self, prev: int, m: Dict[str, Any], metrics: Dict[str, Any], log,
                     metrics_writer, sample_fn) -> Dict[str, Any]:
         """A step's events in fit: the save's NaN check, rollback, log and
         writer, save and sample. Returns the latest finite metrics."""
         tc = self.train_cfg
+        if self._world is not None:
+            # ranks that caught a signal at different steps act together;
+            # over the default group, which the backend makes on the host
+            # (gloo), so the exchange waits for no kernel
+            self._signal_save, self._preempt = agree([self._signal_save, self._preempt],
+                                                     world_group())
         # the latch is read once: the save and the metrics read see one value
         signal_save = self._signal_save
         want_save = self.ckpt is not None and (
@@ -777,7 +1034,8 @@ class BaseTrainer:
             self._preempt = False
             log(f"[step {self.step}] graceful preemption: checkpoint durable; exiting fit")
         if sample_fn is not None and _crossed(prev, self.step, tc.sample_every_steps):
-            sample_fn(self.step)
+            with self.full_params():
+                sample_fn(self.step)
         return metrics
 
     def _save_timed(self, wait: bool = False):

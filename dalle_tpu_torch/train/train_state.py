@@ -30,6 +30,15 @@ more reduction beside its arithmetic: the parameters' bits are the same with
 and without, and no parameter is copied (Adam's ‖u‖ takes one temporary the
 size of a foreach group).
 
+With ``shards`` (a ``ShardLayout``: fully sharded data parallelism) each
+parameter and its state are this rank's slice along one dimension (or
+whole), and every reduction that crosses that dimension is summed over the
+layout's group, so the update equals the one-process optimizer's: the
+global norm of the clip (a replicated leaf counted once), Adafactor's
+factored means of g² and of ``v_row``, its per-tensor rms(u) and rms(p)
+and its factoring (read off the full shapes), and the taps. Elementwise
+arithmetic (Adam, SGD) needs nothing.
+
 Nothing in a step is read back to the host: the scales are device scalars,
 the counts host integers that the host advances itself. Adam, AdamW and
 SGD use ``torch.optim``'s foreach arithmetic; each core works through the
@@ -46,6 +55,7 @@ import numpy as np
 import torch
 
 from ..config import OptimConfig
+from ..parallel.comm import all_reduce_
 
 GROUP_ELEMENTS = 1 << 27            # a core's foreach group (512 MB of f32)
 # optax.adafactor's defaults, which the JAX package keeps
@@ -165,6 +175,36 @@ def _put_norms(unorm, idx, norms):
         unorm[i] = n
 
 
+class ShardLayout(NamedTuple):
+    """Fully sharded parameters: ``dims[i]`` is the dimension of parameter
+    i that this rank holds one of ``parts`` equal slices of (None: whole on
+    every rank); ``group`` holds the other slices."""
+    dims: List[Optional[int]]
+    group: object
+    parts: int
+
+    def full_shape(self, i: int, shape) -> tuple:
+        d = self.dims[i]
+        return tuple(n * self.parts if j == d else n for j, n in enumerate(shape))
+
+    def globalize(self, idx: Sequence[int], *norm_lists: List[torch.Tensor]):
+        """Per-tensor L2 norms of the parameters ``idx`` (one list per
+        quantity) with each sharded tensor's norm made the whole tensor's:
+        sqrt of the group's sum of squares, in one exchange."""
+        sel = [j for j, i in enumerate(idx) if self.dims[i] is not None]
+        if not sel:
+            return norm_lists
+        sq = torch.stack([torch.stack([ns[j] for j in sel]) for ns in norm_lists]).square()
+        full = all_reduce_(sq, self.group).sqrt()
+        out = []
+        for row, ns in zip(full, norm_lists):
+            ns = list(ns)
+            for k, j in enumerate(sel):
+                ns[j] = row[k]
+            out.append(ns)
+        return out
+
+
 class _Core:
     """One optimizer's per-parameter state, named by ``STATE`` (lists in
     the parameters' order, None where a parameter holds none), and its
@@ -175,6 +215,11 @@ class _Core:
     parameter's update there, reading what the update reads and writing no
     parameter."""
     STATE: tuple = ()
+    shard: Optional[ShardLayout] = None
+
+    def state_dim(self, key: str, i: int) -> Optional[int]:
+        """The sharded dimension of state ``key`` of parameter i."""
+        return None if self.shard is None else self.shard.dims[i]
 
     def state_dict(self) -> Dict[str, list]:
         return {k: getattr(self, k) for k in self.STATE}
@@ -195,7 +240,8 @@ class _Core:
 
 
 class _Sgd(_Core):
-    def __init__(self, cfg: OptimConfig, params):
+    def __init__(self, cfg: OptimConfig, params, shard: Optional[ShardLayout] = None):
+        self.shard = shard
         self.groups = _groups(params)
 
     def apply(self, params, grads, lr, count, scale, unorm=None):
@@ -217,7 +263,8 @@ class _Adam(_Core):
     by 1 − lr·wd."""
     STATE = ("mu", "nu")
 
-    def __init__(self, cfg: OptimConfig, params):
+    def __init__(self, cfg: OptimConfig, params, shard: Optional[ShardLayout] = None):
+        self.shard = shard
         self.b1, self.b2, self.eps = cfg.beta1, cfg.beta2, cfg.eps
         self.wd = cfg.weight_decay if cfg.optimizer == "adamw" else 0.0
         self.mu = [torch.zeros_like(p) for p in params]
@@ -283,9 +330,12 @@ class _Adafactor(_Core):
     tensor's); the unfactored ones in foreach groups."""
     STATE = ("v_row", "v_col", "v")
 
-    def __init__(self, cfg: OptimConfig, params):
+    def __init__(self, cfg: OptimConfig, params, shard: Optional[ShardLayout] = None):
         self.wd = cfg.weight_decay
-        self.dims = [factored_dims(tuple(p.shape)) for p in params]
+        self.shard = shard
+        self.full = [tuple(p.shape) if shard is None else shard.full_shape(i, p.shape)
+                     for i, p in enumerate(params)]
+        self.dims = [factored_dims(shape) for shape in self.full]
         self.v_row, self.v_col, self.v = [], [], []
         for p, dims in zip(params, self.dims):
             if dims is None:
@@ -303,6 +353,20 @@ class _Adafactor(_Core):
         self.unfactored = [[unfactored[j] for j in run]
                            for run in _groups([params[i] for i in unfactored])]
 
+    def state_dim(self, key: str, i: int) -> Optional[int]:
+        s = super().state_dim(key, i)
+        if s is None or key not in ("v_row", "v_col") or self.dims[i] is None:
+            return s
+        gone = self.dims[i][1 if key == "v_row" else 0]   # v_row drops d0, v_col d1
+        return None if s == gone else s - (s > gone)
+
+    def _mean(self, x, dim: int, sdim: Optional[int], n: int, keepdim: bool = False):
+        """x.mean(dim); when ``dim`` is the sharded one (``sdim``), the
+        group's sum over its ``n`` elements."""
+        if sdim != dim:
+            return x.mean(dim, keepdim=keepdim)
+        return all_reduce_(x.sum(dim, keepdim=keepdim), self.shard.group) / n
+
     @staticmethod
     def decay(count: int) -> float:
         """β_t as optax computes it, in f32."""
@@ -311,21 +375,27 @@ class _Adafactor(_Core):
 
     def _factored_update(self, i, g, beta):
         d1, d0 = self.dims[i]
+        full = self.full[i]
+        s = super().state_dim("v", i)
         g2 = torch.addcmul(g.new_full((), ADAFACTOR_EPS), g, g)
         v_row, v_col = self.v_row[i], self.v_col[i]
-        v_row.mul_(beta).add_(g2.mean(d0), alpha=1.0 - beta)
-        v_col.mul_(beta).add_(g2.mean(d1), alpha=1.0 - beta)
+        v_row.mul_(beta).add_(self._mean(g2, d0, s, full[d0]), alpha=1.0 - beta)
+        v_col.mul_(beta).add_(self._mean(g2, d1, s, full[d1]), alpha=1.0 - beta)
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt_()
+        row = (v_row / self._mean(v_row, reduced_d1, self.state_dim("v_row", i), full[d1],
+                                  keepdim=True)).rsqrt_()
         u = torch.mul(g, row.unsqueeze(d0), out=g2)
         return u.mul_(v_col.rsqrt().unsqueeze(d1))
 
     def _finish(self, us, ps, lr, scale, idx, unorm):
         """Block-rms clip, learning rate, parameter scale, decay, apply."""
-        roots = [math.sqrt(u.numel()) for u in us]
+        roots = [math.sqrt(math.prod(self.full[i])) for i in idx]
         norms = torch._foreach_norm(us)
-        u_rms = torch._foreach_div(norms, roots)
-        p_rms = torch._foreach_div(torch._foreach_norm(ps), roots)
+        p_norms = torch._foreach_norm(ps)
+        u_glob, p_glob = (norms, p_norms) if self.shard is None else \
+            self.shard.globalize(idx, norms, p_norms)
+        u_rms = torch._foreach_div(u_glob, roots)
+        p_rms = torch._foreach_div(p_glob, roots)
         torch._foreach_clamp_min_(u_rms, ADAFACTOR_CLIP)
         torch._foreach_clamp_min_(p_rms, ADAFACTOR_MIN_PARAM_RMS)
         factors = torch._foreach_div(p_rms, u_rms)
@@ -427,16 +497,19 @@ class Optimizer:
     (the schedule reads it); with accumulation, ``mini_step`` counts the
     calls since the last update. ``lr_scale`` arms the runtime scale at
     1.0; ``health`` makes every call leave its ``taps`` (the module's
-    docstring)."""
+    docstring); ``shards`` (a ``ShardLayout``) makes ``params`` slices of
+    fully sharded tensors (the module's docstring)."""
 
     def __init__(self, cfg: OptimConfig, params: Sequence[torch.nn.Parameter],
-                 lr_scale: bool = False, health: bool = False):
+                 lr_scale: bool = False, health: bool = False,
+                 shards: Optional[ShardLayout] = None):
         if cfg.optimizer not in _CORES:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.cfg = cfg
         self.params = list(params)
         self.schedule = make_lr_schedule(cfg)
-        self.core = _CORES[cfg.optimizer](cfg, self.params)
+        self.shards = shards
+        self.core = _CORES[cfg.optimizer](cfg, self.params, shards)
         device = self.params[0].device
         self.count = 0
         self.accum = max(cfg.grad_accum_steps, 1)
@@ -483,7 +556,7 @@ class Optimizer:
         averaging (a device scalar)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
-        norms = tensor_norms(grads)
+        norms = self._norms(grads)
         norm = global_norm(grads, norms)
         unorm = None
         if self.health:
@@ -507,7 +580,9 @@ class Optimizer:
                 if self.health:
                     self._tap(grad_taps, None)
                 return norm
-            grads, inner_norm = self.acc, None
+            grads = self.acc
+            inner_norm = None if self.shards is None else global_norm(grads,
+                                                                      self._norms(grads))
         with torch.no_grad():
             if self.cfg.grad_clip_norm and self.cfg.grad_clip_norm > 0:
                 clip_by_global_norm_(grads, self.cfg.grad_clip_norm, inner_norm)
@@ -520,15 +595,41 @@ class Optimizer:
             self._tap(grad_taps, unorm)
         return norm
 
+    def _norms(self, tensors) -> List[torch.Tensor]:
+        """Each parameter-shaped tensor's whole L2 norm (``tensor_norms``,
+        sharded ones summed over the group)."""
+        norms = tensor_norms(tensors)
+        if self.shards is None:
+            return norms
+        (norms,) = self.shards.globalize(range(len(norms)), norms)
+        return norms
+
     def _tap(self, grad_taps, unorm):
         """This call's ``taps``: the gradient's, then the parameters' and the
-        update's (None: no update, zeros)."""
+        update's (None: no update, zeros); sharded parameters' sums and
+        counts summed over the group."""
         grad_sq, nonfinite = grad_taps
         with torch.no_grad():
             param_sq = torch.stack(tensor_norms(self.params)).square()
-        self.taps = StepTaps(grad_sq, nonfinite, param_sq,
-                             torch.zeros_like(param_sq) if unorm is None
-                             else torch.stack(unorm).square())
+            update_sq = (torch.zeros_like(param_sq) if unorm is None
+                         else torch.stack(unorm).square())
+            if self.shards is not None:
+                sel = [i for i, d in enumerate(self.shards.dims) if d is not None]
+                if sel:
+                    rows = torch.stack([nonfinite, param_sq, update_sq])
+                    rows[:, sel] = all_reduce_(rows[:, sel].contiguous(), self.shards.group)
+                    nonfinite, param_sq, update_sq = rows
+        self.taps = StepTaps(grad_sq, nonfinite, param_sq, update_sq)
+
+    def state_dims(self) -> Dict[str, list]:
+        """The sharded dimension of every state tensor (``state_dict``'s
+        ``core`` lists and ``acc``), None where whole: what a checkpoint
+        gathers and a restore cuts."""
+        n = len(self.params)
+        dims = {"core": {k: [self.core.state_dim(k, i) for i in range(n)]
+                         for k in self.core.STATE}}
+        dims["acc"] = [self.core.state_dim("acc", i) for i in range(n)]
+        return dims
 
     # -- state ---------------------------------------------------------------
     def state_dict(self) -> Dict:
@@ -584,8 +685,9 @@ class Optimizer:
 
 
 def make_optimizer(cfg: OptimConfig, params: Sequence[torch.nn.Parameter],
-                   lr_scale: bool = False, health: bool = False) -> Optimizer:
-    return Optimizer(cfg, params, lr_scale, health)
+                   lr_scale: bool = False, health: bool = False,
+                   shards: Optional[ShardLayout] = None) -> Optimizer:
+    return Optimizer(cfg, params, lr_scale, health, shards)
 
 
 def compute_dtype(precision) -> Optional[torch.dtype]:

@@ -33,9 +33,14 @@ class CLIPTrainer(BaseTrainer):
     ``train_cfg.seed``) in train mode."""
 
     model_class = "CLIP"
+    span_name = "clip"
+    single_process_only = ("CLIP's contrastive loss couples every row of the global batch: "
+                           "training it across processes needs the embeddings gathered, "
+                           "not ported (ROADMAP.md Queue 1 item 11b)")
 
-    def __init__(self, model_cfg: ClipConfig, train_cfg: TrainConfig, device=None):
-        super().__init__(train_cfg, device)
+    def __init__(self, model_cfg: ClipConfig, train_cfg: TrainConfig, device=None, *,
+                 backend=None, mesh=None):
+        super().__init__(train_cfg, device, backend=backend, mesh=mesh)
         self.model_cfg = model_cfg
         self.model = init_clip(model_cfg, seed=train_cfg.seed, device=self.device).train()
         self._setup_training(_clip_loss)
@@ -55,8 +60,9 @@ class CLIPTrainer(BaseTrainer):
         """One optimizer step → {"loss", "grad_norm" (before clipping),
         "step" (after the update)}, or {} between ``metrics_every``
         boundaries."""
-        with span("clip/shard_batch"):
-            batch = self._put_batch((text, images))
+        return self._step_placed(self._place((text, images)))
+
+    def _step_placed(self, batch) -> Dict[str, float]:
         with span("clip/step"):
             loss, _, grad_norm = self._optimize(*batch)
             return self._finish_step({"loss": loss, "grad_norm": grad_norm,
@@ -66,9 +72,11 @@ class CLIPTrainer(BaseTrainer):
         """k steps on stacked (k, b, seq) texts and (k, b, H, W, C) images,
         with no host read between them → the last step's metrics plus
         ``loss_mean``."""
+        return self._steps_placed(self._place((texts, images), stacked=True))
+
+    def _steps_placed(self, batch) -> Dict[str, float]:
+        texts, images = batch
         k = len(texts)
-        with span("clip/shard_batch", k=k):
-            texts, images = self._put_batch((texts, images), stacked=True)
         if texts.dim() != 3 or images.dim() != 5:
             raise ValueError("train_steps takes stacked (k, b, seq) texts and "
                              "(k, b, H, W, C) images")

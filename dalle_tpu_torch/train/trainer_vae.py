@@ -29,6 +29,7 @@ import torch
 from ..config import AnnealConfig, DVAEConfig, TrainConfig
 from ..models.dvae import init_dvae
 from ..obs import span
+from ..ops.sampling import gumbel_noise
 from .base_trainer import BaseTrainer
 
 
@@ -48,10 +49,12 @@ class VAETrainer(BaseTrainer):
     ``init_dvae`` (random weights from ``train_cfg.seed``)."""
 
     model_class = "DiscreteVAE"
+    span_name = "vae"
 
     def __init__(self, model_cfg: DVAEConfig, train_cfg: TrainConfig,
-                 anneal_cfg: Optional[AnnealConfig] = None, device=None):
-        super().__init__(train_cfg, device)
+                 anneal_cfg: Optional[AnnealConfig] = None, device=None, *,
+                 backend=None, mesh=None):
+        super().__init__(train_cfg, device, backend=backend, mesh=mesh)
         self.model_cfg = model_cfg
         self.anneal_cfg = anneal_cfg or AnnealConfig()
         self._anneal_step0 = 0   # the anneal's rebase point (reanneal_gumbel)
@@ -89,7 +92,23 @@ class VAETrainer(BaseTrainer):
         return (self._to_compute(self._to_images(images)),
                 None if noise is None else self._to_device(noise, torch.float32))
 
+    def _global_noise(self, images):
+        """With (dp, fsdp) peers: the gumbel draws for the global batch, in
+        the model's order, cut to this rank's rows (every rank's draws are
+        the one-process trainer's); None on one process."""
+        parts = self.mesh.count("dp", "fsdp")
+        if parts == 1:
+            return None
+        b, f = len(images), 2 ** self.model_cfg.num_layers
+        shape = (b * parts, images.shape[1] // f, images.shape[2] // f,
+                 self.model_cfg.num_tokens)
+        index = self.mesh.index("dp", "fsdp")
+        return gumbel_noise(shape, generator=self.generator,
+                            device=self.device)[index * b:(index + 1) * b]
+
     def _step(self, images, noise):
+        if noise is None:
+            noise = self._global_noise(images)
         temp = self._temp_at(self.step)
         loss, aux, grad_norm = self._optimize(images, temp, noise, self.generator, self.health)
         return ({"loss": loss, "grad_norm": grad_norm, **aux, **self._health_columns()},
@@ -100,8 +119,9 @@ class VAETrainer(BaseTrainer):
         "temperature", "step" (after the update)}, or {} between
         ``metrics_every`` boundaries. ``noise`` ((b, h, w, num_tokens),
         standard Gumbel) replaces the generator's draw."""
-        with span("vae/shard_batch"):
-            batch = self._put_batch((images, noise))
+        return self._step_placed(self._place((images, noise)))
+
+    def _step_placed(self, batch) -> Dict[str, float]:
         with span("vae/step"):
             return self._finish_step(*self._step(*batch))
 
@@ -109,9 +129,11 @@ class VAETrainer(BaseTrainer):
         """k steps on stacked (k, b, H, W, C) images (and optional stacked
         noise), with no host read between them → the last step's metrics
         plus ``loss_mean``; each step reads the temperature at its own step."""
+        return self._steps_placed(self._place((images, noise), stacked=True))
+
+    def _steps_placed(self, batch) -> Dict[str, float]:
+        images, noise = batch
         k = len(images)
-        with span("vae/shard_batch", k=k):
-            images, noise = self._put_batch((images, noise), stacked=True)
         if images.dim() != 5:
             raise ValueError(f"train_steps takes stacked (k, b, H, W, C) images, got "
                              f"{tuple(images.shape)}")

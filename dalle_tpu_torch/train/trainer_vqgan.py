@@ -118,15 +118,18 @@ class VQGANTrainer(BaseTrainer):
     betas (0.5, 0.9) for both)."""
 
     model_class = "VQModel"
+    span_name = "vqgan"
+    single_process_only = ("the GAN step (the discriminator's update and the adaptive "
+                           "weight) is not distributed (ROADMAP.md Queue 1 item 11b)")
 
     def __init__(self, model_cfg: VQGANConfig, train_cfg: TrainConfig,
                  loss_cfg: Optional[GANLossConfig] = None, device=None,
                  disc_optim: Optional[OptimConfig] = None,
                  temp_scheduler: Optional[Callable[[int], float]] = None,
-                 loss_mode: str = "gan"):
+                 loss_mode: str = "gan", *, backend=None, mesh=None):
         if loss_mode not in LOSS_MODES:
             raise ValueError(f"loss_mode must be one of {LOSS_MODES}, got {loss_mode!r}")
-        super().__init__(train_cfg, device)
+        super().__init__(train_cfg, device, backend=backend, mesh=mesh)
         self.model_cfg = model_cfg
         self.loss_cfg = lc = loss_cfg or GANLossConfig()
         self.loss_mode = loss_mode
@@ -169,7 +172,9 @@ class VQGANTrainer(BaseTrainer):
 
     # -- the step ------------------------------------------------------------
     def _put_batch(self, batch, stacked: bool = False):
-        """(images[, targets[, noise]]) → f32 tensors on the device."""
+        """(images[, targets[, noise]]) → (images, targets, noise) as f32
+        tensors on the device (None where not given)."""
+        batch = (tuple(batch) + (None, None))[:3]
         return tuple(None if x is None else self._to_device(x, torch.float32) for x in batch)
 
     def _temp(self) -> float:
@@ -213,8 +218,9 @@ class VQGANTrainer(BaseTrainer):
         ``targets`` are the segmentation one-hots (default: the images);
         ``noise`` ((b, h, w, n_embed)) replaces the gumbel quantizer's
         draw."""
-        with span("vqgan/shard_batch"):
-            batch = self._put_batch((images, targets, noise))
+        return self._step_placed(self._place((images, targets, noise)))
+
+    def _step_placed(self, batch) -> Dict[str, Any]:
         with span("vqgan/step"):
             return self._finish_step(*self._step(*batch))
 
@@ -222,9 +228,11 @@ class VQGANTrainer(BaseTrainer):
         """k steps on stacked (k, b, H, W, C) images, each with its own
         temperature and draws as k ``train_step`` calls take them → the last
         step's metrics plus ``loss_mean``."""
+        return self._steps_placed(self._place((images, targets, noise), stacked=True))
+
+    def _steps_placed(self, batch) -> Dict[str, Any]:
+        images, targets, noise = batch
         k = len(images)
-        with span("vqgan/shard_batch", k=k):
-            images, targets, noise = self._put_batch((images, targets, noise), stacked=True)
         if images.dim() != 5:
             raise ValueError(f"train_steps takes stacked (k, b, H, W, C) images, got "
                              f"{tuple(images.shape)}")

@@ -241,8 +241,10 @@ def test_fit_scans_groups_and_drains_a_ragged_tail():
     lines = []
     scanned = _small(scan_steps=2)
     calls = []
-    scanned.train_steps = lambda *b, f=scanned.train_steps: calls.append(2) or f(*b)
-    scanned.train_step = lambda *b, f=scanned.train_step: calls.append(1) or f(*b)
+    # the prefetched batches are stepped as placed (train_step(s) place, then
+    # step through the same two methods)
+    scanned._steps_placed = lambda b, f=scanned._steps_placed: calls.append(2) or f(b)
+    scanned._step_placed = lambda b, f=scanned._step_placed: calls.append(1) or f(b)
     m = scanned.fit(_stream(5), log=lines.append)
     assert calls == [2, 2, 1] and scanned.step == 5 and m["step"] == 5
     single = _small(device_prefetch=0)

@@ -73,11 +73,18 @@ class FakeTrainer(BaseTrainer):
         self.scan_calls = []
 
     def train_step(self, x):
+        return self._step_placed(self._place((x,)))
+
+    def _step_placed(self, batch):
         time.sleep(self.step_sleep)
         self.step += 1
         return self._finish_step({"loss": torch.tensor(0.25)})
 
     def train_steps(self, xs):
+        return self._steps_placed(self._place((xs,), stacked=True))
+
+    def _steps_placed(self, batch):
+        xs, = batch
         self.scan_calls.append(len(xs))
         self.step += len(xs)
         return self._finish_step({"loss": torch.tensor(0.25)})
